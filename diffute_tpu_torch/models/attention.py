@@ -1,0 +1,143 @@
+"""Transformer blocks for the UNet (self + cross attention, GEGLU FFN).
+
+Counterpart of ``diffute_tpu/models/attention.py``: the slice of diffusers'
+Transformer2DModel that SD2-inpainting runs, with diffusers' submodule
+names.  Every attention goes through
+:func:`diffute_tpu_torch.ops.dot_product_attention`, so the flash kernel
+takes the long self-attentions behind one flag.  Cross-attention K/V over
+the fixed conditioning can be projected once (``cross_kv``) and passed to
+every denoising step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from diffute_tpu_torch.ops import dot_product_attention
+
+KV = Tuple[torch.Tensor, torch.Tensor]  # each (B, T, heads, head_dim)
+
+
+class Attention(nn.Module):
+    """Multi-head attention with separate q/k/v projections."""
+
+    def __init__(self, query_dim: int, num_heads: int, head_dim: int,
+                 context_dim: Optional[int] = None, use_flash: bool = False,
+                 out_bias: bool = True, qkv_bias: bool = False):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_heads, self.head_dim, self.use_flash = (num_heads, head_dim,
+                                                         use_flash)
+        kv_dim = context_dim or query_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias),
+                                     nn.Identity()])
+
+    def kv(self, context: torch.Tensor) -> KV:
+        """Project context -> (k, v), each (B, T, H, D)."""
+        b, t, _ = context.shape
+        k = self.to_k(context).view(b, t, self.num_heads, self.head_dim)
+        v = self.to_v(context).view(b, t, self.num_heads, self.head_dim)
+        return k, v
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                kv: Optional[KV] = None) -> torch.Tensor:
+        if kv is None:
+            kv = self.kv(x if context is None else context)
+        k, v = kv
+        b, s, _ = x.shape
+        q = self.to_q(x).view(b, s, self.num_heads, self.head_dim)
+        out = dot_product_attention(q, k, v, use_flash=self.use_flash)
+        return self.to_out[0](out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner_dim: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner_dim * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)  # exact (erf) GELU, as SD's GEGLU
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, head_dim: int,
+                 context_dim: int, use_flash: bool = False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, num_heads, head_dim, use_flash=use_flash)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, num_heads, head_dim,
+                               context_dim=context_dim, use_flash=use_flash)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def cross_kv(self, context: torch.Tensor) -> KV:
+        return self.attn2.kv(context)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                cross_kv: Optional[KV] = None) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context, kv=cross_kv)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer: GN -> proj_in -> blocks -> proj_out + residual,
+    over NCHW feature maps."""
+
+    def __init__(self, num_heads: int, head_dim: int, context_dim: int,
+                 depth: int = 1, groups: int = 32,
+                 use_linear_projection: bool = True, use_flash: bool = False):
+        super().__init__()
+        c = num_heads * head_dim
+        self.use_linear_projection = use_linear_projection
+        self.norm = nn.GroupNorm(groups, c, eps=1e-6)
+        if use_linear_projection:
+            self.proj_in, self.proj_out = nn.Linear(c, c), nn.Linear(c, c)
+        else:
+            self.proj_in, self.proj_out = nn.Conv2d(c, c, 1), nn.Conv2d(c, c, 1)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(c, num_heads, head_dim, context_dim,
+                                  use_flash=use_flash)
+            for _ in range(depth))
+
+    def cross_kv(self, context: torch.Tensor) -> Tuple[KV, ...]:
+        return tuple(blk.cross_kv(context) for blk in self.transformer_blocks)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                cross_kv: Optional[Tuple[KV, ...]] = None) -> torch.Tensor:
+        b, c, h, w = x.shape
+        residual = x
+        x = self.norm(x)
+        if not self.use_linear_projection:
+            x = self.proj_in(x)
+        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if self.use_linear_projection:
+            x = self.proj_in(x)
+        for i, blk in enumerate(self.transformer_blocks):
+            x = blk(x, context,
+                    cross_kv=cross_kv[i] if cross_kv is not None else None)
+        if self.use_linear_projection:
+            x = self.proj_out(x)
+        x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        if not self.use_linear_projection:
+            x = self.proj_out(x)
+        return x + residual

@@ -1,0 +1,80 @@
+"""Command-line edit: one image in, one edited image out (PyTorch port).
+
+Example:
+  python -m diffute_tpu_torch.serve.cli --image in.png --box 40,50,200,90 \\
+      --text "NEW TEXT" --steps 50 --out edited.png
+
+The flags are ``diffute_tpu.serve.cli``'s.  The models are random-init from
+``--seed``; ``--checkpoint``, a ``--sampler`` other than ``ddim``,
+``--guidance_scale > 1`` and ``--blend`` are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--image", required=True)
+    p.add_argument("--box", required=True, help="x1,y1,x2,y2")
+    p.add_argument("--text", required=True)
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--sampler", default="ddim", choices=["ddim", "ddpm", "dpmpp"])
+    p.add_argument("--guidance_scale", type=float, default=1.0)
+    p.add_argument("--blend", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default="edited.png")
+    p.add_argument("--mask-out", default=None)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--scale", default=None, choices=["full", "small", "tiny"])
+    p.add_argument("--tiny", action="store_true")
+    args = p.parse_args(argv)
+
+    for bad, what in ((args.sampler != "ddim", f"--sampler {args.sampler}"),
+                      (args.guidance_scale > 1.0, "--guidance_scale > 1"),
+                      (args.blend, "--blend"),
+                      (args.checkpoint is not None, "--checkpoint")):
+        if bad:
+            raise SystemExit(f"{what} is not yet ported to the PyTorch port "
+                             "(ROADMAP.md queue 1)")
+
+    import torch
+    from PIL import Image
+
+    from diffute_tpu_torch.config import (DiffUTEConfig, UNetConfig,
+                                          small_config, tiny_test_config)
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    scale = args.scale or ("tiny" if args.tiny else "full")
+    config = {"full": DiffUTEConfig, "small": small_config,
+              "tiny": tiny_test_config}[scale]()
+    if device.type == "cuda":
+        # the card's main path: bf16 with the flash kernel
+        bf16 = torch.bfloat16
+        config = dataclasses.replace(
+            config,
+            vae=dataclasses.replace(config.vae, dtype=bf16),
+            unet=dataclasses.replace(config.unet, dtype=bf16,
+                                     use_flash_attention=True),
+            trocr=dataclasses.replace(config.trocr, dtype=bf16))
+    pipe = DiffUTEPipeline(config, init_pipeline_params(config, args.seed,
+                                                        device), device)
+
+    img = np.asarray(Image.open(args.image).convert("RGB"))
+    box = tuple(int(v) for v in args.box.split(","))
+    out, mask = pipe.edit(img, box, args.text, num_inference_steps=args.steps,
+                          seed=args.seed)
+    Image.fromarray(out).save(args.out)
+    if args.mask_out:
+        Image.fromarray(mask.astype(np.uint8)).save(args.mask_out)
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

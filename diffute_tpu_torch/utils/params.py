@@ -1,0 +1,60 @@
+"""Seeded random parameter initialization, made on the target device.
+
+Counterpart of ``diffute_tpu/utils/params.py``.  Each model is built on the
+``meta`` device (no memory) to enumerate its parameter names and shapes;
+every tensor is then drawn on ``device`` from an explicit
+``torch.Generator``, with the JAX package's initializers: LeCun-normal conv
+and dense weights, zero biases, unit norm scales, N(0, 0.02) position
+embeddings, zero CLS token.  The result is a dict of state_dicts with the
+diffusers / transformers keys, loadable with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from diffute_tpu_torch.config import DiffUTEConfig
+from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
+
+
+def _init_state_dict(module: nn.Module, gen: torch.Generator,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, p in module.named_parameters():
+        t = torch.empty(p.shape, dtype=torch.float32, device=device)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "position_embeddings":
+            t.normal_(0.0, 0.02, generator=gen)
+        elif leaf == "weight" and p.dim() >= 2:
+            fan_in = math.prod(p.shape[1:])
+            t.normal_(0.0, fan_in ** -0.5, generator=gen)
+        elif leaf == "weight":
+            t.fill_(1.0)  # GroupNorm / LayerNorm scale
+        else:
+            t.zero_()     # biases, cls_token
+        out[name] = t
+    return out
+
+
+def build_meta(cls, config) -> nn.Module:
+    """Construct ``cls(config)`` on the meta device: shapes, no storage."""
+    with torch.device("meta"):
+        return cls(config)
+
+
+def init_pipeline_params(config: DiffUTEConfig, seed: int = 0,
+                         device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """Random-init fp32 state_dicts for the three models on ``device``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {
+        "vae": _init_state_dict(build_meta(AutoencoderKL, config.vae), gen, device),
+        "unet": _init_state_dict(build_meta(UNet2DCondition, config.unet), gen,
+                                 device),
+        "trocr": _init_state_dict(build_meta(TrOCREncoder, config.trocr), gen,
+                                  device),
+    }
