@@ -10,6 +10,10 @@ them) become PyTorch state_dicts with diffusers / transformers keys:
 
 The key rewrites re-implement ``diffute_tpu.compat.hf_import``'s export
 grammar here, because the port does not import the JAX package.
+
+Training needs nothing more: gradients and updated parameters have the
+parameters' tree, so the same functions map them (the tests read the JAX
+trainer's gradients and new weights through ``unet_state_dict``).
 """
 
 from __future__ import annotations

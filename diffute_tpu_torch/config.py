@@ -4,7 +4,9 @@ Counterpart of ``diffute_tpu/config.py``: the same frozen dataclasses, field
 names and defaults (SD2-inpainting UNet/VAE, TrOCR-large encoder, SD2 noise
 schedule), with torch dtypes.  Options whose kernels are not ported yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-Training and optimizer configs are not ported yet.
+``TrainConfig`` leaves out the JAX package's TPU-relay fields
+(``donate_state``, ``steps_per_call``) and its mesh fields (``dp_size``,
+``shard_optimizer_states``): the port trains on one card.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ class VAEConfig:
             raise _not_ported("VAEConfig", "use_flash_attention",
                               "flash forward at head_dim 512")
         if self.remat:
-            raise _not_ported("VAEConfig", "remat", "training")
+            raise _not_ported("VAEConfig", "remat",
+                              "no kernel: it waits for vae_train, queue 1")
 
     @property
     def scale_factor(self) -> int:
@@ -71,19 +74,20 @@ class UNetConfig:
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
     dtype: torch.dtype = torch.float32
-    # Route self-attention with >= 1024 keys through the CUDA flash kernel
-    # (csrc/flash_fwd.cu); bf16 only on the card.
+    # Route self-attention with >= 1024 keys through the CUDA flash kernels
+    # (csrc/flash_fwd.cu, csrc/flash_bwd.cu); bf16 only on the card.
     use_flash_attention: bool = False
     use_fused_groupnorm: bool = False
     use_int8_weights: bool = False
     use_fused_conv: bool = False
+    # Recompute each resnet and transformer block in the backward instead of
+    # keeping its activations (gradient checkpointing).
     remat: bool = False
 
     def __post_init__(self):
         for flag, item in (("use_fused_groupnorm", "GroupNorm+SiLU kernel"),
                            ("use_int8_weights", "int8 weight matmul kernel"),
-                           ("use_fused_conv", "GN+SiLU+conv3x3 kernel"),
-                           ("remat", "training")):
+                           ("use_fused_conv", "GN+SiLU+conv3x3 kernel")):
             if getattr(self, flag):
                 raise _not_ported("UNetConfig", flag, item)
 
@@ -158,8 +162,53 @@ class EditConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer + LR schedule (reference AdamW: betas (0.9, 0.999), weight
+    decay 1e-2, eps 1e-8, lr 1e-4; diffusers' ``get_scheduler`` family)."""
+
+    name: str = "adamw"  # {adamw}; adafactor and adamw8bit are not ported yet
+    learning_rate: float = 1e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    lr_scheduler: str = "constant"  # {constant, constant_with_warmup, linear, cosine, cosine_with_restarts, polynomial}
+    lr_warmup_steps: int = 500
+    lr_num_cycles: int = 1  # hard restarts of cosine_with_restarts
+    scale_lr: bool = False
+    low_memory_adam: bool = False  # first moment stored in bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration (stage 2, the UNet; one card)."""
+
+    train_batch_size: int = 16
+    gradient_accumulation_steps: int = 1
+    num_train_epochs: int = 100
+    max_train_steps: Optional[int] = None
+    mixed_precision: str = "no"  # {no, bf16}
+    gradient_checkpointing: bool = False
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    checkpointing_steps: int = 1000
+    checkpoints_total_limit: Optional[int] = None
+    resume_from_checkpoint: Optional[str] = None  # path or "latest"
+    seed: int = 0
+    output_dir: str = "diffute-output"
+    logging_dir: str = "logs"
+    report_to: str = "tensorboard"
+    noise_offset: float = 0.0
+    prediction_type: Optional[str] = None  # override scheduler's, like the flag
+    ocr_score_threshold: float = 0.8
+    dataloader_num_workers: int = 0
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class DiffUTEConfig:
-    """Top-level bundle used by the pipeline."""
+    """Top-level bundle used by the pipeline and the trainer."""
 
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
@@ -167,6 +216,7 @@ class DiffUTEConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     glyph: GlyphConfig = dataclasses.field(default_factory=GlyphConfig)
     edit: EditConfig = dataclasses.field(default_factory=EditConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def small_config() -> DiffUTEConfig:
@@ -186,6 +236,7 @@ def small_config() -> DiffUTEConfig:
                           num_attention_heads=4, intermediate_size=1024,
                           image_size=224, patch_size=16),
         edit=EditConfig(resolution=256, train_crop_scale=256),
+        train=TrainConfig(train_batch_size=16),
     )
 
 
@@ -203,4 +254,5 @@ def tiny_test_config() -> DiffUTEConfig:
                           num_attention_heads=2, intermediate_size=32,
                           image_size=32, patch_size=16),
         edit=EditConfig(resolution=32, num_inference_steps=5),
+        train=TrainConfig(train_batch_size=2),
     )

@@ -35,89 +35,14 @@
 // the warp specialisation that overlaps softmax and matmul by design are
 // left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kBlockQ = 64;           // q rows per block (4 warps x 16)
-constexpr int kBlockKV = 64;          // kv rows per shared-memory tile
-constexpr int kThreads = 128;
-constexpr int kPad = 8;               // bf16 elements of row padding
-constexpr int kRow = kHeadDim + kPad; // 72 elements = 144 bytes: ldmatrix rows
-                                      // of one 8x8 load land in distinct banks
+using namespace flash;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            int src_bytes) {
-  // src_bytes == 0 zero-fills the 16 destination bytes (ragged tail rows)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
-                                            uint32_t& r2, uint32_t& r3,
-                                            uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
-                                                  uint32_t& r2, uint32_t& r3,
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy kv rows [row0, row0+64) of one (BH, T, 64) tensor into a padded
-// [64][72] shared tile; rows at or past `t_len` are zero-filled.
-__device__ __forceinline__ void load_kv_tile(__nv_bfloat16* dst,
-                                             const __nv_bfloat16* src,
-                                             int row0, int t_len) {
-  // 64 rows x 8 chunks of 16 bytes = 512 chunks, 4 per thread
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int chunk = threadIdx.x + i * kThreads;
-    int r = chunk >> 3, c = (chunk & 7) * 8;
-    int row = row0 + r;
-    bool ok = row < t_len;
-    const __nv_bfloat16* g = src + (size_t)(ok ? row : 0) * kHeadDim + c;
-    cp_async_16(smem_u32(dst + r * kRow + c), g, ok ? 16 : 0);
-  }
-}
+constexpr int kBlockQ = kTile;   // q rows per block (4 warps x 16)
+constexpr int kBlockKV = kTile;  // kv rows per shared-memory tile
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
@@ -138,45 +63,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + (size_t)bh * t_len * kHeadDim;
 
   const int n_tiles = (t_len + kBlockKV - 1) / kBlockKV;
-  load_kv_tile(k_s[0], kb, 0, t_len);
-  load_kv_tile(v_s[0], vb, 0, t_len);
+  load_tile(k_s[0], kb, 0, t_len);
+  load_tile(v_s[0], vb, 0, t_len);
   cp_async_commit();
 
   // Q A-fragments for the 4 k-steps of head_dim 64, read once from global.
   uint32_t qa[4][4];
-  {
-    const int r_lo = q_row0 + g, r_hi = q_row0 + g + 8;
-    const uint32_t* lo = reinterpret_cast<const uint32_t*>(
-        qb + (size_t)min(r_lo, s_len - 1) * kHeadDim);
-    const uint32_t* hi = reinterpret_cast<const uint32_t*>(
-        qb + (size_t)min(r_hi, s_len - 1) * kHeadDim);
-    const bool ok_lo = r_lo < s_len, ok_hi = r_hi < s_len;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int c = kk * 8 + tig;  // in 32-bit words: (kk*16 + tig*2) / 2
-      qa[kk][0] = ok_lo ? lo[c] : 0u;
-      qa[kk][1] = ok_hi ? hi[c] : 0u;
-      qa[kk][2] = ok_lo ? lo[c + 4] : 0u;
-      qa[kk][3] = ok_hi ? hi[c + 4] : 0u;
-    }
-  }
+  load_a_frags(qa, qb, q_row0, s_len);
 
   float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  zero_acc(acc);
   float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, log2 units
   float l_lo = 0.f, l_hi = 0.f;              // running sum of p
-
-  // ldmatrix row addresses: thread t feeds row (t & 7) of 8x8 matrix (t >> 3)
-  const int mi = lane >> 3, mr = lane & 7;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_kv_tile(k_s[buf ^ 1], kb, (j + 1) * kBlockKV, t_len);
-      load_kv_tile(v_s[buf ^ 1], vb, (j + 1) * kBlockKV, t_len);
+      load_tile(k_s[buf ^ 1], kb, (j + 1) * kBlockKV, t_len);
+      load_tile(v_s[buf ^ 1], vb, (j + 1) * kBlockKV, t_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -186,24 +90,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // ---- S = Q K^T for this warp's 16 rows x 64 kv columns (fp32)
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-    const __nv_bfloat16* kt = k_s[buf];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        // matrices: (kv n0, d k0), (n0, k0+8), (n0+8, k0), (n0+8, k0+8)
-        const int row = p * 16 + (mi >> 1) * 8 + mr;
-        const int col = kk * 16 + (mi & 1) * 8;
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4(b0, b1, b2, b3, smem_u32(kt + row * kRow + col));
-        mma_bf16(s[2 * p], qa[kk], b0, b1);
-        mma_bf16(s[2 * p + 1], qa[kk], b2, b3);
-      }
-    }
+    zero_acc(s);
+    mma_nt(s, qa, k_s[buf]);
 
     // ---- mask the ragged kv tail (only the last tile can have one)
     const int col0 = j * kBlockKV;
@@ -256,25 +144,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // ---- O += P V; P's accumulator layout is the A-fragment layout
-    const __nv_bfloat16* vt = v_s[buf];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        // transposed matrices: (kv k0, d n0), (k0+8, n0), (k0, n0+8), (k0+8, n0+8)
-        const int row = kk * 16 + (mi & 1) * 8 + mr;
-        const int col = p * 16 + (mi >> 1) * 8;
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, smem_u32(vt + row * kRow + col));
-        mma_bf16(acc[2 * p], pa, b0, b1);
-        mma_bf16(acc[2 * p + 1], pa, b2, b3);
-      }
-    }
+    uint32_t pa[4][4];
+    pack_frags(pa, s);
+    mma_nn(acc, pa, v_s[buf]);
     __syncthreads();  // the next iteration's loads overwrite this buffer
   }
 
@@ -286,17 +158,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
   const int r_lo = q_row0 + g, r_hi = q_row0 + g + 8;
-  __nv_bfloat16* ob = o + (size_t)bh * s_len * kHeadDim;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (r_lo < s_len)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r_lo * kHeadDim + c) =
-          pack_bf16(acc[n][0] * inv_lo, acc[n][1] * inv_lo);
-    if (r_hi < s_len)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r_hi * kHeadDim + c) =
-          pack_bf16(acc[n][2] * inv_hi, acc[n][3] * inv_hi);
-  }
+  store_acc(o + (size_t)bh * s_len * kHeadDim, acc, q_row0, s_len, inv_lo,
+            inv_hi);
   if (tig == 0) {
     const float ln2 = 0.6931471805599453f;
     float* lb = lse + (size_t)bh * s_len;
@@ -313,7 +176,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int s_len, int t_len,
                               float scale, void* stream) {
   if (bh <= 0 || s_len <= 0 || t_len <= 0) return (int)cudaErrorInvalidValue;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   dim3 grid((s_len + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -1,10 +1,11 @@
-"""Noise schedule tables and the DDIM sampler step (PyTorch).
+"""Noise schedule tables, training targets and sampler steps (PyTorch).
 
-Counterpart of ``diffute_tpu/diffusion/schedules.py`` for the port's
-default path: ``make_schedule``, ``ddim_timesteps``, ``_predict_x0_eps``
-and ``ddim_step`` (eta = 0).  The denoising loop is a Python loop, so
-timesteps are Python ints and each coefficient is one fp32 table entry.
-DDPM and DPM-Solver++ are not ported yet.
+Counterpart of ``diffute_tpu/diffusion/schedules.py``.  The training
+functions (``add_noise``, ``get_velocity``, ``training_target``) take
+per-sample timestep tensors.  The sampler steps (``ddim_step`` with eta = 0,
+``ddpm_step``, ``dpmpp_2m_step``) are called from a Python loop, so their
+timesteps are Python ints and each coefficient is one fp32 table entry;
+``edit()`` runs DDIM only so far.
 """
 
 from __future__ import annotations
@@ -77,16 +78,73 @@ def make_schedule(config: SchedulerConfig, dtype=torch.float32,
     )
 
 
-def ddim_timesteps(schedule: DiffusionSchedule,
-                   num_inference_steps: int) -> np.ndarray:
-    """Descending timesteps for DDIM ("leading" spacing + steps_offset)."""
+def _gather(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-timestep coefficients, broadcast to an ``ndim``-rank tensor.
+    ``t`` is an integer tensor, scalar or per-batch (B,)."""
+    coef = table[t]
+    return coef.reshape(coef.shape + (1,) * (ndim - coef.dim()))
+
+
+def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor,
+              noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Forward process q(x_t | x_0)."""
+    a = _gather(torch.sqrt(schedule.alphas_cumprod), t, x0.dim())
+    s = _gather(torch.sqrt(1.0 - schedule.alphas_cumprod), t, x0.dim())
+    return a * x0 + s * noise
+
+
+def get_velocity(schedule: DiffusionSchedule, x0: torch.Tensor,
+                 noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """v-prediction target."""
+    a = _gather(torch.sqrt(schedule.alphas_cumprod), t, x0.dim())
+    s = _gather(torch.sqrt(1.0 - schedule.alphas_cumprod), t, x0.dim())
+    return a * noise - s * x0
+
+
+def training_target(schedule: DiffusionSchedule, x0: torch.Tensor,
+                    noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """epsilon / v target selection."""
+    if schedule.prediction_type == "epsilon":
+        return noise
+    if schedule.prediction_type == "v_prediction":
+        return get_velocity(schedule, x0, noise, t)
+    raise ValueError(f"Unknown prediction type {schedule.prediction_type}")
+
+
+def init_noise_sigma(schedule: DiffusionSchedule, sampler: str = "ddpm") -> float:
+    """Initial latent scale: 1.0 for DDPM, DDIM and DPM-Solver++."""
+    del schedule, sampler
+    return 1.0
+
+
+def scale_model_input(x: torch.Tensor, t) -> torch.Tensor:
+    """Identity for these samplers; kept for API parity."""
+    del t
+    return x
+
+
+def _leading_timesteps(schedule: DiffusionSchedule,
+                       num_inference_steps: int) -> np.ndarray:
     T = schedule.num_train_timesteps
     if num_inference_steps > T:
         raise ValueError(f"num_inference_steps {num_inference_steps} > {T}")
     step_ratio = T // num_inference_steps
-    ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
-    ts = ts + schedule.steps_offset
-    return np.clip(ts, 0, T - 1).astype(np.int32).copy()
+    return (np.arange(0, num_inference_steps) * step_ratio).round()[::-1]
+
+
+def ddpm_timesteps(schedule: DiffusionSchedule,
+                   num_inference_steps: int) -> np.ndarray:
+    """Descending timesteps for DDPM ancestral sampling ("leading" spacing)."""
+    return _leading_timesteps(schedule, num_inference_steps).astype(
+        np.int32).copy()
+
+
+def ddim_timesteps(schedule: DiffusionSchedule,
+                   num_inference_steps: int) -> np.ndarray:
+    """Descending timesteps for DDIM ("leading" spacing + steps_offset)."""
+    ts = _leading_timesteps(schedule, num_inference_steps) + schedule.steps_offset
+    return np.clip(ts, 0, schedule.num_train_timesteps - 1).astype(
+        np.int32).copy()
 
 
 def _predict_x0_eps(schedule: DiffusionSchedule, model_output: torch.Tensor,
@@ -122,3 +180,71 @@ def ddim_step(schedule: DiffusionSchedule, model_output: torch.Tensor, t: int,
     pred_x0, pred_eps = _predict_x0_eps(schedule, model_output, t, sample)
     dir_xt = torch.sqrt(torch.clamp(1.0 - alpha_prod_prev, min=0.0)) * pred_eps
     return torch.sqrt(alpha_prod_prev) * pred_x0 + dir_xt
+
+
+def ddpm_step(schedule: DiffusionSchedule, model_output: torch.Tensor, t: int,
+              sample: torch.Tensor, noise: torch.Tensor,
+              num_inference_steps: int) -> torch.Tensor:
+    """One ancestral DDPM reverse step x_t -> x_{t-k}.  ``noise`` is the
+    ancestral standard normal; it is applied only when the previous
+    timestep is >= 0."""
+    prev_t = t - schedule.num_train_timesteps // num_inference_steps
+    alpha_prod_t = schedule.alphas_cumprod[t]
+    alpha_prod_prev = (schedule.alphas_cumprod[prev_t] if prev_t >= 0
+                       else torch.ones_like(alpha_prod_t))
+    beta_prod_t = 1.0 - alpha_prod_t
+    beta_prod_prev = 1.0 - alpha_prod_prev
+    current_alpha = alpha_prod_t / alpha_prod_prev
+    current_beta = 1.0 - current_alpha
+
+    pred_x0, _ = _predict_x0_eps(schedule, model_output, t, sample)
+    coef_x0 = torch.sqrt(alpha_prod_prev) * current_beta / beta_prod_t
+    coef_xt = torch.sqrt(current_alpha) * beta_prod_prev / beta_prod_t
+    prev_mean = coef_x0 * pred_x0 + coef_xt * sample
+    if prev_t < 0:
+        return prev_mean
+    if schedule.variance_type == "fixed_small":
+        variance = (beta_prod_prev / beta_prod_t * current_beta).clamp(min=1e-20)
+    elif schedule.variance_type == "fixed_large":
+        variance = current_beta.clamp(min=1e-20)
+    else:
+        raise ValueError(f"Unsupported variance_type {schedule.variance_type}")
+    return prev_mean + torch.sqrt(variance) * noise
+
+
+def _alpha_sigma_lambda(schedule: DiffusionSchedule, t: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(alpha_t, sigma_t, lambda_t) in DPM-Solver's half-log-SNR notation:
+    alpha = sqrt(alpha_bar), sigma = sqrt(1 - alpha_bar),
+    lambda = log(alpha / sigma)."""
+    ac = schedule.alphas_cumprod[t]
+    lam = 0.5 * (torch.log(ac) - torch.log1p(-ac))
+    return torch.sqrt(ac), torch.sqrt(1.0 - ac), lam
+
+
+def dpmpp_2m_step(schedule: DiffusionSchedule, model_output: torch.Tensor,
+                  t: int, prev_t: int, t_last: int, sample: torch.Tensor,
+                  prev_x0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DPM-Solver++(2M) multistep update x_t -> x_{prev_t}.
+
+    ``t_last`` is the previous solver step's timestep (-1 on the first step:
+    first-order update), ``prev_x0`` that step's x0 prediction, ``prev_t``
+    the next timestep of the descending sequence (-1 on the final step: the
+    boundary is ``final_alpha_cumprod`` and the update drops to first
+    order).  Returns ``(prev_sample, pred_x0)``."""
+    _, sigma_t, lam_t = _alpha_sigma_lambda(schedule, t)
+    ac_s = (schedule.alphas_cumprod[prev_t] if prev_t >= 0
+            else schedule.final_alpha_cumprod)
+    alpha_s, sigma_s = torch.sqrt(ac_s), torch.sqrt(1.0 - ac_s)
+    # +inf at the set_alpha_to_one boundary; expm1(-inf) = -1 and sigma_s = 0
+    # there, so the update degenerates to pred_x0 without NaNs
+    lam_s = 0.5 * (torch.log(ac_s) - torch.log1p(-ac_s))
+    pred_x0, _ = _predict_x0_eps(schedule, model_output, t, sample)
+    h = lam_s - lam_t
+    d = pred_x0
+    if t_last >= 0 and prev_t >= 0:  # second-order correction
+        _, _, lam_l = _alpha_sigma_lambda(schedule, t_last)
+        r = (lam_t - lam_l) / h
+        d = (1.0 + 1.0 / (2.0 * r)) * pred_x0 - 1.0 / (2.0 * r) * prev_x0
+    x = (sigma_s / sigma_t) * sample - alpha_s * torch.expm1(-h) * d
+    return x, pred_x0

@@ -5,7 +5,10 @@ UNet2DConditionModel module tree (down_blocks.i.resnets.j, mid_block,
 up_blocks.u.attentions.j, ...), so its state_dict keys are diffusers' keys.
 The forward is split like the JAX module's: :meth:`time_embed`,
 :meth:`cross_attention_kv` (projected once per edit), :meth:`encode` and
-:meth:`decode`; ``forward`` composes them.
+:meth:`decode`; ``forward`` composes them.  With ``config.remat`` every
+resnet and transformer block is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX module wraps them in ``nn.remat``;
+the forward's values do not change.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffute_tpu_torch.config import UNetConfig
 from diffute_tpu_torch.models.attention import Transformer2D
@@ -90,6 +94,13 @@ class UNet2DCondition(nn.Module):
 
     # ------------------------------------------------------------------
 
+    def _block(self, module: nn.Module, *args, **kwargs) -> torch.Tensor:
+        """Call a resnet or transformer block, rematerialised when training
+        with ``config.remat``."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False, **kwargs)
+        return module(*args, **kwargs)
+
     def _attns(self, blocks):
         for blk in blocks:
             yield from getattr(blk, "attentions", ())
@@ -127,10 +138,10 @@ class UNet2DCondition(nn.Module):
         for blk in self.down_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = self._block(res, x, temb)
                 if attns is not None:
-                    x = attns[j](x, encoder_hidden_states,
-                                 cross_kv=cross_kv[ai] if cross_kv else None)
+                    x = self._block(attns[j], x, encoder_hidden_states,
+                                    cross_kv=cross_kv[ai] if cross_kv else None)
                     ai += 1
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
@@ -149,16 +160,18 @@ class UNet2DCondition(nn.Module):
             return cross_kv[idx] if cross_kv else None
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, encoder_hidden_states, cross_kv=kv(ai))
+        x = self._block(mid.resnets[0], x, temb)
+        x = self._block(mid.attentions[0], x, encoder_hidden_states,
+                        cross_kv=kv(ai))
         ai += 1
-        x = mid.resnets[1](x, temb)
+        x = self._block(mid.resnets[1], x, temb)
         for blk in self.up_blocks:
             attns = getattr(blk, "attentions", None)
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = self._block(res, torch.cat([x, skips.pop()], dim=1), temb)
                 if attns is not None:
-                    x = attns[j](x, encoder_hidden_states, cross_kv=kv(ai))
+                    x = self._block(attns[j], x, encoder_hidden_states,
+                                    cross_kv=kv(ai))
                     ai += 1
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)

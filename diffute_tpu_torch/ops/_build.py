@@ -83,5 +83,12 @@ def load() -> ctypes.CDLL:
             lib.flash_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i,
                                            ctypes.c_float, p]
             lib.flash_fwd_bf16.restype = i
+            # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
+            lib.flash_bwd_dq_bf16.argtypes = [p] * 7 + [i, i, i,
+                                                        ctypes.c_float, p]
+            lib.flash_bwd_dq_bf16.restype = i
+            lib.flash_bwd_dkv_bf16.argtypes = [p] * 8 + [i, i, i,
+                                                         ctypes.c_float, p]
+            lib.flash_bwd_dkv_bf16.restype = i
             _lib = lib
         return _lib

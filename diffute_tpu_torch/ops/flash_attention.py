@@ -1,14 +1,17 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``diffute_tpu/ops/flash_attention.py``'s forward
-(``_flash_fwd_3d`` + ``_fwd_kernel``).  The kernel, ``csrc/flash_fwd.cu``,
-takes bf16 q/k/v of head_dim 64 as (batch*heads, seq, 64) and returns the
-output and the natural-log LSE; the public function keeps the JAX package's
-(batch, seq, heads, head_dim) layout.
+Counterpart of ``diffute_tpu/ops/flash_attention.py``: the forward
+(``_flash_fwd_3d`` + ``_fwd_kernel`` -> ``csrc/flash_fwd.cu``) and the
+backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
+``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
+package joins them with ``jax.custom_vjp``.  The kernels take bf16 tensors
+of head_dim 64 as (batch*heads, seq, 64) and a natural-log fp32 LSE; the
+public function keeps the JAX package's (batch, seq, heads, head_dim)
+layout.
 
-On a CUDA tensor :func:`flash_attention` launches the kernel or raises; it
-never falls back.  On a CPU tensor it computes the plain version, which is
-what the CPU tests compare against the JAX package.
+On a CUDA tensor every wrapper launches its kernel or raises; none falls
+back.  On a CPU tensor it computes the plain version, which is what the CPU
+tests compare against the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +48,36 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), lse
 
 
+def _check_kernel_inputs(ref: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take: every tensor on ``ref``'s
+    CUDA device, bf16, (BH, seq, 64), contiguous and 16-byte aligned."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {ref.device}")
+    for name, x in tensors.items():
+        if x.device != ref.device:
+            raise ValueError(f"{name} is on {x.device}, q on {ref.device}")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"the flash kernel takes bf16; {name} is {x.dtype}")
+        if x.dim() != 3 or x.shape[-1] != 64:
+            raise ValueError(f"the flash kernel takes (BH, seq, 64); "
+                             f"{name} is {tuple(x.shape)}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    q, k, v = tensors["q"], tensors["k"], tensors["v"]
+    if (k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[1] == 0
+            or q.shape[1] == 0):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _launch(name: str, *args) -> None:
+    from diffute_tpu_torch.ops import _build
+
+    err = getattr(_build.load(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (BH, S, 64), k/v (BH, T, 64) -> (o (BH, S, 64), lse (BH, S)).
@@ -53,47 +86,169 @@ def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     anything it does not take).  CPU: the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16; {name} is {x.dtype}")
-        if x.dim() != 3 or x.shape[-1] != 64:
-            raise ValueError(f"the flash kernel takes (BH, seq, 64); "
-                             f"{name} is {tuple(x.shape)}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _check_kernel_inputs(q, q=q, k=k, v=v)
     bh, s_len, _ = q.shape
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[1] == 0 or s_len == 0:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    from diffute_tpu_torch.ops import _build
-
-    lib = _build.load()
     o = torch.empty_like(q)
     lse = torch.empty((bh, s_len), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), lse.data_ptr(), bh, s_len,
-                             k.shape[1], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
+    _launch("flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, s_len, k.shape[1], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     return o, lse
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    """p = exp(q k^T * scale - lse), fp32 (BH, S, T): the softmax recomputed
+    from the saved LSE."""
+    logits = torch.einsum("bsd,btd->bst", q.float(), k.float()) * scale
+    return torch.exp(logits - lse[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+    """Plain fp32 version of the dq kernel: ds = p * (dO v^T - delta),
+    dq = ds k * scale, in q's dtype."""
+    dp = torch.einsum("bsd,btd->bst", do.float(), v.float())
+    ds = _scores(q, k, lse, scale) * (dp - delta[..., None])
+    return (torch.einsum("bst,btd->bsd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fp32 version of the dk/dv kernel: dv = p^T dO,
+    dk = ds^T q * scale, in k's and v's dtypes."""
+    p = _scores(q, k, lse, scale)
+    dof = do.float()
+    dv = torch.einsum("bst,bsd->btd", p, dof)
+    ds = p * (torch.einsum("bsd,btd->bst", dof, v.float()) - delta[..., None])
+    dk = torch.einsum("bst,bsd->btd", ds, q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32, (BH, S): computed outside the kernels, as the
+    JAX package does."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain fp32 version of the backward kernels' algorithm (not autograd
+    through the forward): p recomputed from the saved LSE.
+
+    q, o, do (BH, S, D), k/v (BH, T, D), lse (BH, S) -> (dq, dk, dv) in the
+    inputs' dtypes."""
+    delta = _delta(o, do)
+    return (flash_bwd_dq_reference(q, k, v, do, lse, delta, scale),
+            *flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale))
+
+
+def _bwd_kernel_args(q, k, v, do, lse, delta, scale):
+    """Check the backward kernels' common inputs; return their C arguments
+    before and after the output pointers."""
+    _check_kernel_inputs(q, q=q, k=k, v=v, do=do)
+    bh, s_len, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.shape != (bh, s_len) or x.dtype != torch.float32
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 ({bh}, {s_len}) "
+                             f"on {q.device}; got {x.dtype} {tuple(x.shape)}")
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (bh, s_len, k.shape[1], float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_bwd_dq_3d(q, k, v, do, lse, delta, scale) -> torch.Tensor:
+    """dq (BH, S, 64) from the saved LSE and delta.  CUDA: checks and
+    launches the dq kernel on the current stream.  CPU: the plain version."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
+    ins, dims = _bwd_kernel_args(q, k, v, do, lse, delta, scale)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq_bf16", *ins, dq.data_ptr(), *dims)
+    flash_attention.bwd_dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv_3d(q, k, v, do, lse, delta, scale
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv (BH, T, 64) from the saved LSE and delta.  CUDA: checks and
+    launches the dk/dv kernel on the current stream.  CPU: the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
+    ins, dims = _bwd_kernel_args(q, k, v, do, lse, delta, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv_bf16", *ins, dk.data_ptr(), dv.data_ptr(), *dims)
+    flash_attention.bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`flash_fwd_3d`'s ``o`` w.r.t. q, k, v, from the
+    forward's saved ``o`` and ``lse`` and the incoming ``do``: delta in plain
+    torch, then the dq and the dk/dv kernel (CPU: their plain versions)."""
+    if o.shape != do.shape or o.dtype != do.dtype or o.device != do.device:
+        raise ValueError(f"o ({o.dtype} {tuple(o.shape)} on {o.device}) and do "
+                         f"({do.dtype} {tuple(do.shape)} on {do.device}) differ")
+    delta = _delta(o, do)
+    return (flash_bwd_dq_3d(q, k, v, do, lse, delta, scale),
+            *flash_bwd_dkv_3d(q, k, v, do, lse, delta, scale))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """(B, S, H, D) attention whose forward and backward are the kernels.
+
+    The forward saves the 3-D copies it made for the kernel with ``o`` and
+    the LSE, so the backward re-derives none of them from the 4-D inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        b, _, h, _ = q.shape
+        q3, k3, v3 = _to3d(q), _to3d(k), _to3d(v)
+        o3, lse = flash_fwd_3d(q3, k3, v3, scale)
+        ctx.save_for_backward(q3, k3, v3, o3, lse)
+        ctx.scale, ctx.bh = scale, (b, h)
+        return _from3d(o3, b, h)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        q3, k3, v3, o3, lse = ctx.saved_tensors
+        dq3, dk3, dv3 = flash_bwd_3d(q3, k3, v3, o3, lse, _to3d(grad_out),
+                                     ctx.scale)
+        return (*(_from3d(x, *ctx.bh) for x in (dq3, dk3, dv3)), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention over (batch, seq, heads, head_dim) tensors.
+    """Flash attention over (batch, seq, heads, head_dim) tensors,
+    differentiable in q, k and v.
 
-    ``flash_attention.launches`` counts kernel launches (CUDA only)."""
+    Kernel launches are counted (CUDA only): ``flash_attention.launches``
+    the forward, ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two
+    backward kernels."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    b, _, h, _ = q.shape
-    o3, _ = flash_fwd_3d(_to3d(q), _to3d(k), _to3d(v), scale)
-    return _from3d(o3, b, h)
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        # nothing to differentiate (serving, the frozen encoders): the
+        # forward wrapper alone, with no autograd node and nothing saved
+        b, _, h, _ = q.shape
+        o3, _ = flash_fwd_3d(_to3d(q), _to3d(k), _to3d(v), scale)
+        return _from3d(o3, b, h)
+    return FlashAttentionFn.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_dq_launches = 0
+flash_attention.bwd_dkv_launches = 0

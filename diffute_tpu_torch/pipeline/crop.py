@@ -1,17 +1,80 @@
-"""Inference crop-window policy and paste-back (numpy, host side).
+"""Crop-window policies and paste-back (numpy, host side).
 
-Counterpart of ``diffute_tpu/pipeline/crop.py``'s ``infer_crop_params`` and
-``paste_back``.  ``paste_back``'s float ``cv2.resize`` is
-:func:`resize_linear_f32`, a numpy transcription of cv2's float
-``INTER_LINEAR`` (half-pixel centres, float32 weights, edge clamping), so
-the port does not import cv2.
+Counterpart of ``diffute_tpu/pipeline/crop.py``: training picks a random
+crop_scale=256 window around one OCR box (``train_crop``), inference an
+adaptive window (``infer_crop_params``), and ``paste_back`` returns the
+edited crop's box pixels to the original.  The port does not import cv2:
+``train_crop``'s uint8 upscale goes through ``io.hostops.resize_bilinear_u8``
+and ``paste_back``'s float resize is :func:`resize_linear_f32`, a numpy
+transcription of cv2's float ``INTER_LINEAR`` (half-pixel centres, float32
+weights, edge clamping).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+from diffute_tpu_torch.io import hostops
+
+
+@dataclasses.dataclass
+class CropResult:
+    image: np.ndarray         # cropped instance image (<= crop x crop)
+    mask: np.ndarray          # cropped mask
+    masked_image: np.ndarray  # cropped masked image
+    x_s: int
+    y_s: int
+    crop_scale: int
+    text: str                 # possibly truncated (train policy)
+
+
+def _rescale_if_small(image: np.ndarray, mask: np.ndarray, masked: np.ndarray,
+                      box: np.ndarray, crop_scale: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Upscale by int(2*crop/short_side) when the short side is below the
+    crop window; the box is scaled with the image."""
+    h, w = image.shape[:2]
+    short_side = min(h, w)
+    if short_side < crop_scale:
+        scale = int(crop_scale * 2 / short_side)
+        image, mask, masked = (hostops.resize_bilinear_u8(x, h * scale, w * scale)
+                               for x in (image, mask, masked))
+        box = box * scale
+    return image, mask, masked, box
+
+
+def train_crop(image: np.ndarray, mask: np.ndarray, masked: np.ndarray,
+               box: np.ndarray, text: str, rng: np.random.Generator,
+               crop_scale: int = 256) -> CropResult:
+    """Random crop_scale^2 window containing (a prefix of) the box.
+
+    Per axis, if the box fits, sample a window start in
+    [max(0, end-crop), start), 0 on an empty range.  If the box exceeds the
+    window, anchor at the box start and truncate the text proportionally."""
+    image, mask, masked, box = _rescale_if_small(image, mask, masked, box,
+                                                 crop_scale)
+    x1, y1, x2, y2 = (int(v) for v in box)
+
+    if x2 - x1 < crop_scale:
+        lo = max(0, x2 - crop_scale)
+        x_s = int(rng.integers(lo, x1)) if x1 > lo else 0
+    else:
+        x_s = x1
+        text = text[: int(len(text) * crop_scale / (x2 - x1))]
+    if y2 - y1 < crop_scale:
+        lo = max(0, y2 - crop_scale)
+        y_s = int(rng.integers(lo, y1)) if y1 > lo else 0
+    else:
+        y_s = y1
+        text = text[: int(len(text) * crop_scale / (y2 - y1))]
+
+    window = (slice(y_s, y_s + crop_scale), slice(x_s, x_s + crop_scale))
+    return CropResult(image=image[window], mask=mask[window],
+                      masked_image=masked[window], x_s=x_s, y_s=y_s,
+                      crop_scale=crop_scale, text=text)
 
 # The inference ladder: (6*char_height upper bound, window length).
 _CROP_LADDER = (128, 256, 384, 512, 640, 784, 1000)

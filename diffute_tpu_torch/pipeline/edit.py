@@ -37,7 +37,11 @@ from diffute_tpu_torch.text import (
     trocr_normalize,
     trocr_preprocess_host,
 )
-from diffute_tpu_torch.utils.params import build_meta
+from diffute_tpu_torch.utils.device import (
+    configure_cuda_numerics,
+    resolve_device,
+)
+from diffute_tpu_torch.utils.params import load_module
 
 
 def normalize_image(x_uint8: torch.Tensor) -> torch.Tensor:
@@ -74,16 +78,9 @@ def _check_ported(ec: EditConfig) -> None:
                 "(ROADMAP.md queue 1)")
 
 
-def _load(cls, config, state_dict, device, dtype) -> torch.nn.Module:
-    module = build_meta(cls, config)
-    module.load_state_dict(state_dict, strict=True, assign=True)
-    module = module.to(device=device, dtype=dtype).eval()
-    module.requires_grad_(False)
-    return module
-
-
 class DiffUTEPipeline:
-    """Holds the three frozen models on ``device``.
+    """Holds the three frozen models on ``device``: the card by default
+    (raises without one), the CPU only when asked (``device="cpu"``).
 
     ``params`` is ``{"vae", "unet", "trocr"}`` -> state_dict with diffusers /
     transformers keys (``utils.init_pipeline_params`` or
@@ -92,25 +89,16 @@ class DiffUTEPipeline:
     """
 
     def __init__(self, config: DiffUTEConfig,
-                 params: Dict[str, Dict[str, torch.Tensor]], device="cpu"):
+                 params: Dict[str, Dict[str, torch.Tensor]], device="cuda"):
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if config.unet.use_flash_attention and config.unet.dtype != torch.bfloat16:
-                raise ValueError("the CUDA flash kernel takes bf16; set "
-                                 "UNetConfig(dtype=torch.bfloat16) or turn "
-                                 "use_flash_attention off")
-            # fp32 convolutions and matmuls in full fp32, not TF32 (cuDNN's
-            # default), so an fp32 pipeline computes what the JAX one does;
-            # the bf16 main path does not depend on these.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        self.vae = _load(AutoencoderKL, config.vae, params["vae"], self.device,
-                         config.vae.dtype)
-        self.unet = _load(UNet2DCondition, config.unet, params["unet"],
-                          self.device, config.unet.dtype)
-        self.trocr = _load(TrOCREncoder, config.trocr, params["trocr"],
-                           self.device, config.trocr.dtype)
+        self.device = resolve_device(device)
+        configure_cuda_numerics(self.device, config.unet)
+        self.vae = load_module(AutoencoderKL, config.vae, params["vae"],
+                               self.device, config.vae.dtype)
+        self.unet = load_module(UNet2DCondition, config.unet, params["unet"],
+                                self.device, config.unet.dtype)
+        self.trocr = load_module(TrOCREncoder, config.trocr, params["trocr"],
+                                 self.device, config.trocr.dtype)
         self.schedule = make_schedule(config.scheduler, device=self.device)
 
     # ------------------------------------------------------------------

@@ -4,8 +4,10 @@ Example:
   python -m diffute_tpu_torch.serve.cli --image in.png --box 40,50,200,90 \\
       --text "NEW TEXT" --steps 50 --out edited.png
 
-The flags are ``diffute_tpu.serve.cli``'s.  The models are random-init from
-``--seed``; ``--checkpoint``, a ``--sampler`` other than ``ddim``,
+The flags are ``diffute_tpu.serve.cli``'s, plus ``--device`` (default
+``cuda``: without a card the command exits non-zero unless ``--device cpu``
+is given).  On the card the models run in bf16 with the flash kernel, on the
+CPU in fp32.  The models are random-init from ``--seed``; ``--checkpoint``, a ``--sampler`` other than ``ddim``,
 ``--guidance_scale > 1`` and ``--blend`` are not yet ported and raise.
 """
 
@@ -32,6 +34,8 @@ def main(argv=None) -> None:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--scale", default=None, choices=["full", "small", "tiny"])
     p.add_argument("--tiny", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
     args = p.parse_args(argv)
 
     for bad, what in ((args.sampler != "ddim", f"--sampler {args.sampler}"),
@@ -48,9 +52,12 @@ def main(argv=None) -> None:
     from diffute_tpu_torch.config import (DiffUTEConfig, UNetConfig,
                                           small_config, tiny_test_config)
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
-    from diffute_tpu_torch.utils import init_pipeline_params
+    from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"cli: {e}")
     scale = args.scale or ("tiny" if args.tiny else "full")
     config = {"full": DiffUTEConfig, "small": small_config,
               "tiny": tiny_test_config}[scale]()

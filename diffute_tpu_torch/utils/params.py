@@ -19,6 +19,7 @@ from torch import nn
 
 from diffute_tpu_torch.config import DiffUTEConfig
 from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
+from diffute_tpu_torch.utils.device import resolve_device
 
 
 def _init_state_dict(module: nn.Module, gen: torch.Generator,
@@ -46,10 +47,22 @@ def build_meta(cls, config) -> nn.Module:
         return cls(config)
 
 
+def load_module(cls, config, state_dict: Dict[str, torch.Tensor], device,
+                dtype: torch.dtype) -> nn.Module:
+    """``cls(config)`` holding ``state_dict`` (strict) on ``device`` in
+    ``dtype``, frozen and in eval mode."""
+    module = build_meta(cls, config)
+    module.load_state_dict(state_dict, strict=True, assign=True)
+    module = module.to(device=device, dtype=dtype).eval()
+    module.requires_grad_(False)
+    return module
+
+
 def init_pipeline_params(config: DiffUTEConfig, seed: int = 0,
-                         device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Random-init fp32 state_dicts for the three models on ``device``."""
-    device = torch.device(device)
+                         device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """Random-init fp32 state_dicts for the three models on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return {
         "vae": _init_state_dict(build_meta(AutoencoderKL, config.vae), gen, device),

@@ -126,7 +126,7 @@ def test_bridge_matches_jax_export_and_loads_strict(jax_params, name, bridge,
     model = cls(getattr(tiny_test_config(), name))
     model.load_state_dict(ours, strict=True)
     # the random init makes the same names and shapes as the module
-    init = init_pipeline_params(tiny_test_config(), seed=0)[name]
+    init = init_pipeline_params(tiny_test_config(), seed=0, device="cpu")[name]
     assert {k: v.shape for k, v in init.items()} == \
         {k: v.shape for k, v in ours.items()}
 

@@ -50,7 +50,7 @@ def pipes():
     jparams = j_init(jcfg, seed=3)
     jpipe = JPipeline(jcfg, jparams)
     tpipe = DiffUTEPipeline(_with_flash(tiny_test_config()),
-                            pipeline_state_dicts(jparams))
+                            pipeline_state_dicts(jparams), device="cpu")
     return jpipe, tpipe
 
 
@@ -165,7 +165,7 @@ def test_cli_edits_a_png(tmp_path):
     src = np.random.RandomState(5).randint(0, 256, (96, 128, 3), np.uint8)
     Image.fromarray(src).save(tmp_path / "in.png")
     cli.main(["--image", str(tmp_path / "in.png"), "--box", "40,30,90,44",
-              "--text", "Hey", "--steps", "2", "--tiny",
+              "--text", "Hey", "--steps", "2", "--tiny", "--device", "cpu",
               "--out", str(tmp_path / "out.png")])
     out = np.asarray(Image.open(tmp_path / "out.png"))
     assert out.shape == src.shape
