@@ -1,23 +1,36 @@
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one line each (any failure raises and exits non-zero):
   1. device: the card, torch/CUDA versions, Pillow and a TTF font;
-  2. build: nvcc builds the port's CUDA kernels from diffute_tpu_torch/csrc;
+  2. build: nvcc builds the port's CUDA kernels from diffute_tpu_torch/csrc,
+     one compiler process per source, all at once;
   3. kernels: the flash-attention forward, and the two backward kernels
      (dq, dk/dv), each against its plain fp32 version in bf16 at the main
      paths' shapes plus a ragged one; kernel, plain version and one PyTorch
      library call (scaled_dot_product_attention, a yardstick the port never
      calls) timed, beside the card's bound for the same work; and
      FlashAttentionFn's backward against the backward wrapper;
+  3b. the UNet's opt-in kernels the same way: GroupNorm statistics and
+     GroupNorm+SiLU, GN+SiLU+conv3x3 and the int8-weight matmul, each against
+     its plain version at the flagged UNet's shapes (library yardsticks:
+     F.silu(F.group_norm), that followed by F.conv2d, x @ q.to(bf16).T * s);
+     a mutated plain version of each (a dropped tap, zero padding applied
+     before the affine, the scale left out) must FAIL the same criterion;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
-     random weights from a seed) runs three 50-step 512^2 single-region
-     edits through DiffUTEPipeline.edit, counting kernel launches;
+     random weights from a seed) runs two 50-step 512^2 single-region edits
+     through DiffUTEPipeline.edit, counting kernel launches;
   5. checks: finite latents and a flash-vs-dense UNet forward at full size;
+  5b. one full-width UNet forward with each opt-in kernel alone and all
+     three against the unfused float UNet, same weights and inputs;
+  5c. the flagged serving path: all four flags on, two 50-step DDIM edits
+     (2,200 conv, 50 GN+SiLU, 8,032 int8-matmul and 500 flash launches each,
+     asserted), one 20-step DPM-Solver++ edit with guidance 3, the blend and
+     encoder reuse 2, and one 20-step DDPM edit;
   6. training path: train.run_unet.main takes three optimizer steps at full
      width (batch 4, 512^2, bf16, flash, gradient checkpointing, AdamW,
-     synthetic scenes), counting the launches of all three kernels;
+     synthetic scenes), counting the launches of all three flash kernels;
   7. checks: parameter count, parameters changed by a step, and the loss
      gradient of four UNet weights with flash on vs off at full width.
 Then one JSON line of kernel results, and last the device JSON line.
@@ -28,11 +41,21 @@ Exits non-zero, with no result, when no CUDA device is available.
 times phase 4's edits alone (same pipeline, scene and box) and prints their
 seconds as one JSON line; with --package-root the port is imported from
 another checkout, so two commits can be timed in turns on one card.
+
+    python3 chip_smoke.py --flag-timing 8
+
+times edits with the UNet's flags off, fused conv, int8 and all on: four
+pipelines over one set of weights in one process, taking turns.
+
+    python3 chip_smoke.py --kernels-only
+
+builds the kernels and runs phase 3b alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import statistics
@@ -67,6 +90,22 @@ BWD_HALF_ULPS, TOL_BWD_REL_L2 = 3, 1e-2
 # difference of the loss (2e-4 measured)
 TOL_GRAD_REL, TOL_LOSS_REL = 3e-2, 1e-2
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
+# GroupNorm+SiLU, GN+SiLU+conv3x3 and the int8 matmul against their plain
+# fp32 versions on the same bf16 inputs.  Each output is an fp32 result
+# rounded once to bf16 (half an ulp of y is at most |y| * 2^-8); the conv's
+# normalised operand is rounded to bf16 on both sides and may differ by one
+# ulp in a few elements (__expf against torch's sigmoid), and sums run in
+# another order.  Max abs error within FUSED_HALF_ULPS half-ulps of max |ref|
+# (1 to 2 measured: one bf16 ulp at the largest value is 2) and relative L2
+# error within TOL_FUSED_REL_L2 (2.4e-4 at worst measured: both sides round
+# the same fp32 value and mostly agree to the bit; a dropped tap gives 0.3,
+# zero padding applied before the affine 0.1, a scale left out O(1)).
+FUSED_HALF_ULPS, TOL_FUSED_REL_L2 = 3, 2e-3
+# full-size UNet forward, bf16, same weights and inputs: fused GroupNorm or
+# fused conv against the unfused UNet, relative max error over max |eps|
+# (flash against dense gave 1.56e-2); int8 weights against float weights by
+# the mean relative error and cosine of tests/test_quant.py
+TOL_UNET_FUSED_REL, TOL_INT8_MEAN_REL, TOL_INT8_COS = 5e-2, 5e-2, 0.999
 # the card's published peaks, for the bounds
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -109,17 +148,181 @@ def bound(flops: float, nbytes: float) -> dict:
             "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes}
 
 
-def bwd_errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
-    """Max abs and relative L2 error of a backward kernel's output against
-    its plain version, and the max abs bound that ``ref``'s size gives."""
+def bwd_errors(got: torch.Tensor, ref: torch.Tensor,
+               half_ulps: int = BWD_HALF_ULPS) -> dict:
+    """Max abs and relative L2 error of a kernel's bf16 output against its
+    plain version, and the max abs bound that ``ref``'s size gives."""
     diff, ref = got.float() - ref.float(), ref.float()
     return {"max_abs_err": diff.abs().max().item(),
             "rel_l2_err": (diff.norm() / ref.norm()).item(),
-            "max_abs_tol": BWD_HALF_ULPS * ref.abs().max().item() * 2.0 ** -8}
+            "max_abs_tol": half_ulps * ref.abs().max().item() * 2.0 ** -8}
 
 
-def serving_pipeline(dev):
-    """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0."""
+def fused_ok(err: dict) -> bool:
+    return (err["max_abs_err"] <= err["max_abs_tol"]
+            and err["rel_l2_err"] <= TOL_FUSED_REL_L2)
+
+
+def check_fused_kernels(dev) -> dict:
+    """Phase 3b: the GroupNorm+SiLU, GN+SiLU+conv3x3 and int8-matmul kernels
+    against their plain versions on the card, in bf16, at the flagged UNet's
+    shapes; a mutated plain version of each must fail the same criterion.
+    Returns {kernel name: [result per shape]}."""
+    import torch.nn.functional as F
+
+    from diffute_tpu_torch.ops.conv_fused import (gn_silu_conv3x3,
+                                                  gn_silu_conv3x3_reference,
+                                                  pack_conv3x3_weight)
+    from diffute_tpu_torch.ops.groupnorm import (group_norm_silu,
+                                                 group_norm_silu_reference,
+                                                 group_norm_stats,
+                                                 group_norm_stats_reference)
+    from diffute_tpu_torch.ops.quant import (quant_matmul,
+                                             quant_matmul_reference,
+                                             quantize_per_channel)
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=bf16, mean=0.0, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std
+                + mean).to(dtype)
+
+    def must_fail(name, mutant, ref):
+        err = bwd_errors(mutant, ref, FUSED_HALF_ULPS)
+        if fused_ok(err):
+            raise RuntimeError(f"{name}: the criterion passes a mutated "
+                               f"result: {err}")
+        return err["rel_l2_err"]
+
+    results = {"gn_silu": [], "gn_stats": [], "conv": [], "w8": []}
+
+    # ---- GroupNorm statistics and GroupNorm+SiLU; the last input has
+    # |mean| >> std, where E[x^2] - mean^2 cancels in fp32
+    for shape, mean in [((1, 320, 64, 64), 0.0), ((1, 2560, 8, 8), 0.0),
+                        ((2, 640, 32, 32), 0.0), ((1, 960, 64, 64), 0.0),
+                        ((1, 320, 64, 64), 100.0)]:
+        b, c, h, w = shape
+        x = randn(*shape, mean=mean)
+        gamma, beta = randn(c, mean=1.0, std=0.3), randn(c, std=0.5)
+        y = group_norm_silu(x, gamma, beta, 32, 1e-5)
+        m, r = group_norm_stats(x, 32, 1e-5)
+        torch.cuda.synchronize()
+        ref = group_norm_silu_reference(x, gamma, beta, 32, 1e-5)
+        rm, rr = group_norm_stats_reference(x, 32, 1e-5)
+        err = bwd_errors(y, ref, FUSED_HALF_ULPS)
+        stats_err = {"mean_max_abs_err": (m - rm).abs().max().item(),
+                     "rstd_max_rel_err": ((r - rr).abs() / rr).max().item()}
+        nbytes = x.numel() * 2
+        res = dict(shape=list(shape), input_mean=mean, **err,
+                   ms=time_ms(lambda: group_norm_silu(x, gamma, beta, 32, 1e-5)),
+                   plain_ms=time_ms(lambda: group_norm_silu_reference(
+                       x, gamma, beta, 32, 1e-5)),
+                   library_ms=time_ms(lambda: F.silu(F.group_norm(
+                       x, 32, gamma, beta, 1e-5))),
+                   **bound(10 * x.numel(), 2 * nbytes + 4 * c))
+        sres = dict(shape=list(shape), input_mean=mean,
+                    max_abs_err=stats_err["mean_max_abs_err"], **stats_err,
+                    ms=time_ms(lambda: group_norm_stats(x, 32, 1e-5)),
+                    plain_ms=time_ms(lambda: group_norm_stats_reference(
+                        x, 32, 1e-5)),
+                    library_ms=None,
+                    **bound(3 * x.numel(), nbytes + 8 * b * 32))
+        phase("kernel_gn_silu", **res)
+        phase("kernel_gn_stats", **sres)
+        # the stats in fp32: mean to 1e-5 of its size, rstd to 1e-4 relative
+        if not (fused_ok(err)
+                and stats_err["mean_max_abs_err"] <= 1e-5 * max(1.0, abs(mean))
+                and stats_err["rstd_max_rel_err"] <= 1e-4):
+            raise RuntimeError(f"GroupNorm+SiLU disagrees at {shape}: {res} "
+                               f"{stats_err}")
+        results["gn_silu"].append(res)
+        results["gn_stats"].append(sres)
+    mutant = group_norm_silu_reference(x, gamma, beta, 32, 1e-5).float()
+    mutant = mutant * 1.02  # a 2% error in rstd's place
+    results["gn_silu"][-1]["mutant_rel_l2"] = must_fail(
+        "GroupNorm+SiLU", mutant, ref)
+
+    # ---- GN+SiLU+conv3x3: (B, Cin, Cout, H)
+    for b, cin, cout, hw in [(1, 320, 320, 64), (1, 960, 320, 64),
+                             (1, 2560, 1280, 16), (1, 1280, 1280, 8),
+                             (2, 640, 640, 32), (1, 2560, 1280, 8)]:
+        x = randn(b, cin, hw, hw)
+        gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
+        w = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+        bias = randn(cout, std=0.1)
+        packed = pack_conv3x3_weight(w)
+
+        def run():
+            return gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5,
+                                   packed=packed)
+
+        def library():
+            return F.conv2d(F.silu(F.group_norm(x, 32, gamma, beta, 1e-5)),
+                            w, bias, padding=1)
+
+        y = run()
+        torch.cuda.synchronize()
+        ref = gn_silu_conv3x3_reference(x, gamma, beta, w, bias, 32, 1e-5)
+        err = bwd_errors(y, ref, FUSED_HALF_ULPS)
+        nbytes = 2 * (x.numel() + w.numel() + y.numel()) + 2 * (2 * cin + cout)
+        res = dict(shape=[b, cin, cout, hw, hw], **err, ms=time_ms(run),
+                   plain_ms=time_ms(lambda: gn_silu_conv3x3_reference(
+                       x, gamma, beta, w, bias, 32, 1e-5)),
+                   library_ms=time_ms(library),
+                   **bound(2 * b * hw * hw * cout * 9 * cin, nbytes))
+        phase("kernel_conv", **res)
+        if not fused_ok(err):
+            raise RuntimeError(f"GN+SiLU+conv3x3 disagrees at {res}")
+        results["conv"].append(res)
+        if (cin, hw) == (320, 64):
+            # mutations in plain torch: a dropped tap; zero padding applied
+            # to x before the affine (the border then sees silu(d_c), not 0)
+            w_cut = w.clone()
+            w_cut[:, :, 0, 0] = 0
+            dropped = gn_silu_conv3x3_reference(x, gamma, beta, w_cut, bias,
+                                                32, 1e-5)
+            mean, rstd = group_norm_stats_reference(x, 32, 1e-5)
+            a = gamma.float() * rstd.repeat_interleave(cin // 32, 1)[0]
+            d = beta.float() - mean.repeat_interleave(cin // 32, 1)[0] * a
+            xp = F.pad(x.float(), (1, 1, 1, 1))
+            hp = F.silu(xp * a[None, :, None, None] + d[None, :, None, None])
+            padded = F.conv2d(hp.to(bf16).float(), w.float(), bias.float())
+            res["mutant_rel_l2"] = {
+                "dropped_tap": must_fail("conv (dropped tap)", dropped, ref),
+                "pad_before_affine": must_fail("conv (padding before the "
+                                               "affine)", padded, ref)}
+
+    # ---- int8-weight matmul: (M, K, N)
+    for m, k, n in [(4096, 320, 2560), (4096, 1280, 320), (64, 1280, 10240),
+                    (577, 1024, 640), (1024, 640, 640), (256, 5120, 1280)]:
+        x = randn(m, k)
+        q, scale = quantize_per_channel(randn(n, k, dtype=torch.float32,
+                                              std=k ** -0.5))
+        scale = scale.to(bf16)  # a bf16 model's scale
+        y = quant_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        ref = quant_matmul_reference(x, q, scale)
+        err = bwd_errors(y, ref, FUSED_HALF_ULPS)
+        res = dict(shape=[m, k, n], **err,
+                   ms=time_ms(lambda: quant_matmul(x, q, scale)),
+                   plain_ms=time_ms(lambda: quant_matmul_reference(x, q, scale)),
+                   library_ms=time_ms(lambda: (x @ q.to(bf16).t()) * scale),
+                   **bound(2 * m * n * k, 2 * m * k + n * k + 2 * m * n + 2 * n))
+        phase("kernel_w8", **res)
+        if not fused_ok(err):
+            raise RuntimeError(f"int8 matmul disagrees at {res}")
+        results["w8"].append(res)
+    unscaled = (x.float() @ q.float().t()).to(bf16)
+    results["w8"][-1]["mutant_rel_l2"] = must_fail(
+        "int8 matmul (scale left out)", unscaled, ref)
+    return results
+
+
+def serving_pipeline(dev, params=None, **unet_flags):
+    """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0;
+    ``unet_flags`` turn the UNet's opt-in kernels on, ``params`` shares one
+    set of fp32 state_dicts between pipelines."""
     from diffute_tpu_torch.config import (DiffUTEConfig, EditConfig,
                                           TrOCRConfig, UNetConfig, VAEConfig)
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
@@ -128,11 +331,120 @@ def serving_pipeline(dev):
     bf16 = torch.bfloat16
     cfg = DiffUTEConfig(
         vae=VAEConfig(dtype=bf16),
-        unet=UNetConfig(dtype=bf16, use_flash_attention=True),
+        unet=UNetConfig(dtype=bf16, use_flash_attention=True, **unet_flags),
         trocr=TrOCRConfig(dtype=bf16),
         edit=EditConfig(resolution=RES, num_inference_steps=STEPS))
-    return cfg, DiffUTEPipeline(
-        cfg, init_pipeline_params(cfg, seed=0, device=dev), device=dev)
+    if params is None:
+        params = init_pipeline_params(cfg, seed=0, device=dev)
+    return cfg, DiffUTEPipeline(cfg, params, device=dev)
+
+
+ALL_FLAGS = dict(use_fused_groupnorm=True, use_fused_conv=True,
+                 use_int8_weights=True)
+
+
+def counters() -> dict:
+    """The launch counts of every kernel wrapper."""
+    from diffute_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+    from diffute_tpu_torch.ops.flash_attention import flash_attention
+    from diffute_tpu_torch.ops.groupnorm import (group_norm_silu,
+                                                 group_norm_stats)
+    from diffute_tpu_torch.ops.quant import quant_matmul
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_attention.bwd_dq_launches,
+            "flash_bwd_dkv": flash_attention.bwd_dkv_launches,
+            "gn_stats": group_norm_stats.launches,
+            "gn_silu": group_norm_silu.launches,
+            "conv": gn_silu_conv3x3.launches,
+            "w8": quant_matmul.launches}
+
+
+def reset_counters() -> None:
+    from diffute_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+    from diffute_tpu_torch.ops.flash_attention import flash_attention
+    from diffute_tpu_torch.ops.groupnorm import (group_norm_silu,
+                                                 group_norm_stats)
+    from diffute_tpu_torch.ops.quant import quant_matmul
+
+    flash_attention.launches = 0
+    flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
+    for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
+               quant_matmul):
+        fn.launches = 0
+
+
+def timed_edit(pipe, image, box, text, seed, edit_config=None, steps=None):
+    """One edit with every counter set to 0 before it: its output, seconds,
+    peak memory and launches; fails unless only the box's pixels changed."""
+    dev = pipe.device
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out, _ = pipe.edit(image, box, text, seed=seed, edit_config=edit_config,
+                       num_inference_steps=steps)
+    seconds = time.perf_counter() - t0
+    rec = dict(text=text, seconds=seconds, launches=counters(),
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               memory_allocated_before=resident,
+               changed_pixels=int((out != image).any(-1).sum()))
+    outside = np.ones(image.shape[:2], bool)
+    outside[box[1]:box[3], box[0]:box[2]] = False
+    if out.dtype != np.uint8 or out.shape != image.shape:
+        raise RuntimeError(f"edit output {out.dtype} {out.shape}")
+    if not np.array_equal(out[outside], image[outside]):
+        raise RuntimeError("pixels outside the box changed")
+    if rec["changed_pixels"] == 0:
+        raise RuntimeError("the edit changed no pixel")
+    return rec
+
+
+def expect_launches(rec: dict, **expected) -> None:
+    got = {k: rec["launches"][k] for k in expected}
+    if got != expected:
+        raise RuntimeError(f"launches {got}, expected {expected}")
+
+
+def flag_timing(rounds: int) -> None:
+    """Seconds per 50-step edit with the UNet's flags off, fused conv, int8
+    and all three on: four pipelines over one set of weights in one process,
+    taking turns ``rounds`` times after one warm-up edit each."""
+    from diffute_tpu_torch.config import DiffUTEConfig
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    dev = torch.device("cuda", 0)
+    variants = {"off": {}, "fused_conv": dict(use_fused_conv=True),
+                "int8": dict(use_int8_weights=True), "all": ALL_FLAGS}
+    params = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev)
+    pipes = {name: serving_pipeline(dev, params, **flags)[1]
+             for name, flags in variants.items()}
+    del params
+    image, box = scene()
+    seconds = {name: [] for name in variants}
+    # what an edit adds to the memory resident before it (four pipelines
+    # are resident here), and the bytes of each pipeline's UNet
+    peak = {}
+    unet_bytes = {name: sum(t.numel() * t.element_size() for t in (
+        *pipe.unet.parameters(), *pipe.unet.buffers()))
+        for name, pipe in pipes.items()}
+    for name, pipe in pipes.items():  # warm-up: the build, cuDNN's choices
+        timed_edit(pipe, image, box, "warm", 0)
+    for i in range(rounds):
+        order = list(variants) if i % 2 == 0 else list(variants)[::-1]
+        for name in order:
+            rec = timed_edit(pipes[name], image, box, "BENCHMARK", i)
+            seconds[name].append(rec["seconds"])
+            peak[name] = (rec["max_memory_allocated"]
+                          - rec["memory_allocated_before"])
+    print(json.dumps({"gpu": gpu_line(), "rounds": rounds,
+                      "edit_seconds": seconds,
+                      "median": {k: statistics.median(v)
+                                 for k, v in seconds.items()},
+                      "min": {k: min(v) for k, v in seconds.items()},
+                      "max": {k: max(v) for k, v in seconds.items()},
+                      "edit_peak_over_resident_bytes": peak,
+                      "unet_bytes": unet_bytes}), flush=True)
 
 
 def scene():
@@ -160,6 +472,11 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--edits-only", type=int, default=0, metavar="N",
                    help="time N edits of phase 4 and nothing else")
+    p.add_argument("--flag-timing", type=int, default=0, metavar="N",
+                   help="time N rounds of edits with the UNet's flags off, "
+                   "fused conv, int8 and all on, in turns, and nothing else")
+    p.add_argument("--kernels-only", action="store_true",
+                   help="build and check the kernels of phase 3b, then stop")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -170,13 +487,19 @@ def main(argv=None) -> None:
         sys.path.insert(0, args.package_root)
     if args.edits_only:
         return edits_only(args.edits_only)
+    if args.flag_timing:
+        return flag_timing(args.flag_timing)
+    if args.kernels_only:
+        print(gpu_line(), flush=True)
+        check_fused_kernels(torch.device("cuda", 0))
+        return
     import torch.nn.functional as F
 
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
                                               make_unet_batch)
-    from diffute_tpu_torch.models import count_params
+    from diffute_tpu_torch.models import UNet2DCondition, count_params
     from diffute_tpu_torch.models.attention import Attention
     from diffute_tpu_torch.ops import _build
     from diffute_tpu_torch.ops.flash_attention import (
@@ -186,6 +509,7 @@ def main(argv=None) -> None:
     from diffute_tpu_torch.text import find_font, trocr_preprocess_host
     from diffute_tpu_torch.train import UNetTrainer, run_unet
     from diffute_tpu_torch.utils import init_pipeline_params
+    from diffute_tpu_torch.utils.params import load_module
 
     # ---- 1. device
     import PIL
@@ -298,10 +622,14 @@ def main(argv=None) -> None:
         raise RuntimeError("FlashAttentionFn.backward differs from flash_bwd_3d")
     del leaves, q4, k4, v4, g4, q3, k3, v3, o3, lse3
 
-    # ---- 4. serving path: full width, bf16, flash on, three edits
+    # ---- 3b. the three opt-in kernels against their plain versions
+    fused = check_fused_kernels(dev)
+
+    # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
     t0 = time.perf_counter()
-    cfg, pipe = serving_pipeline(dev)
+    params = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev)
+    cfg, pipe = serving_pipeline(dev, params)
     n_unet, n_vae = count_params(pipe.unet), count_params(pipe.vae)
     phase("init", seconds=time.perf_counter() - t0, unet_params=n_unet,
           vae_params=n_vae, trocr_params=count_params(pipe.trocr))
@@ -309,30 +637,13 @@ def main(argv=None) -> None:
         raise RuntimeError(f"parameter counts {n_unet}, {n_vae}")
 
     image, box = scene()
-    outside = np.ones(image.shape[:2], bool)
-    outside[box[1]:box[3], box[0]:box[2]] = False
-
-    flash_attention.launches = 0
     edits = []
-    for i, text in enumerate(["BENCHMARK", "DiffUTE edit", "H100 2026"]):
-        before = flash_attention.launches
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out, mask = pipe.edit(image, box, text, seed=i)
-        seconds = time.perf_counter() - t0
-        launched = flash_attention.launches - before
-        rec = dict(edit=i, text=text, seconds=seconds, launches=launched,
-                   max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-                   changed_pixels=int((out != image).any(-1).sum()))
-        phase("edit", **rec)
-        if out.dtype != np.uint8 or out.shape != image.shape:
-            raise RuntimeError(f"edit output {out.dtype} {out.shape}")
-        if not np.array_equal(out[outside], image[outside]):
-            raise RuntimeError("pixels outside the box changed")
-        if launched != 10 * STEPS:
-            raise RuntimeError(f"{launched} flash launches, expected {10 * STEPS}")
+    for i, text in enumerate(["BENCHMARK", "DiffUTE edit"]):
+        rec = timed_edit(pipe, image, box, text, i)
+        phase("edit", edit=i, **rec)
+        expect_launches(rec, flash_fwd=10 * STEPS, conv=0, gn_silu=0, w8=0)
         edits.append(rec)
-    edit_launches = flash_attention.launches
+    edit_launches = sum(e["launches"]["flash_fwd"] for e in edits)
 
     # ---- 5. what came out: finite latents, and flash vs dense at full size
     region, _ = pipe._prepare_region(image, box, "check", RES, None)
@@ -341,7 +652,7 @@ def main(argv=None) -> None:
     noise = [torch.randn((1, 4, r, r), generator=gen, device=dev)
              for _ in range(2)]
     with torch.inference_mode():
-        ctx, mask_lat, masked_lat, lat0 = pipe._device_prep(
+        ctx, mask_lat, masked_lat, lat0, _, _ = pipe._device_prep(
             torch.from_numpy(region["mask512"][None]).to(dev),
             torch.from_numpy(region["masked512"][None]).to(dev),
             torch.from_numpy(trocr_preprocess_host([region["glyph"]],
@@ -366,14 +677,83 @@ def main(argv=None) -> None:
     if not finite or not rel <= TOL_UNET_REL:
         raise RuntimeError("main-path check failed")
 
+    # ---- 5b. one full-width UNet forward, same weights and inputs: each
+    # opt-in kernel alone and all three against the unfused float UNet
+    flag_sets = {"fused_gn": dict(use_fused_groupnorm=True),
+                 "fused_conv": dict(use_fused_conv=True),
+                 "int8": dict(use_int8_weights=True), "all": ALL_FLAGS}
+    unet_check = {}
+    for name, flags in flag_sets.items():
+        ucfg = dataclasses.replace(cfg.unet, **flags)
+        unet = load_module(UNet2DCondition, ucfg, params["unet"], dev, bf16)
+        reset_counters()
+        with torch.inference_mode():
+            eps = unet(x_in, t_in, ctx16).float()
+        d = eps - eps_flash
+        unet_check[name] = dict(
+            rel_max=(d.abs().max() / eps_flash.abs().max()).item(),
+            mean_rel=(d.abs().mean() / eps_flash.abs().mean()).item(),
+            cosine=((eps * eps_flash).sum()
+                    / (eps.norm() * eps_flash.norm())).item(),
+            launches=counters())
+        del unet, eps, d
+    phase("unet_flags", **unet_check, tolerance_rel_max=TOL_UNET_FUSED_REL,
+          tolerance_int8_mean_rel=TOL_INT8_MEAN_REL,
+          tolerance_int8_cosine=TOL_INT8_COS)
+    for name in ("fused_gn", "fused_conv"):
+        if not unet_check[name]["rel_max"] <= TOL_UNET_FUSED_REL:
+            raise RuntimeError(f"UNet with {name} differs from the unfused")
+    for name in ("int8", "all"):
+        if not (unet_check[name]["mean_rel"] <= TOL_INT8_MEAN_REL
+                and unet_check[name]["cosine"] >= TOL_INT8_COS):
+            raise RuntimeError(f"UNet with {name} differs from float weights")
+    # per UNet pass: 44 resnet halves, 45 norms, 160 int8 linear layers
+    for name, expected in (("fused_gn", dict(conv=0, gn_silu=45, w8=0)),
+                           ("fused_conv", dict(conv=44, gn_silu=0, w8=0)),
+                           ("int8", dict(conv=0, gn_silu=0, w8=192)),
+                           ("all", dict(conv=44, gn_silu=1, w8=192))):
+        expect_launches(unet_check[name], **expected)
+
+    # ---- 5c. the flagged serving path: all four flags on, two 50-step DDIM
+    # edits, then DPM-Solver++ with guidance, blend and encoder reuse, and
+    # DDPM.  Per UNet pass: 44 conv (16 in the encoder), 1 GN+SiLU, 160 int8
+    # matmuls (60 in the encoder) and 10 flash forwards (4 in the encoder);
+    # once per edit and context 32 int8 matmuls for the hoisted K/V.
+    del pipe, eps_flash, eps_dense, attns
+    _, fpipe = serving_pipeline(dev, params, **ALL_FLAGS)
+    del params
+    flag_edits = []
+    for i, text in enumerate(["BENCHMARK", "DiffUTE edit"]):
+        rec = timed_edit(fpipe, image, box, text, i)
+        phase("edit_flags", edit=i, **rec)
+        expect_launches(rec, conv=44 * STEPS, gn_silu=STEPS,
+                        gn_stats=45 * STEPS, w8=160 * STEPS + 32,
+                        flash_fwd=10 * STEPS)
+        flag_edits.append(rec)
+    ec = dataclasses.replace(cfg.edit, sampler="dpmpp", guidance_scale=3.0,
+                             masked_latent_blend=True,
+                             encoder_reuse_interval=2)
+    rec = timed_edit(fpipe, image, box, "CFG blend", 2, ec, steps=20)
+    phase("edit_dpmpp_cfg_blend_reuse2", steps=20, **rec)
+    # 10 full passes and 10 decoder-only ones; K/V of both contexts hoisted
+    expect_launches(rec, conv=10 * 44 + 10 * 28, gn_silu=20,
+                    w8=10 * 160 + 10 * 100 + 64, flash_fwd=10 * 10 + 10 * 6)
+    mode_edits = {"dpmpp_cfg_blend_reuse2": rec}
+    rec = timed_edit(fpipe, image, box, "ancestral", 3,
+                     dataclasses.replace(cfg.edit, sampler="ddpm"), steps=20)
+    phase("edit_ddpm", steps=20, **rec)
+    expect_launches(rec, conv=20 * 44, gn_silu=20, w8=20 * 160 + 32,
+                    flash_fwd=20 * 10)
+    mode_edits["ddpm"] = rec
+    flag_launches = {k: sum(e["launches"][k] for e in flag_edits)
+                     for k in flag_edits[0]["launches"]}
+
     # ---- 6. training path: free the pipeline, then three optimizer steps
     # through the trainer's entry point
-    del pipe, lat, lat0, ctx, ctx16, mask_lat, masked_lat, x_in, eps_flash
-    del eps_dense, noise, attns
+    del fpipe, lat, lat0, ctx, ctx16, mask_lat, masked_lat, x_in, noise
     gc.collect()
     torch.cuda.empty_cache()
-    flash_attention.launches = 0
-    flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
+    reset_counters()
     history = run_unet.main([
         "--model_scale", "full", "--train_batch_size", str(TRAIN_BATCH),
         "--mixed_precision", "bf16", "--gradient_checkpointing",
@@ -381,6 +761,8 @@ def main(argv=None) -> None:
     train_launches = dict(fwd=flash_attention.launches,
                           dq=flash_attention.bwd_dq_launches,
                           dkv=flash_attention.bwd_dkv_launches)
+    if any(counters()[k] for k in ("gn_stats", "gn_silu", "conv", "w8")):
+        raise RuntimeError(f"the unflagged trainer launched {counters()}")
     phase("train", steps=history, launches=train_launches)
     # per step: 5 self-attentions at 4096 tokens and 5 at 1024 run the
     # forward twice (once in the forward, once recomputed by the gradient
@@ -438,10 +820,11 @@ def main(argv=None) -> None:
             or not abs(loss_flash - loss_dense) <= TOL_LOSS_REL * loss_dense):
         raise RuntimeError("training check failed")
 
-    def entry(name, source, line, results, launches):
+    def entry(name, source, replaces, results, launches):
         main = results[0]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": f"diffute_tpu/ops/flash_attention.py:{line}",
+        return {"name": name, "route": "cuda",
+                "source": f"diffute_tpu_torch/csrc/{source}",
+                "replaces": f"diffute_tpu/ops/{replaces}",
                 "launches": sum(launches.values()),
                 "launches_by_path": launches,
                 "max_abs_err": max(x["max_abs_err"] for x in results),
@@ -449,17 +832,32 @@ def main(argv=None) -> None:
                                               "bound_by", "library_ms")},
                 "shapes": results}
 
-    bwd_src = "diffute_tpu_torch/csrc/flash_bwd.cu"
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": [
-        entry("flash_fwd_bf16", "diffute_tpu_torch/csrc/flash_fwd.cu", 275,
+        entry("flash_fwd_bf16", "flash_fwd.cu", "flash_attention.py:275",
               fwd_results, {"edit": edit_launches,
+                            "edit_flags": flag_launches["flash_fwd"],
                             "train": train_launches["fwd"]}),
-        entry("flash_bwd_dq_bf16", bwd_src, 396, dq_results,
-              {"train": train_launches["dq"]}),
-        entry("flash_bwd_dkv_bf16", bwd_src, 437, dkv_results,
-              {"train": train_launches["dkv"]}),
+        entry("flash_bwd_dq_bf16", "flash_bwd.cu", "flash_attention.py:396",
+              dq_results, {"train": train_launches["dq"]}),
+        entry("flash_bwd_dkv_bf16", "flash_bwd.cu", "flash_attention.py:437",
+              dkv_results, {"train": train_launches["dkv"]}),
+        # the TPU kernel's statistics pass and its apply are two launches here
+        entry("gn_stats_bf16", "groupnorm.cu", "groupnorm.py:31",
+              fused["gn_stats"], {"edit_flags": flag_launches["gn_stats"]}),
+        entry("gn_silu_apply_bf16", "groupnorm.cu", "groupnorm.py:31",
+              fused["gn_silu"], {"edit_flags": flag_launches["gn_silu"]}),
+        entry("gn_silu_conv3x3_bf16", "conv_fused.cu", "conv_fused.py:40",
+              fused["conv"], {"edit_flags": flag_launches["conv"]}),
+        entry("w8_matmul_bf16", "quant.cu", "quant.py:51", fused["w8"],
+              {"edit_flags": flag_launches["w8"]}),
     ], "edit_seconds": [e["seconds"] for e in edits],
+        "edit_flags_seconds": [e["seconds"] for e in flag_edits],
+        "edit_flags_max_memory_allocated": [e["max_memory_allocated"]
+                                            for e in flag_edits],
+        "edit_modes": {k: {"seconds": v["seconds"], "launches": v["launches"]}
+                       for k, v in mode_edits.items()},
+        "unet_flags": unet_check,
         "train_step_seconds": [h["seconds"] for h in history],
         "train_max_memory_allocated": [h["max_memory_allocated"]
                                        for h in history]}), flush=True)

@@ -6,6 +6,9 @@ them) become PyTorch state_dicts with diffusers / transformers keys:
 
 - conv kernels HWIO -> OIHW, dense kernels (I, O) -> (O, I);
 - norm ``scale`` -> ``weight``;
+- an int8 layer's ``kernel_q`` (I, O) int8 -> ``weight_q`` (O, I) int8 and
+  ``kernel_scale`` (O,) -> ``weight_scale``
+  (:class:`~diffute_tpu_torch.models.layers.QuantLinear`);
 - the flattened Flax module names -> dotted diffusers names.
 
 The key rewrites re-implement ``diffute_tpu.compat.hf_import``'s export
@@ -41,6 +44,10 @@ def _leaf(leaf: str, value: np.ndarray):
         return "weight", value.transpose(1, 0)
     if leaf == "scale":
         return "weight", value
+    if leaf == "kernel_q":
+        return "weight_q", value.transpose(1, 0)
+    if leaf == "kernel_scale":
+        return "weight_scale", value
     return leaf, value
 
 
@@ -77,7 +84,9 @@ def _convert(params: Mapping, rewrites) -> Dict[str, torch.Tensor]:
         name = ".".join(path[:-1] + (leaf,))
         for pat, repl in rewrites:
             name = re.sub(pat, repl, name)
-        out[name] = torch.tensor(arr, dtype=torch.float32)  # a copy
+        # a copy; int8 weights keep their type
+        out[name] = torch.tensor(arr, dtype=torch.int8 if arr.dtype == np.int8
+                                 else torch.float32)
     return out
 
 

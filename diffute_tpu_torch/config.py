@@ -77,19 +77,18 @@ class UNetConfig:
     # Route self-attention with >= 1024 keys through the CUDA flash kernels
     # (csrc/flash_fwd.cu, csrc/flash_bwd.cu); bf16 only on the card.
     use_flash_attention: bool = False
+    # GroupNorm+SiLU as one kernel (csrc/groupnorm.cu) in conv_norm_out and,
+    # without use_fused_conv, in the resnets.
     use_fused_groupnorm: bool = False
+    # Serve the transformers' linear weights int8 with per-feature scales
+    # (csrc/quant.cu); a float state_dict is quantised at load.
     use_int8_weights: bool = False
+    # Every resnet half as one GroupNorm+SiLU+conv3x3 kernel
+    # (csrc/conv_fused.cu): the normalised tensor never reaches device memory.
     use_fused_conv: bool = False
     # Recompute each resnet and transformer block in the backward instead of
     # keeping its activations (gradient checkpointing).
     remat: bool = False
-
-    def __post_init__(self):
-        for flag, item in (("use_fused_groupnorm", "GroupNorm+SiLU kernel"),
-                           ("use_int8_weights", "int8 weight matmul kernel"),
-                           ("use_fused_conv", "GN+SiLU+conv3x3 kernel")):
-            if getattr(self, flag):
-                raise _not_ported("UNetConfig", flag, item)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,9 +145,9 @@ class GlyphConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EditConfig:
-    """Inference pipeline configuration.  The port runs the default path
-    only (DDIM, no guidance, no blend, no encoder reuse); the pipeline
-    raises on the others."""
+    """Inference pipeline configuration: sampler ``ddim`` | ``ddpm`` |
+    ``dpmpp``; ``guidance_scale > 1`` turns classifier-free guidance on;
+    ``encoder_reuse_interval = k`` runs the UNet's encoder every k-th step."""
 
     resolution: int = 512
     num_inference_steps: int = 50

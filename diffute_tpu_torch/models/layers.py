@@ -2,8 +2,10 @@
 
 Counterpart of ``diffute_tpu/models/layers.py``.  Submodule names are
 diffusers' (norm1/conv1/time_emb_proj/...), so a diffusers state_dict loads
-by name.  Only the unfused path is ported: the fused GroupNorm+SiLU and
-GN+SiLU+conv3x3 kernels are opt-in and wait (config raises).
+by name.  The opt-in kernels sit behind three switches that leave the
+state_dict keys as they are: ``fused_gn`` (GroupNorm+SiLU in one kernel),
+``fused_conv`` (GroupNorm+SiLU+conv3x3 in one kernel, which takes precedence)
+and :class:`QuantLinear` (int8 weights) in the transformer blocks.
 """
 
 from __future__ import annotations
@@ -14,6 +16,57 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from diffute_tpu_torch.ops.conv_fused import (
+    gn_silu_conv3x3,
+    pack_conv3x3_weight,
+)
+from diffute_tpu_torch.ops.groupnorm import group_norm_silu
+from diffute_tpu_torch.ops.quant import quant_matmul
+
+
+class QuantLinear(nn.Module):
+    """Linear layer over int8 weights with one scale per output feature
+    (``QuantDense``).  Serving only: no gradient reaches the weights.
+
+    Buffers: ``weight_q`` (out_features, in_features) int8, the axes of
+    ``nn.Linear.weight`` (the JAX layer's ``kernel_q`` is its transpose), and
+    ``weight_scale`` (out_features,), one per row of ``weight_q``, fp32 until
+    the module is cast (a bf16 model multiplies by the bf16-rounded scale, as
+    the JAX pipeline's cast of ``kernel_scale`` does).  ``bias``
+    (out_features,) is an ordinary parameter.  The product is rounded to x's
+    dtype before the bias is added, as in the JAX layer."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(
+            (out_features, in_features), dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = quant_matmul(x, self.weight_q, self.weight_scale)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+def linear(in_features: int, out_features: int, bias: bool = True,
+           use_int8: bool = False) -> nn.Module:
+    """``nn.Linear`` or, with ``use_int8``, :class:`QuantLinear`."""
+    cls = QuantLinear if use_int8 else nn.Linear
+    return cls(in_features, out_features, bias=bias)
+
+
+class GroupNormSiLU(nn.GroupNorm):
+    """GroupNorm fused with SiLU in one kernel
+    (:func:`~diffute_tpu_torch.ops.groupnorm.group_norm_silu`).  Parameters
+    and state_dict keys are ``nn.GroupNorm``'s (``weight``, ``bias``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_silu(x, self.weight, self.bias, self.num_groups,
+                               self.eps)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -62,29 +115,61 @@ class Block(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GroupNorm -> SiLU -> Conv x2 with optional time-embedding injection."""
+    """GroupNorm -> SiLU -> Conv x2 with optional time-embedding injection.
+
+    ``fused_gn`` runs each GroupNorm+SiLU as one kernel; ``fused_conv`` runs
+    each GroupNorm+SiLU+conv3x3 half as one kernel and takes precedence.
+    Either way ``norm1`` / ``conv1`` / ``norm2`` / ``conv2`` hold the same
+    parameters under the same keys."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None, groups: int = 32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, fused_gn: bool = False,
+                 fused_conv: bool = False):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        norm = GroupNormSiLU if fused_gn and not fused_conv else nn.GroupNorm
+        self.fused_gn, self.fused_conv = fused_gn, fused_conv
+        self.norm1 = norm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
                               if temb_channels is not None else None)
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.norm2 = norm(groups, out_channels, eps=eps)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
+        self._packed = {}  # conv name -> (weight identity, repacked weight)
+
+    def _packed_weight(self, name: str, conv: nn.Conv2d
+                       ) -> Optional[torch.Tensor]:
+        """The conv's weight in the fused kernel's layout, repacked when the
+        weight was replaced or written since (not per call)."""
+        w = conv.weight
+        if w.device.type != "cuda":
+            return None
+        key = (w.data_ptr(), w._version, w.dtype)
+        cached = self._packed.get(name)
+        if cached is None or cached[0] != key:
+            cached = self._packed[name] = (key, pack_conv3x3_weight(w))
+        return cached[1]
+
+    def _half(self, name: str, norm: nn.GroupNorm, conv: nn.Conv2d,
+              x: torch.Tensor) -> torch.Tensor:
+        """One GroupNorm -> SiLU -> conv3x3 half of the block."""
+        if self.fused_conv:
+            return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
+                                   conv.bias, norm.num_groups, norm.eps,
+                                   packed=self._packed_weight(name, conv))
+        h = norm(x)  # GroupNormSiLU applies the SiLU itself
+        return conv(h if self.fused_gn else F.silu(h))
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self._half("conv1", self.norm1, self.conv1, x)
         if self.time_emb_proj is not None:
             if temb is None:
                 raise ValueError("this block takes a time embedding")
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._half("conv2", self.norm2, self.conv2, h)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

@@ -8,7 +8,12 @@ The forward is split like the JAX module's: :meth:`time_embed`,
 :meth:`decode`; ``forward`` composes them.  With ``config.remat`` every
 resnet and transformer block is recomputed in the backward
 (``torch.utils.checkpoint``), as the JAX module wraps them in ``nn.remat``;
-the forward's values do not change.
+the forward's values do not change.  Three opt-in kernels sit behind
+``config``: ``use_fused_conv`` (every resnet half is one GN+SiLU+conv3x3
+kernel), ``use_fused_groupnorm`` (``conv_norm_out`` and, without the fused
+conv, the resnets' norms are one GN+SiLU kernel) and ``use_int8_weights``
+(the transformers' linear layers read int8 weights); the time-embedding
+layers and the convolutions stay float.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from diffute_tpu_torch.models.attention import Transformer2D
 from diffute_tpu_torch.models.layers import (
     Block,
     Downsample2D,
+    GroupNormSiLU,
     ResnetBlock2D,
     TimestepEmbedding,
     Upsample2D,
@@ -42,7 +48,9 @@ class UNet2DCondition(nn.Module):
         groups = cfg.norm_num_groups
 
         def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, temb_ch, groups=groups, eps=1e-5)
+            return ResnetBlock2D(cin, cout, temb_ch, groups=groups, eps=1e-5,
+                                 fused_gn=cfg.use_fused_groupnorm,
+                                 fused_conv=cfg.use_fused_conv)
 
         def attn(i):
             heads = cfg.num_attention_heads[i]
@@ -50,7 +58,10 @@ class UNet2DCondition(nn.Module):
             return Transformer2D(heads, ch // heads, cfg.cross_attention_dim,
                                  groups=groups,
                                  use_linear_projection=cfg.use_linear_projection,
-                                 use_flash=cfg.use_flash_attention)
+                                 use_flash=cfg.use_flash_attention,
+                                 use_int8=cfg.use_int8_weights,
+                                 contiguous_out=(cfg.use_fused_groupnorm
+                                                 or cfg.use_fused_conv))
 
         self.time_embedding = TimestepEmbedding(ch0, temb_ch)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
@@ -89,7 +100,8 @@ class UNet2DCondition(nn.Module):
             up.append(Block(resnets, attns, "upsamplers", sampler))
         self.up_blocks = nn.ModuleList(up)
 
-        self.conv_norm_out = nn.GroupNorm(groups, ch0, eps=1e-5)
+        norm_out = GroupNormSiLU if cfg.use_fused_groupnorm else nn.GroupNorm
+        self.conv_norm_out = norm_out(groups, ch0, eps=1e-5)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     # ------------------------------------------------------------------
@@ -175,7 +187,10 @@ class UNet2DCondition(nn.Module):
                     ai += 1
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_norm_out(x)  # GroupNormSiLU applies the SiLU itself
+        if not self.config.use_fused_groupnorm:
+            x = F.silu(x)
+        return self.conv_out(x)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,

@@ -1,8 +1,8 @@
 """Build and load the port's native code at first use.
 
 ``load()`` compiles every CUDA source under ``diffute_tpu_torch/csrc/`` with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface and
-loads it with ``ctypes``.  :func:`build_shared_library` is the one place
+``nvcc`` for ``sm_90a`` (one compiler process per source, all at once) into
+shared libraries with a plain C interface and loads them with ``ctypes``.  :func:`build_shared_library` is the one place
 that compiles: into ``diffute_tpu_torch/_build/`` (listed in ``.gitignore``),
 under a name keyed by a hash of the sources and the command, so an edited
 source is rebuilt and an unchanged one reused.  Nothing happens at import
@@ -11,6 +11,7 @@ time: this module is imported on machines without ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -67,28 +68,60 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
-def load() -> ctypes.CDLL:
-    """Return the CUDA kernel library, building it first if needed."""
+def _signatures() -> dict:
+    """Exported function name -> ctypes argument types (all return int, the
+    launch's cudaGetLastError())."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {
+        "flash_fwd_bf16": [p, p, p, p, p, i, i, i, f, p],
+        # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
+        "flash_bwd_dq_bf16": [p] * 7 + [i, i, i, f, p],
+        "flash_bwd_dkv_bf16": [p] * 8 + [i, i, i, f, p],
+        # (x, mean, rstd, partial, tickets, groups, n_elem, splits, eps, stream)
+        "gn_stats_bf16": [p] * 5 + [i, i, i, f, p],
+        # (x, gamma, beta, affine_bf16, mean, rstd, y, B, C, HW, groups, stream)
+        "gn_silu_apply_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
+        # (x, mean, rstd, gamma, beta, gn_bf16, wp, bias, bias_bf16, out,
+        #  partial, B, Cin, Cout, H, W, groups, splits, stream)
+        "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 7 + [p],
+        # (x, q, scale, scale_bf16, y, workspace, tickets, M, N, K, splits,
+        #  stream)
+        "w8_matmul_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
+    }
+
+
+class _Kernels:
+    """The exported kernel launchers, gathered from the per-source
+    libraries."""
+
+
+def load() -> _Kernels:
+    """Return the CUDA kernel launchers, building their libraries first if
+    needed: one ``nvcc`` per source under ``csrc/``, all started together,
+    each into its own shared library."""
     global _lib
     with _lock:
         if _lib is None:
             srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
             if not srcs:
                 raise RuntimeError(f"no CUDA sources under {CSRC}")
-            so = build_shared_library(
-                "diffute_kernels", [_nvcc(), *NVCC_FLAGS], srcs,
-                hashed=sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
-            lib = ctypes.CDLL(so)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i,
-                                           ctypes.c_float, p]
-            lib.flash_fwd_bf16.restype = i
-            # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
-            lib.flash_bwd_dq_bf16.argtypes = [p] * 7 + [i, i, i,
-                                                        ctypes.c_float, p]
-            lib.flash_bwd_dq_bf16.restype = i
-            lib.flash_bwd_dkv_bf16.argtypes = [p] * 8 + [i, i, i,
-                                                         ctypes.c_float, p]
-            lib.flash_bwd_dkv_bf16.restype = i
-            _lib = lib
+            command = [_nvcc(), *NVCC_FLAGS]
+            headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+            def build(src):
+                stem = os.path.splitext(os.path.basename(src))[0]
+                return build_shared_library(f"diffute_{stem}", command, [src],
+                                            hashed=headers)
+
+            with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+                libs = [ctypes.CDLL(so) for so in pool.map(build, srcs)]
+            kernels = _Kernels()
+            for name, argtypes in _signatures().items():
+                fn = next((getattr(lib, name) for lib in libs
+                           if hasattr(lib, name)), None)
+                if fn is None:
+                    raise RuntimeError(f"no built library exports {name}")
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                setattr(kernels, name, fn)
+            _lib = kernels
         return _lib

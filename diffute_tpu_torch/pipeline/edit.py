@@ -6,15 +6,20 @@ Counterpart of ``diffute_tpu/pipeline/edit.py`` with the same public API
 host:    box validation, mask raster, crop window, glyph raster, 512^2 and
          384^2 resizes, paste-back (numpy / PIL / native hostops);
 device:  ``_device_prep``   TrOCR encode, mask downsample, VAE encode + sample
-         ``_device_loop``   the DDIM steps over the 9-channel UNet, a Python
-                            loop, with the cross-attention K/V projected once
+         ``_device_loop``   the sampler steps over the 9-channel UNet, a
+                            Python loop, with the cross-attention K/V
+                            projected once
          ``_device_decode`` VAE decode -> uint8.
 
-Only the default ``EditConfig`` path is ported: DDIM, no classifier-free
-guidance, no masked-latent blend, ``encoder_reuse_interval=1``; the others
-raise.  Noise is drawn from ``torch.Generator(device).manual_seed(seed)``;
-``_device_prep`` takes the two noise tensors as arguments so tests can feed
-the JAX package's draws.
+Every ``EditConfig`` of the JAX ``edit()`` runs: the DDIM, DDPM and
+DPM-Solver++(2M) samplers, classifier-free guidance (``guidance_scale > 1``:
+the [cond; uncond] pair as one batch-2B UNet pass, the null context being
+the TrOCR encoding of the empty glyph), the masked-latent blend, and encoder
+reuse (``encoder_reuse_interval = k``: one full UNet pass, then k - 1
+decoder-only passes over its encoder features; a remainder of full steps).
+All noise is drawn from ``torch.Generator(device).manual_seed(seed)`` in
+``_run_device`` and enters the stages as arguments, so tests can feed the JAX
+package's draws.
 """
 
 from __future__ import annotations
@@ -25,7 +30,15 @@ import numpy as np
 import torch
 
 from diffute_tpu_torch.config import DiffUTEConfig, EditConfig
-from diffute_tpu_torch.diffusion import ddim_step, ddim_timesteps, make_schedule
+from diffute_tpu_torch.diffusion import (
+    add_noise,
+    ddim_step,
+    ddim_timesteps,
+    ddpm_step,
+    ddpm_timesteps,
+    dpmpp_2m_step,
+    make_schedule,
+)
 from diffute_tpu_torch.io import hostops
 from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
 from diffute_tpu_torch.models.vae import sample_latent
@@ -67,17 +80,6 @@ def _validate_box(box, image_hw) -> Tuple[int, int, int, int]:
     return x1, y1, x2, y2
 
 
-def _check_ported(ec: EditConfig) -> None:
-    for bad, what in ((ec.sampler != "ddim", f"sampler {ec.sampler!r}"),
-                      (ec.guidance_scale > 1.0, "classifier-free guidance"),
-                      (ec.masked_latent_blend, "masked-latent blend"),
-                      (ec.encoder_reuse_interval != 1, "encoder reuse")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not yet ported to the PyTorch pipeline "
-                "(ROADMAP.md queue 1)")
-
-
 class DiffUTEPipeline:
     """Holds the three frozen models on ``device``: the card by default
     (raises without one), the CPU only when asked (``device="cpu"``).
@@ -107,42 +109,122 @@ class DiffUTEPipeline:
 
     def _device_prep(self, mask_u8: torch.Tensor, masked_u8: torch.Tensor,
                      glyph_u8: torch.Tensor, init_noise: torch.Tensor,
-                     latent_noise: torch.Tensor):
+                     latent_noise: torch.Tensor,
+                     null_glyph_u8: Optional[torch.Tensor] = None,
+                     crop_u8: Optional[torch.Tensor] = None,
+                     crop_noise: Optional[torch.Tensor] = None):
         """mask (B,R,R) u8, masked (B,R,R,3) u8, glyph (B,384,384,3) u8,
-        init_noise / latent_noise (B,4,R/8,R/8) fp32 ->
-        (ctx, mask_lat, masked_latents, latents)."""
+        init_noise / latent_noise (B,4,R/8,R/8) fp32; for guidance the empty
+        glyph (1,384,384,3) u8; for the blend the crop (B,R,R,3) u8 and its
+        latent noise ->
+        (ctx, mask_lat, masked_latents, latents, null_ctx, crop_latents),
+        the last two ``None`` without their inputs."""
         cfg = self.config
+        sf = cfg.vae.scaling_factor
         r = mask_u8.shape[1] // cfg.vae.scale_factor
-        glyph = trocr_normalize(glyph_u8).permute(0, 3, 1, 2)
-        ctx = self.trocr(glyph.to(cfg.trocr.dtype))
+
+        def encode_glyph(g):
+            g = trocr_normalize(g).permute(0, 3, 1, 2)
+            return self.trocr(g.to(cfg.trocr.dtype))
+
+        def encode_image(img_u8, noise):
+            img = normalize_image(img_u8).permute(0, 3, 1, 2)
+            mean, logvar = self.vae.encode(img.to(cfg.vae.dtype))
+            return sample_latent(mean.float(), logvar.float(), noise) * sf
+
+        ctx = encode_glyph(glyph_u8)
+        null_ctx = None
+        if null_glyph_u8 is not None:
+            null_ctx = encode_glyph(null_glyph_u8).expand_as(ctx)
         # torch F.interpolate 'nearest' index rule (ops/interpolate.py)
         mask_lat = nearest_resize_2d(mask_u8.float(), r, r)[:, None]
-        masked = normalize_image(masked_u8).permute(0, 3, 1, 2)
-        mean, logvar = self.vae.encode(masked.to(cfg.vae.dtype))
-        masked_latents = sample_latent(mean.float(), logvar.float(),
-                                       latent_noise) * cfg.vae.scaling_factor
-        return ctx, mask_lat, masked_latents, init_noise.float()
+        masked_latents = encode_image(masked_u8, latent_noise)
+        crop_latents = (encode_image(crop_u8, crop_noise)
+                        if crop_u8 is not None else None)
+        return (ctx, mask_lat, masked_latents, init_noise.float(), null_ctx,
+                crop_latents)
 
     def _device_loop(self, num_steps: int, ctx, mask_lat, masked_latents,
-                     latents, return_trajectory: bool = False):
-        """The DDIM loop.  Returns the final fp32 latents (B,4,r,r), and with
-        ``return_trajectory`` also the latents after every step
-        (num_steps, B, 4, r, r)."""
+                     latents, null_ctx=None, crop_latents=None, *,
+                     sampler: str = "ddim", guidance_scale: float = 1.0,
+                     blend: bool = False, reuse_interval: int = 1,
+                     step_noise: Optional[torch.Tensor] = None,
+                     blend_noise: Optional[torch.Tensor] = None,
+                     return_trajectory: bool = False):
+        """The denoising loop.  ``step_noise`` (num_steps, B, 4, r, r) feeds
+        DDPM's ancestral steps, ``blend_noise`` (B, 4, r, r) re-noises the
+        crop latents for the blend.  Returns the final fp32 latents
+        (B,4,r,r), and with ``return_trajectory`` also the latents after
+        every step (num_steps, B, 4, r, r)."""
+        if sampler not in ("ddim", "ddpm", "dpmpp"):
+            raise ValueError(f"unknown sampler {sampler!r}")
         dtype = self.config.unet.dtype
-        ts = ddim_timesteps(self.schedule, num_steps)
-        prevs = [int(t) for t in ts[1:]] + [-1]
+        use_cfg = guidance_scale > 1.0
+        if use_cfg and null_ctx is None:
+            raise ValueError("guidance needs the null context")
+        if blend and (crop_latents is None or blend_noise is None):
+            raise ValueError("the blend needs crop latents and blend noise")
+        if sampler == "ddpm" and step_noise is None:
+            raise ValueError("the DDPM sampler needs per-step noise")
+        ts = (ddpm_timesteps if sampler == "ddpm" else ddim_timesteps)(
+            self.schedule, num_steps)
+        ts = [int(t) for t in ts]
+        prevs = ts[1:] + [-1]
         ts_dev = torch.as_tensor(ts, device=latents.device)
+
+        # loop-invariant: project the cross-attention K/V once per edit; with
+        # guidance the [cond; uncond] pair runs as one batch-2B pass
         ctx = ctx.to(dtype)
-        # loop-invariant: project the cross-attention K/V once per edit
-        ctx_kv = self.unet.cross_attention_kv(ctx)
+        kv = self.unet.cross_attention_kv(ctx)
         cond = torch.cat([mask_lat, masked_latents], dim=1)
+        if use_cfg:
+            null_ctx = null_ctx.to(dtype)
+            null_kv = self.unet.cross_attention_kv(null_ctx)
+            ctx = torch.cat([ctx, null_ctx], dim=0)
+            kv = tuple(tuple(tuple(torch.cat([a, b], dim=0)
+                                   for a, b in zip(blk, null_blk))
+                             for blk, null_blk in zip(layer, null_layer))
+                       for layer, null_layer in zip(kv, null_kv))
+            cond = torch.cat([cond, cond], dim=0)
+
+        def predict(latents, j, cache):
+            """-> (eps, encoder features); ``cache=None`` forces a full
+            forward, otherwise only the decoder runs over the cached
+            features."""
+            n = latents.shape[0] * (2 if use_cfg else 1)
+            temb = self.unet.time_embed(ts_dev[j], n)
+            if cache is None:
+                x = torch.cat([latents, latents], 0) if use_cfg else latents
+                x_in = torch.cat([x, cond], dim=1).to(dtype)
+                cache = self.unet.encode(x_in, temb, ctx, kv)
+            eps = self.unet.decode(*cache, temb, ctx, kv).float()
+            if use_cfg:
+                eps_c, eps_u = eps.chunk(2, dim=0)
+                eps = eps_u + guidance_scale * (eps_c - eps_u)
+            return eps, cache
+
+        k = max(1, reuse_interval)
+        n_grouped = num_steps - num_steps % k  # the remainder: full steps
+        prev_x0, t_last = torch.zeros_like(latents), -1  # DPM-Solver++ carry
+        cache = None
         traj: List[torch.Tensor] = []
         for j, (t, prev_t) in enumerate(zip(ts, prevs)):
-            temb = self.unet.time_embed(ts_dev[j], latents.shape[0])
-            x_in = torch.cat([latents, cond], dim=1).to(dtype)
-            bottom, skips = self.unet.encode(x_in, temb, ctx, ctx_kv)
-            eps = self.unet.decode(bottom, skips, temb, ctx, ctx_kv).float()
-            latents = ddim_step(self.schedule, eps, int(t), prev_t, latents)
+            reuse = j < n_grouped and j % k > 0
+            eps, cache = predict(latents, j, cache if reuse else None)
+            if sampler == "ddpm":
+                latents = ddpm_step(self.schedule, eps, t, latents,
+                                    step_noise[j], num_steps)
+            elif sampler == "dpmpp":
+                latents, prev_x0 = dpmpp_2m_step(
+                    self.schedule, eps, t, prev_t, t_last, latents, prev_x0)
+                t_last = t
+            else:
+                latents = ddim_step(self.schedule, eps, t, prev_t, latents)
+            if blend:
+                noised = (add_noise(self.schedule, crop_latents, blend_noise,
+                                    ts_dev[j + 1])
+                          if prev_t >= 0 else crop_latents)
+                latents = mask_lat * latents + (1.0 - mask_lat) * noised
             if return_trajectory:
                 traj.append(latents)
         if return_trajectory:
@@ -170,14 +252,13 @@ class DiffUTEPipeline:
         """Edit one text region.  Returns (edited uint8 image, mask*255), and
         with ``return_crop`` the pre-paste crop artifacts as a third item."""
         ec = edit_config or self.config.edit
-        _check_ported(ec)
         steps = num_inference_steps or ec.num_inference_steps
         seed = ec.seed if seed is None else seed
 
         image = np.asarray(image, dtype=np.uint8)
         box = _validate_box(box, image.shape[:2])
         region, mask = self._prepare_region(image, box, text, ec.resolution, rng)
-        edited = self._run_device([region], steps, seed)[0]
+        edited = self._run_device([region], steps, ec, seed)[0]
         result = paste_back(image, edited, region["x_s"], region["y_s"],
                             region["crop_scale"], region["location"])
         if return_crop:
@@ -208,22 +289,45 @@ class DiffUTEPipeline:
         }
         return region, mask
 
-    def _run_device(self, regions, steps: int, seed: int) -> np.ndarray:
-        glyph384 = trocr_preprocess_host([r["glyph"] for r in regions],
-                                         self.config.trocr)
-        dev = self.device
-        mask = torch.from_numpy(np.stack([r["mask512"] for r in regions])).to(dev)
-        masked = torch.from_numpy(np.stack([r["masked512"] for r in regions])).to(dev)
-        glyph = torch.from_numpy(glyph384).to(dev)
-        r = mask.shape[1] // self.config.vae.scale_factor
-        shape = (len(regions), self.config.vae.latent_channels, r, r)
+    def _run_device(self, regions, steps: int, ec: EditConfig,
+                    seed: int) -> np.ndarray:
+        cfg, dev = self.config, self.device
+        use_cfg, blend = ec.guidance_scale > 1.0, ec.masked_latent_blend
+
+        def on_device(key):
+            return torch.from_numpy(np.stack([r[key] for r in regions])).to(dev)
+
+        def glyphs(images):
+            return torch.from_numpy(
+                trocr_preprocess_host(images, cfg.trocr)).to(dev)
+
+        mask = on_device("mask512")
+        r = mask.shape[1] // cfg.vae.scale_factor
+        shape = (len(regions), cfg.vae.latent_channels, r, r)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        init_noise = torch.randn(shape, generator=gen, device=dev)
-        latent_noise = torch.randn(shape, generator=gen, device=dev)
+
+        def noise(*lead):
+            return torch.randn((*lead, *shape), generator=gen, device=dev)
+
+        # the first two draws are the default path's; the others follow
+        init_noise, latent_noise = noise(), noise()
+        crop_noise = noise() if blend else None
+        blend_noise = noise() if blend else None
+        step_noise = noise(steps) if ec.sampler == "ddpm" else None
         with torch.inference_mode():
-            prepped = self._device_prep(mask, masked, glyph, init_noise,
-                                        latent_noise)
-            latents = self._device_loop(steps, *prepped)
+            prepped = self._device_prep(
+                mask, on_device("masked512"),
+                glyphs([r["glyph"] for r in regions]), init_noise,
+                latent_noise,
+                null_glyph_u8=(glyphs([render_glyph("", cfg.glyph)])
+                               if use_cfg else None),
+                crop_u8=on_device("crop512") if blend else None,
+                crop_noise=crop_noise)
+            latents = self._device_loop(
+                steps, *prepped, sampler=ec.sampler,
+                guidance_scale=ec.guidance_scale, blend=blend,
+                reuse_interval=ec.encoder_reuse_interval,
+                step_noise=step_noise, blend_noise=blend_noise)
             out = self._device_decode(latents)
         return out.cpu().numpy()
 

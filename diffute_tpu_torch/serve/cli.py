@@ -6,9 +6,14 @@ Example:
 
 The flags are ``diffute_tpu.serve.cli``'s, plus ``--device`` (default
 ``cuda``: without a card the command exits non-zero unless ``--device cpu``
-is given).  On the card the models run in bf16 with the flash kernel, on the
-CPU in fp32.  The models are random-init from ``--seed``; ``--checkpoint``, a ``--sampler`` other than ``ddim``,
-``--guidance_scale > 1`` and ``--blend`` are not yet ported and raise.
+is given) and the UNet's opt-in kernels: ``--fused-gn``, ``--fused-conv``,
+``--int8`` and ``--reuse K`` (``bench.py``'s serving flags).  On the card the
+models run in bf16 with the flash kernel, on the CPU in fp32.  The models are
+random-init from ``--seed``; ``--checkpoint`` is not yet ported and raises.
+
+  python -m diffute_tpu_torch.serve.cli --image in.png --box 40,50,200,90 \\
+      --text "NEW TEXT" --sampler dpmpp --steps 20 --guidance_scale 3 \\
+      --blend --reuse 2 --fused-conv --fused-gn --int8
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ def main(argv=None) -> None:
     p.add_argument("--sampler", default="ddim", choices=["ddim", "ddpm", "dpmpp"])
     p.add_argument("--guidance_scale", type=float, default=1.0)
     p.add_argument("--blend", action="store_true")
+    p.add_argument("--reuse", type=int, default=1, metavar="K",
+                   help="run the UNet's encoder every K-th step")
+    p.add_argument("--fused-gn", action="store_true",
+                   help="GroupNorm+SiLU as one kernel")
+    p.add_argument("--fused-conv", action="store_true",
+                   help="GroupNorm+SiLU+conv3x3 as one kernel")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the UNet's transformer weights int8")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="edited.png")
     p.add_argument("--mask-out", default=None)
@@ -38,19 +51,15 @@ def main(argv=None) -> None:
                    help="cuda (default; fails without a card) or cpu")
     args = p.parse_args(argv)
 
-    for bad, what in ((args.sampler != "ddim", f"--sampler {args.sampler}"),
-                      (args.guidance_scale > 1.0, "--guidance_scale > 1"),
-                      (args.blend, "--blend"),
-                      (args.checkpoint is not None, "--checkpoint")):
-        if bad:
-            raise SystemExit(f"{what} is not yet ported to the PyTorch port "
-                             "(ROADMAP.md queue 1)")
+    if args.checkpoint is not None:
+        raise SystemExit("--checkpoint is not yet ported to the PyTorch port "
+                         "(ROADMAP.md queue 1)")
 
     import torch
     from PIL import Image
 
-    from diffute_tpu_torch.config import (DiffUTEConfig, UNetConfig,
-                                          small_config, tiny_test_config)
+    from diffute_tpu_torch.config import (DiffUTEConfig, small_config,
+                                          tiny_test_config)
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
     from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
@@ -61,6 +70,16 @@ def main(argv=None) -> None:
     scale = args.scale or ("tiny" if args.tiny else "full")
     config = {"full": DiffUTEConfig, "small": small_config,
               "tiny": tiny_test_config}[scale]()
+    config = dataclasses.replace(
+        config,
+        unet=dataclasses.replace(config.unet,
+                                 use_fused_groupnorm=args.fused_gn,
+                                 use_fused_conv=args.fused_conv,
+                                 use_int8_weights=args.int8),
+        edit=dataclasses.replace(config.edit, sampler=args.sampler,
+                                 guidance_scale=args.guidance_scale,
+                                 masked_latent_blend=args.blend,
+                                 encoder_reuse_interval=args.reuse))
     if device.type == "cuda":
         # the card's main path: bf16 with the flash kernel
         bf16 = torch.bfloat16

@@ -27,6 +27,10 @@ GROUPS = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("gn_stats", ("gn_stats_kernel",)),
+    ("gn_silu_apply", ("gn_silu_apply_kernel",)),
+    ("gn_silu_conv3x3", ("gn_silu_conv3x3_kernel", "splitk_reduce_kernel")),
+    ("w8_matmul", ("w8_matmul_kernel",)),
     ("conv_layout_transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("optimizer_foreach", ("multi_tensor_apply",)),
     ("convolutions", ("cudnn", "conv", "wgrad", "dgrad", "fprop", "xmma")),

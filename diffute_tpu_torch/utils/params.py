@@ -11,6 +11,7 @@ diffusers / transformers keys, loadable with ``load_state_dict``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict
 
@@ -19,6 +20,8 @@ from torch import nn
 
 from diffute_tpu_torch.config import DiffUTEConfig
 from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
+from diffute_tpu_torch.models.layers import QuantLinear
+from diffute_tpu_torch.ops.quant import convert_linear_weights_to_int8
 from diffute_tpu_torch.utils.device import resolve_device
 
 
@@ -50,8 +53,17 @@ def build_meta(cls, config) -> nn.Module:
 def load_module(cls, config, state_dict: Dict[str, torch.Tensor], device,
                 dtype: torch.dtype) -> nn.Module:
     """``cls(config)`` holding ``state_dict`` (strict) on ``device`` in
-    ``dtype``, frozen and in eval mode."""
+    ``dtype``, frozen and in eval mode.
+
+    A model with int8 layers (``use_int8_weights``) takes a float state_dict
+    too: the layers' weights are quantised here, once, unless the dict
+    already holds quantised entries.  Floating tensors, the int8 layers'
+    scales among them, are then cast to ``dtype``."""
     module = build_meta(cls, config)
+    quant = [name for name, m in module.named_modules()
+             if isinstance(m, QuantLinear)]
+    if quant and not any(k.endswith(".weight_q") for k in state_dict):
+        state_dict = convert_linear_weights_to_int8(state_dict, quant)
     module.load_state_dict(state_dict, strict=True, assign=True)
     module = module.to(device=device, dtype=dtype).eval()
     module.requires_grad_(False)
@@ -61,9 +73,12 @@ def load_module(cls, config, state_dict: Dict[str, torch.Tensor], device,
 def init_pipeline_params(config: DiffUTEConfig, seed: int = 0,
                          device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """Random-init fp32 state_dicts for the three models on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).  The UNet's dict is float
+    whatever ``use_int8_weights`` says: the pipeline quantises at load."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    config = dataclasses.replace(config, unet=dataclasses.replace(
+        config.unet, use_int8_weights=False))
     return {
         "vae": _init_state_dict(build_meta(AutoencoderKL, config.vae), gen, device),
         "unet": _init_state_dict(build_meta(UNet2DCondition, config.unet), gen,

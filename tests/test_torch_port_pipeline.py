@@ -133,12 +133,24 @@ def test_edit_changes_only_the_box(pipes):
                                          ("guidance_scale", 3.0),
                                          ("masked_latent_blend", True),
                                          ("encoder_reuse_interval", 2)])
-def test_unported_edit_options_raise(pipes, field, value):
+def test_edit_options_run(pipes, field, value):
+    # every EditConfig the JAX edit() takes runs through edit(): only the
+    # box changes, the seed decides the result, and the option is not ignored
     _, tpipe = pipes
     ec = dataclasses.replace(tpipe.config.edit, **{field: value})
-    image = np.zeros((64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpipe.edit(image, (10, 10, 30, 20), "x", edit_config=ec)
+    image = np.random.RandomState(6).randint(0, 256, (64, 64, 3), np.uint8)
+    box = (10, 10, 30, 20)
+    out, _ = tpipe.edit(image, box, "x", num_inference_steps=4, seed=2,
+                        edit_config=ec)
+    inside = np.zeros(image.shape[:2], bool)
+    inside[box[1]:box[3], box[0]:box[2]] = True
+    np.testing.assert_array_equal(out[~inside], image[~inside])
+    assert (out[inside] != image[inside]).any()
+    again, _ = tpipe.edit(image, box, "x", num_inference_steps=4, seed=2,
+                          edit_config=ec)
+    np.testing.assert_array_equal(again, out)
+    default, _ = tpipe.edit(image, box, "x", num_inference_steps=4, seed=2)
+    assert (out != default).any()
 
 
 def test_port_imports_no_jax():
@@ -170,6 +182,16 @@ def test_cli_edits_a_png(tmp_path):
     out = np.asarray(Image.open(tmp_path / "out.png"))
     assert out.shape == src.shape
     np.testing.assert_array_equal(out[:30], src[:30])  # above the box
+    # the serving flags run too: sampler, guidance, blend, reuse and the
+    # UNet's three opt-in kernels (their plain versions on the CPU)
+    cli.main(["--image", str(tmp_path / "in.png"), "--box", "40,30,90,44",
+              "--text", "Hey", "--steps", "3", "--tiny", "--device", "cpu",
+              "--sampler", "dpmpp", "--guidance_scale", "2.5", "--blend",
+              "--reuse", "2", "--fused-gn", "--fused-conv", "--int8",
+              "--out", str(tmp_path / "out2.png")])
+    out2 = np.asarray(Image.open(tmp_path / "out2.png"))
+    np.testing.assert_array_equal(out2[:30], src[:30])
+    assert (out2 != out).any()
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["--image", "x.png", "--box", "1,1,2,2", "--text", "x",
-                  "--blend"])
+                  "--checkpoint", "dir"])

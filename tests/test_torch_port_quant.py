@@ -1,0 +1,164 @@
+"""PyTorch port, int8 weight-only quantisation: the quantisers bit for bit
+against the JAX package's, and the plain matmul (what a CPU tensor gets)
+against JAX ``quant_matmul``.
+
+The port keeps a weight as ``nn.Linear`` does, (N, K); the JAX package keeps
+(K, N), so the comparison transposes.  The CUDA kernel is compared with the
+plain version on a card (``cuda`` marker; skipped here).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffute_tpu.ops import quant as jq
+
+from diffute_tpu_torch.models.layers import QuantLinear
+from diffute_tpu_torch.ops.quant import (
+    convert_linear_weights_to_int8,
+    dequantize,
+    dequantize_blockwise,
+    quant_matmul,
+    quant_matmul_reference,
+    quantize_blockwise,
+    quantize_per_channel,
+)
+
+
+def _weight(k, n, seed=0):
+    """A (K, N) float weight with a few exact .5 ties after scaling."""
+    rng = np.random.RandomState(seed)
+    w = (rng.standard_normal((k, n)) * rng.uniform(0.01, 3.0, n)).astype(
+        np.float32)
+    w[0, :] = 127.0 * 0.01        # the column's max: scale = 0.01
+    w[1, : n // 2] = 0.5 * 0.01   # ties: round half to even
+    w[2, : n // 2] = 1.5 * 0.01
+    return w
+
+
+@pytest.mark.parametrize("k,n", [(32, 16), (96, 40), (7, 3)])
+def test_quantize_per_channel_bit_for_bit(k, n):
+    w = _weight(k, n)
+    jq_q, jq_s = jq.quantize_per_channel(jnp.asarray(w))
+    q, s = quantize_per_channel(torch.tensor(w.T.copy()))  # (N, K)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy().T, np.asarray(jq_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jq_s))
+    np.testing.assert_array_equal(dequantize(q, s).numpy().T,
+                                  np.asarray(jq.dequantize(jq_q, jq_s)))
+
+
+def test_zero_column_gets_scale_one():
+    w = _weight(16, 8, seed=1)
+    w[:, 3] = 0.0
+    q, s = quantize_per_channel(torch.tensor(w.T.copy()))
+    jq_q, jq_s = jq.quantize_per_channel(jnp.asarray(w))
+    assert s[3].item() == 1.0 and not q[3].any()
+    np.testing.assert_array_equal(q.numpy().T, np.asarray(jq_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jq_s))
+
+
+@pytest.mark.parametrize("shape,block", [((5, 7, 3), 16), ((256,), 256),
+                                         ((33, 9), 64)])
+def test_quantize_blockwise_bit_for_bit(shape, block):
+    x = np.random.RandomState(2).standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[:3] = 0.0
+    jq_q, jq_s = jq.quantize_blockwise(jnp.asarray(x), block)
+    q, s = quantize_blockwise(torch.tensor(x), block)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(jq_s))
+    back = dequantize_blockwise(q, s, shape)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jq.dequantize_blockwise(jq_q, jq_s, shape)))
+    assert back.shape == shape
+
+
+@pytest.mark.parametrize("lead,k,n", [((4,), 32, 16), ((2, 5), 64, 24),
+                                      ((3,), 20, 6)])
+def test_quant_matmul_matches_jax(lead, k, n):
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal(lead + (k,)).astype(np.float32)
+    jq_q, jq_s = jq.quantize_per_channel(jnp.asarray(_weight(k, n, seed=4)))
+    ref = np.asarray(jq.quant_matmul(jnp.asarray(x), jq_q, jq_s))
+    q = torch.tensor(np.asarray(jq_q).T.copy())
+    s = torch.tensor(np.asarray(jq_s))
+    launches = quant_matmul.launches
+    out = quant_matmul(torch.tensor(x), q, s)
+    assert out.shape == lead + (n,) and out.dtype == torch.float32
+    # fp32 on both sides, exact int8 values: only the summation order differs
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+    assert quant_matmul.launches == launches  # CPU: no kernel launch
+    # y = (x @ q) * s is the dequantised product
+    np.testing.assert_allclose(out.numpy(), x @ dequantize(q, s).numpy().T,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_rounds_the_product_before_the_bias():
+    # QuantDense: (x @ q) * s rounded to bf16, THEN the bias added in bf16
+    rng = np.random.RandomState(5)
+    layer = QuantLinear(32, 8)
+    q, s = quantize_per_channel(torch.tensor(rng.standard_normal((8, 32)),
+                                             dtype=torch.float32))
+    layer.load_state_dict({"weight_q": q, "weight_scale": s,
+                           "bias": torch.tensor(rng.standard_normal(8),
+                                                dtype=torch.float32)})
+    layer = layer.to(torch.bfloat16)
+    assert layer.weight_q.dtype == torch.int8          # the cast leaves int8
+    assert layer.weight_scale.dtype == torch.bfloat16  # and rounds the scale
+    x = torch.tensor(rng.standard_normal((4, 32)), dtype=torch.bfloat16)
+    y = layer(x)
+    prod = ((x.float() @ q.float().t()) * s.bfloat16().float()).bfloat16()
+    assert torch.equal(y, prod + layer.bias)
+    assert torch.equal(quant_matmul_reference(x, q, s.bfloat16()), prod)
+
+
+def test_convert_state_dict_rewrites_only_the_named_layers():
+    rng = np.random.RandomState(6)
+    sd = {"a.weight": torch.tensor(rng.standard_normal((4, 6)), dtype=torch.float32),
+          "a.bias": torch.zeros(4),
+          "b.weight": torch.tensor(rng.standard_normal((3, 4)), dtype=torch.float32)}
+    out = convert_linear_weights_to_int8(sd, ["a"])
+    assert sorted(out) == ["a.bias", "a.weight_q", "a.weight_scale", "b.weight"]
+    q, s = quantize_per_channel(sd["a.weight"])
+    assert torch.equal(out["a.weight_q"], q)
+    assert torch.equal(out["a.weight_scale"], s)
+    assert out["b.weight"] is sd["b.weight"] and "a.weight" in sd  # no mutation
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros((8, 32), dtype=torch.int8)
+    with pytest.raises(ValueError):  # K mismatch
+        quant_matmul(torch.zeros(2, 16), q, torch.ones(8))
+    with pytest.raises(ValueError):  # q must be int8
+        quant_matmul(torch.zeros(2, 32), q.float(), torch.ones(8))
+    with pytest.raises(ValueError):  # neither cuda nor cpu: no fallback
+        quant_matmul(torch.zeros((2, 32), device="meta"), q.to("meta"),
+                     torch.ones(8, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 320, 2560), (4096, 1280, 320),
+                                   (64, 1280, 10240), (577, 1024, 640),
+                                   (3, 48, 10)])
+def test_cuda_kernel_matches_plain(m, k, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    q, s = quantize_per_channel(
+        torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
+    for scale in (s, s.bfloat16()):
+        before = quant_matmul.launches
+        y = quant_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == before + 1
+        ref = quant_matmul_reference(x, q, scale).float()
+        # one fp32 result rounded to bf16 on both sides: 3 half-ulps of
+        # max |ref| and a relative L2 error of 2e-3 (no scale gives O(1))
+        diff = y.float() - ref
+        assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
+        assert (diff.norm() / ref.norm()).item() <= 2e-3
+    with pytest.raises(ValueError):
+        quant_matmul(x.float(), q, s)  # no fallback
