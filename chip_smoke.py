@@ -12,6 +12,11 @@ Phases, one line each (any failure raises and exits non-zero):
      library call (scaled_dot_product_attention, a yardstick the port never
      calls) timed, beside the card's bound for the same work; and
      FlashAttentionFn's backward against the backward wrapper;
+  3a. the deferred-softmax forward against its plain (tile by tile, base 2)
+     version and against the standard forward on the same inputs, both
+     timed at the shapes of a 512^2, 768^2 and 1024^2 edit; mutants of the
+     plain version (LSE left in base 2, the last tile never consumed) must
+     FAIL; what ptxas says of the kernel (registers, spills);
   3b. the UNet's opt-in kernels the same way: GroupNorm statistics and
      GroupNorm+SiLU, GN+SiLU+conv3x3 and the int8-weight matmul, each against
      its plain version at the flagged UNet's shapes (library yardsticks:
@@ -22,12 +27,23 @@ Phases, one line each (any failure raises and exits non-zero):
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
   5. checks: finite latents and a flash-vs-dense UNet forward at full size;
+  5a. the other serving modes, flags off: a 768^2 edit with the
+     deferred-softmax switch off and on (same seed: at most 2 LSB apart in
+     the box; 500 flash launches, all pipelined with the switch on);
+     edit_multi over three disjoint boxes; edit_batch at batch 1, 2, 4, 8
+     (the batch-1 image equals edit()'s); edit_stream over 6 items at depth
+     2 and 1 (each output equal to the sequential edit()); the web server on
+     port 0 answering the index page, a click pair and one 20-step
+     /api/edit over HTTP; edit_profiled's stage times and FLOPs;
   5b. one full-width UNet forward with each opt-in kernel alone and all
      three against the unfused float UNet, same weights and inputs;
   5c. the flagged serving path: all four flags on, two 50-step DDIM edits
      (2,200 conv, 50 GN+SiLU, 8,032 int8-matmul and 500 flash launches each,
      asserted), one 20-step DPM-Solver++ edit with guidance 3, the blend and
      encoder reuse 2, and one 20-step DDPM edit;
+  5d. the flagged UNet forward on two CUDA streams at once, each result
+     bit-identical to the run alone; then a 1024^2 edit with the switch off
+     and on (750 flash launches) and one with the three flags on;
   6. training path: train.run_unet.main takes three optimizer steps at full
      width (batch 4, 512^2, bf16, flash, gradient checkpointing, AdamW,
      synthetic scenes), counting the launches of all three flash kernels;
@@ -39,8 +55,11 @@ Exits non-zero, with no result, when no CUDA device is available.
     python3 chip_smoke.py --edits-only 6 [--package-root DIR]
 
 times phase 4's edits alone (same pipeline, scene and box) and prints their
-seconds as one JSON line; with --package-root the port is imported from
-another checkout, so two commits can be timed in turns on one card.
+seconds and peak memory as one JSON line; with --package-root the port is
+imported from another checkout, so two commits can be timed in turns on one
+card.  --res 768|1024 edits at that resolution, --batch B times N calls of
+edit_batch over B images, --stream DEPTH one edit_stream over the N items
+(the seconds are then each image's arrival time).
 
     python3 chip_smoke.py --flag-timing 8
 
@@ -49,7 +68,7 @@ pipelines over one set of weights in one process, taking turns.
 
     python3 chip_smoke.py --kernels-only
 
-builds the kernels and runs phase 3b alone.
+builds the kernels and runs phases 3a and 3b alone.
 """
 
 from __future__ import annotations
@@ -201,6 +220,7 @@ def check_fused_kernels(dev) -> dict:
     # |mean| >> std, where E[x^2] - mean^2 cancels in fp32
     for shape, mean in [((1, 320, 64, 64), 0.0), ((1, 2560, 8, 8), 0.0),
                         ((2, 640, 32, 32), 0.0), ((1, 960, 64, 64), 0.0),
+                        ((1, 320, 96, 96), 0.0), ((1, 320, 128, 128), 0.0),
                         ((1, 320, 64, 64), 100.0)]:
         b, c, h, w = shape
         x = randn(*shape, mean=mean)
@@ -243,10 +263,13 @@ def check_fused_kernels(dev) -> dict:
     results["gn_silu"][-1]["mutant_rel_l2"] = must_fail(
         "GroupNorm+SiLU", mutant, ref)
 
-    # ---- GN+SiLU+conv3x3: (B, Cin, Cout, H)
+    # ---- GN+SiLU+conv3x3: (B, Cin, Cout, H); the last three are the 768^2
+    # and 1024^2 edits' top levels (96^2 and 128^2 latents)
     for b, cin, cout, hw in [(1, 320, 320, 64), (1, 960, 320, 64),
                              (1, 2560, 1280, 16), (1, 1280, 1280, 8),
-                             (2, 640, 640, 32), (1, 2560, 1280, 8)]:
+                             (2, 640, 640, 32), (1, 2560, 1280, 8),
+                             (1, 320, 320, 96), (1, 320, 320, 128),
+                             (1, 960, 320, 128)]:
         x = randn(b, cin, hw, hw)
         gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
         w = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
@@ -293,9 +316,10 @@ def check_fused_kernels(dev) -> dict:
                 "pad_before_affine": must_fail("conv (padding before the "
                                                "affine)", padded, ref)}
 
-    # ---- int8-weight matmul: (M, K, N)
+    # ---- int8-weight matmul: (M, K, N); 16384 rows are a 1024^2 edit's
     for m, k, n in [(4096, 320, 2560), (4096, 1280, 320), (64, 1280, 10240),
-                    (577, 1024, 640), (1024, 640, 640), (256, 5120, 1280)]:
+                    (577, 1024, 640), (1024, 640, 640), (16384, 320, 2560),
+                    (256, 5120, 1280)]:
         x = randn(m, k)
         q, scale = quantize_per_channel(randn(n, k, dtype=torch.float32,
                                               std=k ** -0.5))
@@ -316,6 +340,86 @@ def check_fused_kernels(dev) -> dict:
     unscaled = (x.float() @ q.float().t()).to(bf16)
     results["w8"][-1]["mutant_rel_l2"] = must_fail(
         "int8 matmul (scale left out)", unscaled, ref)
+    return results
+
+
+# the deferred-softmax forward against its plain version and against the
+# standard forward, bf16 inputs from a unit normal: o is an fp32 result
+# rounded once to bf16 and p is rounded to bf16 before p v on every side, so
+# max abs error within FUSED_HALF_ULPS half-ulps of max |ref| and relative L2
+# within TOL_FUSED_REL_L2 (the standard forward reads 2.0e-3 abs against its
+# one-pass fp32 version); the LSE stays fp32 (1.9e-6 read): a base-2 LSE is
+# off by ln(T) * 0.44 (over 3 at 4096 keys), a skipped tile by about 1/n_tiles
+TOL_PIPELINED_LSE = 1e-4
+# (BH, S, T): the top self-attentions of a 512^2, 768^2 and 1024^2 edit
+PIPELINED_SHAPES = [(5, 4096, 4096), (10, 2304, 2304), (5, 9216, 9216),
+                    (5, 16384, 16384), (20, 1024, 1024)]
+
+
+def sdpa(q, k, v):
+    """The library's call for the flash forward's function (a yardstick)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                          scale=0.125)[0]
+
+
+def check_pipelined_forward(dev) -> list:
+    """Phase kernel_fwd_pipelined: the deferred-softmax forward against its
+    plain (tile by tile, base 2) version and against the standard forward on
+    the same inputs; both kernels timed at the same shapes, beside the plain
+    version, SDPA and the bound.  Mutants of the plain version (LSE left in
+    base 2; the last tile never consumed) must fail the criterion."""
+    from diffute_tpu_torch.ops import _build
+    from diffute_tpu_torch.ops.flash_attention import (
+        PIPELINED_BLOCK_KV, flash_fwd_3d, flash_fwd_3d_pipelined,
+        flash_fwd_pipelined_reference)
+
+    phase("ptxas", source="flash_fwd_pipelined.cu",
+          info=_build.ptxas_info("flash_fwd_pipelined.cu"))
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def ok(err, lse_err):
+        return fused_ok(err) and lse_err <= TOL_PIPELINED_LSE
+
+    results = []
+    for bh, s, t in PIPELINED_SHAPES:
+        q, k, v = (torch.randn((bh, n, 64), generator=g, device=dev,
+                               dtype=torch.bfloat16) for n in (s, t, t))
+        o, lse = flash_fwd_3d_pipelined(q, k, v, 0.125)
+        so, slse = flash_fwd_3d(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        ro, rlse = flash_fwd_pipelined_reference(q, k, v, 0.125)
+        err = bwd_errors(o, ro, FUSED_HALF_ULPS)
+        lse_err = (lse - rlse).abs().max().item()
+        vs_std = bwd_errors(o, so, FUSED_HALF_ULPS)
+        vs_std_lse = (lse - slse).abs().max().item()
+        res = dict(shape=[bh, s, t, 64], **err, max_abs_err_lse=lse_err,
+                   vs_standard=dict(vs_std, max_abs_err_lse=vs_std_lse),
+                   ms=time_ms(lambda: flash_fwd_3d_pipelined(q, k, v, 0.125)),
+                   standard_ms=time_ms(lambda: flash_fwd_3d(q, k, v, 0.125)),
+                   plain_ms=time_ms(lambda: flash_fwd_pipelined_reference(
+                       q, k, v, 0.125), iters=5),
+                   library_ms=time_ms(lambda: sdpa(q, k, v)),
+                   **bound(4 * s * t * 64 * bh,
+                           2 * 64 * bh * (2 * s + 2 * t) + 4 * bh * s))
+        if not results:
+            base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
+            cut = PIPELINED_BLOCK_KV
+            mo, mlse = flash_fwd_pipelined_reference(q, k[:, :-cut],
+                                                     v[:, :-cut], 0.125)
+            m_err = bwd_errors(mo, ro, FUSED_HALF_ULPS)
+            m_lse = (mlse - rlse).abs().max().item()
+            if base2 <= TOL_PIPELINED_LSE or ok(m_err, m_lse):
+                raise RuntimeError(f"the criterion passes a mutant: base-2 "
+                                   f"LSE {base2}, dropped tile {m_err}")
+            res["mutants"] = {"lse_base2_abs": base2,
+                              "last_tile_dropped_rel_l2": m_err["rel_l2_err"],
+                              "last_tile_dropped_lse_abs": m_lse}
+        phase("kernel_fwd_pipelined", **res)
+        if not (ok(err, lse_err) and ok(vs_std, vs_std_lse)):
+            raise RuntimeError(f"the pipelined forward disagrees at {res}")
+        results.append(res)
     return results
 
 
@@ -352,6 +456,7 @@ def counters() -> dict:
     from diffute_tpu_torch.ops.quant import quant_matmul
 
     return {"flash_fwd": flash_attention.launches,
+            "flash_fwd_pipelined": flash_attention.pipelined_launches,
             "flash_bwd_dq": flash_attention.bwd_dq_launches,
             "flash_bwd_dkv": flash_attention.bwd_dkv_launches,
             "gn_stats": group_norm_stats.launches,
@@ -367,7 +472,7 @@ def reset_counters() -> None:
                                                  group_norm_stats)
     from diffute_tpu_torch.ops.quant import quant_matmul
 
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.pipelined_launches = 0
     flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
@@ -375,29 +480,15 @@ def reset_counters() -> None:
 
 
 def timed_edit(pipe, image, box, text, seed, edit_config=None, steps=None):
-    """One edit with every counter set to 0 before it: its output, seconds,
-    peak memory and launches; fails unless only the box's pixels changed."""
-    dev = pipe.device
-    reset_counters()
-    torch.cuda.reset_peak_memory_stats(dev)
-    resident = torch.cuda.memory_allocated(dev)
-    t0 = time.perf_counter()
-    out, _ = pipe.edit(image, box, text, seed=seed, edit_config=edit_config,
-                       num_inference_steps=steps)
-    seconds = time.perf_counter() - t0
-    rec = dict(text=text, seconds=seconds, launches=counters(),
-               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-               memory_allocated_before=resident,
-               changed_pixels=int((out != image).any(-1).sum()))
-    outside = np.ones(image.shape[:2], bool)
-    outside[box[1]:box[3], box[0]:box[2]] = False
-    if out.dtype != np.uint8 or out.shape != image.shape:
-        raise RuntimeError(f"edit output {out.dtype} {out.shape}")
-    if not np.array_equal(out[outside], image[outside]):
-        raise RuntimeError("pixels outside the box changed")
-    if rec["changed_pixels"] == 0:
-        raise RuntimeError("the edit changed no pixel")
-    return rec
+    """One edit with every counter set to 0 before it: its seconds, peak
+    memory and launches; fails unless only the box's pixels changed."""
+    resident = torch.cuda.memory_allocated(pipe.device)
+    rec = measured(pipe.device, lambda: pipe.edit(
+        image, box, text, seed=seed, edit_config=edit_config,
+        num_inference_steps=steps)[0])
+    changed = only_boxes_changed(rec.pop("out"), image, [box])
+    return dict(text=text, memory_allocated_before=resident,
+                changed_pixels=changed, **rec)
 
 
 def expect_launches(rec: dict, **expected) -> None:
@@ -447,24 +538,295 @@ def flag_timing(rounds: int) -> None:
                       "unet_bytes": unet_bytes}), flush=True)
 
 
-def scene():
-    """bench.py's scene and box."""
-    h, w = int(RES * 1.5), RES * 2
+def scene(res: int = RES):
+    """bench.py's scene and box at edit resolution ``res``."""
+    h, w = int(res * 1.5), res * 2
     image = np.random.RandomState(0).randint(0, 255, (h, w, 3), np.uint8)
-    return image, (w // 3, h // 3, w // 3 + RES // 4, h // 3 + RES // 12)
+    return image, (w // 3, h // 3, w // 3 + res // 4, h // 3 + res // 12)
 
 
-def edits_only(n: int) -> None:
+def set_pipeline_fwd(on: bool) -> None:
+    from diffute_tpu_torch.ops.flash_attention import set_pipeline_fwd
+
+    set_pipeline_fwd(on)
+
+
+def only_boxes_changed(out, image, boxes) -> int:
+    """Fail unless ``out`` differs from ``image`` inside every box and
+    nowhere else; return the number of changed pixels."""
+    if out.dtype != np.uint8 or out.shape != image.shape:
+        raise RuntimeError(f"edit output {out.dtype} {out.shape}")
+    changed = (out != image).any(-1)
+    outside = np.ones(image.shape[:2], bool)
+    for x1, y1, x2, y2 in boxes:
+        outside[y1:y2, x1:x2] = False
+        if not changed[y1:y2, x1:x2].any():
+            raise RuntimeError(f"the edit changed no pixel of {(x1, y1, x2, y2)}")
+    if changed[outside].any():
+        raise RuntimeError("pixels outside the boxes changed")
+    return int(changed.sum())
+
+
+def measured(dev, fn) -> dict:
+    """Run ``fn`` with every launch counter set to 0 before it: its result,
+    seconds on the host clock (``fn`` ends in a copy to the host), launches
+    and peak memory."""
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    return dict(out=out, seconds=time.perf_counter() - t0,
+                launches=counters(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def record(rec: dict, **more) -> dict:
+    """A measured run without its output, for printing."""
+    return {**{k: v for k, v in rec.items() if k != "out"}, **more}
+
+
+def check_resolution(pipe, res: int, flash_per_pass: int, fpipe=None) -> dict:
+    """Phases edit_768 / edit_1024: after a 2-step warm-up, one 50-step edit
+    with the deferred-softmax switch off and one with it on (same seed): the
+    two images differ by at most 2 LSB in the box and not at all outside it,
+    the switch moves every flash launch of the edit to the pipelined kernel,
+    and (``fpipe``) one edit with the UNet's three flags on."""
+    dev = pipe.device
+    image, box = scene(res)
+    ec = dataclasses.replace(pipe.config.edit, resolution=res)
+    pipe.edit(image, box, "warm", seed=0, edit_config=ec, num_inference_steps=2)
+    recs = {}
+    for name, on in (("standard", False), ("pipelined", True)):
+        set_pipeline_fwd(on)
+        try:
+            rec = measured(dev, lambda: pipe.edit(image, box, "BENCHMARK",
+                                                  seed=1, edit_config=ec)[0])
+        finally:
+            set_pipeline_fwd(False)
+        rec["changed_pixels"] = only_boxes_changed(rec["out"], image, [box])
+        n = flash_per_pass * STEPS
+        expect_launches(rec, flash_fwd=0 if on else n,
+                        flash_fwd_pipelined=n if on else 0, conv=0, w8=0)
+        recs[name] = rec
+    diff = np.abs(recs["standard"]["out"].astype(np.int32)
+                  - recs["pipelined"]["out"].astype(np.int32))
+    if diff.max() > 2:
+        raise RuntimeError(f"switch on vs off: {diff.max()} LSB apart")
+    result = {name: record(rec) for name, rec in recs.items()}
+    result["max_lsb_between"] = int(diff.max())
+    if fpipe is not None:
+        fpipe.edit(image, box, "warm", seed=0, edit_config=ec,
+                   num_inference_steps=2)
+        rec = measured(dev, lambda: fpipe.edit(image, box, "BENCHMARK", seed=1,
+                                               edit_config=ec)[0])
+        rec["changed_pixels"] = only_boxes_changed(rec["out"], image, [box])
+        expect_launches(rec, conv=44 * STEPS, gn_silu=STEPS,
+                        gn_stats=45 * STEPS, w8=160 * STEPS + 32,
+                        flash_fwd=flash_per_pass * STEPS,
+                        flash_fwd_pipelined=0)
+        result["flags"] = record(rec)
+    phase(f"edit_{res}", resolution=res, **result)
+    return result
+
+
+def check_modes(pipe) -> dict:
+    """Phases edit_multi, edit_batch, edit_stream, web and edit_profiled on
+    the flags-off pipeline at 512^2."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from diffute_tpu_torch.serve import web
+
+    dev = pipe.device
+    image, box = scene()
+    h, w = image.shape[:2]
+    bw, bh = RES // 4, RES // 12
+    out = {}
+
+    # ---- edit_multi: three disjoint boxes of the scene in one pass
+    boxes = [box, (w // 8, h // 8, w // 8 + bw, h // 8 + bh),
+             (w // 2, 3 * h // 4, w // 2 + bw, 3 * h // 4 + bh)]
+    rec = measured(dev, lambda: pipe.edit_multi(
+        image, list(zip(boxes, ["ONE", "two", "3.00"])), seed=0))
+    rec["changed_pixels"] = only_boxes_changed(rec["out"], image, boxes)
+    expect_launches(rec, flash_fwd=10 * STEPS)  # one pass carries all three
+    out["edit_multi"] = record(rec, regions=3)
+    phase("edit_multi", **out["edit_multi"])
+
+    # ---- edit_batch: B independent images in one pass; the batch-1 image
+    # equals edit()'s.  A 2-step call first (cuDNN's choices at this batch)
+    alone = pipe.edit(image, box, "BENCHMARK", seed=0)[0]
+    rng = np.random.RandomState(1)
+    images = [image] + [rng.randint(0, 255, image.shape, np.uint8)
+                        for _ in range(7)]
+    out["edit_batch"] = {}
+    for b in (1, 2, 4, 8):
+        items = [(img, box, "BENCHMARK") for img in images[:b]]
+        pipe.edit_batch(items, seed=0, num_inference_steps=2)
+        rec = measured(dev, lambda: pipe.edit_batch(items, seed=0))
+        for img, res_img in zip(images, rec["out"]):
+            only_boxes_changed(res_img, img, [box])
+        expect_launches(rec, flash_fwd=10 * STEPS)
+        if b == 1 and not np.array_equal(rec["out"][0], alone):
+            raise RuntimeError("edit_batch of one differs from edit()")
+        out["edit_batch"][b] = record(rec, batch=b,
+                                      seconds_per_image=rec["seconds"] / b)
+        phase("edit_batch", **out["edit_batch"][b])
+
+    # ---- edit_stream: 6 items, each output equal to the sequential edit()
+    items = [(images[i], box, f"item {i}") for i in range(6)]
+    t0 = time.perf_counter()
+    seq = [pipe.edit(*item, seed=0)[0] for item in items]
+    out["edit_stream"] = {"sequential": {
+        "seconds_per_image": (time.perf_counter() - t0) / len(items)}}
+    for depth in (2, 1):
+        rec = measured(dev, lambda: list(pipe.edit_stream(items, seed=0,
+                                                          depth=depth)))
+        same = [np.array_equal(a, b) for a, b in zip(rec["out"], seq)]
+        expect_launches(rec, flash_fwd=10 * STEPS * len(items))
+        out["edit_stream"][f"depth_{depth}"] = record(
+            rec, depth=depth, equal_to_sequential=same,
+            seconds_per_image=rec["seconds"] / len(items))
+        if len(rec["out"]) != len(seq) or not all(same):
+            raise RuntimeError(f"edit_stream depth {depth} differs from "
+                               f"sequential edit(): {same}")
+    phase("edit_stream", **out["edit_stream"])
+
+    # ---- web: the demo server over HTTP, one edit at full width on the card
+    server = web.make_server(web.DemoBackend(pipe), port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = "http://%s:%d" % server.server_address[:2]
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                url + path, data=json.dumps(payload).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        with urllib.request.urlopen(url + "/", timeout=60) as r:
+            page = r.read().decode()
+        if r.status != 200 or 'id="sampler"' not in page:
+            raise RuntimeError("the index page is not the demo")
+        first = post("/api/click", {"state": None, "xy": [box[2], box[1]],
+                                    "hw": [h, w]})
+        second = post("/api/click", {"state": first["state"],
+                                     "xy": [box[0], box[3]], "hw": [h, w]})
+        if first["ready"] or not second["ready"] \
+                or tuple(second["box"]) != tuple(box):
+            raise RuntimeError(f"two clicks gave {first} then {second}")
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, format="PNG")
+        rec = measured(dev, lambda: post("/api/edit", {
+            "image": "data:image/png;base64,"
+            + base64.b64encode(buf.getvalue()).decode(),
+            "text": "served", "steps": 20, "sampler": "ddim",
+            "box": second["box"]}))
+        answer = rec.pop("out")
+        served = np.asarray(Image.open(io.BytesIO(base64.b64decode(
+            answer["image"].split(",", 1)[1]))))
+        rec["changed_pixels"] = only_boxes_changed(served, image, [box])
+        expect_launches(rec, flash_fwd=10 * 20)
+        out["web"] = record(rec, steps=20, server_seconds=answer["seconds"])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    phase("web", **out["web"])
+
+    # ---- edit_profiled: the stage split and the FLOPs per stage
+    profiled, _, stats = pipe.edit_profiled(image, box, "BENCHMARK", seed=0)
+    if not np.array_equal(profiled, alone):
+        raise RuntimeError("edit_profiled's image differs from edit()'s")
+    out["edit_profiled"] = stats
+    phase("edit_profiled", resolution=RES, **stats)
+    need = {"host_prep_s", "prep_s", "loop_s", "decode_s", "paste_s", "flops"}
+    if set(stats) != need or not stats["flops"] \
+            or not stats["flops"]["loop"] > 0:
+        raise RuntimeError(f"edit_profiled returned {stats}")
+    return out
+
+
+def check_streams(fpipe, x_in, t_in, ctx16) -> dict:
+    """Phase streams: the flagged UNet forward on two CUDA streams at once,
+    each result bit-identical to the same forward run alone.  (The GroupNorm
+    statistics and the split-K int8 matmul merge their blocks' partial
+    results by ticket counters, which two streams must never share.)  Both
+    streams wait for one event behind a GPU sleep, so the host has queued
+    both forwards before either starts and they do run at once."""
+    dev = fpipe.device
+    inputs = [x_in, torch.roll(x_in, 7, dims=-1) * 0.5]
+    with torch.inference_mode():
+        alone = [fpipe.unet(x, t_in, ctx16) for x in inputs]
+        torch.cuda.synchronize(dev)
+        streams = [torch.cuda.Stream(dev) for _ in inputs]
+        identical, overlapped = [], []
+        for _ in range(3):
+            outs, spans = [], []
+            torch.cuda._sleep(600_000_000)  # about 0.3 s
+            gate = torch.cuda.Event()
+            gate.record()
+            for s, x in zip(streams, inputs):
+                s.wait_event(gate)
+                with torch.cuda.stream(s):
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    outs.append(fpipe.unet(x, t_in, ctx16))
+                    end.record()
+                    spans.append((start, end))
+            torch.cuda.synchronize(dev)
+            identical.append([torch.equal(a, b) for a, b in zip(outs, alone)])
+            # the second stream's forward started before the first one's ended
+            overlapped.append(spans[0][0].elapsed_time(spans[1][1]) > 0
+                              and spans[1][0].elapsed_time(spans[0][1]) > 0)
+    res = dict(identical=identical, overlapped=overlapped)
+    phase("streams", **res)
+    if not all(all(r) for r in identical):
+        raise RuntimeError(f"two streams at once differ from a run alone: {res}")
+    if not any(overlapped):
+        raise RuntimeError("the two streams' forwards never overlapped")
+    return res
+
+
+def edits_only(n: int, res: int, batch: int, stream: int) -> None:
+    """Seconds of ``n`` edits alone at ``res``: sequential ``edit()`` calls,
+    or (``batch``) ``n`` calls of ``edit_batch`` over that many images, or
+    (``stream``) one ``edit_stream`` over ``n`` items at that depth."""
     import diffute_tpu_torch
 
-    _, pipe = serving_pipeline(torch.device("cuda", 0))
-    image, box = scene()
+    cfg, pipe = serving_pipeline(torch.device("cuda", 0))
+    image, box = scene(res)
+    # the peak below is the edits' own, not the initialisation's
+    torch.cuda.reset_peak_memory_stats()
+    kw = {}
+    if res != RES:
+        kw["edit_config"] = dataclasses.replace(cfg.edit, resolution=res)
     seconds = []
-    for i in range(n):
+    if stream:
+        items = [(image, box, "BENCHMARK")] * n
+        list(pipe.edit_stream(items[:2], seed=0, depth=stream, **kw))  # warm-up
         t0 = time.perf_counter()
-        pipe.edit(image, box, "BENCHMARK", seed=i)
-        seconds.append(time.perf_counter() - t0)
+        for _ in pipe.edit_stream(items, seed=0, depth=stream, **kw):
+            seconds.append(time.perf_counter() - t0)  # when each image came
+    else:
+        for i in range(n):
+            t0 = time.perf_counter()
+            if batch:
+                pipe.edit_batch([(image, box, "BENCHMARK")] * batch, seed=i,
+                                **kw)
+            else:
+                pipe.edit(image, box, "BENCHMARK", seed=i, **kw)
+            seconds.append(time.perf_counter() - t0)
     print(json.dumps({"package": diffute_tpu_torch.__file__, "gpu": gpu_line(),
+                      "resolution": res, "batch": batch, "stream_depth": stream,
+                      "memory_allocated": torch.cuda.memory_allocated(),
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
                       "edit_seconds": seconds}), flush=True)
 
 
@@ -472,6 +834,13 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--edits-only", type=int, default=0, metavar="N",
                    help="time N edits of phase 4 and nothing else")
+    p.add_argument("--res", type=int, default=RES, choices=[512, 768, 1024],
+                   help="with --edits-only: the edit resolution")
+    p.add_argument("--batch", type=int, default=0, metavar="B",
+                   help="with --edits-only: time edit_batch calls of B images")
+    p.add_argument("--stream", type=int, default=0, metavar="DEPTH",
+                   help="with --edits-only: time one edit_stream over the N "
+                   "items at this depth (seconds are arrival times)")
     p.add_argument("--flag-timing", type=int, default=0, metavar="N",
                    help="time N rounds of edits with the UNet's flags off, "
                    "fused conv, int8 and all on, in turns, and nothing else")
@@ -486,15 +855,14 @@ def main(argv=None) -> None:
     if args.package_root:
         sys.path.insert(0, args.package_root)
     if args.edits_only:
-        return edits_only(args.edits_only)
+        return edits_only(args.edits_only, args.res, args.batch, args.stream)
     if args.flag_timing:
         return flag_timing(args.flag_timing)
     if args.kernels_only:
         print(gpu_line(), flush=True)
+        check_pipelined_forward(torch.device("cuda", 0))
         check_fused_kernels(torch.device("cuda", 0))
         return
-    import torch.nn.functional as F
-
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
@@ -534,13 +902,10 @@ def main(argv=None) -> None:
         return (torch.randn((bh, n, 64), generator=g, device=dev,
                             dtype=torch.bfloat16) for n in (s, t, t, s))
 
-    def sdpa(q, k, v):  # the library's call for the same function
-        return F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                              scale=0.125)[0]
-
     fwd_results, dq_results, dkv_results = [], [], []
     for bh, s, t in [(5, 4096, 4096), (10, 1024, 1024), (4, 1000, 577),
-                     (20, 4096, 4096), (40, 1024, 1024)]:
+                     (20, 4096, 4096), (40, 1024, 1024), (5, 9216, 9216),
+                     (5, 16384, 16384)]:
         q, k, v, _ = inputs(bh, s, t)
         o, lse = flash_fwd_3d(q, k, v, 0.125)
         torch.cuda.synchronize()
@@ -550,7 +915,8 @@ def main(argv=None) -> None:
                    max_abs_err_lse=(lse - rlse).abs().max().item(),
                    ms=time_ms(lambda: flash_fwd_3d(q, k, v, 0.125)),
                    plain_ms=time_ms(
-                       lambda: flash_attention_reference(q, k, v, 0.125)),
+                       lambda: flash_attention_reference(q, k, v, 0.125),
+                       iters=25 if s < 9216 else 5),
                    library_ms=time_ms(lambda: sdpa(q, k, v)),
                    **bound(4 * s * t * 64 * bh,
                            2 * 64 * bh * (2 * s + 2 * t) + 4 * bh * s))
@@ -622,6 +988,10 @@ def main(argv=None) -> None:
         raise RuntimeError("FlashAttentionFn.backward differs from flash_bwd_3d")
     del leaves, q4, k4, v4, g4, q3, k3, v3, o3, lse3
 
+    # ---- 3a. the deferred-softmax forward against its plain version and
+    # against the standard forward
+    pipelined_results = check_pipelined_forward(dev)
+
     # ---- 3b. the three opt-in kernels against their plain versions
     fused = check_fused_kernels(dev)
 
@@ -677,6 +1047,13 @@ def main(argv=None) -> None:
     if not finite or not rel <= TOL_UNET_REL:
         raise RuntimeError("main-path check failed")
 
+    # ---- 5a. the other serving modes and resolutions, flags off: 768^2
+    # (9216 x 5 and 2304 x 10 tokens x heads reach the flash kernel: 10
+    # launches a pass), edit_multi, edit_batch, edit_stream, the web server,
+    # edit_profiled.  1024^2 follows in 5d, with the flagged pipeline.
+    res_edits = {768: check_resolution(pipe, 768, 10)}
+    modes = check_modes(pipe)
+
     # ---- 5b. one full-width UNet forward, same weights and inputs: each
     # opt-in kernel alone and all three against the unfused float UNet
     flag_sets = {"fused_gn": dict(use_fused_groupnorm=True),
@@ -719,7 +1096,7 @@ def main(argv=None) -> None:
     # DDPM.  Per UNet pass: 44 conv (16 in the encoder), 1 GN+SiLU, 160 int8
     # matmuls (60 in the encoder) and 10 flash forwards (4 in the encoder);
     # once per edit and context 32 int8 matmuls for the hoisted K/V.
-    del pipe, eps_flash, eps_dense, attns
+    del eps_flash, eps_dense, attns
     _, fpipe = serving_pipeline(dev, params, **ALL_FLAGS)
     del params
     flag_edits = []
@@ -747,6 +1124,13 @@ def main(argv=None) -> None:
     mode_edits["ddpm"] = rec
     flag_launches = {k: sum(e["launches"][k] for e in flag_edits)
                      for k in flag_edits[0]["launches"]}
+
+    # ---- 5d. two streams at once on the flagged UNet, then 1024^2 (16384 x
+    # 5, 4096 x 10 and 1024 x 20 reach the flash kernel: 15 launches a pass)
+    # with the flags off, the switch off and on, and with the flags on
+    streams = check_streams(fpipe, x_in, t_in, ctx16)
+    res_edits[1024] = check_resolution(pipe, 1024, 15, fpipe)
+    del pipe
 
     # ---- 6. training path: free the pipeline, then three optimizer steps
     # through the trainer's entry point
@@ -832,25 +1216,47 @@ def main(argv=None) -> None:
                                               "bound_by", "library_ms")},
                 "shapes": results}
 
+    def path_launches(key):
+        """``key``'s launches on each of this PR's paths, from the counters
+        read right after each path ran."""
+        by_path = {f"edit_{res}_{name}": rec["launches"][key]
+                   for res, recs in res_edits.items()
+                   for name, rec in recs.items() if isinstance(rec, dict)}
+        by_path["edit_multi"] = modes["edit_multi"]["launches"][key]
+        by_path["edit_batch"] = sum(r["launches"][key]
+                                    for r in modes["edit_batch"].values())
+        by_path["edit_stream"] = sum(
+            r["launches"][key] for name, r in modes["edit_stream"].items()
+            if name.startswith("depth"))
+        by_path["web"] = modes["web"]["launches"][key]
+        return {k: v for k, v in by_path.items() if v}
+
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": [
         entry("flash_fwd_bf16", "flash_fwd.cu", "flash_attention.py:275",
               fwd_results, {"edit": edit_launches,
                             "edit_flags": flag_launches["flash_fwd"],
-                            "train": train_launches["fwd"]}),
+                            "train": train_launches["fwd"],
+                            **path_launches("flash_fwd")}),
+        entry("flash_fwd_pipelined_bf16", "flash_fwd_pipelined.cu",
+              "flash_attention.py:149", pipelined_results,
+              path_launches("flash_fwd_pipelined")),
         entry("flash_bwd_dq_bf16", "flash_bwd.cu", "flash_attention.py:396",
               dq_results, {"train": train_launches["dq"]}),
         entry("flash_bwd_dkv_bf16", "flash_bwd.cu", "flash_attention.py:437",
               dkv_results, {"train": train_launches["dkv"]}),
         # the TPU kernel's statistics pass and its apply are two launches here
         entry("gn_stats_bf16", "groupnorm.cu", "groupnorm.py:31",
-              fused["gn_stats"], {"edit_flags": flag_launches["gn_stats"]}),
+              fused["gn_stats"], {"edit_flags": flag_launches["gn_stats"],
+                                  **path_launches("gn_stats")}),
         entry("gn_silu_apply_bf16", "groupnorm.cu", "groupnorm.py:31",
-              fused["gn_silu"], {"edit_flags": flag_launches["gn_silu"]}),
+              fused["gn_silu"], {"edit_flags": flag_launches["gn_silu"],
+                                 **path_launches("gn_silu")}),
         entry("gn_silu_conv3x3_bf16", "conv_fused.cu", "conv_fused.py:40",
-              fused["conv"], {"edit_flags": flag_launches["conv"]}),
+              fused["conv"], {"edit_flags": flag_launches["conv"],
+                              **path_launches("conv")}),
         entry("w8_matmul_bf16", "quant.cu", "quant.py:51", fused["w8"],
-              {"edit_flags": flag_launches["w8"]}),
+              {"edit_flags": flag_launches["w8"], **path_launches("w8")}),
     ], "edit_seconds": [e["seconds"] for e in edits],
         "edit_flags_seconds": [e["seconds"] for e in flag_edits],
         "edit_flags_max_memory_allocated": [e["max_memory_allocated"]
@@ -858,6 +1264,23 @@ def main(argv=None) -> None:
         "edit_modes": {k: {"seconds": v["seconds"], "launches": v["launches"]}
                        for k, v in mode_edits.items()},
         "unet_flags": unet_check,
+        "edit_resolutions": {
+            str(res): {name: ({"seconds": rec["seconds"],
+                               "max_memory_allocated":
+                                   rec["max_memory_allocated"]}
+                              if isinstance(rec, dict) else rec)
+                       for name, rec in recs.items()}
+            for res, recs in res_edits.items()},
+        "edit_multi_seconds": modes["edit_multi"]["seconds"],
+        "edit_batch": {str(b): {k: r[k] for k in (
+            "seconds", "seconds_per_image", "max_memory_allocated")}
+            for b, r in modes["edit_batch"].items()},
+        "edit_stream_seconds_per_image": {
+            k: r["seconds_per_image"]
+            for k, r in modes["edit_stream"].items()},
+        "web_edit_seconds": modes["web"]["seconds"],
+        "edit_profiled": modes["edit_profiled"],
+        "streams": streams,
         "train_step_seconds": [h["seconds"] for h in history],
         "train_max_memory_allocated": [h["max_memory_allocated"]
                                        for h in history]}), flush=True)

@@ -255,3 +255,15 @@ def tiny_test_config() -> DiffUTEConfig:
         edit=EditConfig(resolution=32, num_inference_steps=5),
         train=TrainConfig(train_batch_size=2),
     )
+
+
+def card_serving_config(config: DiffUTEConfig) -> DiffUTEConfig:
+    """``config`` as the serving entry points run it on a card: the three
+    models in bf16 and the UNet's self-attention through the flash kernel."""
+    bf16 = torch.bfloat16
+    return dataclasses.replace(
+        config,
+        vae=dataclasses.replace(config.vae, dtype=bf16),
+        unet=dataclasses.replace(config.unet, dtype=bf16,
+                                 use_flash_attention=True),
+        trocr=dataclasses.replace(config.trocr, dtype=bf16))

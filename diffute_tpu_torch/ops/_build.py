@@ -74,6 +74,7 @@ def _signatures() -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return {
         "flash_fwd_bf16": [p, p, p, p, p, i, i, i, f, p],
+        "flash_fwd_pipelined_bf16": [p, p, p, p, p, i, i, i, f, p],
         # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
         "flash_bwd_dq_bf16": [p] * 7 + [i, i, i, f, p],
         "flash_bwd_dkv_bf16": [p] * 8 + [i, i, i, f, p],
@@ -88,6 +89,17 @@ def _signatures() -> dict:
         #  stream)
         "w8_matmul_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
     }
+
+
+def ptxas_info(source: str) -> str:
+    """What ``nvcc -Xptxas -v`` says of one source under ``csrc/`` (each
+    kernel's registers, shared memory, stack frame and spills), compiled with
+    the build's flags to a discarded cubin."""
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    res = subprocess.run([_nvcc(), *flags, "-Xptxas", "-v", "-cubin", "-o",
+                          os.devnull, os.path.join(CSRC, source)],
+                         capture_output=True, text=True, check=True)
+    return res.stderr.strip()
 
 
 class _Kernels:

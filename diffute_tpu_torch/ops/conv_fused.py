@@ -106,6 +106,9 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
     n_chunks = cin // CIN_CHUNK
     splits = max(1, min(_TARGET_BLOCKS // blocks, _MAX_SPLITS, n_chunks))
     splits = -(-n_chunks // -(-n_chunks // splits))  # no empty split
+    # out and partial are made per call, on the stream that launches the
+    # kernel: the caching allocator hands a block back only to the stream it
+    # was allocated on, so edits in flight on two streams never share them
     out = torch.empty((bsz, cout, h_, w_), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, bsz, cout, h_, w_), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
@@ -116,6 +119,7 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
             bsz, cin, cout, h_, w_, groups, splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     gn_silu_conv3x3.launches += 1
+    gn_silu_conv3x3.flops += 2 * bsz * h_ * w_ * cout * 9 * cin
     return out
 
 
@@ -157,3 +161,5 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_weight: torch.Tensor,
 
 
 gn_silu_conv3x3.launches = 0
+# matrix-product FLOPs of the launches (edit_profiled reads it)
+gn_silu_conv3x3.flops = 0

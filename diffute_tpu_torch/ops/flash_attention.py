@@ -1,7 +1,10 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``diffute_tpu/ops/flash_attention.py``: the forward
-(``_flash_fwd_3d`` + ``_fwd_kernel`` -> ``csrc/flash_fwd.cu``) and the
+(``_flash_fwd_3d`` + ``_fwd_kernel`` -> ``csrc/flash_fwd.cu``), the
+deferred-softmax forward behind the ``PIPELINE_FWD`` switch
+(``_flash_fwd_3d_pipelined`` + ``_fwd_kernel_pipelined`` ->
+``csrc/flash_fwd_pipelined.cu``) and the
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
 package joins them with ``jax.custom_vjp``.  The kernels take bf16 tensors
@@ -19,6 +22,24 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+# Route forwards whose kv length is a whole number (>= 2) of kv tiles through
+# the deferred-softmax kernel.  Module-level, off by default, as in the JAX
+# package: the switch exists so the two forwards can be timed in turns.
+PIPELINE_FWD = False
+# the kv tile of csrc/flash_fwd_pipelined.cu
+PIPELINED_BLOCK_KV = 64
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+
+
+def set_pipeline_fwd(on: bool) -> bool:
+    """Set ``PIPELINE_FWD``; return what it was.  (``diffute_tpu_torch.ops``
+    exports the function ``flash_attention`` under this module's name, so
+    ``ops.flash_attention.PIPELINE_FWD = ...`` would miss the module.)"""
+    global PIPELINE_FWD
+    was, PIPELINE_FWD = PIPELINE_FWD, bool(on)
+    return was
 
 
 def _to3d(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +67,48 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(logits - lse[..., None])
     o = torch.einsum("bst,btd->bsd", p, v.float())
     return o.to(q.dtype), lse
+
+
+def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: float,
+                                  block_kv: int = PIPELINED_BLOCK_KV
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the deferred-softmax kernel, step by step as the
+    kernel runs it: fp32 score tiles in base 2 (``q k^T * scale * log2 e``,
+    scaled after the product as the kernel's FMA does), two tiles alive by
+    kv parity, step ``j`` producing tile ``j`` and consuming tile ``j - 1``
+    (running max and sum, ``p`` rounded to ``v``'s dtype before ``p v``), and
+    the LSE converted to natural log at the end.
+
+    q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
+    least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""
+    bh, s_len, d = q.shape
+    t_len = k.shape[1]
+    n_kv = t_len // block_kv
+    if t_len % block_kv or n_kv < 2:
+        raise ValueError(f"the pipelined forward takes T a multiple of "
+                         f"{block_kv} with at least two tiles; got {t_len}")
+    qf, c = q.float(), scale * _LOG2E
+    m = torch.full((bh, s_len, 1), -torch.inf, device=q.device)
+    l = torch.zeros((bh, s_len, 1), device=q.device)
+    acc = torch.zeros((bh, s_len, d), device=q.device)
+    s_buf = [None, None]
+    for j in range(n_kv + 1):
+        if j < n_kv:  # produce tile j
+            k_j = k[:, j * block_kv:(j + 1) * block_kv].float()
+            s_buf[j % 2] = torch.einsum("bsd,btd->bst", qf, k_j) * c
+        if j > 0:     # consume tile j - 1
+            s_prev = s_buf[(j - 1) % 2]
+            v_prev = v[:, (j - 1) * block_kv:j * block_kv]
+            m_new = torch.maximum(m, s_prev.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s_prev - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bst,btd->bsd", p.to(v.dtype).float(), v_prev.float())
+            m = m_new
+    lse = (m + torch.log2(l)) * _LN2
+    return (acc / l).to(q.dtype), lse[..., 0]
 
 
 def _check_kernel_inputs(ref: torch.Tensor, **tensors: torch.Tensor) -> None:
@@ -83,7 +146,11 @@ def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (BH, S, 64), k/v (BH, T, 64) -> (o (BH, S, 64), lse (BH, S)).
 
     CUDA: checks and launches the kernel on the current stream (raises on
-    anything it does not take).  CPU: the plain version."""
+    anything it does not take).  CPU: the plain version.  With
+    ``PIPELINE_FWD`` set and T a whole number (>= 2) of kv tiles, the
+    deferred-softmax forward instead (the JAX dispatcher's rule)."""
+    if PIPELINE_FWD and _pipelined_takes(k.shape[1]):
+        return flash_fwd_3d_pipelined(q, k, v, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     _check_kernel_inputs(q, q=q, k=k, v=v)
@@ -94,6 +161,38 @@ def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.data_ptr(), lse.data_ptr(), bh, s_len, k.shape[1], float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    flash_attention.flops += 4 * bh * s_len * k.shape[1] * 64
+    return o, lse
+
+
+def _pipelined_takes(t_len: int) -> bool:
+    return (t_len % PIPELINED_BLOCK_KV == 0
+            and t_len // PIPELINED_BLOCK_KV >= 2)
+
+
+def flash_fwd_3d_pipelined(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_fwd_3d`'s contract through the deferred-softmax kernel;
+    T must be a multiple of the kv tile with at least two tiles (raises
+    otherwise: nothing is padded).
+
+    CUDA: checks and launches the kernel on the current stream.  CPU: its
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_fwd_pipelined_reference(q, k, v, scale)
+    _check_kernel_inputs(q, q=q, k=k, v=v)
+    bh, s_len, _ = q.shape
+    if not _pipelined_takes(k.shape[1]):
+        raise ValueError(f"the pipelined forward takes T a multiple of "
+                         f"{PIPELINED_BLOCK_KV} with at least two tiles; "
+                         f"got {k.shape[1]}")
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s_len), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_pipelined_bf16", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s_len, k.shape[1],
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention.pipelined_launches += 1
+    flash_attention.flops += 4 * bh * s_len * k.shape[1] * 64
     return o, lse
 
 
@@ -235,8 +334,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v.
 
     Kernel launches are counted (CUDA only): ``flash_attention.launches``
-    the forward, ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two
-    backward kernels."""
+    the forward, ``.pipelined_launches`` the deferred-softmax forward,
+    ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two backward
+    kernels."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not (torch.is_grad_enabled()
@@ -250,5 +350,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.pipelined_launches = 0
+# matrix-product FLOPs of the forward launches (edit_profiled reads it)
+flash_attention.flops = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0

@@ -26,7 +26,23 @@ from diffute_tpu_torch.ops.flash_attention import _launch
 
 # blocks the statistics pass aims to put on the card (two per SM)
 _TARGET_BLOCKS = 264
-_tickets = {}  # device -> zeroed int32 ticket counters (the kernel resets them)
+_tickets = {}  # (device, stream) -> zeroed int32 ticket counters
+
+
+def stream_tickets(cache: dict, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters owned by ``device``'s
+    current stream.  A kernel that merges its blocks' partial results "in
+    the last block to finish" counts arrivals in them and leaves them zero,
+    so launches queued on ONE stream can share a buffer; two streams run
+    concurrently and must never share a counter, hence the key.  Allocated
+    once per stream (inside the caller's stream context, so the caching
+    allocator ties the memory to that stream), not per launch."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    tickets = cache.get(key)
+    if tickets is None or tickets.numel() < n:
+        tickets = cache[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                           device=device)
+    return tickets
 
 
 def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float
@@ -104,10 +120,7 @@ def group_norm_stats(x: torch.Tensor, groups: int = 32, eps: float = 1e-5
     if splits > 1:
         partial = torch.empty((n_groups, splits, 2), dtype=torch.float32,
                               device=x.device)
-        tickets = _tickets.get(x.device)
-        if tickets is None or tickets.numel() < n_groups:
-            tickets = _tickets[x.device] = torch.zeros(
-                max(n_groups, 4096), dtype=torch.int32, device=x.device)
+        tickets = stream_tickets(_tickets, x.device, n_groups)
     _launch("gn_stats_bf16", x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             partial.data_ptr() if splits > 1 else None,
             tickets.data_ptr() if splits > 1 else None,

@@ -29,12 +29,13 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from diffute_tpu_torch.ops.flash_attention import _launch
+from diffute_tpu_torch.ops.groupnorm import stream_tickets
 
 # blocks the matmul aims to put on the card when it splits K (four per SM)
 _TARGET_BLOCKS = 528
 _MAX_SPLITS = 4
 _MIN_K_STEPS_TO_SPLIT = 40
-_tickets = {}  # device -> zeroed int32 ticket counters (the kernel resets them)
+_tickets = {}  # (device, stream) -> zeroed int32 ticket counters
 
 
 def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,17 +152,17 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if splits > 1:
         workspace = torch.empty((splits, m, n), dtype=torch.float32,
                                 device=x.device)
-        tickets = _tickets.get(x.device)
-        if tickets is None or tickets.numel() < tiles:
-            tickets = _tickets[x.device] = torch.zeros(
-                max(tiles, 4096), dtype=torch.int32, device=x.device)
+        tickets = stream_tickets(_tickets, x.device, tiles)
     _launch("w8_matmul_bf16", x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
             int(scale.dtype == torch.bfloat16), y.data_ptr(),
             workspace.data_ptr() if splits > 1 else None,
             tickets.data_ptr() if splits > 1 else None, m, n, k, splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
+    quant_matmul.flops += 2 * m * n * k
     return y.reshape(*x.shape[:-1], n)
 
 
 quant_matmul.launches = 0
+# matrix-product FLOPs of the launches (edit_profiled reads it)
+quant_matmul.flops = 0

@@ -1,7 +1,9 @@
-"""DiffUTEPipeline: one-region text editing on a CUDA card (or the CPU).
+"""DiffUTEPipeline: text editing on a CUDA card (or the CPU).
 
 Counterpart of ``diffute_tpu/pipeline/edit.py`` with the same public API
-(uint8 HWC numpy in and out) and the same stage split:
+(uint8 HWC numpy in and out; ``edit``, ``edit_multi``, ``edit_batch``,
+``edit_stream``, ``edit_profiled``; one card, so no ``mesh``) and the same
+stage split:
 
 host:    box validation, mask raster, crop window, glyph raster, 512^2 and
          384^2 resizes, paste-back (numpy / PIL / native hostops);
@@ -18,13 +20,16 @@ the TrOCR encoding of the empty glyph), the masked-latent blend, and encoder
 reuse (``encoder_reuse_interval = k``: one full UNet pass, then k - 1
 decoder-only passes over its encoder features; a remainder of full steps).
 All noise is drawn from ``torch.Generator(device).manual_seed(seed)`` in
-``_run_device`` and enters the stages as arguments, so tests can feed the JAX
+``_draw_noise`` and enters the stages as arguments, so tests can feed the JAX
 package's draws.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import collections
+import contextlib
+import time
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +47,9 @@ from diffute_tpu_torch.diffusion import (
 from diffute_tpu_torch.io import hostops
 from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
 from diffute_tpu_torch.models.vae import sample_latent
-from diffute_tpu_torch.ops import nearest_resize_2d
+from diffute_tpu_torch.ops import flash_attention, nearest_resize_2d
+from diffute_tpu_torch.ops.conv_fused import gn_silu_conv3x3
+from diffute_tpu_torch.ops.quant import quant_matmul
 from diffute_tpu_torch.pipeline.crop import infer_crop_params, paste_back
 from diffute_tpu_torch.pipeline.regions import generate_mask, make_masked_image
 from diffute_tpu_torch.text import (
@@ -251,10 +258,7 @@ class DiffUTEPipeline:
              return_crop: bool = False):
         """Edit one text region.  Returns (edited uint8 image, mask*255), and
         with ``return_crop`` the pre-paste crop artifacts as a third item."""
-        ec = edit_config or self.config.edit
-        steps = num_inference_steps or ec.num_inference_steps
-        seed = ec.seed if seed is None else seed
-
+        ec, steps, seed = self._resolve(num_inference_steps, seed, edit_config)
         image = np.asarray(image, dtype=np.uint8)
         box = _validate_box(box, image.shape[:2])
         region, mask = self._prepare_region(image, box, text, ec.resolution, rng)
@@ -289,10 +293,44 @@ class DiffUTEPipeline:
         }
         return region, mask
 
-    def _run_device(self, regions, steps: int, ec: EditConfig,
-                    seed: int) -> np.ndarray:
+    def _draw_noise(self, shape, steps: int, ec: EditConfig, seed: int):
+        """Every draw of one device pass, fp32 on the device: (init, latent,
+        crop, blend, per-step) noise of ``shape`` (B, 4, r, r), the last
+        with a leading ``steps`` axis; ``None`` where the mode does not use
+        it.  One generator per pass, never shared between edits in flight;
+        the first two draws are the default path's, the others follow."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        def noise(*lead):
+            return torch.randn((*lead, *shape), generator=gen,
+                               device=self.device)
+
+        blend = ec.masked_latent_blend
+        return (noise(), noise(), noise() if blend else None,
+                noise() if blend else None,
+                noise(steps) if ec.sampler == "ddpm" else None)
+
+    def _enqueue(self, regions, steps: int, ec: EditConfig, seed: int,
+                 stream=None, stage=None):
+        """Queue one device pass over ``regions`` (upload, prep, loop,
+        decode, copy of the uint8 crops to the host) and return without
+        waiting for it: a handle for :meth:`_fetch`.
+
+        ``stream`` (CUDA only): run the pass on this side stream instead of
+        the current one.  Every tensor of the pass, the noise generator
+        included, is created and consumed inside the stream's context, so
+        the caching allocator keeps its memory on that stream and nothing
+        crosses to another; the weights were loaded on the current stream,
+        which the side stream waits for first.  ``stage`` (edit_profiled):
+        a context-manager factory wrapped around each of the four stages
+        ``host_prep``, ``prep``, ``loop``, ``decode``."""
         cfg, dev = self.config, self.device
         use_cfg, blend = ec.guidance_scale > 1.0, ec.masked_latent_blend
+        stage = stage or (lambda name: contextlib.nullcontext())
+        on_side = contextlib.nullcontext()
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            on_side = torch.cuda.stream(stream)
 
         def on_device(key):
             return torch.from_numpy(np.stack([r[key] for r in regions])).to(dev)
@@ -301,35 +339,224 @@ class DiffUTEPipeline:
             return torch.from_numpy(
                 trocr_preprocess_host(images, cfg.trocr)).to(dev)
 
-        mask = on_device("mask512")
-        r = mask.shape[1] // cfg.vae.scale_factor
-        shape = (len(regions), cfg.vae.latent_channels, r, r)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        with on_side, torch.inference_mode():
+            with stage("host_prep"):
+                mask = on_device("mask512")
+                r = mask.shape[1] // cfg.vae.scale_factor
+                (init_noise, latent_noise, crop_noise, blend_noise,
+                 step_noise) = self._draw_noise(
+                    (len(regions), cfg.vae.latent_channels, r, r), steps, ec,
+                    seed)
+                masked = on_device("masked512")
+                glyph = glyphs([r["glyph"] for r in regions])
+                null_glyph = (glyphs([render_glyph("", cfg.glyph)])
+                              if use_cfg else None)
+                crop = on_device("crop512") if blend else None
+            with stage("prep"):
+                prepped = self._device_prep(
+                    mask, masked, glyph, init_noise, latent_noise,
+                    null_glyph_u8=null_glyph, crop_u8=crop,
+                    crop_noise=crop_noise)
+            with stage("loop"):
+                latents = self._device_loop(
+                    steps, *prepped, sampler=ec.sampler,
+                    guidance_scale=ec.guidance_scale, blend=blend,
+                    reuse_interval=ec.encoder_reuse_interval,
+                    step_noise=step_noise, blend_noise=blend_noise)
+            with stage("decode"):
+                out, done = self._device_decode(latents), None
+                if dev.type == "cuda":
+                    # pinned, so the copy is queued and the host does not wait
+                    out = torch.empty(out.shape, dtype=out.dtype,
+                                      pin_memory=True).copy_(out,
+                                                             non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+        return out, done
 
-        def noise(*lead):
-            return torch.randn((*lead, *shape), generator=gen, device=dev)
+    @staticmethod
+    def _fetch(pending) -> np.ndarray:
+        """Wait for one queued pass (its own event, not the device) and
+        return its (B, R, R, 3) uint8 crops."""
+        out, done = pending
+        if done is not None:
+            done.synchronize()
+        return out.numpy()
 
-        # the first two draws are the default path's; the others follow
-        init_noise, latent_noise = noise(), noise()
-        crop_noise = noise() if blend else None
-        blend_noise = noise() if blend else None
-        step_noise = noise(steps) if ec.sampler == "ddpm" else None
-        with torch.inference_mode():
-            prepped = self._device_prep(
-                mask, on_device("masked512"),
-                glyphs([r["glyph"] for r in regions]), init_noise,
-                latent_noise,
-                null_glyph_u8=(glyphs([render_glyph("", cfg.glyph)])
-                               if use_cfg else None),
-                crop_u8=on_device("crop512") if blend else None,
-                crop_noise=crop_noise)
-            latents = self._device_loop(
-                steps, *prepped, sampler=ec.sampler,
-                guidance_scale=ec.guidance_scale, blend=blend,
-                reuse_interval=ec.encoder_reuse_interval,
-                step_noise=step_noise, blend_noise=blend_noise)
-            out = self._device_decode(latents)
-        return out.cpu().numpy()
+    def _run_device(self, regions, steps: int, ec: EditConfig,
+                    seed: int) -> np.ndarray:
+        return self._fetch(self._enqueue(regions, steps, ec, seed))
+
+    def _resolve(self, num_inference_steps, seed, edit_config):
+        ec = edit_config or self.config.edit
+        return (ec, num_inference_steps or ec.num_inference_steps,
+                ec.seed if seed is None else seed)
+
+    # ------------------------------------------------------------------
+    # The other serving modes
+    # ------------------------------------------------------------------
+
+    def edit_multi(self, image: np.ndarray, regions,
+                   num_inference_steps: Optional[int] = None,
+                   seed: Optional[int] = None,
+                   edit_config: Optional[EditConfig] = None,
+                   rng: Optional[np.random.Generator] = None) -> np.ndarray:
+        """Edit several (disjoint) text regions of one image, given as
+        ``(box, text)`` pairs, in one batched device pass; the crops are
+        pasted back in order onto the running result."""
+        ec, steps, seed = self._resolve(num_inference_steps, seed, edit_config)
+        image = np.asarray(image, dtype=np.uint8)
+        prepped = [self._prepare_region(
+                       image, _validate_box(box, image.shape[:2]), text,
+                       ec.resolution, rng)[0]
+                   for box, text in regions]
+        edited = self._run_device(prepped, steps, ec, seed)
+        result = image
+        for r, e in zip(prepped, edited):
+            result = paste_back(result, e, r["x_s"], r["y_s"],
+                                r["crop_scale"], r["location"])
+        return result
+
+    def edit_batch(self, items, num_inference_steps: Optional[int] = None,
+                   seed: Optional[int] = None,
+                   edit_config: Optional[EditConfig] = None,
+                   rng: Optional[np.random.Generator] = None
+                   ) -> List[np.ndarray]:
+        """Independent edits ``(image, box, text)``, one region each, through
+        one device pass.  Returns the edited images in order."""
+        ec, steps, seed = self._resolve(num_inference_steps, seed, edit_config)
+        images, prepped = [], []
+        for image, box, text in items:
+            image = np.asarray(image, dtype=np.uint8)
+            images.append(image)
+            prepped.append(self._prepare_region(
+                image, _validate_box(box, image.shape[:2]), text,
+                ec.resolution, rng)[0])
+        edited = self._run_device(prepped, steps, ec, seed)
+        return [paste_back(img, e, r["x_s"], r["y_s"], r["crop_scale"],
+                           r["location"])
+                for img, e, r in zip(images, edited, prepped)]
+
+    def edit_stream(self, items, num_inference_steps: Optional[int] = None,
+                    seed: Optional[int] = None,
+                    edit_config: Optional[EditConfig] = None,
+                    rng: Optional[np.random.Generator] = None,
+                    depth: int = 2) -> Iterator[np.ndarray]:
+        """Serve a stream of independent edits ``(image, box, text)`` with at
+        most ``depth`` of them in flight; yields the edited images in
+        submission order.  Every edit uses the same ``seed``, so each output
+        is bit-identical to a sequential :meth:`edit` of the same item, and
+        ``depth=1`` is strictly sequential.
+
+        On a card, "in flight" is a pool of ``depth`` CUDA streams: an
+        edit's upload, prep, loop, decode and copy to pinned host memory are
+        queued on its stream, and finishing it waits on its own event only,
+        so the host prep and paste-back of one edit overlap the device work
+        of the other.  The host thread still queues every launch itself (no
+        threads are added): what ``depth=2`` can hide is the fixed cost
+        around the loop, not the loop.  On the CPU the passes run in turn."""
+        ec, steps, seed = self._resolve(num_inference_steps, seed, edit_config)
+        depth = max(1, depth)
+        streams = ([torch.cuda.Stream(self.device) for _ in range(depth)]
+                   if self.device.type == "cuda" else [None])
+
+        def submit(i, item):
+            image, box, text = item
+            image = np.asarray(image, dtype=np.uint8)
+            region, _ = self._prepare_region(
+                image, _validate_box(box, image.shape[:2]), text,
+                ec.resolution, rng)
+            # round-robin: the stream's previous edit was fetched already
+            return image, region, self._enqueue(
+                [region], steps, ec, seed, stream=streams[i % len(streams)])
+
+        def finish(entry):
+            image, region, pending = entry
+            return paste_back(image, self._fetch(pending)[0], region["x_s"],
+                              region["y_s"], region["crop_scale"],
+                              region["location"])
+
+        inflight = collections.deque()
+        for i, item in enumerate(items):
+            inflight.append(submit(i, item))
+            if len(inflight) >= depth:  # at most `depth` in flight
+                yield finish(inflight.popleft())
+        while inflight:
+            yield finish(inflight.popleft())
+
+    def edit_profiled(self, image: np.ndarray, box: Tuple[int, int, int, int],
+                      text: str, num_inference_steps: Optional[int] = None,
+                      seed: Optional[int] = None,
+                      edit_config: Optional[EditConfig] = None,
+                      rng: Optional[np.random.Generator] = None):
+        """:meth:`edit` with a per-stage attribution: returns ``(edited,
+        mask*255, stats)``.  ``stats`` has the seconds of ``host_prep_s``
+        (region prep, glyph raster, upload, noise), ``prep_s``, ``loop_s``,
+        ``decode_s`` (with the copy to the host) and ``paste_s``, each device
+        stage closed by a device synchronisation that the chained
+        :meth:`edit` does not pay: use them to attribute latency, and
+        un-instrumented ``edit()`` timings for throughput.
+
+        ``stats["flops"]`` is ``{"prep", "loop", "decode", "total"}``, counted
+        in a second, untimed pass over the same inputs:
+        ``torch.utils.flop_counter`` for the library's matrix products and
+        convolutions plus the hand-written kernels' own counts from their
+        shapes; ``None`` where that cannot be had."""
+        ec, steps, seed = self._resolve(num_inference_steps, seed, edit_config)
+        dev = self.device
+        stats: Dict[str, object] = {}
+        last = [time.perf_counter()]
+
+        @contextlib.contextmanager
+        def timed(name):
+            yield
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stats[f"{name}_s"], last[0] = now - last[0], now
+
+        image = np.asarray(image, dtype=np.uint8)
+        box = _validate_box(box, image.shape[:2])
+        region, mask = self._prepare_region(image, box, text, ec.resolution,
+                                            rng)
+        edited = self._fetch(self._enqueue([region], steps, ec, seed,
+                                           stage=timed))[0]
+        last[0] = time.perf_counter()
+        result = paste_back(image, edited, region["x_s"], region["y_s"],
+                            region["crop_scale"], region["location"])
+        stats["paste_s"] = time.perf_counter() - last[0]
+        stats["flops"] = self._stage_flops([region], steps, ec, seed)
+        return result, mask * 255, stats
+
+    def _stage_flops(self, regions, steps, ec, seed
+                     ) -> Optional[Dict[str, float]]:
+        """FLOPs per device stage of one pass, counted while it runs once
+        more; ``None`` when this torch has no flop counter."""
+        try:
+            from torch.utils.flop_counter import FlopCounterMode
+        except ImportError:
+            return None
+        flops: Dict[str, float] = {}
+
+        @contextlib.contextmanager
+        def counted(name):
+            before = _kernel_flops()
+            with FlopCounterMode(display=False) as counter:
+                yield
+            flops[name] = float(counter.get_total_flops()
+                                + _kernel_flops() - before)
+
+        self._fetch(self._enqueue(regions, steps, ec, seed, stage=counted))
+        flops.pop("host_prep")
+        flops["total"] = sum(flops.values())
+        return flops
+
+
+def _kernel_flops() -> int:
+    """Matrix-product FLOPs the hand-written kernels have launched so far
+    (they are invisible to ``torch.utils.flop_counter``)."""
+    return (flash_attention.flops + gn_silu_conv3x3.flops
+            + quant_matmul.flops)
 
 
 def text_editing(pipe: DiffUTEPipeline, text: str, instance_image: np.ndarray,

@@ -7,7 +7,8 @@ Example:
 The flags are ``diffute_tpu.serve.cli``'s, plus ``--device`` (default
 ``cuda``: without a card the command exits non-zero unless ``--device cpu``
 is given) and the UNet's opt-in kernels: ``--fused-gn``, ``--fused-conv``,
-``--int8`` and ``--reuse K`` (``bench.py``'s serving flags).  On the card the
+``--int8``, ``--reuse K`` and ``--res {512,768,1024}`` (``bench.py``'s
+serving flags) and ``--pipeline-fwd`` (its A/B switch).  On the card the
 models run in bf16 with the flash kernel, on the CPU in fp32.  The models are
 random-init from ``--seed``; ``--checkpoint`` is not yet ported and raises.
 
@@ -41,6 +42,11 @@ def main(argv=None) -> None:
                    help="GroupNorm+SiLU+conv3x3 as one kernel")
     p.add_argument("--int8", action="store_true",
                    help="serve the UNet's transformer weights int8")
+    p.add_argument("--res", type=int, default=None, choices=[512, 768, 1024],
+                   help="edit resolution (default: the scale's own)")
+    p.add_argument("--pipeline-fwd", action="store_true",
+                   help="route the flash forward through the deferred-"
+                   "softmax kernel (an A/B switch; off by default)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="edited.png")
     p.add_argument("--mask-out", default=None)
@@ -55,11 +61,11 @@ def main(argv=None) -> None:
         raise SystemExit("--checkpoint is not yet ported to the PyTorch port "
                          "(ROADMAP.md queue 1)")
 
-    import torch
     from PIL import Image
 
-    from diffute_tpu_torch.config import (DiffUTEConfig, small_config,
-                                          tiny_test_config)
+    from diffute_tpu_torch.config import (DiffUTEConfig, card_serving_config,
+                                          small_config, tiny_test_config)
+    from diffute_tpu_torch.ops.flash_attention import set_pipeline_fwd
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
     from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
@@ -79,16 +85,13 @@ def main(argv=None) -> None:
         edit=dataclasses.replace(config.edit, sampler=args.sampler,
                                  guidance_scale=args.guidance_scale,
                                  masked_latent_blend=args.blend,
-                                 encoder_reuse_interval=args.reuse))
+                                 encoder_reuse_interval=args.reuse,
+                                 **({"resolution": args.res} if args.res
+                                    else {})))
     if device.type == "cuda":
         # the card's main path: bf16 with the flash kernel
-        bf16 = torch.bfloat16
-        config = dataclasses.replace(
-            config,
-            vae=dataclasses.replace(config.vae, dtype=bf16),
-            unet=dataclasses.replace(config.unet, dtype=bf16,
-                                     use_flash_attention=True),
-            trocr=dataclasses.replace(config.trocr, dtype=bf16))
+        config = card_serving_config(config)
+    set_pipeline_fwd(args.pipeline_fwd)
     pipe = DiffUTEPipeline(config, init_pipeline_params(config, args.seed,
                                                         device), device)
 

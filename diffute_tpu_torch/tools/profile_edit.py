@@ -1,7 +1,8 @@
-"""Where one 50-step 512^2 edit spends the card's time, with the UNet's
-opt-in kernels off and on.
+"""Where one 50-step edit spends the card's time, with the UNet's opt-in
+kernels off and on, at 512^2 or (``--res``) 768^2 or 1024^2.
 
-  python -m diffute_tpu_torch.tools.profile_edit [--variants off,all] [--out DIR]
+  python -m diffute_tpu_torch.tools.profile_edit [--variants off,all]
+      [--res 1024] [--out DIR]
 
 Builds the full-width serving pipeline (bf16, flash attention, random weights
 from a seed) once per variant over one set of weights: ``off``, ``fused_gn``,
@@ -43,6 +44,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--variants", default="off,all")
     p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--res", type=int, default=512, choices=[512, 768, 1024],
+                   help="edit resolution")
     p.add_argument("--timed", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="runs/profile")
@@ -57,7 +60,7 @@ def main(argv=None) -> dict:
 
     dev = resolve_device("cuda")
     bf16 = torch.bfloat16
-    res = 512
+    res = args.res
     params = init_pipeline_params(DiffUTEConfig(), seed=args.seed, device=dev)
     # bench.py's scene and box
     h, w = int(res * 1.5), res * 2
@@ -67,7 +70,7 @@ def main(argv=None) -> dict:
     result = {"gpu": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
-        "steps": args.steps, "variants": {}}
+        "steps": args.steps, "resolution": res, "variants": {}}
     names = args.variants.split(",")
     pipes = {}
     for name in names:
@@ -120,7 +123,8 @@ def main(argv=None) -> dict:
                                for k, v in by_kernel.most_common(20)},
         }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "edit_profile.json"), "w") as f:
+    name = "edit_profile.json" if res == 512 else f"edit_profile_{res}.json"
+    with open(os.path.join(args.out, name), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
     return result

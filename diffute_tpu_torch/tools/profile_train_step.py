@@ -25,6 +25,7 @@ import torch
 # first match wins; names are substrings of CUDA kernel names
 GROUPS = (
     ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd_pipelined", ("flash_fwd_pipelined_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("gn_stats", ("gn_stats_kernel",)),

@@ -162,3 +162,56 @@ def test_cuda_kernel_matches_plain(m, k, n):
         assert (diff.norm() / ref.norm()).item() <= 2e-3
     with pytest.raises(ValueError):
         quant_matmul(x.float(), q, s)  # no fallback
+
+
+@pytest.mark.cuda
+def test_cuda_two_streams_do_not_share_ticket_counters(monkeypatch):
+    # the GroupNorm statistics and the split-K int8 matmul merge their
+    # blocks' partial results by ticket counters; launches in flight on two
+    # streams at once must give what each gives alone, bit for bit
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc")
+    from diffute_tpu_torch.ops import groupnorm as gn
+    from diffute_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn((1, 320, 64, 64), generator=g, device="cuda").bfloat16()
+          for _ in range(2)]
+    ms = [torch.randn((256, 5120), generator=g, device="cuda").bfloat16()
+          for _ in range(2)]
+    q, scale = quant.quantize_per_channel(
+        torch.randn((1280, 5120), generator=g, device="cuda") * 5120 ** -0.5)
+    scale = scale.bfloat16()
+
+    def work(i):
+        return (*gn.group_norm_stats(xs[i], 32, 1e-5),
+                quant.quant_matmul(ms[i], q, scale, splits=4))
+
+    alone = [work(i) for i in range(2)]
+    torch.cuda.synchronize()
+
+    def mismatches():
+        """Launches that differ from the run alone, of 2 x 5 x 20 queued on
+        two streams behind one gate, so that both queues run at once."""
+        streams = [torch.cuda.Stream() for _ in range(2)]
+        bad = 0
+        for _ in range(5):
+            torch.cuda._sleep(200_000_000)
+            gate = torch.cuda.Event()
+            gate.record()
+            outs = []
+            for i, s in enumerate(streams):
+                s.wait_event(gate)
+                with torch.cuda.stream(s):
+                    outs.append([work(i) for _ in range(20)])
+            torch.cuda.synchronize()
+            bad += sum(not all(torch.equal(a, b) for a, b in zip(run, alone[i]))
+                       for i, runs in enumerate(outs) for run in runs)
+        return bad
+
+    assert mismatches() == 0
+    # the check sees the fault: one buffer for both streams gives wrong sums
+    shared = torch.zeros(8192, dtype=torch.int32, device="cuda")
+    for mod in (gn, quant):
+        monkeypatch.setattr(mod, "stream_tickets", lambda *a: shared)
+    assert mismatches() > 0
