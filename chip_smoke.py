@@ -6,15 +6,20 @@ Phases, one line each (any failure raises and exits non-zero):
   1. device: the card, torch/CUDA versions, Pillow and a TTF font;
   2. build: nvcc builds the port's CUDA kernels from diffute_tpu_torch/csrc,
      one compiler process per source, all at once;
-  3. kernels: the flash-attention forward, and the two backward kernels
-     (dq, dk/dv), each against its plain fp32 version in bf16 at the main
+  3. kernels: the flash-attention forward against its plain tile-by-tile
+     version (mutants of which must FAIL), and the two backward kernels
+     (dq, dk/dv) against their plain fp32 versions, in bf16 at the main
      paths' shapes plus a ragged one; kernel, plain version and one PyTorch
      library call (scaled_dot_product_attention, a yardstick the port never
-     calls) timed, beside the card's bound for the same work; and
-     FlashAttentionFn's backward against the backward wrapper;
+     calls) timed, beside the card's bound for the same work; the forward
+     also on strided (B, S, H, 64) views of a packed projection; what ptxas
+     says of the forward; and FlashAttentionFn's backward against the
+     backward wrapper;
   3a. the deferred-softmax forward against its plain (tile by tile, base 2)
      version and against the standard forward on the same inputs, both
-     timed at the shapes of a 512^2, 768^2 and 1024^2 edit; mutants of the
+     timed at every shape of the 512^2, 768^2 and 1024^2 edits and the
+     training step, and once on
+     strided views through the PIPELINE_FWD dispatch; mutants of the
      plain version (LSE left in base 2, the last tile never consumed) must
      FAIL; what ptxas says of the kernel (registers, spills);
   3b. the UNet's opt-in kernels the same way: GroupNorm statistics and
@@ -66,9 +71,19 @@ edit_batch over B images, --stream DEPTH one edit_stream over the N items
 times edits with the UNet's flags off, fused conv, int8 and all on: four
 pipelines over one set of weights in one process, taking turns.
 
-    python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
-builds the kernels and runs phases 3a and 3b alone.
+builds the kernels and runs phase 3's forward rows, 3a and 3b alone; with
+--package-root another checkout's kernels, so two commits' kernels can be
+timed in turns on one card.
+
+    python3 chip_smoke.py --flash-host 20 [--package-root DIR]
+
+times the host's side of the serving path's attention call (no-grad
+dot_product_attention on (1, S, H, 64) projections, then the caller's
+reshape to (1, S, H*64)) at a 512^2 edit's two flash shapes: 20 rounds of
+100 calls, the host's seconds to queue them and the seconds until the card
+is done, per call.
 """
 
 from __future__ import annotations
@@ -76,6 +91,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import statistics
 import subprocess
@@ -87,10 +103,6 @@ import torch
 
 STEPS = 50
 RES = 512
-# kernel vs plain fp32 version, bf16 inputs from a unit normal: the kernel's
-# output is rounded to bf16 (half an ulp of values up to ~4 is ~1e-2) and
-# its P is rounded to bf16 before PV; the LSE stays fp32
-TOL_O, TOL_LSE = 2e-2, 1e-3
 # full-size UNet forward with flash vs dense attention, both bf16: relative
 # max error over max |eps| (a wrong kernel gives O(1))
 TOL_UNET_REL = 5e-2
@@ -343,17 +355,23 @@ def check_fused_kernels(dev) -> dict:
     return results
 
 
-# the deferred-softmax forward against its plain version and against the
-# standard forward, bf16 inputs from a unit normal: o is an fp32 result
-# rounded once to bf16 and p is rounded to bf16 before p v on every side, so
-# max abs error within FUSED_HALF_ULPS half-ulps of max |ref| and relative L2
-# within TOL_FUSED_REL_L2 (the standard forward reads 2.0e-3 abs against its
-# one-pass fp32 version); the LSE stays fp32 (1.9e-6 read): a base-2 LSE is
-# off by ln(T) * 0.44 (over 3 at 4096 keys), a skipped tile by about 1/n_tiles
-TOL_PIPELINED_LSE = 1e-4
-# (BH, S, T): the top self-attentions of a 512^2, 768^2 and 1024^2 edit
-PIPELINED_SHAPES = [(5, 4096, 4096), (10, 2304, 2304), (5, 9216, 9216),
-                    (5, 16384, 16384), (20, 1024, 1024)]
+# both forwards against their tile-by-tile plain version
+# (flash_fwd_tiled_reference) and against each other, bf16 inputs from a
+# unit normal: o is an fp32 result rounded once to bf16 and p is rounded to
+# bf16 against the same running max on every side, so max abs error within
+# FUSED_HALF_ULPS half-ulps of max |ref| and relative L2 within
+# TOL_FUSED_REL_L2 (1.4e-4 to 3.6e-4 read; o scaled by 0.99 gives 1e-2, and
+# against the one-pass fp32 version, which rounds no p, the kernels read
+# 2.4e-3); the LSE stays fp32 (1.9e-6 read): a base-2 LSE is off by
+# ln(T) * 0.44 (over 3 at 4096 keys), a skipped tile by about 1/n_tiles
+TOL_FWD_LSE = 1e-4
+# (BH, S, T): the flash self-attentions of a 512^2 edit (5 x 4096, 10 x
+# 1024), a 768^2 edit (5 x 9216, 10 x 2304), a 1024^2 edit (5 x 16384,
+# 10 x 4096, 20 x 1024) and the training step at batch 4 (20 x 4096,
+# 40 x 1024): every shape at which PIPELINE_FWD routes a main path's call
+PIPELINED_SHAPES = [(5, 4096, 4096), (10, 1024, 1024), (10, 2304, 2304),
+                    (5, 9216, 9216), (5, 16384, 16384), (10, 4096, 4096),
+                    (20, 1024, 1024), (20, 4096, 4096), (40, 1024, 1024)]
 
 
 def sdpa(q, k, v):
@@ -362,6 +380,96 @@ def sdpa(q, k, v):
 
     return F.scaled_dot_product_attention(q[None], k[None], v[None],
                                           scale=0.125)[0]
+
+
+# (BH, S, T): PIPELINED_SHAPES and a ragged one
+FORWARD_SHAPES = [(5, 4096, 4096), (10, 1024, 1024), (4, 1000, 577),
+                  (20, 4096, 4096), (40, 1024, 1024), (5, 9216, 9216),
+                  (10, 2304, 2304), (5, 16384, 16384), (10, 4096, 4096),
+                  (20, 1024, 1024)]
+
+
+def strided_qkv(g, dev, b=2, s=4096, h=5):
+    """q, k, v as (B, S, H, 64) views of one packed (B, S, 3 * H * 64)
+    projection, the serving layout at its least contiguous."""
+    x = torch.randn((b, s, 3 * h * 64), generator=g, device=dev,
+                    dtype=torch.bfloat16).view(b, s, 3, h, 64)
+    return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+
+
+def fwd_ok(err: dict, lse_err: float) -> bool:
+    return fused_ok(err) and lse_err <= TOL_FWD_LSE
+
+
+def check_forward(dev) -> list:
+    """Phase kernel_fwd: the standard forward against its plain tile-by-tile
+    version at FORWARD_SHAPES, timed beside the plain one-pass version (what
+    the wrapper computes for CPU tensors), SDPA and the bound; mutants (o
+    scaled by 0.99, the last kv tile dropped) must fail the criterion; then
+    (a port that reads strides) once on strided (B, S, H, 64) views, against
+    the plain version of their contiguous 3-D copies.  An older checkout
+    (--package-root) without the tiled plain version is held to nothing
+    here: its errors against the one-pass version are printed, its times
+    are what is compared."""
+    from diffute_tpu_torch.ops import _build
+
+    # the module (diffute_tpu_torch.ops exports a function of its name)
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    tiled = getattr(fa, "flash_fwd_tiled_reference", None)
+    plain = tiled or fa.flash_attention_reference
+    phase("ptxas", source="flash_fwd.cu",
+          info=_build.ptxas_info("flash_fwd.cu"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = []
+    for bh, s, t in FORWARD_SHAPES:
+        q, k, v = (torch.randn((bh, n, 64), generator=g, device=dev,
+                               dtype=torch.bfloat16) for n in (s, t, t))
+        o, lse = fa.flash_fwd_3d(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        ro, rlse = plain(q, k, v, 0.125)
+        lse_err = (lse - rlse).abs().max().item()
+        res = dict(shape=[bh, s, t, 64], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+                   max_abs_err_lse=lse_err, held=tiled is not None,
+                   ms=time_ms(lambda: fa.flash_fwd_3d(q, k, v, 0.125)),
+                   plain_ms=time_ms(
+                       lambda: fa.flash_attention_reference(q, k, v, 0.125),
+                       iters=25 if s < 9216 else 5),
+                   library_ms=time_ms(lambda: sdpa(q, k, v)),
+                   **bound(4 * s * t * 64 * bh,
+                           2 * 64 * bh * (2 * s + 2 * t) + 4 * bh * s))
+        if tiled is not None and not results:
+            cut = k.shape[1] - 64
+            mo, mlse = tiled(q, k[:, :cut], v[:, :cut], 0.125)
+            scaled = bwd_errors(ro.float() * 0.99, ro, FUSED_HALF_ULPS)
+            dropped = bwd_errors(mo, ro, FUSED_HALF_ULPS)
+            m_lse = (mlse - rlse).abs().max().item()
+            if fused_ok(scaled) or fwd_ok(dropped, m_lse):
+                raise RuntimeError(f"the criterion passes a mutant: o * 0.99 "
+                                   f"{scaled}, last kv tile dropped {dropped}")
+            res["mutants"] = {"o_scaled_0.99_rel_l2": scaled["rel_l2_err"],
+                              "last_tile_dropped_rel_l2": dropped["rel_l2_err"],
+                              "last_tile_dropped_lse_abs": m_lse}
+        del ro, rlse
+        phase("kernel_fwd", **res)
+        if tiled is not None and not fwd_ok(res, lse_err):
+            raise RuntimeError(f"flash forward disagrees at {res}")
+        results.append(res)
+    if hasattr(fa, "flash_fwd"):
+        q4, k4, v4 = strided_qkv(g, dev)
+        o4, lse = fa.flash_fwd(q4, k4, v4, 0.125)
+        torch.cuda.synchronize()
+        ro, rlse = plain(*(fa._to3d(x) for x in (q4, k4, v4)), 0.125)
+        res = dict(shape=list(q4.shape), strides=list(q4.stride()),
+                   **bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
+                   max_abs_err_lse=(lse - rlse).abs().max().item(),
+                   out_contiguous=o4.is_contiguous(),
+                   ms=time_ms(lambda: fa.flash_fwd(q4, k4, v4, 0.125)))
+        phase("kernel_fwd_strided", **res)
+        if not (fwd_ok(res, res["max_abs_err_lse"]) and res["out_contiguous"]):
+            raise RuntimeError(f"flash forward on strided views disagrees: "
+                               f"{res}")
+        results.append(res)
+    return results
 
 
 def check_pipelined_forward(dev) -> list:
@@ -375,12 +483,10 @@ def check_pipelined_forward(dev) -> list:
         PIPELINED_BLOCK_KV, flash_fwd_3d, flash_fwd_3d_pipelined,
         flash_fwd_pipelined_reference)
 
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     phase("ptxas", source="flash_fwd_pipelined.cu",
           info=_build.ptxas_info("flash_fwd_pipelined.cu"))
     g = torch.Generator(device=dev).manual_seed(2)
-
-    def ok(err, lse_err):
-        return fused_ok(err) and lse_err <= TOL_PIPELINED_LSE
 
     results = []
     for bh, s, t in PIPELINED_SHAPES:
@@ -389,7 +495,8 @@ def check_pipelined_forward(dev) -> list:
         o, lse = flash_fwd_3d_pipelined(q, k, v, 0.125)
         so, slse = flash_fwd_3d(q, k, v, 0.125)
         torch.cuda.synchronize()
-        ro, rlse = flash_fwd_pipelined_reference(q, k, v, 0.125)
+        ro, rlse = flash_fwd_pipelined_reference(q, k, v, 0.125,
+                                                 PIPELINED_BLOCK_KV)
         err = bwd_errors(o, ro, FUSED_HALF_ULPS)
         lse_err = (lse - rlse).abs().max().item()
         vs_std = bwd_errors(o, so, FUSED_HALF_ULPS)
@@ -399,26 +506,45 @@ def check_pipelined_forward(dev) -> list:
                    ms=time_ms(lambda: flash_fwd_3d_pipelined(q, k, v, 0.125)),
                    standard_ms=time_ms(lambda: flash_fwd_3d(q, k, v, 0.125)),
                    plain_ms=time_ms(lambda: flash_fwd_pipelined_reference(
-                       q, k, v, 0.125), iters=5),
+                       q, k, v, 0.125, PIPELINED_BLOCK_KV), iters=5),
                    library_ms=time_ms(lambda: sdpa(q, k, v)),
                    **bound(4 * s * t * 64 * bh,
                            2 * 64 * bh * (2 * s + 2 * t) + 4 * bh * s))
         if not results:
             base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
             cut = PIPELINED_BLOCK_KV
-            mo, mlse = flash_fwd_pipelined_reference(q, k[:, :-cut],
-                                                     v[:, :-cut], 0.125)
+            mo, mlse = flash_fwd_pipelined_reference(
+                q, k[:, :-cut], v[:, :-cut], 0.125, PIPELINED_BLOCK_KV)
             m_err = bwd_errors(mo, ro, FUSED_HALF_ULPS)
             m_lse = (mlse - rlse).abs().max().item()
-            if base2 <= TOL_PIPELINED_LSE or ok(m_err, m_lse):
+            if base2 <= TOL_FWD_LSE or fwd_ok(m_err, m_lse):
                 raise RuntimeError(f"the criterion passes a mutant: base-2 "
                                    f"LSE {base2}, dropped tile {m_err}")
             res["mutants"] = {"lse_base2_abs": base2,
                               "last_tile_dropped_rel_l2": m_err["rel_l2_err"],
                               "last_tile_dropped_lse_abs": m_lse}
         phase("kernel_fwd_pipelined", **res)
-        if not (ok(err, lse_err) and ok(vs_std, vs_std_lse)):
+        if not (fwd_ok(err, lse_err) and fwd_ok(vs_std, vs_std_lse)):
             raise RuntimeError(f"the pipelined forward disagrees at {res}")
+        results.append(res)
+    if hasattr(fa, "flash_fwd"):  # through the dispatcher, on strided views
+        q4, k4, v4 = strided_qkv(g, dev)
+        was = fa.set_pipeline_fwd(True)
+        try:
+            o4, lse = fa.flash_fwd(q4, k4, v4, 0.125)
+        finally:
+            fa.set_pipeline_fwd(was)
+        torch.cuda.synchronize()
+        ro, rlse = flash_fwd_pipelined_reference(
+            *(fa._to3d(x) for x in (q4, k4, v4)), 0.125, PIPELINED_BLOCK_KV)
+        err = bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS)
+        res = dict(shape=list(q4.shape), strides=list(q4.stride()), **err,
+                   max_abs_err_lse=(lse - rlse).abs().max().item(),
+                   out_contiguous=o4.is_contiguous())
+        phase("kernel_fwd_pipelined_strided", **res)
+        if not (fwd_ok(err, res["max_abs_err_lse"]) and res["out_contiguous"]):
+            raise RuntimeError(f"the pipelined forward on strided views "
+                               f"disagrees: {res}")
         results.append(res)
     return results
 
@@ -830,6 +956,48 @@ def edits_only(n: int, res: int, batch: int, stream: int) -> None:
                       "edit_seconds": seconds}), flush=True)
 
 
+def flash_host_timing(rounds: int, calls: int = 100) -> None:
+    """Microseconds per serving attention call: the host's time to queue
+    ``calls`` calls (CUDA's launch queue holds them all, so nothing waits on
+    the card) and the time until the card has run them, median of
+    ``rounds`` rounds, at a 512^2 edit's (S, H) = (1024, 10) and
+    (4096, 5)."""
+    import diffute_tpu_torch
+    from diffute_tpu_torch.ops import dot_product_attention
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for s, h in [(1024, 10), (4096, 5)]:
+        # three projections viewed as heads, as Attention.forward has them
+        q, k, v = (torch.randn((1, s, h * 64), device=dev,
+                               dtype=torch.bfloat16).view(1, s, h, 64)
+                   for _ in range(3))
+
+        def call():
+            return dot_product_attention(q, k, v, use_flash=True).reshape(
+                1, s, h * 64)
+
+        queue_us, wall_us = [], []
+        with torch.no_grad():
+            for _ in range(rounds + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    call()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                queue_us.append((t1 - t0) / calls * 1e6)
+                wall_us.append((t2 - t0) / calls * 1e6)
+        out.append({"s": s, "h": h, "calls": calls, "rounds": rounds,
+                    # the first round builds and warms up
+                    "queue_us_median": statistics.median(queue_us[1:]),
+                    "wall_us_median": statistics.median(wall_us[1:]),
+                    "queue_us": queue_us[1:]})
+    print(json.dumps({"package": diffute_tpu_torch.__file__, "gpu": gpu_line(),
+                      "flash_host": out}), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--edits-only", type=int, default=0, metavar="N",
@@ -845,7 +1013,11 @@ def main(argv=None) -> None:
                    help="time N rounds of edits with the UNet's flags off, "
                    "fused conv, int8 and all on, in turns, and nothing else")
     p.add_argument("--kernels-only", action="store_true",
-                   help="build and check the kernels of phase 3b, then stop")
+                   help="build and check the forward kernels (phases 3 and "
+                   "3a) and those of phase 3b, then stop")
+    p.add_argument("--flash-host", type=int, default=0, metavar="ROUNDS",
+                   help="time the host's side of the serving attention call "
+                   "and nothing else")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -858,8 +1030,13 @@ def main(argv=None) -> None:
         return edits_only(args.edits_only, args.res, args.batch, args.stream)
     if args.flag_timing:
         return flag_timing(args.flag_timing)
+    if args.flash_host:
+        return flash_host_timing(args.flash_host)
     if args.kernels_only:
-        print(gpu_line(), flush=True)
+        import diffute_tpu_torch
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        check_forward(torch.device("cuda", 0))
         check_pipelined_forward(torch.device("cuda", 0))
         check_fused_kernels(torch.device("cuda", 0))
         return
@@ -871,9 +1048,9 @@ def main(argv=None) -> None:
     from diffute_tpu_torch.models.attention import Attention
     from diffute_tpu_torch.ops import _build
     from diffute_tpu_torch.ops.flash_attention import (
-        _delta, _to3d, flash_attention, flash_attention_reference,
-        flash_bwd_3d, flash_bwd_dkv_3d, flash_bwd_dkv_reference,
-        flash_bwd_dq_3d, flash_bwd_dq_reference, flash_fwd_3d)
+        _delta, _to3d, flash_attention, flash_bwd_3d, flash_bwd_dkv_3d,
+        flash_bwd_dkv_reference, flash_bwd_dq_3d, flash_bwd_dq_reference,
+        flash_fwd_3d)
     from diffute_tpu_torch.text import find_font, trocr_preprocess_host
     from diffute_tpu_torch.train import UNetTrainer, run_unet
     from diffute_tpu_torch.utils import init_pipeline_params
@@ -894,40 +1071,17 @@ def main(argv=None) -> None:
     _build.load()
     phase("build", seconds=time.perf_counter() - t0)
 
-    # ---- 3. kernels against their plain versions, bf16.  Shapes (BH, S, T):
-    # the edit's (batch 1), the training step's (batch 4) and a ragged one.
+    # ---- 3. kernels against their plain versions, bf16: the forward at the
+    # main paths' shapes, then the backward kernels.  Shapes (BH, S, T): the
+    # edit's (batch 1), the training step's (batch 4) and a ragged one.
+    fwd_results = check_forward(dev)
     g = torch.Generator(device=dev).manual_seed(0)
 
     def inputs(bh, s, t):
         return (torch.randn((bh, n, 64), generator=g, device=dev,
                             dtype=torch.bfloat16) for n in (s, t, t, s))
 
-    fwd_results, dq_results, dkv_results = [], [], []
-    for bh, s, t in [(5, 4096, 4096), (10, 1024, 1024), (4, 1000, 577),
-                     (20, 4096, 4096), (40, 1024, 1024), (5, 9216, 9216),
-                     (5, 16384, 16384)]:
-        q, k, v, _ = inputs(bh, s, t)
-        o, lse = flash_fwd_3d(q, k, v, 0.125)
-        torch.cuda.synchronize()
-        ro, rlse = flash_attention_reference(q, k, v, 0.125)
-        res = dict(shape=[bh, s, t, 64],
-                   max_abs_err=(o.float() - ro.float()).abs().max().item(),
-                   max_abs_err_lse=(lse - rlse).abs().max().item(),
-                   ms=time_ms(lambda: flash_fwd_3d(q, k, v, 0.125)),
-                   plain_ms=time_ms(
-                       lambda: flash_attention_reference(q, k, v, 0.125),
-                       iters=25 if s < 9216 else 5),
-                   library_ms=time_ms(lambda: sdpa(q, k, v)),
-                   **bound(4 * s * t * 64 * bh,
-                           2 * 64 * bh * (2 * s + 2 * t) + 4 * bh * s))
-        del ro, rlse
-        phase("kernel_fwd", **res)
-        if not (res["max_abs_err"] <= TOL_O
-                and res["max_abs_err_lse"] <= TOL_LSE):
-            raise RuntimeError(f"flash forward disagrees at {res} "
-                               f"(tolerance o {TOL_O}, lse {TOL_LSE})")
-        fwd_results.append(res)
-
+    dq_results, dkv_results = [], []
     for bh, s, t in [(20, 4096, 4096), (40, 1024, 1024), (4, 1000, 577)]:
         q, k, v, do = inputs(bh, s, t)
         o, lse = flash_fwd_3d(q, k, v, 0.125)

@@ -72,9 +72,11 @@ def _signatures() -> dict:
     """Exported function name -> ctypes argument types (all return int, the
     launch's cudaGetLastError())."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (q, k, v, o, lse, B, H, S, T, 12 element strides, scale, stream)
+    fwd = [p] * 5 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong), f, p]
     return {
-        "flash_fwd_bf16": [p, p, p, p, p, i, i, i, f, p],
-        "flash_fwd_pipelined_bf16": [p, p, p, p, p, i, i, i, f, p],
+        "flash_fwd_bf16": fwd,
+        "flash_fwd_pipelined_bf16": fwd,
         # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
         "flash_bwd_dq_bf16": [p] * 7 + [i, i, i, f, p],
         "flash_bwd_dkv_bf16": [p] * 8 + [i, i, i, f, p],

@@ -7,10 +7,12 @@ deferred-softmax forward behind the ``PIPELINE_FWD`` switch
 ``csrc/flash_fwd_pipelined.cu``) and the
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
-package joins them with ``jax.custom_vjp``.  The kernels take bf16 tensors
-of head_dim 64 as (batch*heads, seq, 64) and a natural-log fp32 LSE; the
-public function keeps the JAX package's (batch, seq, heads, head_dim)
-layout.
+package joins them with ``jax.custom_vjp``.  The forwards read bf16 q, k, v
+of head_dim 64 through their strides (TMA), so the serving path hands them
+the (batch, seq, heads, head_dim) views it has and gets o back in that
+layout, contiguous; the backward kernels take contiguous
+(batch*heads, seq, 64) copies.  Every LSE is natural-log fp32
+(batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version, which is what the CPU
@@ -19,6 +21,7 @@ tests compare against the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -43,9 +46,9 @@ def set_pipeline_fwd(on: bool) -> bool:
 
 
 def _to3d(x: torch.Tensor) -> torch.Tensor:
-    # (B, S, H, D) -> contiguous (B*H, S, D).  This transpose is a copy
-    # (reshape alone may return a strided view, e.g. at B = 1); passing
-    # strides to the kernel instead would remove it.
+    # (B, S, H, D) -> contiguous (B*H, S, D): a copy, which only
+    # FlashAttentionFn makes now (the backward kernels take contiguous 3-D
+    # input); the forwards read the 4-D views through their strides.
     b, s, h, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
@@ -69,46 +72,72 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype), lse
 
 
-def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, scale: float,
-                                  block_kv: int = PIPELINED_BLOCK_KV
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the deferred-softmax kernel, step by step as the
-    kernel runs it: fp32 score tiles in base 2 (``q k^T * scale * log2 e``,
-    scaled after the product as the kernel's FMA does), two tiles alive by
-    kv parity, step ``j`` producing tile ``j`` and consuming tile ``j - 1``
-    (running max and sum, ``p`` rounded to ``v``'s dtype before ``p v``), and
-    the LSE converted to natural log at the end.
+def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, scale: float,
+                              block_kv: int = PIPELINED_BLOCK_KV
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of both forward kernels' arithmetic, kv tile by kv
+    tile: fp32 score tiles in base 2 (``q k^T * scale * log2 e``, scaled
+    after the product as the kernels' FMA does), running max and sum, ``p``
+    rounded to ``v``'s dtype before ``p v``, and the LSE converted to
+    natural log at the end.  Any T: the last tile may be short (the kernels
+    mask its columns past T).  The kernels round ``p`` against the running
+    max, so this, not the one-pass :func:`flash_attention_reference`, is
+    what they match to a few bf16 ulps.
 
-    q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
-    least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""
+    q (BH, S, D), k/v (BH, T, D) -> (o (BH, S, D) in q's dtype,
+    lse (BH, S) fp32)."""
     bh, s_len, d = q.shape
-    t_len = k.shape[1]
-    n_kv = t_len // block_kv
-    if t_len % block_kv or n_kv < 2:
-        raise ValueError(f"the pipelined forward takes T a multiple of "
-                         f"{block_kv} with at least two tiles; got {t_len}")
     qf, c = q.float(), scale * _LOG2E
     m = torch.full((bh, s_len, 1), -torch.inf, device=q.device)
     l = torch.zeros((bh, s_len, 1), device=q.device)
     acc = torch.zeros((bh, s_len, d), device=q.device)
-    s_buf = [None, None]
-    for j in range(n_kv + 1):
-        if j < n_kv:  # produce tile j
-            k_j = k[:, j * block_kv:(j + 1) * block_kv].float()
-            s_buf[j % 2] = torch.einsum("bsd,btd->bst", qf, k_j) * c
-        if j > 0:     # consume tile j - 1
-            s_prev = s_buf[(j - 1) % 2]
-            v_prev = v[:, (j - 1) * block_kv:j * block_kv]
-            m_new = torch.maximum(m, s_prev.amax(dim=-1, keepdim=True))
-            alpha = torch.exp2(m - m_new)
-            p = torch.exp2(s_prev - m_new)
-            l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum(
-                "bst,btd->bsd", p.to(v.dtype).float(), v_prev.float())
-            m = m_new
+    for j in range(0, k.shape[1], block_kv):
+        s_j = torch.einsum("bsd,btd->bst", qf,
+                           k[:, j:j + block_kv].float()) * c
+        m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s_j - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bst,btd->bsd", p.to(v.dtype).float(),
+            v[:, j:j + block_kv].float())
+        m = m_new
     lse = (m + torch.log2(l)) * _LN2
     return (acc / l).to(q.dtype), lse[..., 0]
+
+
+def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: float,
+                                  block_kv: int = PIPELINED_BLOCK_KV
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the deferred-softmax kernel.  The kernel issues tile
+    ``j + 1``'s scores before tile ``j``'s softmax, which reorders the work
+    and not the arithmetic: :func:`flash_fwd_tiled_reference`, restricted to
+    the dispatch rule's T.
+
+    q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
+    least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""
+    t_len = k.shape[1]
+    if t_len % block_kv or t_len // block_kv < 2:
+        raise ValueError(f"the pipelined forward takes T a multiple of "
+                         f"{block_kv} with at least two tiles; got {t_len}")
+    return flash_fwd_tiled_reference(q, k, v, scale, block_kv)
+
+
+def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
+    """Raise on a layout the forwards' TMA loads cannot read: a last
+    (head_dim) stride other than 1, another stride not a multiple of 8
+    elements (16 bytes of bf16), or a base not 16-byte aligned.  Nothing is
+    copied to make a layout fit."""
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: the last stride must be 1, got "
+                         f"{x.stride()}")
+    if any(st % 8 for st in x.stride()[:-1]):
+        raise ValueError(f"{name}: strides {x.stride()} are not multiples of "
+                         f"8 elements")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: base address is not 16-byte aligned")
 
 
 def _check_kernel_inputs(ref: torch.Tensor, **tensors: torch.Tensor) -> None:
@@ -141,28 +170,82 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, pipelined: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch a forward kernel on (B, S, H, 64) q and (B, T, H, 64) k, v as
+    they lie: o comes back contiguous (B, S, H, 64), lse (B*H, S).  Raises
+    on anything the kernel does not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != torch.bfloat16:
+            raise ValueError(f"the flash kernel takes bf16 on {q.device}; "
+                             f"{name} is {x.dtype} on {x.device}")
+        if x.dim() != 4 or x.shape[-1] != 64:
+            raise ValueError(f"the flash kernel takes (B, seq, H, 64); "
+                             f"{name} is {tuple(x.shape)}")
+        check_tma_layout(x, name)
+    b, s_len, h, _ = q.shape
+    t_len = k.shape[1]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
+            or s_len == 0 or t_len == 0):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if pipelined and not _pipelined_takes(t_len):
+        raise ValueError(f"the pipelined forward takes T a multiple of "
+                         f"{PIPELINED_BLOCK_KV} with at least two tiles; "
+                         f"got {t_len}")
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*(st for x in (q, k, v, o)
+                                         for st in x.stride()[:3]))
+    name = "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16"
+    _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, s_len, t_len, strides, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if pipelined:
+        flash_attention.pipelined_launches += 1
+    else:
+        flash_attention.launches += 1
+    flash_attention.flops += 4 * b * h * s_len * t_len * 64
+    return o, lse
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, H, 64), k/v (B, T, H, 64) in any layout TMA reads
+    (:func:`check_tma_layout`) -> (o (B, S, H, 64) contiguous,
+    lse (B*H, S)).  No copy of q, k or v is made.
+
+    CUDA: the kernel on the current stream (the deferred-softmax one with
+    ``PIPELINE_FWD`` set and T a whole number (>= 2) of kv tiles).  CPU:
+    the matching plain version."""
+    pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1])
+    if q.device.type != "cpu":
+        return _fwd_kernel(q, k, v, scale, pipelined)
+    b, s_len, h, d = q.shape
+    ref = (flash_fwd_pipelined_reference if pipelined
+           else flash_attention_reference)
+    o3, lse = ref(*(x.transpose(1, 2).flatten(0, 1) for x in (q, k, v)),
+                  scale)
+    return o3.view(b, h, s_len, d).transpose(1, 2).contiguous(), lse
+
+
 def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (BH, S, 64), k/v (BH, T, 64) -> (o (BH, S, 64), lse (BH, S)).
+    """q (BH, S, 64), k/v (BH, T, 64) -> (o (BH, S, 64), lse (BH, S)):
+    :func:`flash_fwd` with H = 1, so the same dispatch (``PIPELINE_FWD``)
+    and the same checks (raises on anything the kernel does not take)."""
+    o, lse = flash_fwd(*_as4d(q, k, v), scale)
+    return o[:, :, 0], lse
 
-    CUDA: checks and launches the kernel on the current stream (raises on
-    anything it does not take).  CPU: the plain version.  With
-    ``PIPELINE_FWD`` set and T a whole number (>= 2) of kv tiles, the
-    deferred-softmax forward instead (the JAX dispatcher's rule)."""
-    if PIPELINE_FWD and _pipelined_takes(k.shape[1]):
-        return flash_fwd_3d_pipelined(q, k, v, scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    _check_kernel_inputs(q, q=q, k=k, v=v)
-    bh, s_len, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, s_len), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, s_len, k.shape[1], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
-    flash_attention.flops += 4 * bh * s_len * k.shape[1] * 64
-    return o, lse
+
+def _as4d(*xs: torch.Tensor):
+    for x in xs:
+        if x.dim() != 3:
+            raise ValueError(f"expected (BH, seq, 64), got {tuple(x.shape)}")
+    return tuple(x[:, :, None] for x in xs)
 
 
 def _pipelined_takes(t_len: int) -> bool:
@@ -180,20 +263,8 @@ def flash_fwd_3d_pipelined(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version."""
     if q.device.type == "cpu":
         return flash_fwd_pipelined_reference(q, k, v, scale)
-    _check_kernel_inputs(q, q=q, k=k, v=v)
-    bh, s_len, _ = q.shape
-    if not _pipelined_takes(k.shape[1]):
-        raise ValueError(f"the pipelined forward takes T a multiple of "
-                         f"{PIPELINED_BLOCK_KV} with at least two tiles; "
-                         f"got {k.shape[1]}")
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, s_len), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd_pipelined_bf16", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s_len, k.shape[1],
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.pipelined_launches += 1
-    flash_attention.flops += 4 * bh * s_len * k.shape[1] * 64
-    return o, lse
+    o, lse = _fwd_kernel(*_as4d(q, k, v), scale, pipelined=True)
+    return o[:, :, 0], lse
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
@@ -342,10 +413,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         # nothing to differentiate (serving, the frozen encoders): the
-        # forward wrapper alone, with no autograd node and nothing saved
-        b, _, h, _ = q.shape
-        o3, _ = flash_fwd_3d(_to3d(q), _to3d(k), _to3d(v), scale)
-        return _from3d(o3, b, h)
+        # forward alone on the 4-D views, no copy in and o contiguous out
+        # (so the caller's reshape to (B, S, H*D) is a view)
+        return flash_fwd(q, k, v, scale)[0]
     return FlashAttentionFn.apply(q, k, v, scale)
 
 

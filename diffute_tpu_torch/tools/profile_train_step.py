@@ -24,8 +24,9 @@ import torch
 
 # first match wins; names are substrings of CUDA kernel names
 GROUPS = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
-    ("flash_fwd_pipelined", ("flash_fwd_pipelined_kernel",)),
+    # the Hopper forwards are flash_fwd_sm90_kernel<schedule>
+    ("flash_fwd", ("flash_fwd_kernel", "PingPong>")),
+    ("flash_fwd_pipelined", ("flash_fwd_pipelined_kernel", "Deferred>")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("gn_stats", ("gn_stats_kernel",)),

@@ -79,6 +79,16 @@ def test_plain_version_is_tile_by_tile_and_agrees_with_one_pass():
     np.testing.assert_allclose(lse2.numpy(), lse.numpy(), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("t", [128, 320])
+def test_pipelined_plain_version_is_the_tiled_one(t):
+    # the deferred schedule reorders the work, not the arithmetic: in bf16
+    # the two plain versions agree to the bit, as the two kernels do
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(7, 2, 96, t))
+    o, lse = tfa.flash_fwd_pipelined_reference(q, k, v, 0.125)
+    to, tlse = tfa.flash_fwd_tiled_reference(q, k, v, 0.125)
+    assert torch.equal(o, to) and torch.equal(lse, tlse)
+
+
 def test_mutants_fail_the_bounds():
     # an LSE left in base 2, and a last tile never consumed, are far
     # outside the bounds the kernel is held to
@@ -114,8 +124,8 @@ def test_gradients_through_the_pipelined_lse_match_jax(monkeypatch):
 
     monkeypatch.setattr(tfa, "PIPELINE_FWD", True)
     calls = []
-    real = tfa.flash_fwd_3d_pipelined
-    monkeypatch.setattr(tfa, "flash_fwd_3d_pipelined",
+    real = tfa.flash_fwd_pipelined_reference  # the switch's CPU route
+    monkeypatch.setattr(tfa, "flash_fwd_pipelined_reference",
                         lambda *a: calls.append(1) or real(*a))
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     out = tfa.flash_attention(*leaves)
@@ -165,20 +175,36 @@ def test_set_pipeline_fwd_sets_the_module_switch(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,s,t", [(5, 4096, 4096), (10, 2304, 2304),
-                                    (3, 1000, 1024), (2, 64, 128)])
-def test_cuda_kernel_matches_plain_and_standard(bh, s, t):
+@pytest.mark.parametrize("bh,s,t,strided", [
+    (5, 4096, 4096, False), (10, 2304, 2304, False), (3, 1000, 1024, False),
+    (2, 64, 128, False), (5, 16384, 16384, False), (5, 4096, 4096, True),
+    (20, 1024, 1024, True)])
+def test_cuda_kernel_matches_plain_and_standard(monkeypatch, bh, s, t,
+                                                strided):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((bh, n, 64), generator=g, device="cuda",
-                           dtype=torch.bfloat16) for n in (s, t, t))
+    if strided:  # (1, S, BH, 64) views of one packed projection, S == T
+        x = torch.randn((1, s, 3, bh, 64), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    else:
+        q, k, v = (torch.randn((bh, n, 64), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for n in (s, t, t))
     before = tfa.flash_attention.pipelined_launches
-    o, lse = tfa.flash_fwd_3d_pipelined(q, k, v, 0.125)
+    if strided:  # through the dispatcher, as the serving path calls it
+        monkeypatch.setattr(tfa, "PIPELINE_FWD", True)
+        o, lse = tfa.flash_fwd(q, k, v, 0.125)
+        monkeypatch.setattr(tfa, "PIPELINE_FWD", False)
+        so, slse = tfa.flash_fwd(q, k, v, 0.125)
+        assert o.is_contiguous()
+        q, k, v, o, so = (tfa._to3d(x) for x in (q, k, v, o, so))
+    else:
+        o, lse = tfa.flash_fwd_3d_pipelined(q, k, v, 0.125)
+        so, slse = tfa.flash_fwd_3d(q, k, v, 0.125)
     torch.cuda.synchronize()
     assert tfa.flash_attention.pipelined_launches == before + 1
     ro, rlse = tfa.flash_fwd_pipelined_reference(q, k, v, 0.125)
-    so, slse = tfa.flash_fwd_3d(q, k, v, 0.125)
     for other, other_lse in ((ro, rlse), (so, slse)):
         # o rounded once to bf16 on each side: 3 half-ulps of max |ref|,
         # relative L2 2e-3; the LSE is fp32
