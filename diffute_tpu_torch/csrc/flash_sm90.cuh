@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the two flash-attention
-// forwards (flash_fwd.cu, flash_fwd_pipelined.cu): the TMA tensor maps that
-// read q, k and v through their strides, mbarriers, the two wgmma shapes the
-// forwards issue, the producer warp's load loop, the online-softmax step and
-// the epilogue.  Each forward adds only its consumer schedule.
+// forwards (flash_fwd.cu, flash_fwd_pipelined.cu) and the backward
+// (flash_bwd.cu): the TMA tensor maps that read q, k and v through their
+// strides, mbarriers, the two wgmma shapes every flash kernel issues, the
+// forwards' producer warp, online-softmax step and epilogue.  Each forward
+// adds only its consumer schedule; the backward keeps the block layout below
+// and adds its own loads and schedules.
 //
 // Block layout.  Warpgroup 0 is the producer: after `setmaxnreg.dec` one
 // thread of it issues every TMA load (the q tile of each consumer, then K and
@@ -526,6 +528,21 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
+// Make the current device's primary context current on the calling thread,
+// once per thread.  A thread that has made no runtime call yet has none
+// (PyTorch's autograd threads skip cudaSetDevice for device 0), and
+// cuTensorMapEncodeTiled, which runs before the launch would bind one, fails
+// without it.
+inline cudaError_t bind_context() {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
+}
+
 // A (B, L, H, 64) bf16 tensor with element strides (sb, sl, sh, 1) as a 4-D
 // map of dims (64, H, L, B) and box (64, 1, rows, 1), 128-byte swizzle;
 // rows past L read as zeros.  Returns false if the encoder refuses it.
@@ -557,6 +574,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   constexpr int BN = Consume::kBlockKV;
   if (b <= 0 || h <= 0 || s_len <= 0 || t_len <= 0 || (long long)b * h > 65535)
     return (int)cudaErrorInvalidValue;
+  if (const cudaError_t err = bind_context()) return (int)err;
   FwdParams p;
   const long long* s = strides;
   if (!encode_map(&p.tm_q, q, b, s_len, h, s[0], s[1], s[2], kWgRows) ||

@@ -74,12 +74,14 @@ def _signatures() -> dict:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (q, k, v, o, lse, B, H, S, T, 12 element strides, scale, stream)
     fwd = [p] * 5 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong), f, p]
+    bwd = [p] * 8 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong), f, p]
     return {
         "flash_fwd_bf16": fwd,
         "flash_fwd_pipelined_bf16": fwd,
-        # (q, k, v, dO, lse, delta, dq | dk, dv, bh, S, T, scale, stream)
-        "flash_bwd_dq_bf16": [p] * 7 + [i, i, i, f, p],
-        "flash_bwd_dkv_bf16": [p] * 8 + [i, i, i, f, p],
+        # (q, k, v, o, dO, lse, delta, dq | q, k, v, dO, lse, delta, dk, dv;
+        #  B, H, S, T, 18 element strides, scale, stream)
+        "flash_bwd_dq_bf16": bwd,
+        "flash_bwd_dkv_bf16": bwd,
         # (x, mean, rstd, partial, tickets, groups, n_elem, splits, eps, stream)
         "gn_stats_bf16": [p] * 5 + [i, i, i, f, p],
         # (x, gamma, beta, affine_bf16, mean, rstd, y, B, C, HW, groups, stream)

@@ -7,11 +7,10 @@ deferred-softmax forward behind the ``PIPELINE_FWD`` switch
 ``csrc/flash_fwd_pipelined.cu``) and the
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
-package joins them with ``jax.custom_vjp``.  The forwards read bf16 q, k, v
-of head_dim 64 through their strides (TMA), so the serving path hands them
-the (batch, seq, heads, head_dim) views it has and gets o back in that
-layout, contiguous; the backward kernels take contiguous
-(batch*heads, seq, 64) copies.  Every LSE is natural-log fp32
+package joins them with ``jax.custom_vjp``.  Every kernel reads its bf16
+(batch, seq, heads, 64) inputs through their strides (TMA), so the callers
+hand them the views they have, and writes its outputs contiguous in that
+layout: no copy is made in either direction.  Every LSE is natural-log fp32
 (batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
@@ -46,16 +45,20 @@ def set_pipeline_fwd(on: bool) -> bool:
 
 
 def _to3d(x: torch.Tensor) -> torch.Tensor:
-    # (B, S, H, D) -> contiguous (B*H, S, D): a copy, which only
-    # FlashAttentionFn makes now (the backward kernels take contiguous 3-D
-    # input); the forwards read the 4-D views through their strides.
+    # (B, S, H, D) -> contiguous (B*H, S, D): a copy, which the tests make to
+    # compare with the 3-D plain versions; no kernel path calls it.
     b, s, h, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
 
 
-def _from3d(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
-    bh, s, d = x.shape
-    return x.reshape(b, h, s, d).permute(0, 2, 1, 3)
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    # (B, L, H, D) -> (B*H, L, D) for the plain versions (CPU only)
+    return x.transpose(1, 2).flatten(0, 1)
+
+
+def _heads_last(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    # (B*H, L, D) -> contiguous (B, L, H, D), the kernels' output layout
+    return x.unflatten(0, (b, h)).transpose(1, 2).contiguous()
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -140,26 +143,39 @@ def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
         raise ValueError(f"{name}: base address is not 16-byte aligned")
 
 
-def _check_kernel_inputs(ref: torch.Tensor, **tensors: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take: every tensor on ``ref``'s
-    CUDA device, bf16, (BH, seq, 64), contiguous and 16-byte aligned."""
-    if ref.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {ref.device}")
-    for name, x in tensors.items():
-        if x.device != ref.device:
-            raise ValueError(f"{name} is on {x.device}, q on {ref.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16; {name} is {x.dtype}")
-        if x.dim() != 3 or x.shape[-1] != 64:
-            raise ValueError(f"the flash kernel takes (BH, seq, 64); "
+def _check_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              **more: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take: every tensor on q's CUDA
+    device, bf16, (B, seq, H, 64) in a layout TMA reads; k and v of one
+    shape, and of q's batch and heads; ``more`` (o, dO) of q's shape."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
+        if x.device != q.device or x.dtype != torch.bfloat16:
+            raise ValueError(f"the flash kernel takes bf16 on {q.device}; "
+                             f"{name} is {x.dtype} on {x.device}")
+        if x.dim() != 4 or x.shape[-1] != 64:
+            raise ValueError(f"the flash kernel takes (B, seq, H, 64); "
                              f"{name} is {tuple(x.shape)}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    q, k, v = tensors["q"], tensors["k"], tensors["v"]
-    if (k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[1] == 0
-            or q.shape[1] == 0):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+        check_tma_layout(x, name)
+    b, s_len, h, _ = q.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
+            or s_len == 0 or k.shape[1] == 0
+            or any(x.shape != q.shape for x in more.values())):
+        raise ValueError("shape mismatch: " + ", ".join(
+            f"{n} {tuple(x.shape)}"
+            for n, x in (("q", q), ("k", k), ("v", v), *more.items())))
+
+
+def _strides(*xs: torch.Tensor):
+    """The (batch, seq, head) element strides of each tensor, as the C
+    entries take them."""
+    return (ctypes.c_longlong * (3 * len(xs)))(
+        *(st for x in xs for st in x.stride()[:3]))
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch(name: str, *args) -> None:
@@ -176,34 +192,19 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch a forward kernel on (B, S, H, 64) q and (B, T, H, 64) k, v as
     they lie: o comes back contiguous (B, S, H, 64), lse (B*H, S).  Raises
     on anything the kernel does not take."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device or x.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16 on {q.device}; "
-                             f"{name} is {x.dtype} on {x.device}")
-        if x.dim() != 4 or x.shape[-1] != 64:
-            raise ValueError(f"the flash kernel takes (B, seq, H, 64); "
-                             f"{name} is {tuple(x.shape)}")
-        check_tma_layout(x, name)
+    _check_4d(q, k, v)
     b, s_len, h, _ = q.shape
     t_len = k.shape[1]
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
-            or s_len == 0 or t_len == 0):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if pipelined and not _pipelined_takes(t_len):
         raise ValueError(f"the pipelined forward takes T a multiple of "
                          f"{PIPELINED_BLOCK_KV} with at least two tiles; "
                          f"got {t_len}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(st for x in (q, k, v, o)
-                                         for st in x.stride()[:3]))
     name = "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16"
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, s_len, t_len, strides, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), b, h, s_len, t_len, _strides(q, k, v, o),
+            float(scale), _stream(q))
     if pipelined:
         flash_attention.pipelined_launches += 1
     else:
@@ -224,12 +225,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1])
     if q.device.type != "cpu":
         return _fwd_kernel(q, k, v, scale, pipelined)
-    b, s_len, h, d = q.shape
     ref = (flash_fwd_pipelined_reference if pipelined
            else flash_attention_reference)
-    o3, lse = ref(*(x.transpose(1, 2).flatten(0, 1) for x in (q, k, v)),
-                  scale)
-    return o3.view(b, h, s_len, d).transpose(1, 2).contiguous(), lse
+    o3, lse = ref(*(_heads_first(x) for x in (q, k, v)), scale)
+    return _heads_last(o3, q.shape[0], q.shape[2]), lse
 
 
 def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -296,8 +295,8 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """rowsum(dO * O) in fp32, (BH, S): computed outside the kernels, as the
-    JAX package does."""
+    """rowsum(dO * O) in fp32, (BH, S): the plain versions' delta (on the
+    card the dq kernel computes it)."""
     return (do.float() * o.float()).sum(-1)
 
 
@@ -315,88 +314,165 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale))
 
 
-def _bwd_kernel_args(q, k, v, do, lse, delta, scale):
-    """Check the backward kernels' common inputs; return their C arguments
-    before and after the output pointers."""
-    _check_kernel_inputs(q, q=q, k=k, v=v, do=do)
-    bh, s_len, _ = q.shape
-    if do.shape != q.shape:
-        raise ValueError(f"do {tuple(do.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
-    for name, x in (("lse", lse), ("delta", delta)):
-        if (x.shape != (bh, s_len) or x.dtype != torch.float32
+def flash_bwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              scale: float, block_kv: int = PIPELINED_BLOCK_KV
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of both backward kernels' arithmetic, kv tile by kv
+    tile: delta = rowsum(dO * O) in fp32 from the saved o and dO, fp32 score
+    tiles, ``p = exp2(s * scale * log2 e - lse * log2 e)``,
+    ``ds = p * (dO v^T - delta)``, ``p`` (for dv) and ``ds`` (for dq and dk)
+    rounded to the inputs' dtype before their products, the scale applied to
+    dq and dk at the end.  Any T: the last tile may be short.  The kernels
+    round p and ds as this does, so this, not the one-pass
+    :func:`flash_bwd_reference`, is what they match to a few bf16 ulps.
+
+    q, o, do (BH, S, D), k/v (BH, T, D), lse (BH, S) -> (dq, dk, dv) in the
+    inputs' dtypes."""
+    c = scale * _LOG2E
+    delta = _delta(o, do)[..., None]
+    lse2 = lse[..., None] * _LOG2E
+    qf, dof = q.float(), do.float()
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j in range(0, k.shape[1], block_kv):
+        kj, vj = k[:, j:j + block_kv].float(), v[:, j:j + block_kv].float()
+        p = torch.exp2(torch.einsum("bsd,btd->bst", qf, kj) * c - lse2)
+        ds = p * (torch.einsum("bsd,btd->bst", dof, vj) - delta)
+        dvs.append(torch.einsum("bst,bsd->btd", p.to(do.dtype).float(), dof))
+        dks.append(torch.einsum("bst,bsd->btd", ds.to(q.dtype).float(), qf))
+        dq += torch.einsum("bst,btd->bsd", ds.to(k.dtype).float(), kj)
+    return ((dq * scale).to(q.dtype), (torch.cat(dks, 1) * scale).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+def _check_stats(q: torch.Tensor, **stats: torch.Tensor) -> None:
+    """lse and delta: contiguous fp32 (B*H, S) on q's device."""
+    b, s_len, h, _ = q.shape
+    for name, x in stats.items():
+        if (x.shape != (b * h, s_len) or x.dtype != torch.float32
                 or x.device != q.device or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous fp32 ({bh}, {s_len}) "
-                             f"on {q.device}; got {x.dtype} {tuple(x.shape)}")
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()),
-            (bh, s_len, k.shape[1], float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream))
+            raise ValueError(f"{name} must be contiguous fp32 ({b * h}, "
+                             f"{s_len}) on {q.device}; got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
 
 
-def flash_bwd_dq_3d(q, k, v, do, lse, delta, scale) -> torch.Tensor:
-    """dq (BH, S, 64) from the saved LSE and delta.  CUDA: checks and
-    launches the dq kernel on the current stream.  CPU: the plain version."""
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dq (B, S, H, 64) contiguous and delta = rowsum(dO * O) (B*H, S) fp32,
+    from (B, L, H, 64) q, k, v, the forward's o and lse, and the incoming
+    dO, in any layout TMA reads.  No copy is made.
+
+    CUDA: the dq kernel on the current stream (it computes delta too);
+    raises on anything it does not take.  CPU: the plain versions."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale)
-    ins, dims = _bwd_kernel_args(q, k, v, do, lse, delta, scale)
-    dq = torch.empty_like(q)
-    _launch("flash_bwd_dq_bf16", *ins, dq.data_ptr(), *dims)
+        q3, k3, v3, o3, do3 = (_heads_first(x) for x in (q, k, v, o, do))
+        delta = _delta(o3, do3)
+        dq = flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta, scale)
+        return _heads_last(dq, q.shape[0], q.shape[2]), delta
+    _check_4d(q, k, v, o=o, do=do)
+    _check_stats(q, lse=lse)
+    b, s_len, h, _ = q.shape
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    delta = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dq_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b, h, s_len, k.shape[1],
+            _strides(q, k, v, o, do, dq), float(scale), _stream(q))
     flash_attention.bwd_dq_launches += 1
-    return dq
+    return dq, delta
+
+
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk, dv (B, T, H, 64) contiguous from (B, L, H, 64) q, k, v, dO in any
+    layout TMA reads, the forward's lse and :func:`flash_bwd_dq`'s delta.
+
+    CUDA: the dk/dv kernel on the current stream; raises on anything it
+    does not take.  CPU: the plain version."""
+    if q.device.type == "cpu":
+        dk, dv = flash_bwd_dkv_reference(
+            *(_heads_first(x) for x in (q, k, v, do)), lse, delta, scale)
+        return (_heads_last(dk, k.shape[0], k.shape[2]),
+                _heads_last(dv, v.shape[0], v.shape[2]))
+    _check_4d(q, k, v, do=do)
+    _check_stats(q, lse=lse, delta=delta)
+    b, s_len, h, _ = q.shape
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch("flash_bwd_dkv_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, s_len, k.shape[1],
+            _strides(q, k, v, do, dk, dv), float(scale), _stream(q))
+    flash_attention.bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`flash_fwd`'s o w.r.t. q, k, v: (B, L, H, 64)
+    inputs in any layout TMA reads, the forward's o and lse, the incoming
+    dO -> dq, dk, dv contiguous (B, L, H, 64).  No copy is made.
+
+    CUDA: the dq kernel (with delta), then the dk/dv kernel, on the current
+    stream; raises on anything they do not take.  CPU: the plain
+    versions."""
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, scale)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, scale))
+
+
+def flash_bwd_dq_3d(q, k, v, o, lse, do, scale
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(BH, S, 64) q, o, dO and (BH, T, 64) k, v -> (dq (BH, S, 64),
+    delta (BH, S)): :func:`flash_bwd_dq` with H = 1."""
+    dq, delta = flash_bwd_dq(*_as4d(q, k, v, o), lse, *_as4d(do), scale)
+    return dq[:, :, 0], delta
 
 
 def flash_bwd_dkv_3d(q, k, v, do, lse, delta, scale
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk, dv (BH, T, 64) from the saved LSE and delta.  CUDA: checks and
-    launches the dk/dv kernel on the current stream.  CPU: the plain
-    version."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale)
-    ins, dims = _bwd_kernel_args(q, k, v, do, lse, delta, scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv_bf16", *ins, dk.data_ptr(), dv.data_ptr(), *dims)
-    flash_attention.bwd_dkv_launches += 1
-    return dk, dv
+    """dk, dv (BH, T, 64): :func:`flash_bwd_dkv` with H = 1."""
+    dk, dv = flash_bwd_dkv(*_as4d(q, k, v, do), lse, delta, scale)
+    return dk[:, :, 0], dv[:, :, 0]
 
 
 def flash_bwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of :func:`flash_fwd_3d`'s ``o`` w.r.t. q, k, v, from the
-    forward's saved ``o`` and ``lse`` and the incoming ``do``: delta in plain
-    torch, then the dq and the dk/dv kernel (CPU: their plain versions)."""
-    if o.shape != do.shape or o.dtype != do.dtype or o.device != do.device:
-        raise ValueError(f"o ({o.dtype} {tuple(o.shape)} on {o.device}) and do "
-                         f"({do.dtype} {tuple(do.shape)} on {do.device}) differ")
-    delta = _delta(o, do)
-    return (flash_bwd_dq_3d(q, k, v, do, lse, delta, scale),
-            *flash_bwd_dkv_3d(q, k, v, do, lse, delta, scale))
+    """Gradients of :func:`flash_fwd_3d`'s o: :func:`flash_bwd` with
+    H = 1."""
+    grads = flash_bwd(*_as4d(q, k, v, o), lse, *_as4d(do), scale)
+    return tuple(x[:, :, 0] for x in grads)
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """(B, S, H, D) attention whose forward and backward are the kernels.
+    """(B, S, H, 64) attention whose forward and backward are the kernels.
 
-    The forward saves the 3-D copies it made for the kernel with ``o`` and
-    the LSE, so the backward re-derives none of them from the 4-D inputs."""
+    Both read the (B, L, H, 64) views they are given through their strides
+    and return contiguous tensors of that layout: the forward saves q, k, v
+    as given with o and the LSE, and no copy is made in either direction
+    (so the caller's reshape of o, and autograd's of the gradients, are
+    views)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        b, _, h, _ = q.shape
-        q3, k3, v3 = _to3d(q), _to3d(k), _to3d(v)
-        o3, lse = flash_fwd_3d(q3, k3, v3, scale)
-        ctx.save_for_backward(q3, k3, v3, o3, lse)
-        ctx.scale, ctx.bh = scale, (b, h)
-        return _from3d(o3, b, h)
+        o, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        q3, k3, v3, o3, lse = ctx.saved_tensors
-        dq3, dk3, dv3 = flash_bwd_3d(q3, k3, v3, o3, lse, _to3d(grad_out),
-                                     ctx.scale)
-        return (*(_from3d(x, *ctx.bh) for x in (dq3, dk3, dv3)), None)
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_bwd(q, k, v, o, lse, grad_out, ctx.scale), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -27,8 +27,10 @@ GROUPS = (
     # the Hopper forwards are flash_fwd_sm90_kernel<schedule>
     ("flash_fwd", ("flash_fwd_kernel", "PingPong>")),
     ("flash_fwd_pipelined", ("flash_fwd_pipelined_kernel", "Deferred>")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    # the Hopper backward is flash_bwd_{dq,dkv}_sm90_kernel (before it,
+    # flash_bwd_{dq,dkv}_kernel)
+    ("flash_bwd_dq", ("flash_bwd_dq_",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("gn_stats", ("gn_stats_kernel",)),
     ("gn_silu_apply", ("gn_silu_apply_kernel",)),
     ("gn_silu_conv3x3", ("gn_silu_conv3x3_kernel", "splitk_reduce_kernel")),
