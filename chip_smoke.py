@@ -26,10 +26,15 @@ Phases, one line each (any failure raises and exits non-zero):
      FAIL; what ptxas says of the kernel (registers, spills);
   3b. the UNet's opt-in kernels the same way: GroupNorm statistics and
      GroupNorm+SiLU, GN+SiLU+conv3x3 and the int8-weight matmul, each against
-     its plain version at the flagged UNet's shapes (library yardsticks:
-     F.silu(F.group_norm), that followed by F.conv2d, x @ q.to(bf16).T * s);
-     a mutated plain version of each (a dropped tap, zero padding applied
-     before the affine, the scale left out) must FAIL the same criterion;
+     its plain version, the conv and the int8 matmul at every shape a
+     flagged 512^2 UNet pass launches (with its launches a pass; the tables
+     must sum to 44, 160 and 32 once per edit) and a few more (library
+     yardsticks: F.silu(F.group_norm), that followed by F.conv2d,
+     x @ q.to(bf16).T * s); mutants (the output x 0.99, a dropped tap, zero
+     padding applied before the affine, the scale left out) must FAIL the
+     same criterion; both give the same bits twice and the int8 matmul's
+     fused bias equals the two-step bit for bit; what ptxas says of both
+     sources (registers, spills, serialized wgmma);
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -43,7 +48,9 @@ Phases, one line each (any failure raises and exits non-zero):
      port 0 answering the index page, a click pair and one 20-step
      /api/edit over HTTP; edit_profiled's stage times and FLOPs;
   5b. one full-width UNet forward with each opt-in kernel alone and all
-     three against the unfused float UNet, same weights and inputs;
+     three against the unfused float UNet, same weights and inputs; the
+     shapes the flagged forward calls the conv and the int8 matmul with
+     equal phase 3b's tables;
   5c. the flagged serving path: all four flags on, two 50-step DDIM edits
      (2,200 conv, 50 GN+SiLU, 8,032 int8-matmul and 500 flash launches each,
      asserted), one 20-step DPM-Solver++ edit with guidance 3, the blend and
@@ -79,6 +86,15 @@ builds the kernels and runs phase 3's kernel rows (forward and backward),
 3a and 3b alone; with --package-root another checkout's kernels, so two
 commits' kernels can be timed in turns on one card.
 
+    python3 chip_smoke.py --fused-only [--package-root DIR]
+
+builds the kernels and runs phase 3b alone (about half a minute).
+
+    python3 chip_smoke.py --fused-host 20 [--package-root DIR]
+
+times the host's side of one fused-conv half (ResnetBlock2D) and one biased
+int8 layer (QuantLinear) at the most launched shapes of a flagged pass.
+
     python3 chip_smoke.py --flash-host 20 [--package-root DIR]
 
 times the host's side of the serving path's attention call (no-grad
@@ -91,9 +107,12 @@ is done, per call.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import gc
 import importlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -144,6 +163,34 @@ FUSED_HALF_ULPS, TOL_FUSED_REL_L2 = 3, 2e-3
 # (flash against dense gave 1.56e-2); int8 weights against float weights by
 # the mean relative error and cosine of tests/test_quant.py
 TOL_UNET_FUSED_REL, TOL_INT8_MEAN_REL, TOL_INT8_COS = 5e-2, 5e-2, 0.999
+# every GN+SiLU+conv3x3 of a flagged 512^2 UNet pass at batch 1 (SD2:
+# layers_per_block 2, channels 320/640/1280/1280): (H = W, Cin, Cout,
+# launches a pass), 44 in all
+CONV_SHAPES = [(64, 320, 320, 7), (64, 640, 320, 2), (64, 960, 320, 1),
+               (32, 320, 640, 1), (32, 640, 640, 6), (32, 960, 640, 1),
+               (32, 1280, 640, 1), (32, 1920, 640, 1),
+               (16, 640, 1280, 1), (16, 1280, 1280, 6), (16, 1920, 1280, 1),
+               (16, 2560, 1280, 2),
+               (8, 1280, 1280, 11), (8, 2560, 1280, 3)]
+# every int8 matmul of that pass, ((M, K, N), launches a pass), 160 in all:
+# per transformer C -> C eight times (proj_in, q, k, v, out of
+# self-attention, q, out of cross-attention, proj_out), GEGLU C -> 8C, FF
+# 4C -> C; 5 transformers at 64^2, 32^2 and 16^2, 1 at 8^2
+W8_SHAPES = [((4096, 320, 320), 40), ((4096, 320, 2560), 5),
+             ((4096, 1280, 320), 5),
+             ((1024, 640, 640), 40), ((1024, 640, 5120), 5),
+             ((1024, 2560, 640), 5),
+             ((256, 1280, 1280), 40), ((256, 1280, 10240), 5),
+             ((256, 5120, 1280), 5),
+             ((64, 1280, 1280), 8), ((64, 1280, 10240), 1),
+             ((64, 5120, 1280), 1)]
+# once per edit and context: the hoisted cross-attention K/V of the 577
+# glyph tokens, 32 in all
+W8_EDIT_SHAPES = [((577, 1024, 320), 10), ((577, 1024, 640), 10),
+                  ((577, 1024, 1280), 12)]
+assert sum(c[-1] for c in CONV_SHAPES) == 44
+assert sum(c for _, c in W8_SHAPES) == 160
+assert sum(c for _, c in W8_EDIT_SHAPES) == 32
 # the card's published peaks, for the bounds
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -204,8 +251,12 @@ def fused_ok(err: dict) -> bool:
 def check_fused_kernels(dev) -> dict:
     """Phase 3b: the GroupNorm+SiLU, GN+SiLU+conv3x3 and int8-matmul kernels
     against their plain versions on the card, in bf16, at the flagged UNet's
-    shapes; a mutated plain version of each must fail the same criterion.
-    Returns {kernel name: [result per shape]}."""
+    shapes (the conv and the int8 matmul at every shape of a 512^2 pass,
+    each beside its launches a pass), each timed beside its bound, its plain
+    version and one library call; mutants of each must fail the same
+    criterion; the conv and the int8 matmul give the same bits twice, and
+    the int8 matmul's fused bias equals the two-step bit for bit.  Returns
+    {kernel name: [result per shape]}."""
     import torch.nn.functional as F
 
     from diffute_tpu_torch.ops.conv_fused import (gn_silu_conv3x3,
@@ -215,10 +266,17 @@ def check_fused_kernels(dev) -> dict:
                                                  group_norm_silu_reference,
                                                  group_norm_stats,
                                                  group_norm_stats_reference)
+    from diffute_tpu_torch.ops import _build
     from diffute_tpu_torch.ops.quant import (quant_matmul,
                                              quant_matmul_reference,
                                              quantize_per_channel)
 
+    # registers, spills, and any line where ptxas made wgmma synchronous
+    for source in ("conv_fused.cu", "quant.cu"):
+        info = _build.ptxas_info(source)
+        phase("ptxas", source=source, info=info,
+              serialized=[line for line in info.splitlines()
+                          if "serialized" in line])
     bf16 = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(1)
 
@@ -282,13 +340,13 @@ def check_fused_kernels(dev) -> dict:
     results["gn_silu"][-1]["mutant_rel_l2"] = must_fail(
         "GroupNorm+SiLU", mutant, ref)
 
-    # ---- GN+SiLU+conv3x3: (B, Cin, Cout, H); the last three are the 768^2
-    # and 1024^2 edits' top levels (96^2 and 128^2 latents)
-    for b, cin, cout, hw in [(1, 320, 320, 64), (1, 960, 320, 64),
-                             (1, 2560, 1280, 16), (1, 1280, 1280, 8),
-                             (2, 640, 640, 32), (1, 2560, 1280, 8),
-                             (1, 320, 320, 96), (1, 320, 320, 128),
-                             (1, 960, 320, 128)]:
+    # ---- GN+SiLU+conv3x3 at every shape of a flagged 512^2 UNet pass
+    # (CONV_SHAPES, batch 1), then the 768^2 and 1024^2 edits' top levels and
+    # one at batch 2
+    for b, cin, cout, hw, per_pass in (
+            [(1, cin, cout, hw, n) for hw, cin, cout, n in CONV_SHAPES]
+            + [(2, 640, 640, 32, None), (1, 320, 320, 96, None),
+               (1, 320, 320, 128, None), (1, 960, 320, 128, None)]):
         x = randn(b, cin, hw, hw)
         gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
         w = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
@@ -304,22 +362,25 @@ def check_fused_kernels(dev) -> dict:
                             w, bias, padding=1)
 
         y = run()
+        again = run()
         torch.cuda.synchronize()
         ref = gn_silu_conv3x3_reference(x, gamma, beta, w, bias, 32, 1e-5)
         err = bwd_errors(y, ref, FUSED_HALF_ULPS)
         nbytes = 2 * (x.numel() + w.numel() + y.numel()) + 2 * (2 * cin + cout)
-        res = dict(shape=[b, cin, cout, hw, hw], **err, ms=time_ms(run),
+        res = dict(shape=[b, cin, cout, hw, hw], launches_per_pass=per_pass,
+                   **err, deterministic=torch.equal(y, again), ms=time_ms(run),
                    plain_ms=time_ms(lambda: gn_silu_conv3x3_reference(
                        x, gamma, beta, w, bias, 32, 1e-5)),
                    library_ms=time_ms(library),
                    **bound(2 * b * hw * hw * cout * 9 * cin, nbytes))
         phase("kernel_conv", **res)
-        if not fused_ok(err):
+        if not (fused_ok(err) and res["deterministic"]):
             raise RuntimeError(f"GN+SiLU+conv3x3 disagrees at {res}")
         results["conv"].append(res)
-        if (cin, hw) == (320, 64):
-            # mutations in plain torch: a dropped tap; zero padding applied
-            # to x before the affine (the border then sees silu(d_c), not 0)
+        if (b, cin, cout, hw) == (1, 320, 320, 64):
+            # mutations: the kernel's output scaled by 0.99; in plain torch a
+            # dropped tap, and zero padding applied to x before the affine
+            # (the border then sees silu(d_c), not 0)
             w_cut = w.clone()
             w_cut[:, :, 0, 0] = 0
             dropped = gn_silu_conv3x3_reference(x, gamma, beta, w_cut, bias,
@@ -331,34 +392,66 @@ def check_fused_kernels(dev) -> dict:
             hp = F.silu(xp * a[None, :, None, None] + d[None, :, None, None])
             padded = F.conv2d(hp.to(bf16).float(), w.float(), bias.float())
             res["mutant_rel_l2"] = {
+                "scaled_0.99": must_fail("conv (output x 0.99)",
+                                         y.float() * 0.99, ref),
                 "dropped_tap": must_fail("conv (dropped tap)", dropped, ref),
                 "pad_before_affine": must_fail("conv (padding before the "
                                                "affine)", padded, ref)}
+            phase("kernel_conv_mutants", **res["mutant_rel_l2"])
 
-    # ---- int8-weight matmul: (M, K, N); 16384 rows are a 1024^2 edit's
-    for m, k, n in [(4096, 320, 2560), (4096, 1280, 320), (64, 1280, 10240),
-                    (577, 1024, 640), (1024, 640, 640), (16384, 320, 2560),
-                    (256, 5120, 1280)]:
+    # ---- int8-weight matmul at every shape of a flagged 512^2 UNet pass
+    # (W8_SHAPES) and of the once-per-edit cross-attention K/V
+    # (W8_EDIT_SHAPES), then a 1024^2 edit's widest.  A package without the
+    # fused bias (an older checkout under --package-root) is timed and held
+    # without it.
+    fused_bias = "packed" in inspect.signature(quant_matmul).parameters
+    for m, k, n, per_pass in ([s + (c,) for s, c in W8_SHAPES]
+                              + [s + (None,) for s, _ in W8_EDIT_SHAPES]
+                              + [(16384, 320, 2560, None)]):
         x = randn(m, k)
         q, scale = quantize_per_channel(randn(n, k, dtype=torch.float32,
                                               std=k ** -0.5))
         scale = scale.to(bf16)  # a bf16 model's scale
-        y = quant_matmul(x, q, scale)
+        bias = randn(n, std=0.1)
+        if fused_bias:
+            from diffute_tpu_torch.ops.quant import pack_w8_weight
+
+            packed = pack_w8_weight(q)
+
+            def run(bias=None):
+                return quant_matmul(x, q, scale, bias, packed=packed)
+        else:
+            def run(bias=None):
+                y = quant_matmul(x, q, scale)
+                return y if bias is None else y + bias
+
+        y = run()
+        again = run()
+        with_bias = run(bias)
         torch.cuda.synchronize()
         ref = quant_matmul_reference(x, q, scale)
         err = bwd_errors(y, ref, FUSED_HALF_ULPS)
-        res = dict(shape=[m, k, n], **err,
-                   ms=time_ms(lambda: quant_matmul(x, q, scale)),
+        res = dict(shape=[m, k, n], launches_per_pass=per_pass, **err,
+                   deterministic=torch.equal(y, again),
+                   # the fused bias against the two-step, bit for bit
+                   bias_equals_two_step=torch.equal(with_bias, y + bias),
+                   ms=time_ms(run), ms_with_bias=time_ms(lambda: run(bias)),
                    plain_ms=time_ms(lambda: quant_matmul_reference(x, q, scale)),
                    library_ms=time_ms(lambda: (x @ q.to(bf16).t()) * scale),
                    **bound(2 * m * n * k, 2 * m * k + n * k + 2 * m * n + 2 * n))
-        phase("kernel_w8", **res)
-        if not fused_ok(err):
+        phase("kernel_w8", fused_bias=fused_bias, **res)
+        if not (fused_ok(err) and res["deterministic"]
+                and res["bias_equals_two_step"]):
             raise RuntimeError(f"int8 matmul disagrees at {res}")
         results["w8"].append(res)
-    unscaled = (x.float() @ q.float().t()).to(bf16)
-    results["w8"][-1]["mutant_rel_l2"] = must_fail(
-        "int8 matmul (scale left out)", unscaled, ref)
+        if (m, k, n) == (4096, 320, 320):
+            unscaled = (x.float() @ q.float().t()).to(bf16)
+            res["mutant_rel_l2"] = {
+                "scaled_0.99": must_fail("int8 matmul (output x 0.99)",
+                                         y.float() * 0.99, ref),
+                "scale_left_out": must_fail("int8 matmul (scale left out)",
+                                            unscaled, ref)}
+            phase("kernel_w8_mutants", **res["mutant_rel_l2"])
     return results
 
 
@@ -749,6 +842,35 @@ def counters() -> dict:
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
             "w8": quant_matmul.launches}
+
+
+@contextlib.contextmanager
+def record_shapes(on: bool):
+    """While ``on``, count the shapes the UNet's layers call the fused conv
+    with ((H, Cin, Cout)) and the int8 matmul with ((M, K, N))."""
+    import diffute_tpu_torch.models.layers as layers
+
+    shapes = {"conv": collections.Counter(), "w8": collections.Counter()}
+    if not on:
+        yield shapes
+        return
+
+    def counted(fn, key, shape):
+        def wrapper(*args, **kwargs):
+            shapes[key][shape(*args)] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    conv, w8 = layers.gn_silu_conv3x3, layers.quant_matmul
+    layers.gn_silu_conv3x3 = counted(
+        conv, "conv", lambda x, g, b, w, *a: (x.shape[2], x.shape[1], w.shape[0]))
+    layers.quant_matmul = counted(
+        w8, "w8", lambda x, q, *a: (x.numel() // q.shape[1], q.shape[1],
+                                    q.shape[0]))
+    try:
+        yield shapes
+    finally:
+        layers.gn_silu_conv3x3, layers.quant_matmul = conv, w8
 
 
 def reset_counters() -> None:
@@ -1158,6 +1280,52 @@ def flash_host_timing(rounds: int, calls: int = 100) -> None:
                       "flash_host": out}), flush=True)
 
 
+def fused_host_timing(rounds: int, calls: int = 100) -> None:
+    """Microseconds per call of the flagged UNet's two most launched layers,
+    as the UNet calls them: one GN+SiLU+conv3x3 half at (1, 320, 320, 64^2)
+    through ResnetBlock2D (its packed weight cached) and one biased int8
+    layer at (4096, 320, 320) through QuantLinear; the host's time to queue
+    ``calls`` calls and the time until the card has run them, median of
+    ``rounds`` rounds."""
+    import diffute_tpu_torch
+    from diffute_tpu_torch.models.layers import QuantLinear, ResnetBlock2D
+    from diffute_tpu_torch.ops.quant import quantize_per_channel
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    block = ResnetBlock2D(320, 320, fused_conv=True).to(dev, bf16)
+    x = torch.randn((1, 320, 64, 64), device=dev, dtype=bf16)
+    linear = QuantLinear(320, 320)
+    q, scale = quantize_per_channel(torch.randn(320, 320))
+    linear.load_state_dict({"weight_q": q, "weight_scale": scale,
+                            "bias": torch.randn(320)})
+    linear = linear.to(dev, bf16)
+    tokens = torch.randn((1, 4096, 320), device=dev, dtype=bf16)
+    out = []
+    for name, call in [
+            ("conv", lambda: block._half("conv1", block.norm1, block.conv1, x)),
+            ("w8", lambda: linear(tokens))]:
+        queue_us, wall_us = [], []
+        with torch.no_grad():
+            for _ in range(rounds + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    call()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                queue_us.append((t1 - t0) / calls * 1e6)
+                wall_us.append((t2 - t0) / calls * 1e6)
+        out.append({"layer": name, "calls": calls, "rounds": rounds,
+                    # the first round builds and warms up
+                    "queue_us_median": statistics.median(queue_us[1:]),
+                    "wall_us_median": statistics.median(wall_us[1:]),
+                    "queue_us": queue_us[1:]})
+    print(json.dumps({"package": diffute_tpu_torch.__file__, "gpu": gpu_line(),
+                      "fused_host": out}), flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--edits-only", type=int, default=0, metavar="N",
@@ -1178,6 +1346,12 @@ def main(argv=None) -> None:
     p.add_argument("--flash-host", type=int, default=0, metavar="ROUNDS",
                    help="time the host's side of the serving attention call "
                    "and nothing else")
+    p.add_argument("--fused-only", action="store_true",
+                   help="build and check the UNet's opt-in kernels (phase "
+                   "3b) alone, then stop")
+    p.add_argument("--fused-host", type=int, default=0, metavar="ROUNDS",
+                   help="time the host's side of one fused-conv and one "
+                   "int8 layer call and nothing else")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -1192,6 +1366,14 @@ def main(argv=None) -> None:
         return flag_timing(args.flag_timing)
     if args.flash_host:
         return flash_host_timing(args.flash_host)
+    if args.fused_host:
+        return fused_host_timing(args.fused_host)
+    if args.fused_only:
+        import diffute_tpu_torch
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        check_fused_kernels(torch.device("cuda", 0))
+        return
     if args.kernels_only:
         import diffute_tpu_torch
 
@@ -1329,7 +1511,7 @@ def main(argv=None) -> None:
         ucfg = dataclasses.replace(cfg.unet, **flags)
         unet = load_module(UNet2DCondition, ucfg, params["unet"], dev, bf16)
         reset_counters()
-        with torch.inference_mode():
+        with torch.inference_mode(), record_shapes(name == "all") as shapes:
             eps = unet(x_in, t_in, ctx16).float()
         d = eps - eps_flash
         unet_check[name] = dict(
@@ -1339,6 +1521,15 @@ def main(argv=None) -> None:
                     / (eps.norm() * eps_flash.norm())).item(),
             launches=counters())
         del unet, eps, d
+    # phase 3b's tables are the flagged pass's shapes: this forward computes
+    # the cross-attention K/V inside, so the once-per-edit shapes are in it
+    expected = {"conv": {(hw, cin, cout): n for hw, cin, cout, n in CONV_SHAPES},
+                "w8": dict(W8_SHAPES + W8_EDIT_SHAPES)}
+    phase("unet_shapes", **{k: {str(list(s)): n for s, n in v.items()}
+                            for k, v in shapes.items()})
+    if {k: dict(v) for k, v in shapes.items()} != expected:
+        raise RuntimeError(f"the flagged UNet pass launched {shapes}, phase "
+                           f"3b's tables hold {expected}")
     phase("unet_flags", **unet_check, tolerance_rel_max=TOL_UNET_FUSED_REL,
           tolerance_int8_mean_rel=TOL_INT8_MEAN_REL,
           tolerance_int8_cosine=TOL_INT8_COS)

@@ -22,7 +22,7 @@ from diffute_tpu_torch.ops.conv_fused import (
     pack_conv3x3_weight,
 )
 from diffute_tpu_torch.ops.groupnorm import group_norm_silu
-from diffute_tpu_torch.ops.quant import quant_matmul
+from diffute_tpu_torch.ops.quant import pack_w8_weight, quant_matmul
 
 
 class QuantLinear(nn.Module):
@@ -35,7 +35,9 @@ class QuantLinear(nn.Module):
     the module is cast (a bf16 model multiplies by the bf16-rounded scale, as
     the JAX pipeline's cast of ``kernel_scale`` does).  ``bias``
     (out_features,) is an ordinary parameter.  The product is rounded to x's
-    dtype before the bias is added, as in the JAX layer."""
+    dtype before the bias is added, as in the JAX layer; on the card both
+    happen in the kernel's epilogue, one launch.  The kernel's repacked copy
+    of ``weight_q`` is made once and kept (not in the state_dict)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -44,12 +46,22 @@ class QuantLinear(nn.Module):
             (out_features, in_features), dtype=torch.int8))
         self.register_buffer("weight_scale", torch.ones(out_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+        self._packed = None  # (weight identity, pack_w8_weight(weight_q))
+
+    def _packed_weight(self) -> Optional[torch.Tensor]:
+        """``weight_q`` in the kernel's layout, repacked when the buffer was
+        replaced or written since (not per call)."""
+        q = self.weight_q
+        if q.device.type != "cuda":
+            return None
+        key = (q.data_ptr(), q._version)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_w8_weight(q))
+        return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = quant_matmul(x, self.weight_q, self.weight_scale)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
-        return y
+        return quant_matmul(x, self.weight_q, self.weight_scale, self.bias,
+                            packed=self._packed_weight())
 
 
 def linear(in_features: int, out_features: int, bias: bool = True,

@@ -87,11 +87,11 @@ def _signatures() -> dict:
         # (x, gamma, beta, affine_bf16, mean, rstd, y, B, C, HW, groups, stream)
         "gn_silu_apply_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
         # (x, mean, rstd, gamma, beta, gn_bf16, wp, bias, bias_bf16, out,
-        #  partial, B, Cin, Cout, H, W, groups, splits, stream)
-        "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 7 + [p],
-        # (x, q, scale, scale_bf16, y, workspace, tickets, M, N, K, splits,
-        #  stream)
-        "w8_matmul_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
+        #  partial, B, Cin, Cout, H, W, groups, tiles, splits, stream)
+        "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 8 + [p],
+        # (x, packed q, scale, scale_bf16, bias, y, workspace, tickets, M, N,
+        #  K, tokens per block, splits, stream)
+        "w8_matmul_bf16": [p, p, p, i, p, p, p, p] + [i] * 5 + [p],
     }
 
 

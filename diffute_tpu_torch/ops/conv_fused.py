@@ -12,8 +12,12 @@ launches, the 960-, 1920- and 2560-channel inputs included.
 
 The kernel reads the weight repacked in its own tile order
 (:func:`pack_conv3x3_weight`, the counterpart of the JAX package's
-``w.reshape(9*c, cout)``).  A module packs it once and passes it as
-``packed``; without it this function packs in the call.
+``w.reshape(9*c, cout)``): each kernel row's weights of a chunk for the Cout
+tiles one block owns are one contiguous run, laid out as the kernel's
+shared-memory operand.
+A module packs it once and passes it as ``packed``; without it this
+function packs in the call.  :func:`conv_plan` is the kernel's grid, in
+plain Python.
 
 On a CUDA tensor the wrapper launches or raises; on a CPU tensor it computes
 the plain version.  Usable under autograd: the backward differentiates the
@@ -22,6 +26,7 @@ plain version, as the JAX package's custom VJP does (no backward kernel).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -35,11 +40,13 @@ from diffute_tpu_torch.ops.groupnorm import (
     group_norm_stats,
 )
 
-# blocks the kernel aims to put on the card before it splits Cin (two per SM)
-_TARGET_BLOCKS = 264
-_MAX_SPLITS = 8
-# the kernel's tile: output channels per block, input channels per chunk
-COUT_TILE, CIN_CHUNK = 128, 16
+# the card's SMs: one block of the kernel fills one (it takes up to 225 KB
+# of shared memory); Cin is split where the grid would leave them empty
+_SMS = 132
+_MAX_SPLITS = 32
+# the kernel's tile: output channels of one wgmma tile, input channels per
+# chunk, output pixels per block, Cout tiles a block owns at most
+COUT_TILE, CIN_CHUNK, PIXELS, MAX_TILES = 64, 16, 64, 5
 
 
 def gn_silu_conv3x3_reference(x: torch.Tensor, gn_weight: torch.Tensor,
@@ -56,20 +63,52 @@ def gn_silu_conv3x3_reference(x: torch.Tensor, gn_weight: torch.Tensor,
 
 def pack_conv3x3_weight(w: torch.Tensor,
                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """OIHW (Cout, Cin, 3, 3) -> contiguous (ceil(Cout/128), Cin/16, 128, 9,
-    16) in ``dtype``: ``[t, c, o, 3*ky + kx, i] = w[128*t + o, 16*c + i, ky,
-    kx]``, zero past Cout.  The kernel's A operand: what one block (128
-    output channels) reads for one chunk of 16 input channels is one
+    """OIHW (Cout, Cin, 3, 3) -> contiguous (Cin/16, 3, ceil(Cout/64), 3, 16,
+    64) in ``dtype``: ``[c, ky, t, kx, i]`` is the row of output channels
+    ``64*t .. 64*t + 63`` (zero past Cout) for input channel ``16*c + i``
+    and tap ``(ky, kx)``, its 16-byte chunk ``j`` (channels ``8j .. 8j + 7``)
+    stored at position ``j ^ (i % 8)``.  That is the kernel's A operand as
+    it lies in shared memory (MN-major, 128-byte swizzle), so what one block
+    reads for one kernel row of one chunk of 16 input channels is one
     contiguous run."""
     if w.dim() != 4 or w.shape[2:] != (3, 3) or w.shape[1] % CIN_CHUNK:
         raise ValueError(f"w must be (Cout, Cin, 3, 3) with Cin % {CIN_CHUNK} "
                          f"== 0; got {tuple(w.shape)}")
     cout, cin = w.shape[:2]
-    tiles = -(-cout // COUT_TILE)
+    tiles, chunks = -(-cout // COUT_TILE), cin // CIN_CHUNK
     w = F.pad(w.detach().to(dtype), (0, 0, 0, 0, 0, 0, 0,
                                      tiles * COUT_TILE - cout))
-    w = w.reshape(tiles, COUT_TILE, cin // CIN_CHUNK, CIN_CHUNK, 9)
-    return w.permute(0, 2, 1, 4, 3).contiguous()
+    # (t, o, c, i, ky, kx) -> (c, ky, t, kx, i, o)
+    w = w.reshape(tiles, COUT_TILE, chunks, CIN_CHUNK, 3, 3)
+    w = w.permute(2, 4, 0, 5, 3, 1).reshape(chunks, 3, tiles, 3, CIN_CHUNK,
+                                            8, 8)
+    rows = torch.arange(CIN_CHUNK, device=w.device)[:, None]
+    swizzled = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)
+    return w[..., rows, swizzled, :].reshape(
+        chunks, 3, tiles, 3, CIN_CHUNK, COUT_TILE).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(batch: int, cin: int, cout: int, h: int, w: int) -> dict:
+    """The kernel's grid for a (B, Cin, H, W) -> Cout call, in plain Python:
+    the pixel tile (``tile_rows`` x ``tile_w`` = 64 pixels, the widest that
+    divides W), the Cout tiles of 64 a block owns (at most five, balanced:
+    all of Cout 320, a quarter of 1280), and the split of Cin's 16-channel
+    chunks where the blocks would not fill the card (no split empty)."""
+    tile_w = next(t for t in (64, 32, 16, 8) if w % t == 0)
+    tile_rows = PIXELS // tile_w
+    pixel_tiles = batch * -(-h // tile_rows) * (w // tile_w)
+    m_tiles = -(-cout // COUT_TILE)
+    co_blocks = -(-m_tiles // MAX_TILES)
+    tiles = -(-m_tiles // co_blocks)
+    co_blocks = -(-m_tiles // tiles)
+    blocks = pixel_tiles * co_blocks
+    n_chunks = cin // CIN_CHUNK
+    splits = max(1, min(_SMS // blocks, n_chunks // 2, _MAX_SPLITS))
+    splits = -(-n_chunks // -(-n_chunks // splits))  # no empty split
+    return dict(tile_w=tile_w, tile_rows=tile_rows, pixel_tiles=pixel_tiles,
+                m_tiles=m_tiles, tiles_per_block=tiles, co_blocks=co_blocks,
+                chunks=n_chunks, splits=splits, blocks=blocks * splits)
 
 
 def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
@@ -87,8 +126,8 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
                          f"and W % 8 == 0; got Cin {cin}, W {w_}")
     if packed is None:
         packed = pack_conv3x3_weight(w)
-    packed_shape = (-(-cout // COUT_TILE), cin // CIN_CHUNK, COUT_TILE, 9,
-                    CIN_CHUNK)
+    packed_shape = (cin // CIN_CHUNK, 3, -(-cout // COUT_TILE), 3, CIN_CHUNK,
+                    COUT_TILE)
     if (packed.shape != packed_shape or packed.dtype != torch.bfloat16
             or packed.device != x.device or not packed.is_contiguous()
             or packed.data_ptr() % 16):
@@ -98,14 +137,8 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
     gn_bf16 = check_affine(x, cin, gn_weight=gn_weight, gn_bias=gn_bias)
     bias_bf16 = check_affine(x, cout, b=b)
     mean, rstd = group_norm_stats(x, groups, eps)
-    # 128 channels x 64 pixels per block; split Cin's 16-channel chunks where
-    # that grid would leave the card empty (the 8^2 and 16^2 levels)
-    tile_rows = 4 if w_ % 16 == 0 else 8
-    blocks = (bsz * -(-h_ // tile_rows) * (w_ * tile_rows // 64)
-              * -(-cout // COUT_TILE))
-    n_chunks = cin // CIN_CHUNK
-    splits = max(1, min(_TARGET_BLOCKS // blocks, _MAX_SPLITS, n_chunks))
-    splits = -(-n_chunks // -(-n_chunks // splits))  # no empty split
+    plan = conv_plan(bsz, cin, cout, h_, w_)
+    splits = plan["splits"]
     # out and partial are made per call, on the stream that launches the
     # kernel: the caching allocator hands a block back only to the stream it
     # was allocated on, so edits in flight on two streams never share them
@@ -116,7 +149,7 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
             rstd.data_ptr(), gn_weight.data_ptr(), gn_bias.data_ptr(),
             int(gn_bf16), packed.data_ptr(), b.data_ptr(), int(bias_bf16),
             out.data_ptr(), partial.data_ptr() if splits > 1 else None,
-            bsz, cin, cout, h_, w_, groups, splits,
+            bsz, cin, cout, h_, w_, groups, plan["tiles_per_block"], splits,
             torch.cuda.current_stream(x.device).cuda_stream)
     gn_silu_conv3x3.launches += 1
     gn_silu_conv3x3.flops += 2 * bsz * h_ * w_ * cout * 9 * cin

@@ -1,11 +1,13 @@
-"""Time the int8-weight matmul at the UNet's layer shapes under each number
-of K splits, beside cuBLAS bf16 on the dequantised weight (a yardstick).
+"""Time the int8-weight matmul at the UNet's layer shapes under each tile
+height (64 or 128 tokens a block) and number of K splits, beside cuBLAS bf16
+on the dequantised weight (a yardstick).
 
   python -m diffute_tpu_torch.tools.tune_w8_splits
 
-Prints one JSON line per shape (M, K, N): CUDA-event medians in ms for
-splits 1, 2, 3, 4, 6 and 8, the split count the wrapper would choose, and the
-card's name and power limit.  Needs a CUDA device.
+Prints one JSON line per shape (M, K, N): CUDA-event medians in ms keyed
+``bt<tokens>s<splits>`` for 64 and 128 tokens and splits 1, 2, 3, 4, 6 and 8,
+the choice ``ops.quant.w8_plan`` makes, and the card's name and power limit.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ def time_ms(fn, iters: int = 25) -> float:
 
 
 def main() -> None:
-    from diffute_tpu_torch.ops.quant import (_choose_splits, quant_matmul,
-                                             quantize_per_channel)
+    from diffute_tpu_torch.ops.quant import (pack_w8_weight, quant_matmul,
+                                             quantize_per_channel, w8_plan)
     from diffute_tpu_torch.utils import resolve_device
 
     dev = resolve_device("cuda")
@@ -55,17 +57,22 @@ def main() -> None:
         q, scale = quantize_per_channel(
             torch.randn((n, k), generator=g, device=dev) * k ** -0.5)
         scale = scale.bfloat16()
+        packed = pack_w8_weight(q)
         w = q.bfloat16()
         ms = {}
-        for splits in (1, 2, 3, 4, 6, 8):
-            if splits <= -(-k // 64):
-                try:
-                    ms[splits] = time_ms(
-                        lambda: quant_matmul(x, q, scale, splits=splits))
-                except RuntimeError:  # an empty last split: not a valid count
-                    pass
-        print(json.dumps({"gpu": gpu, "shape": [m, k, n], "ms_by_splits": ms,
-                          "chosen": _choose_splits(m, n, k),
+        for bt in (64, 128):
+            for splits in (1, 2, 3, 4, 6, 8):
+                steps = -(-k // 64)
+                # a count that leaves the last split empty is not valid
+                if splits > steps or (splits - 1) * -(-steps // splits) >= steps:
+                    continue
+                ms[f"bt{bt}s{splits}"] = time_ms(lambda: quant_matmul(
+                    x, q, scale, splits=splits, tokens_per_block=bt,
+                    packed=packed))
+        plan = w8_plan(m, n, k)
+        print(json.dumps({"gpu": gpu, "shape": [m, k, n], "ms": ms,
+                          "chosen": f"bt{plan['tokens_per_block']}"
+                                    f"s{plan['splits']}",
                           "cublas_bf16_ms": time_ms(lambda: x @ w.t())}),
               flush=True)
 

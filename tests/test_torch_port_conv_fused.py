@@ -17,11 +17,24 @@ import diffute_tpu.ops.conv_fused as j_cf
 from diffute_tpu.ops.conv_fused import gn_silu_conv3x3 as j_gn_silu_conv3x3
 
 from diffute_tpu_torch.ops.conv_fused import (
+    MAX_TILES,
     _GnSiluConvFn,
+    conv_plan,
     gn_silu_conv3x3,
     gn_silu_conv3x3_reference,
     pack_conv3x3_weight,
 )
+
+# every GN+SiLU+conv3x3 of a flagged 512^2 UNet pass (B, Cin, Cout, H = W),
+# then a 768^2 and a 1024^2 edit's top levels and one at batch 2
+FLAGGED_SHAPES = [(1, 320, 320, 64), (1, 640, 320, 64), (1, 960, 320, 64),
+                  (1, 320, 640, 32), (1, 640, 640, 32), (1, 960, 640, 32),
+                  (1, 1280, 640, 32), (1, 1920, 640, 32),
+                  (1, 640, 1280, 16), (1, 1280, 1280, 16),
+                  (1, 1920, 1280, 16), (1, 2560, 1280, 16),
+                  (1, 1280, 1280, 8), (1, 2560, 1280, 8),
+                  (2, 640, 640, 32), (1, 320, 320, 96), (1, 320, 320, 128),
+                  (1, 960, 320, 128)]
 
 
 def _case(b, h, w, c, cout, seed=0, beta_std=0.1):
@@ -135,22 +148,52 @@ def test_autograd_function_backward_is_the_plain_versions():
 
 
 def test_packed_weight_layout():
-    # (Cout, Cin, 3, 3) -> (Cout tiles of 128, Cin chunks of 16, 128, 9, 16)
+    # (Cout, Cin, 3, 3) -> (Cin chunks of 16, ky, Cout tiles of 64, kx, 16
+    # input channels, 64 output channels), 16-byte chunk j of a row at
+    # j ^ (input channel % 8): the kernel's A operand as shared memory holds it
     rng = np.random.default_rng(5)
     w = torch.tensor(rng.normal(size=(130, 32, 3, 3)).astype(np.float32))
     packed = pack_conv3x3_weight(w, torch.float32)
-    assert packed.shape == (2, 2, 128, 9, 16) and packed.is_contiguous()
+    assert packed.shape == (2, 3, 3, 3, 16, 64) and packed.is_contiguous()
     for co, ci, ky, kx in [(0, 0, 0, 0), (5, 17, 1, 2), (129, 31, 2, 0),
-                           (127, 16, 2, 2)]:
-        assert packed[co // 128, ci // 16, co % 128, 3 * ky + kx, ci % 16] \
-            == w[co, ci, ky, kx]
-    assert not packed[1, :, 2:].any()  # zero past Cout
+                           (127, 16, 2, 2), (70, 9, 0, 1)]:
+        i, o = ci % 16, co % 64
+        assert packed[ci // 16, ky, co // 64, kx, i,
+                      ((o // 8) ^ (i % 8)) * 8 + o % 8] == w[co, ci, ky, kx]
+    # zero past Cout: tile 2 holds channels 128 and 129 only
+    real = torch.zeros(16, 64, dtype=torch.bool)
+    for i in range(16):
+        for o in (0, 1):
+            real[i, ((o // 8) ^ (i % 8)) * 8 + o % 8] = True
+    assert not packed[:, :, 2][..., ~real].any()
     assert packed.double().abs().sum() == w.double().abs().sum()
     assert pack_conv3x3_weight(w).dtype == torch.bfloat16
     with pytest.raises(ValueError):
         pack_conv3x3_weight(torch.zeros(2, 16, 1, 1))
     with pytest.raises(ValueError):
         pack_conv3x3_weight(torch.zeros(2, 3, 3, 3))  # Cin % 16
+
+
+@pytest.mark.parametrize("b,cin,cout,hw", FLAGGED_SHAPES + [(1, 64, 96, 24)])
+def test_plan_covers_the_output_with_no_empty_split(b, cin, cout, hw):
+    plan = conv_plan(b, cin, cout, hw, hw)
+    # 64-pixel tiles of whole rows' columns cover the image
+    assert plan["tile_w"] * plan["tile_rows"] == 64 and hw % plan["tile_w"] == 0
+    assert plan["pixel_tiles"] * 64 >= b * hw * hw
+    assert plan["pixel_tiles"] == b * -(-hw // plan["tile_rows"]) * (
+        hw // plan["tile_w"])
+    # every Cout tile of 64 is owned by exactly one block, none empty, and a
+    # block normalises each chunk for at least 256 channels (all of Cout
+    # below that)
+    tiles, blocks = plan["tiles_per_block"], plan["co_blocks"]
+    assert plan["m_tiles"] == -(-cout // 64) and 1 <= tiles <= MAX_TILES
+    assert (blocks - 1) * tiles < plan["m_tiles"] <= blocks * tiles
+    assert tiles * 64 >= min(cout, 256)
+    # the split of Cin's 16-channel chunks leaves none empty
+    splits, chunks = plan["splits"], cin // 16
+    per = -(-chunks // splits)
+    assert 1 <= splits <= chunks and (splits - 1) * per < chunks
+    assert plan["blocks"] == plan["pixel_tiles"] * blocks * splits
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -163,9 +206,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,cin,cout,hw", [(1, 320, 320, 64), (1, 960, 320, 64),
+                                           (1, 1920, 640, 32),
                                            (1, 2560, 1280, 16),
                                            (1, 1280, 1280, 8),
-                                           (2, 640, 640, 32), (1, 64, 96, 24)])
+                                           (2, 640, 640, 32), (1, 320, 320, 96),
+                                           (1, 64, 96, 24)])
 def test_cuda_kernel_matches_plain(b, cin, cout, hw):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
@@ -179,16 +224,20 @@ def test_cuda_kernel_matches_plain(b, cin, cout, hw):
     x = randn(b, cin, hw, hw)
     gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
     w, bias = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5), randn(cout, std=0.1)
+    packed = pack_conv3x3_weight(w)
     before = gn_silu_conv3x3.launches
-    y = gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5,
-                        packed=pack_conv3x3_weight(w))
+    y = gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5, packed=packed)
+    again = gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5, packed=packed)
     torch.cuda.synchronize()
-    assert gn_silu_conv3x3.launches == before + 1
+    assert gn_silu_conv3x3.launches == before + 2
+    assert torch.equal(y, again)  # deterministic: split sums in fixed order
     ref = gn_silu_conv3x3_reference(x, gamma, beta, w, bias, 32, 1e-5).float()
     # one fp32 result rounded to bf16 on both sides: 3 half-ulps of max |ref|
     # and a relative L2 error of 2e-3 (a dropped tap gives 0.3)
     diff = y.float() - ref
     assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
     assert (diff.norm() / ref.norm()).item() <= 2e-3
+    # the output scaled by 0.99 fails the same criterion
+    assert ((y.float() * 0.99 - ref).norm() / ref.norm()).item() > 2e-3
     with pytest.raises(ValueError):
         gn_silu_conv3x3(x.float(), gamma, beta, w, bias, 32, 1e-5)

@@ -19,11 +19,22 @@ from diffute_tpu_torch.ops.quant import (
     convert_linear_weights_to_int8,
     dequantize,
     dequantize_blockwise,
+    pack_w8_weight,
     quant_matmul,
     quant_matmul_reference,
     quantize_blockwise,
     quantize_per_channel,
+    w8_plan,
 )
+
+# (M, K, N) of every int8 matmul of a flagged 512^2 UNet pass, the hoisted
+# cross-attention K/V of the 577 glyph tokens, and a 1024^2 edit's widest
+FLAGGED_SHAPES = [(4096, 320, 320), (4096, 320, 2560), (4096, 1280, 320),
+                  (1024, 640, 640), (1024, 640, 5120), (1024, 2560, 640),
+                  (256, 1280, 1280), (256, 1280, 10240), (256, 5120, 1280),
+                  (64, 1280, 1280), (64, 1280, 10240), (64, 5120, 1280),
+                  (577, 1024, 320), (577, 1024, 640), (577, 1024, 1280),
+                  (16384, 320, 2560)]
 
 
 def _weight(k, n, seed=0):
@@ -113,6 +124,70 @@ def test_bf16_rounds_the_product_before_the_bias():
     assert torch.equal(quant_matmul_reference(x, q, s.bfloat16()), prod)
 
 
+@pytest.mark.parametrize("scale_bf16", [False, True])
+@pytest.mark.parametrize("m,k,n", [(4, 64, 16), (7, 96, 24)])
+def test_reference_bias_is_jax_rounding_then_bias(m, k, n, scale_bf16):
+    # y = bf16(bf16(acc * s) + bias): _xla_matmul_w8 rounded to bf16, then
+    # QuantDense's bias in bf16.  Small integer x makes every sum exact in
+    # fp32 whatever its order, so the two sides agree bit for bit.
+    rng = np.random.RandomState(7)
+    x = rng.randint(-8, 9, size=(m, k)).astype(np.float32)
+    jq_q, jq_s = jq.quantize_per_channel(jnp.asarray(_weight(k, n, seed=8)))
+    bias = rng.standard_normal(n).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    js = jq_s.astype(jnp.bfloat16) if scale_bf16 else jq_s
+    ref = (jq._xla_matmul_w8(xb, jq_q, js).astype(jnp.bfloat16)
+           + jnp.asarray(bias).astype(jnp.bfloat16))
+    q = torch.tensor(np.asarray(jq_q).T.copy())
+    s = torch.tensor(np.asarray(jq_s))
+    if scale_bf16:
+        s = s.bfloat16()
+    out = quant_matmul_reference(torch.tensor(x).bfloat16(), q, s,
+                                 torch.tensor(bias))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    # the wrapper's CPU path is that function, the bias passed in
+    assert torch.equal(quant_matmul(torch.tensor(x).bfloat16(), q, s,
+                                    torch.tensor(bias)), out)
+
+
+def test_pack_w8_weight_layout():
+    # (N, K) int8 -> (K steps of 64, 64-feature tiles (even), 4096 bytes):
+    # thread lane = 4g + t of warp w reads 16 bytes of feature 16w + g, then
+    # 16 of feature 16w + g + 8, each k = 16kk + (2t, 2t+1, 2t+8, 2t+9),
+    # biased by 128; past N and K the bytes read as q = 0
+    rng = np.random.RandomState(9)
+    q = torch.tensor(rng.randint(-127, 128, size=(200, 80)), dtype=torch.int8)
+    packed = pack_w8_weight(q)
+    assert packed.shape == (2, 4, 4096) and packed.dtype == torch.uint8
+    assert packed.is_contiguous()
+    for f, kidx in [(0, 0), (5, 17), (199, 79), (63, 63), (64, 64), (130, 9)]:
+        tile, w, half, g = f // 64, (f % 64) // 16, (f % 16) // 8, f % 8
+        kk, rem = (kidx % 64) // 16, kidx % 16
+        hb, t, e = rem // 8, (rem % 8) // 2, rem % 2
+        byte = (((w * 2 + half) * 32 + 4 * g + t) * 16) + kk * 4 + hb * 2 + e
+        assert packed[kidx // 64, tile, byte] == int(q[f, kidx]) + 128
+    # the padding: features 200..255 and k 80..127
+    assert packed.int().sum() == (int(q.int().sum()) + 128 * 2 * 4 * 4096)
+
+
+@pytest.mark.parametrize("m,k,n", FLAGGED_SHAPES + [(3, 48, 10)])
+def test_plan_covers_the_output_with_no_empty_split(m, k, n):
+    plan = w8_plan(m, n, k)
+    bt, splits = plan["tokens_per_block"], plan["splits"]
+    assert bt in (64, 128)
+    assert plan["tiles"] == -(-m // bt) * -(-n // 128)  # every (M, N) tile
+    steps = -(-k // 64)
+    per = -(-steps // splits)
+    assert 1 <= splits <= steps and (splits - 1) * per < steps
+    assert plan["blocks"] == plan["tiles"] * splits
+    # the choices measured on an H100: 128 tokens at M >= 2048 or N >= 4096,
+    # a split only at K = 5120 where the tiles leave SMs idle
+    assert bt == (128 if m >= 2048 or n >= 4096 else 64)
+    assert (splits > 1) == (k >= 5120 and plan["tiles"] < 132)
+
+
 def test_convert_state_dict_rewrites_only_the_named_layers():
     rng = np.random.RandomState(6)
     sd = {"a.weight": torch.tensor(rng.standard_normal((4, 6)), dtype=torch.float32),
@@ -138,9 +213,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4096, 320, 2560), (4096, 1280, 320),
-                                   (64, 1280, 10240), (577, 1024, 640),
-                                   (3, 48, 10)])
+@pytest.mark.parametrize("m,k,n", [(4096, 320, 320), (4096, 320, 2560),
+                                   (4096, 1280, 320),
+                                   (1024, 640, 5120), (256, 5120, 1280),
+                                   (64, 5120, 1280), (64, 1280, 10240),
+                                   (577, 1024, 640), (3, 48, 10)])
 def test_cuda_kernel_matches_plain(m, k, n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
@@ -149,17 +226,29 @@ def test_cuda_kernel_matches_plain(m, k, n):
     x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
     q, s = quantize_per_channel(
         torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
+    bias = torch.randn(n, generator=g, device="cuda").bfloat16()
+    packed = pack_w8_weight(q)
     for scale in (s, s.bfloat16()):
         before = quant_matmul.launches
-        y = quant_matmul(x, q, scale)
+        y = quant_matmul(x, q, scale, packed=packed)
+        again = quant_matmul(x, q, scale, packed=packed)
+        y_bias = quant_matmul(x, q, scale, bias, packed=packed)
         torch.cuda.synchronize()
-        assert quant_matmul.launches == before + 1
+        assert quant_matmul.launches == before + 3
+        assert torch.equal(y, again)  # deterministic, split or not
+        # the bias in the epilogue equals the two-step, bit for bit
+        assert torch.equal(y_bias, y + bias)
         ref = quant_matmul_reference(x, q, scale).float()
         # one fp32 result rounded to bf16 on both sides: 3 half-ulps of
-        # max |ref| and a relative L2 error of 2e-3 (no scale gives O(1))
+        # max |ref| and a relative L2 error of 2e-3 (no scale gives O(1), the
+        # output scaled by 0.99 1e-2)
         diff = y.float() - ref
         assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
         assert (diff.norm() / ref.norm()).item() <= 2e-3
+        assert ((y.float() * 0.99 - ref).norm() / ref.norm()).item() > 2e-3
+    # packed in the call when not given
+    assert torch.equal(quant_matmul(x, q, s), quant_matmul(x, q, s,
+                                                           packed=packed))
     with pytest.raises(ValueError):
         quant_matmul(x.float(), q, s)  # no fallback
 
