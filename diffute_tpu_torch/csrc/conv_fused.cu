@@ -484,8 +484,12 @@ __global__ void __launch_bounds__(kConvThreads, 1)
   if (wg < kProducers) {
     if (threadIdx.x == 0)
       load_weights(p, smem, sm, ring_a, mt0, tiles, chunk0, n_chunks);
-    else if (threadIdx.x >= 32)
+    else if (threadIdx.x >= 32) {
+      // launched behind the statistics kernel (programmatic dependent
+      // launch): x, mean and rstd are read only once it has finished
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
       normalise_patches(p, smem, sm, ring_b, b, row0, col0, chunk0, n_chunks);
+    }
     return;
   }
   const int cw = wg - kProducers;  // consumer warpgroup 0 or 1
@@ -595,8 +599,23 @@ extern "C" int gn_silu_conv3x3_bf16(const void* x, const void* mean,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(batch * p.tiles_y * p.tiles_x, (p.m_tiles + tiles - 1) / tiles,
             splits);
-  gn_silu_conv3x3_kernel<<<grid, kConvThreads, sm.bytes, st>>>(p);
+  // programmatic dependent launch: the block's prologue and its weight
+  // copies may start while the statistics kernel before it still runs
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kConvThreads, 1, 1);
+  cfg.dynamicSmemBytes = sm.bytes;
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  void* args[] = {&p};
+  const cudaError_t launched = cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(gn_silu_conv3x3_kernel), args);
   int err = (int)cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
   if (err != 0 || splits == 1) return err;
   const long long total = (long long)batch * cout * h * w;  // even: w % 8 == 0
   const long long pairs = total / 2;

@@ -82,10 +82,11 @@ def _signatures() -> dict:
         #  B, H, S, T, 18 element strides, scale, stream)
         "flash_bwd_dq_bf16": bwd,
         "flash_bwd_dkv_bf16": bwd,
-        # (x, mean, rstd, partial, tickets, groups, n_elem, splits, eps, stream)
-        "gn_stats_bf16": [p] * 5 + [i, i, i, f, p],
-        # (x, gamma, beta, affine_bf16, mean, rstd, y, B, C, HW, groups, stream)
-        "gn_silu_apply_bf16": [p, p, p, i, p, p, p, i, i, i, i, p],
+        # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream)
+        "gn_stats_bf16": [p] * 3 + [i] * 4 + [f, p],
+        # (x, gamma, beta, affine_bf16, y, B, C, HW, groups, cluster, threads,
+        #  staged, eps, stream)
+        "gn_silu_bf16": [p, p, p, i, p] + [i] * 7 + [f, p],
         # (x, mean, rstd, gamma, beta, gn_bf16, wp, bias, bias_bf16, out,
         #  partial, B, Cin, Cout, H, W, groups, tiles, splits, stream)
         "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 8 + [p],

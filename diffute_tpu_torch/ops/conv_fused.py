@@ -6,7 +6,8 @@ Counterpart of ``diffute_tpu/ops/conv_fused.py``: every ResnetBlock2D half is
 ``_kernel``) normalises while it stages the convolution's operand, so the
 normalised tensor is never written to device memory.  The statistics come
 from :func:`~diffute_tpu_torch.ops.groupnorm.group_norm_stats`, once per
-call.  None of the TPU kernel's VMEM gates exists here: every bf16 NCHW
+call; the conv kernel is launched as that kernel's programmatic dependent,
+so its prologue and first weight copies overlap the statistics.  None of the TPU kernel's VMEM gates exists here: every bf16 NCHW
 tensor with ``Cin % 16 == 0``, ``Cin % groups == 0`` and ``W % 8 == 0``
 launches, the 960-, 1920- and 2560-channel inputs included.
 

@@ -2,11 +2,16 @@
 version (NCHW).
 
 Counterpart of ``diffute_tpu/ops/groupnorm.py``.  ``_gn_silu_kernel`` (one
-sample's NHWC slab in VMEM, statistics by one-hot matmuls) becomes two
-launches of ``csrc/groupnorm.cu``: :func:`group_norm_stats` (fp32 mean and
-rstd per sample and group, shared with ``ops/conv_fused.py``) and the apply
-``silu(x * a_c + d_c)``.  None of the TPU kernel's VMEM gates exists here:
-every bf16 NCHW tensor with ``C % groups == 0`` and ``H*W % 8 == 0`` launches.
+sample's NHWC slab in VMEM, statistics by one-hot matmuls) becomes
+``csrc/groupnorm.cu``: :func:`group_norm_silu` is one launch (statistics,
+affine and SiLU; x read once), and :func:`group_norm_stats` the statistics
+alone (fp32 mean and rstd per sample and group), which ``ops/conv_fused.py``
+launches before its conv.  Both run a (sample, group) as one thread block
+cluster whose blocks merge their pieces through distributed shared memory.
+:func:`gn_plan` is their grid in plain Python, and
+:func:`group_norm_stats_tiled_reference` their merge in plain torch.  None of
+the TPU kernel's VMEM gates exists here: every bf16 NCHW tensor with
+``C % groups == 0`` and ``H*W % 8 == 0`` launches.
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version (fp32 inside, the mean
@@ -18,31 +23,61 @@ has no backward kernel).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from diffute_tpu_torch.ops.flash_attention import _launch
 
-# blocks the statistics pass aims to put on the card (two per SM)
-_TARGET_BLOCKS = 264
-_tickets = {}  # (device, stream) -> zeroed int32 ticket counters
+# the card's SMs and its shared memory per SM.  A (sample, group) of up to
+# SINGLE_BLOCK 16-byte vectors is one block (measured on the H100: a cluster
+# launch and its barriers cost more than the split saves there); a larger one
+# is split over up to MAX_CLUSTER blocks (the portable cluster size) until the
+# blocks cover the SMs and a piece fits MAX_SMEM.  A piece then holds at least
+# SINGLE_BLOCK / MAX_CLUSTER vectors, so none is empty.
+_SMS, _SMEM_PER_SM = 132, 233472
+SINGLE_BLOCK, MAX_CLUSTER = 2048, 8
+# vectors a thread aims to load (the kernels keep up to 8 in flight), the
+# threads of a block (wider blocks pack worse into the clusters' SMs; a
+# GN+SiLU block alone on its SM takes up to 1024), and the dynamic shared
+# memory a GN+SiLU block may take (kMaxSmem in csrc/groupnorm.cu)
+VECS_PER_THREAD, MAX_THREADS, MAX_SMEM = 4, 256, 232448 - 1024
 
 
-def stream_tickets(cache: dict, device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 ticket counters owned by ``device``'s
-    current stream.  A kernel that merges its blocks' partial results "in
-    the last block to finish" counts arrivals in them and leaves them zero,
-    so launches queued on ONE stream can share a buffer; two streams run
-    concurrently and must never share a counter, hence the key.  Allocated
-    once per stream (inside the caller's stream context, so the caching
-    allocator ties the memory to that stream), not per launch."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    tickets = cache.get(key)
-    if tickets is None or tickets.numel() < n:
-        tickets = cache[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
-                                           device=device)
-    return tickets
+def _width(vectors: int, per_thread: int, cap: int) -> int:
+    return min(cap, max(64, (-(-vectors // per_thread) + 31) // 32 * 32))
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(b: int, c: int, h: int, w: int, groups: int) -> dict:
+    """The kernels' grid for x (b, c, h, w): ``cluster`` blocks a (sample,
+    group), block r owning vectors [r*per, (r+1)*per) of the group's
+    ``n_vec`` 16-byte vectors (the last block the rest, never none), with
+    ``threads`` threads for the statistics.  For GN+SiLU, ``staged`` of a
+    block's vectors go through ``smem`` bytes of shared memory: the whole
+    piece (``one_read``) unless it exceeds MAX_SMEM, when the rest is read
+    twice; ``silu_threads`` threads, more where ``smem`` leaves the block
+    alone on its SM."""
+    if c % groups or (c // groups) * h * w % 8:
+        raise ValueError(f"(C/groups)*H*W of {(b, c, h, w)} over {groups} "
+                         "groups must be a whole multiple of 8")
+    cpg, n_groups = c // groups, b * groups
+    n_vec = cpg * h * w // 8
+    stage_cap = (MAX_SMEM - 8 * cpg) // 16
+    cluster = 1
+    while n_vec > SINGLE_BLOCK and cluster < MAX_CLUSTER and (
+            n_groups * cluster < _SMS or -(-n_vec // cluster) > stage_cap):
+        cluster *= 2
+    per = -(-n_vec // cluster)
+    threads = _width(per, VECS_PER_THREAD, MAX_THREADS)
+    staged = min(per, stage_cap)
+    smem = 16 * staged + 8 * cpg
+    alone = _SMEM_PER_SM // (smem + 2048) < 2
+    silu_threads = (max(threads, _width(per, 8, 1024)) if alone else threads)
+    return dict(n_vec=n_vec, cluster=cluster, per=per, threads=threads,
+                silu_threads=silu_threads, blocks=n_groups * cluster,
+                staged=staged, smem=smem, one_read=staged == per)
 
 
 def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float
@@ -55,17 +90,53 @@ def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float
     return mean, torch.rsqrt(var + eps)
 
 
+def group_norm_stats_tiled_reference(
+        x: torch.Tensor, groups: int, eps: float,
+        ranks: Optional[Sequence[int]] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' merge in plain fp32 torch: each of :func:`gn_plan`'s
+    pieces of a group reduced to (count, mean, M2), its mean subtracted
+    before squaring, then the pieces folded in rank order with Chan's
+    formula.  ``ranks`` folds only those pieces (all by default)."""
+    b, c, h, w = x.shape
+    plan = gn_plan(b, c, h, w, groups)
+    xf = x.float().reshape(b * groups, -1)
+    n = mean = m2 = torch.zeros(b * groups, dtype=torch.float32,
+                                device=x.device)
+    for r in (range(plan["cluster"]) if ranks is None else ranks):
+        piece = xf[:, 8 * r * plan["per"]:8 * (r + 1) * plan["per"]]
+        n_b = float(piece.shape[1])
+        mean_b = piece.mean(dim=1)
+        m2_b = (piece - mean_b[:, None]).square().sum(dim=1)
+        n_ab = n + n_b
+        d = mean_b - mean
+        mean = mean + d * (n_b / n_ab)
+        m2 = m2 + m2_b + d * d * (n * n_b / n_ab)
+        n = n_ab
+    return (mean.reshape(b, groups),
+            torch.rsqrt(m2 / n + eps).reshape(b, groups))
+
+
+def group_norm_silu_from_stats(x: torch.Tensor, weight: torch.Tensor,
+                               bias: torch.Tensor, mean: torch.Tensor,
+                               rstd: torch.Tensor) -> torch.Tensor:
+    """``silu((x - mean) * rstd * weight + bias)`` in fp32 from given (B,
+    groups) statistics, cast to ``x.dtype``."""
+    b, c = x.shape[:2]
+    groups = mean.shape[1]
+    xf = x.float().reshape(b, groups, -1)
+    y = ((xf - mean[..., None]) * rstd[..., None]).reshape(x.shape)
+    y = y * weight.float().view(1, c, 1, 1) + bias.float().view(1, c, 1, 1)
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
 def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor, groups: int = 32,
                               eps: float = 1e-5) -> torch.Tensor:
     """Plain version: ``silu(GroupNorm(x) * weight + bias)`` in fp32, cast to
     ``x.dtype`` (``_xla_gn_silu``).  x (B, C, H, W), weight / bias (C,)."""
-    b, c = x.shape[:2]
     mean, rstd = group_norm_stats_reference(x, groups, eps)
-    xf = x.float().reshape(b, groups, -1)
-    y = ((xf - mean[..., None]) * rstd[..., None]).reshape(x.shape)
-    y = y * weight.float().view(1, c, 1, 1) + bias.float().view(1, c, 1, 1)
-    return (y * torch.sigmoid(y)).to(x.dtype)
+    return group_norm_silu_from_stats(x, weight, bias, mean, rstd)
 
 
 def _check_x(x: torch.Tensor, groups: int, what: str) -> None:
@@ -104,28 +175,12 @@ def group_norm_stats(x: torch.Tensor, groups: int = 32, eps: float = 1e-5
         return group_norm_stats_reference(x, groups, eps)
     _check_x(x, groups, "GroupNorm statistics")
     b, c, h, w = x.shape
-    n_elem = (c // groups) * h * w
-    if n_elem % 8:
-        raise ValueError(f"a group's (C/groups)*H*W = {n_elem} elements must "
-                         "be a multiple of 8")
-    n_groups, n_vec = b * groups, n_elem // 8
-    # split a group's run where one block per group would leave the card
-    # empty; every piece keeps at least one vector per thread
-    splits = max(1, min(-(-_TARGET_BLOCKS // n_groups), n_vec // 256))
-    per = -(-n_vec // splits)
-    splits = -(-n_vec // per)
+    plan = gn_plan(b, c, h, w, groups)
     mean, rstd = torch.empty((2, b, groups), dtype=torch.float32,
                              device=x.device)
-    partial = tickets = None
-    if splits > 1:
-        partial = torch.empty((n_groups, splits, 2), dtype=torch.float32,
-                              device=x.device)
-        tickets = stream_tickets(_tickets, x.device, n_groups)
     _launch("gn_stats_bf16", x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            partial.data_ptr() if splits > 1 else None,
-            tickets.data_ptr() if splits > 1 else None,
-            n_groups, n_elem, splits, float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            b * groups, 8 * plan["n_vec"], plan["cluster"], plan["threads"],
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     group_norm_stats.launches += 1
     return mean, rstd
 
@@ -141,11 +196,11 @@ def _forward(x, weight, bias, groups, eps):
     if (h * w) % 8:
         raise ValueError(f"H*W = {h * w} must be a multiple of 8")
     affine_bf16 = check_affine(x, c, weight=weight, bias=bias)
-    mean, rstd = group_norm_stats(x, groups, eps)
+    plan = gn_plan(b, c, h, w, groups)
     y = torch.empty_like(x)
-    _launch("gn_silu_apply_bf16", x.data_ptr(), weight.data_ptr(),
-            bias.data_ptr(), int(affine_bf16), mean.data_ptr(),
-            rstd.data_ptr(), y.data_ptr(), b, c, h * w, groups,
+    _launch("gn_silu_bf16", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            int(affine_bf16), y.data_ptr(), b, c, h * w, groups,
+            plan["cluster"], plan["silu_threads"], plan["staged"], float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     group_norm_silu.launches += 1
     return y
@@ -176,8 +231,8 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     dtype; differentiable in all three.
 
     Kernel launches are counted (CUDA only): ``group_norm_silu.launches`` the
-    apply kernel, ``group_norm_stats.launches`` the statistics kernel (which
-    the fused conv launches too)."""
+    one GN+SiLU kernel, ``group_norm_stats.launches`` the statistics kernel
+    (which the fused conv launches)."""
     if x.device.type == "cpu":  # autograd differentiates the plain version
         return group_norm_silu_reference(x, weight, bias, groups, eps)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad

@@ -32,7 +32,6 @@ from typing import Dict, Iterable, Optional, Tuple
 import torch
 
 from diffute_tpu_torch.ops.flash_attention import _launch
-from diffute_tpu_torch.ops.groupnorm import stream_tickets
 
 # the card's SMs: one block of the kernel fills one.  K is split only where
 # the output tiles leave them empty and K has at least _MIN_K_STEPS_TO_SPLIT
@@ -43,6 +42,22 @@ _MAX_SPLITS = 4
 _MIN_K_STEPS_TO_SPLIT = 80
 FEATURES_PER_BLOCK, K_STEP = 128, 64
 _tickets = {}  # (device, stream) -> zeroed int32 ticket counters
+
+
+def stream_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters owned by ``device``'s
+    current stream.  The split-K kernel merges its blocks' partial results
+    "in the last block to finish": it counts arrivals in them and leaves
+    them zero, so launches queued on ONE stream can share a buffer; two
+    streams run concurrently and must never share a counter, hence the key.
+    Allocated once per stream (inside the caller's stream context, so the
+    caching allocator ties the memory to that stream), not per launch."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < n:
+        tickets = _tickets[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                              device=device)
+    return tickets
 
 
 def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,7 +229,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         # one fp32 value per consumer thread's accumulator, per split, tile
         workspace = torch.empty(splits * plan["tiles"] * 256 * (bt // 2),
                                 dtype=torch.float32, device=x.device)
-        tickets = stream_tickets(_tickets, x.device, plan["tiles"])
+        tickets = stream_tickets(x.device, plan["tiles"])
     _launch("w8_matmul_bf16", x2d.data_ptr(), packed.data_ptr(),
             scale.data_ptr(), int(scale.dtype == torch.bfloat16),
             None if bias is None else bias.data_ptr(), y.data_ptr(),

@@ -32,7 +32,9 @@ GROUPS = (
     ("flash_bwd_dq", ("flash_bwd_dq_",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("gn_stats", ("gn_stats_kernel",)),
-    ("gn_silu_apply", ("gn_silu_apply_kernel",)),
+    # GN+SiLU: one gn_silu_kernel (an older build launched the statistics,
+    # then gn_silu_apply_kernel)
+    ("gn_silu_apply", ("gn_silu_apply_kernel", "gn_silu_kernel")),
     ("gn_silu_conv3x3", ("gn_silu_conv3x3_kernel", "splitk_reduce_kernel")),
     ("w8_matmul", ("w8_matmul_kernel",)),
     ("conv_layout_transposes", ("nchwToNhwc", "nhwcToNchw")),

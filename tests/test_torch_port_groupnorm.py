@@ -19,6 +19,7 @@ from diffute_tpu.ops.groupnorm import group_norm_silu as j_group_norm_silu
 
 from diffute_tpu_torch.ops.groupnorm import (
     _GroupNormSiLUFn,
+    gn_plan,
     group_norm_silu,
     group_norm_silu_reference,
     group_norm_stats,
@@ -161,7 +162,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("shape,mean", [((1, 320, 64, 64), 0.0),
                                         ((1, 2560, 8, 8), 0.0),
                                         ((2, 640, 32, 32), 0.0),
-                                        ((1, 320, 64, 64), 100.0)])
+                                        ((1, 320, 64, 64), 100.0),
+                                        # beyond a cluster's shared memory
+                                        ((1, 128, 512, 512), 0.0)])
 def test_cuda_kernels_match_plain(shape, mean):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
@@ -170,11 +173,13 @@ def test_cuda_kernels_match_plain(shape, mean):
     x = (torch.randn(shape, generator=g, device="cuda") + mean).bfloat16()
     gamma = (1 + 0.3 * torch.randn(shape[1], generator=g, device="cuda")).bfloat16()
     beta = (0.5 * torch.randn(shape[1], generator=g, device="cuda")).bfloat16()
+    # GN+SiLU is one launch at every shape, the statistics one more
     before = group_norm_silu.launches, group_norm_stats.launches
     y = group_norm_silu(x, gamma, beta, 32, 1e-5)
     torch.cuda.synchronize()
     assert (group_norm_silu.launches, group_norm_stats.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1])
+    assert gn_plan(*shape, 32)["one_read"] == (shape[1:] != (128, 512, 512))
     ref = group_norm_silu_reference(x, gamma, beta, 32, 1e-5).float()
     # one fp32 result rounded to bf16 on both sides: 3 half-ulps of max |ref|
     # and a relative L2 error of 2e-3
@@ -182,8 +187,13 @@ def test_cuda_kernels_match_plain(shape, mean):
     assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
     assert (diff.norm() / ref.norm()).item() <= 2e-3
     mean_k, rstd_k = group_norm_stats(x, 32, 1e-5)
+    assert group_norm_stats.launches == before[1] + 1
     mean_r, rstd_r = group_norm_stats_reference(x, 32, 1e-5)
     assert (mean_k - mean_r).abs().max().item() <= 1e-5 * max(1.0, abs(mean))
     assert ((rstd_k - rstd_r).abs() / rstd_r).max().item() <= 1e-4
+    # the merge has a fixed order: the same bits on every run
+    assert torch.equal(group_norm_silu(x, gamma, beta, 32, 1e-5), y)
+    again = group_norm_stats(x, 32, 1e-5)
+    assert torch.equal(again[0], mean_k) and torch.equal(again[1], rstd_k)
     with pytest.raises(ValueError):
         group_norm_silu(x.float(), gamma, beta, 32, 1e-5)  # no fallback
