@@ -62,11 +62,35 @@ Phases, one line each (any failure raises and exits non-zero):
      and on (750 flash launches) and one with the three flags on;
   6. training path: train.run_unet.main takes three optimizer steps at full
      width (batch 4, 512^2, bf16, flash, gradient checkpointing, AdamW,
-     synthetic scenes), counting the launches of all three flash kernels;
+     synthetic scenes), counting the launches of all three flash kernels,
+     and saves its checkpoint into a temporary directory;
   7. checks: parameter count, parameters changed by a step, and the loss
-     gradient of four UNet weights with flash on vs off at full width.
+     gradient of four UNet weights with flash on vs off at full width;
+  8. stage 1: a manifest of 8 synthetic 384 x 512 document pages (PNG, with
+     an OCR JSON each); train.run_vae on the full SD2 VAE (83,653,863
+     parameters, asserted) at 512^2, bf16, gradient checkpointing, batch 4,
+     3 steps with a checkpoint at 2 and at the end (seconds per step and
+     peak memory); every weight tensor changed; a resume from the latest
+     checkpoint restores masters, moments, counts and generator bit for bit
+     and takes one step;
+  9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
+     checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
+     checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
+     equals stage 1's exported vae/ in bf16 bit for bit; a resume to step 3
+     restores the whole state bit for bit (20 forward, 10 dq, 10 dk/dv
+     launches in the resumed step, asserted); the checkpoint's bytes and the
+     seconds to snapshot, write, export and restore it;
+  10. serving from the checkpoint: a pipeline built through
+     load_diffusers_layout from stage 2's final export and one from the
+     trainer's in-memory state_dicts run the same 20-step 512^2 edit (200
+     flash launches each; outputs within 1 LSB, equal so far), and
+     serve.cli --checkpoint completes the same edit.
 Then one JSON line of kernel results, and last the device JSON line.
 Exits non-zero, with no result, when no CUDA device is available.
+
+    python3 chip_smoke.py --workflow-only
+
+builds the kernels and runs phases 8-10 alone (about 2 minutes).
 
     python3 chip_smoke.py --edits-only 6 [--package-root DIR]
 
@@ -117,9 +141,12 @@ import gc
 import importlib
 import inspect
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1398,6 +1425,257 @@ def fused_host_timing(rounds: int, calls: int = 100) -> None:
                       "fused_host": out}), flush=True)
 
 
+# ---- phases 8-10: the two-stage workflow
+WORKFLOW_PAGES = 8        # synthetic 384 x 512 document pages in the manifest
+WORKFLOW_BATCH = 4
+VAE_PARAMS = 83_653_863   # the SD2 VAE
+
+
+def write_manifests(root: str, config) -> tuple:
+    """8 synthetic 384 x 512 pages as PNGs with an OCR JSON each; the
+    stage-1 manifest (``path``) and the stage-2 one (``image_path``,
+    ``ocr_path``)."""
+    from PIL import Image
+
+    from diffute_tpu_torch.io.dataset import SyntheticSceneDataset
+
+    data = SyntheticSceneDataset(config, image_hw=(384, 512), seed=0)
+    rows = []
+    for i in range(WORKFLOW_PAGES):
+        image, (x1, y1, x2, y2), text = data.page(i)
+        png = os.path.join(root, f"page{i}.png")
+        Image.fromarray(image).save(png)
+        ocr = os.path.join(root, f"page{i}.json")
+        with open(ocr, "w") as f:
+            json.dump({"document": [{"text": text, "score": 0.95, "box": [
+                [int(x1), int(y1)], [int(x2), int(y1)], [int(x2), int(y2)],
+                [int(x1), int(y2)]]}]}, f)
+        rows.append((png, ocr))
+    pages, docs = (os.path.join(root, n) for n in ("pages.csv", "docs.csv"))
+    with open(pages, "w") as f:
+        f.write("path\n" + "".join(f"{png}\n" for png, _ in rows))
+    with open(docs, "w") as f:
+        f.write("image_path,ocr_path\n"
+                + "".join(f"{png},{ocr}\n" for png, ocr in rows))
+    return pages, docs
+
+
+def states_equal(a, b, path="") -> list:
+    """The paths at which two trainer ``state_dict()``s differ (bit for
+    bit; tensors compared on one device)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path or "/"]
+        return [d for k in a for d in states_equal(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b.to(a.device)))
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def dir_bytes(path: str) -> dict:
+    """Bytes under each entry of ``path`` and in all."""
+    out = {}
+    for entry in sorted(os.listdir(path)):
+        total = 0
+        for root, _, files in os.walk(os.path.join(path, entry)):
+            total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+        out[entry] = total
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_workflow(dev) -> dict:
+    """Phases 8-10 on the card: stage 1 (run_vae on a manifest), stage 2
+    from its checkpoint (run_unet --pretrained), both resumed, then serving
+    from the stage-2 checkpoint, all at full width, 512^2, bf16 with
+    gradient checkpointing, in one temporary directory removed at the end.
+    Returns the launches by path and the numbers."""
+    from PIL import Image
+
+    from diffute_tpu_torch.config import DiffUTEConfig, card_serving_config
+    from diffute_tpu_torch.compat.diffusers import load_safetensors
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.serve import cli
+    from diffute_tpu_torch.serve.loading import load_diffusers_layout
+    from diffute_tpu_torch.train import run_unet, run_vae
+    from diffute_tpu_torch.train.checkpoint import list_checkpoints
+
+    base = DiffUTEConfig()
+    scale = ["--model_scale", "full", "--train_batch_size", str(WORKFLOW_BATCH),
+             "--mixed_precision", "bf16", "--gradient_checkpointing",
+             "--device", "cuda", "--seed", "0"]
+    root = tempfile.mkdtemp(prefix="diffute_workflow_")
+    out = {"launches": {}}
+    try:
+        usage = shutil.disk_usage(root)
+        pages, docs = write_manifests(root, base)
+        d1, d2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+
+        # ---- 8. stage 1: three steps, a checkpoint at 2 and at the end,
+        # then a resume from the latest that takes one step
+        run = run_vae.prepare([*scale, "--manifest", pages, "--output_dir", d1,
+                               "--max_train_steps", "3",
+                               "--checkpointing_steps", "2"])
+        n_vae = sum(p.numel() for p in run.trainer.state.params)
+        n_tensors = len(run.trainer.state.params)
+        before = [p.detach().clone() for p in run.trainer.state.params]
+        history = run.train()
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(before, run.trainer.state.params))
+        del before
+        saved = run.trainer.state_dict()
+        del run
+        resumed = run_vae.prepare([*scale, "--manifest", pages,
+                                   "--output_dir", d1,
+                                   "--resume_from_checkpoint", "latest",
+                                   "--max_train_steps", "4",
+                                   "--checkpointing_steps", "2"])
+        diff = states_equal(saved, resumed.trainer.state_dict())
+        history2 = resumed.train()
+        del saved, resumed
+        stage1 = dict(vae_params=n_vae, tensors_changed=changed,
+                      tensors=n_tensors, steps=history,
+                      resumed_steps=history2, restored_differs_at=diff[:5],
+                      checkpoints=list_checkpoints(d1),
+                      free_bytes_at_start=usage.free)
+        phase("stage1", **stage1)
+        if n_vae != VAE_PARAMS or changed < n_tensors or diff:
+            raise RuntimeError(f"stage 1 failed: {n_vae} parameters, "
+                               f"{changed} of {n_tensors} tensors changed, "
+                               f"restore differs at {diff[:5]}")
+        if (len(history) != 3 or [h["step"] for h in history2] != [4]
+                or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                           for h in history + history2)):
+            raise RuntimeError(f"stage 1 steps: {history} {history2}")
+        out["stage1_step_seconds"] = [h["seconds"] for h in history + history2]
+        out["stage1_max_memory_allocated"] = [h["max_memory_allocated"]
+                                              for h in history + history2]
+        gc.collect()
+
+        # ---- 9. stage 2 from stage 1's checkpoint: the VAE from its vae/,
+        # the UNet and TrOCR random-init; two steps, then a resume to 3
+        stage1_dir = os.path.join(d1, "checkpoint-4")
+        flags = [*scale, "--manifest", docs, "--pretrained", stage1_dir,
+                 "--output_dir", d2, "--checkpointing_steps", "2",
+                 "--checkpoints_total_limit", "1"]
+        run = run_unet.prepare([*flags, "--max_train_steps", "2"])
+        trainer = run.trainer
+        vae_file = load_safetensors(os.path.join(
+            stage1_dir, "vae", "diffusion_pytorch_model.safetensors"))
+        frozen = trainer.vae.state_dict()
+        vae_diff = [k for k, v in vae_file.items()
+                    if not torch.equal(v.to(dev, trainer.dtype), frozen[k])]
+        if set(vae_file) != set(frozen) or vae_diff:
+            raise RuntimeError(f"stage 2's VAE is not stage 1's: {vae_diff[:5]}")
+        del vae_file, frozen
+        reset_counters()
+        history = run.train()
+        first_launches = counters()
+        saved = trainer.state_dict()
+        del run, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = run_unet.prepare([*flags, "--max_train_steps", "3",
+                                "--resume_from_checkpoint", "latest"])
+        diff = states_equal(saved, run.trainer.state_dict())
+        del saved
+        reset_counters()
+        history2 = run.train()
+        resume_launches = counters()
+        ckpt = os.path.join(d2, "checkpoint-3")
+        stage2 = dict(steps=history, resumed_steps=history2,
+                      restored_from=run.restored_from,
+                      restore_seconds=run.restore_seconds,
+                      save_seconds=run.manager.times,
+                      checkpoint_bytes=dir_bytes(ckpt),
+                      checkpoints=list_checkpoints(d2),
+                      restored_differs_at=diff[:5],
+                      launches_first_run=first_launches,
+                      launches_resumed_step=resume_launches)
+        phase("stage2", **stage2)
+        if diff or stage2["checkpoints"] != ["checkpoint-3"]:
+            raise RuntimeError(f"stage 2 restore differs at {diff[:5]}; "
+                               f"checkpoints {stage2['checkpoints']}")
+        if (len(history) != 2 or [h["step"] for h in history2] != [3]
+                or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                           for h in history + history2)):
+            raise RuntimeError(f"stage 2 steps: {history} {history2}")
+        # each step: 10 self-attentions run the forward twice (the
+        # gradient checkpoint recomputes it) and each backward once
+        expect_launches({"launches": first_launches}, flash_fwd=40,
+                        flash_bwd_dq=20, flash_bwd_dkv=20)
+        expect_launches({"launches": resume_launches}, flash_fwd=20,
+                        flash_bwd_dq=10, flash_bwd_dkv=10)
+        out["launches"].update(train_pretrained=first_launches,
+                               train_resume=resume_launches)
+        out["stage2_step_seconds"] = [h["seconds"] for h in history + history2]
+        out["stage2_checkpoint"] = dict(
+            bytes=stage2["checkpoint_bytes"], restore_seconds=run.restore_seconds,
+            **run.manager.times)
+
+        # ---- 10. serving: a pipeline from the checkpoint's export and one
+        # from the trainer's state_dicts, the same 20-step edit on each
+        config = dataclasses.replace(
+            card_serving_config(base),
+            edit=dataclasses.replace(base.edit, num_inference_steps=20))
+        trainer = run.trainer
+        in_memory = {"unet": trainer.state.params_dict(),
+                     "vae": trainer.vae.state_dict(),
+                     "trocr": trainer.trocr.state_dict()}
+        del run
+        pipes = {"checkpoint": DiffUTEPipeline(
+                     config, load_diffusers_layout(ckpt, config, dev), dev),
+                 "trainer_state": DiffUTEPipeline(config, in_memory, dev)}
+        del trainer, in_memory
+        gc.collect()
+        res = config.edit.resolution
+        image, box = scene(res)
+        edits = {}
+        for name, pipe in pipes.items():
+            reset_counters()
+            t0 = time.perf_counter()
+            edited = pipe.edit(image, box, "CHECKPOINT", seed=3)[0]
+            edits[name] = dict(out=edited, seconds=time.perf_counter() - t0,
+                               launches=counters())
+            only_boxes_changed(edited, image, [box])
+        del pipes
+        lsb = int(np.abs(edits["checkpoint"]["out"].astype(np.int16)
+                         - edits["trainer_state"]["out"]).max())
+        png = os.path.join(root, "scene.png")
+        Image.fromarray(image).save(png)
+        reset_counters()
+        t0 = time.perf_counter()
+        cli.main(["--checkpoint", ckpt, "--image", png, "--text", "CHECKPOINT",
+                  "--box", ",".join(map(str, box)), "--steps", "20",
+                  "--seed", "3",
+                  "--out", os.path.join(root, "cli.png")])
+        cli_rec = dict(seconds=time.perf_counter() - t0, launches=counters())
+        cli_out = np.asarray(Image.open(os.path.join(root, "cli.png")))
+        cli_lsb = int(np.abs(cli_out.astype(np.int16)
+                             - edits["checkpoint"]["out"]).max())
+        serving = dict(checkpoint_vs_trainer_state_max_lsb=lsb,
+                       cli_vs_checkpoint_max_lsb=cli_lsb, cli=cli_rec,
+                       **{k: {"seconds": v["seconds"], "launches": v["launches"]}
+                          for k, v in edits.items()})
+        phase("serve_checkpoint", **serving)
+        if lsb > 1 or cli_out.shape != image.shape:
+            raise RuntimeError(f"the checkpoint's edit differs from the "
+                               f"trainer state's by {lsb} LSB")
+        for rec in (*edits.values(), cli_rec):
+            expect_launches(rec, flash_fwd=200)
+        out["launches"].update(edit_checkpoint=edits["checkpoint"]["launches"],
+                               edit_trainer_state=edits["trainer_state"]["launches"],
+                               cli_checkpoint=cli_rec["launches"])
+        out["serve_seconds"] = {k: v["seconds"] for k, v in edits.items()}
+        out["serve_seconds"]["cli"] = cli_rec["seconds"]
+        out["checkpoint_vs_trainer_state_max_lsb"] = lsb
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--edits-only", type=int, default=0, metavar="N",
@@ -1424,6 +1702,9 @@ def main(argv=None) -> None:
     p.add_argument("--fused-host", type=int, default=0, metavar="ROUNDS",
                    help="time the host's side of one fused-conv and one "
                    "int8 layer call and nothing else")
+    p.add_argument("--workflow-only", action="store_true",
+                   help="build the kernels and run phases 8-10 (the "
+                   "two-stage workflow) alone")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -1445,6 +1726,13 @@ def main(argv=None) -> None:
 
         print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
         check_fused_kernels(torch.device("cuda", 0))
+        return
+    if args.workflow_only:
+        from diffute_tpu_torch.ops import _build
+
+        print(gpu_line(), flush=True)
+        _build.load()
+        print(json.dumps(check_workflow(torch.device("cuda", 0))), flush=True)
         return
     if args.kernels_only:
         import diffute_tpu_torch
@@ -1673,10 +1961,13 @@ def main(argv=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     reset_counters()
+    train_dir = tempfile.mkdtemp(prefix="diffute_train_")
     history = run_unet.main([
         "--model_scale", "full", "--train_batch_size", str(TRAIN_BATCH),
         "--mixed_precision", "bf16", "--gradient_checkpointing",
-        "--max_train_steps", str(TRAIN_STEPS), "--seed", "0"])
+        "--max_train_steps", str(TRAIN_STEPS), "--seed", "0",
+        "--output_dir", train_dir])
+    shutil.rmtree(train_dir)
     train_launches = dict(fwd=flash_attention.launches,
                           dq=flash_attention.bwd_dq_launches,
                           dkv=flash_attention.bwd_dkv_launches)
@@ -1716,7 +2007,7 @@ def main(argv=None) -> None:
               "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
               "up_blocks.3.attentions.2.transformer_blocks.0.attn1.to_v.weight",
               "conv_out.weight"]
-    masters = trainer.state.state_dict()
+    masters = trainer.state.params_dict()
     loss_flash = trainer.accumulate_grads(batch, draws).item()
     grads_flash = {n: masters[n].grad.clone() for n in probes}
     attns = [m for m in trainer.unet.modules() if isinstance(m, Attention)]
@@ -1738,6 +2029,14 @@ def main(argv=None) -> None:
             or not max(rel.values()) <= TOL_GRAD_REL
             or not abs(loss_flash - loss_dense) <= TOL_LOSS_REL * loss_dense):
         raise RuntimeError("training check failed")
+    del trainer, masters, grads_flash, attns, batch, data, draws, before
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8-10. the two-stage workflow: stage 1 on a manifest, stage 2
+    # from its checkpoint, both resumed, and serving from the checkpoint
+    workflow = check_workflow(dev)
+    wl = workflow["launches"]
 
     def entry(name, source, replaces, results, launches):
         main = results[0]
@@ -1752,8 +2051,8 @@ def main(argv=None) -> None:
                 "shapes": results}
 
     def path_launches(key):
-        """``key``'s launches on each of this PR's paths, from the counters
-        read right after each path ran."""
+        """``key``'s launches on each path, from the counters read right
+        after each path ran."""
         by_path = {f"edit_{res}_{name}": rec["launches"][key]
                    for res, recs in res_edits.items()
                    for name, rec in recs.items() if isinstance(rec, dict)}
@@ -1764,6 +2063,7 @@ def main(argv=None) -> None:
             r["launches"][key] for name, r in modes["edit_stream"].items()
             if name.startswith("depth"))
         by_path["web"] = modes["web"]["launches"][key]
+        by_path.update({name: rec[key] for name, rec in wl.items()})
         return {k: v for k, v in by_path.items() if v}
 
     print(gpu_line(), flush=True)
@@ -1777,9 +2077,11 @@ def main(argv=None) -> None:
               "flash_attention.py:149", pipelined_results,
               path_launches("flash_fwd_pipelined")),
         entry("flash_bwd_dq_bf16", "flash_bwd.cu", "flash_attention.py:396",
-              dq_results, {"train": train_launches["dq"]}),
+              dq_results, {"train": train_launches["dq"],
+                           **path_launches("flash_bwd_dq")}),
         entry("flash_bwd_dkv_bf16", "flash_bwd.cu", "flash_attention.py:437",
-              dkv_results, {"train": train_launches["dkv"]}),
+              dkv_results, {"train": train_launches["dkv"],
+                            **path_launches("flash_bwd_dkv")}),
         # the TPU kernel is one launch here (GN+SiLU); its statistics alone
         # are a second kernel, which the fused conv launches
         entry("gn_stats_bf16", "groupnorm.cu", "groupnorm.py:31",
@@ -1819,7 +2121,9 @@ def main(argv=None) -> None:
         "streams": streams,
         "train_step_seconds": [h["seconds"] for h in history],
         "train_max_memory_allocated": [h["max_memory_allocated"]
-                                       for h in history]}), flush=True)
+                                       for h in history],
+        "workflow": {k: v for k, v in workflow.items() if k != "launches"}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,10 +14,16 @@ stays beside it); this package imports torch, numpy and Pillow, never jax.
                                    DDIM, DDPM and DPM-Solver++ steps
 - ``diffute_tpu_torch.text``       glyph raster and TrOCR preprocessing
 - ``diffute_tpu_torch.pipeline``   crop/mask policies and the edit pipeline
-- ``diffute_tpu_torch.io``         host image ops, the synthetic dataset, the
+- ``diffute_tpu_torch.io``         host image ops, blob storage (local, oss://),
+                                   the manifest and synthetic datasets, the
                                    prefetching loader
-- ``diffute_tpu_torch.train``      stage-2 UNet trainer, optimizer, ``run_unet``
-- ``diffute_tpu_torch.compat``     JAX param tree -> state_dict bridge
+- ``diffute_tpu_torch.train``      stage-1 VAE and stage-2 UNet trainers, the
+                                   optimizer, checkpoints, ``run_vae``,
+                                   ``run_unet``
+- ``diffute_tpu_torch.serve``      the edit CLI, the web demo, weights from a
+                                   diffusers-layout directory
+- ``diffute_tpu_torch.compat``     JAX param tree -> state_dict bridge;
+                                   diffusers / transformers files
 """
 
 __version__ = "0.1.0"

@@ -45,9 +45,6 @@ class VAEConfig:
         if self.use_flash_attention:
             raise _not_ported("VAEConfig", "use_flash_attention",
                               "flash forward at head_dim 512")
-        if self.remat:
-            raise _not_ported("VAEConfig", "remat",
-                              "no kernel: it waits for vae_train, queue 1")
 
     @property
     def scale_factor(self) -> int:

@@ -1,14 +1,32 @@
-"""Synthetic training data and the prefetching batch loader (numpy, host).
+"""Training datasets and the prefetching batch loader (numpy, host).
 
-Counterpart of ``diffute_tpu/io/dataset.py`` for what stage-2 training on
-synthetic scenes needs: ``SyntheticSceneDataset``, ``make_unet_batch`` and
-``PrefetchLoader``, with the port's own host modules underneath.  Examples
-are uint8 and are normalised on the device by the train step.  The manifest
-datasets are not ported yet.
+Counterpart of ``diffute_tpu/io/dataset.py`` with the port's own host
+modules underneath:
+
+- ``UNetManifestDataset`` (stage 2): a CSV with ``image_path`` /
+  ``ocr_path`` columns and OCR JSON files shaped ``{"document": [{"text",
+  "box": [[x, y] x 4], "score"}]}``; regions with score above the
+  threshold, one sampled per (seed, index), cropped by the training policy
+  and resized to the edit resolution, with the glyph render of its text.
+- ``VAEManifestDataset`` (stage 1): a CSV with a ``path`` column; a short
+  side under the resolution is upscaled by ``int(2 * res / short)``, then a
+  random res^2 crop.
+- ``SyntheticSceneDataset``: procedural document-like pages with rendered
+  text, so trainers run without external data.
+
+Manifests are read with the stdlib ``csv`` module (the JAX package uses
+pandas; the rows are the same).  Blobs come through ``io.storage`` (local,
+``file://``, registered schemes such as ``oss://``).  Examples are uint8
+and are normalised on the device by the train step.  A failing example (a
+corrupt blob) is replaced by a deterministic alternate index, never
+dropped.
 """
 
 from __future__ import annotations
 
+import csv
+import io
+import json
 import queue
 import threading
 from typing import Dict, Iterator, List, Optional
@@ -23,7 +41,101 @@ from diffute_tpu_torch.pipeline.regions import (
     make_masked_image,
     process_location,
 )
+from diffute_tpu_torch.io.storage import open_blob, read_image
 from diffute_tpu_torch.text import render_glyph, trocr_preprocess_host
+
+
+def read_manifest(path: str) -> Dict[str, List[str]]:
+    """A manifest CSV's columns (header row first), as ``pd.read_csv``
+    reads them for path columns: blank lines skipped, a UTF-8 BOM ignored,
+    cells kept as written."""
+    with open_blob(path) as f:
+        text = f.read().decode("utf-8-sig")
+    rows = [r for r in csv.reader(io.StringIO(text)) if r]
+    header, body = rows[0], rows[1:]
+    return {name: [r[i] if i < len(r) else "" for r in body]
+            for i, name in enumerate(header)}
+
+
+def _resize(img: np.ndarray, res: int) -> np.ndarray:
+    return hostops.resize_bilinear_u8(img, res, res)
+
+
+class UNetManifestDataset:
+    """Stage-2 examples: one OCR region per image, per (seed, index)."""
+
+    def __init__(self, manifest_csv: str, config: DiffUTEConfig,
+                 seed: int = 0, bgr: bool = False):
+        cols = read_manifest(manifest_csv)
+        self.image_paths: List[str] = cols["image_path"]
+        self.ocr_paths: List[str] = cols["ocr_path"]
+        self.config = config
+        self.seed = seed
+        self.bgr = bgr
+
+    def __len__(self) -> int:
+        return len(self.image_paths)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        # a generator per call: thread-safe under the loader and
+        # reproducible per (seed, index)
+        rng = np.random.default_rng((self.seed, index))
+        image = read_image(self.image_paths[index], bgr=self.bgr)
+        with open_blob(self.ocr_paths[index]) as f:
+            ocr = json.loads(f.read())
+        regions = [r for r in ocr["document"]
+                   if r.get("score", 1.0) > cfg.train.ocr_score_threshold]
+        if not regions:
+            raise ValueError(f"No OCR region above threshold: "
+                             f"{self.ocr_paths[index]}")
+        region = regions[int(rng.integers(len(regions)))]
+        quad = np.asarray(region["box"], dtype=np.float32)
+        box = np.int32([quad[:, 0].min(), quad[:, 1].min(),
+                        quad[:, 0].max(), quad[:, 1].max()])
+        h, w = image.shape[:2]
+        box = process_location(box, (h, w))
+
+        mask = generate_mask((h, w), box)
+        masked = make_masked_image(image, mask)
+        crop = train_crop(image, mask, masked, box, region["text"], rng,
+                          crop_scale=cfg.edit.train_crop_scale)
+        res = cfg.edit.resolution
+        return {
+            "pixel_values": _resize(crop.image, res),
+            "masks": _resize(crop.mask, res),
+            "masked_images": _resize(crop.masked_image, res),
+            "glyph_image": render_glyph(crop.text, cfg.glyph),
+        }
+
+
+class VAEManifestDataset:
+    """Stage-1 examples: random res^2 crops of document pages."""
+
+    def __init__(self, manifest_csv: str, config: DiffUTEConfig,
+                 seed: int = 0, bgr: bool = False, path_column: str = "path"):
+        self.paths: List[str] = read_manifest(manifest_csv)[path_column]
+        self.config = config
+        self.seed = seed
+        self.bgr = bgr
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        res = self.config.edit.resolution
+        rng = np.random.default_rng((self.seed, index))
+        image = read_image(self.paths[index], bgr=self.bgr)
+        h, w = image.shape[:2]
+        short = min(h, w)
+        if short < res:
+            # the reference's int(1024 / short) upscale at 512
+            scale = int(res * 2 / short)
+            image = hostops.resize_bilinear_u8(image, h * scale, w * scale)
+            h, w = image.shape[:2]
+        y = int(rng.integers(0, h - res + 1))
+        x = int(rng.integers(0, w - res + 1))
+        return {"pixel_values": image[y : y + res, x : x + res]}
 
 
 class SyntheticSceneDataset:
@@ -63,10 +175,13 @@ class SyntheticSceneDataset:
     def __len__(self) -> int:
         return 1 << 30
 
-    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+    def page(self, index: int, rng: Optional[np.random.Generator] = None):
+        """The uncropped page of example ``index``: (image (H, W, 3) uint8,
+        box (x1, y1, x2, y2), text).  ``rng``: the example's generator, at
+        its start (made from ``index`` when None)."""
         cfg = self.config
         h, w = self.image_hw
-        rng = np.random.default_rng(index)
+        rng = np.random.default_rng(index) if rng is None else rng
         image = np.full((h, w, 3), int(rng.integers(180, 255)), np.uint8)
         text = self._sample_text(rng)
         glyph = render_glyph(text, cfg.glyph)
@@ -82,17 +197,22 @@ class SyntheticSceneDataset:
         region = image[y : y + gh2, x : x + gw2]
         image[y : y + gh2, x : x + gw2] = np.minimum(region, glyph_s)
         box = process_location(np.int32([x, y, x + gw2, y + gh2]), (h, w))
+        return image, box, text
 
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        rng = np.random.default_rng(index)
+        image, box, text = self.page(index, rng)
+        h, w = image.shape[:2]
         mask = generate_mask((h, w), box)
         masked = make_masked_image(image, mask)
         crop = train_crop(image, mask, masked, box, text, rng,
                           crop_scale=cfg.edit.train_crop_scale)
         res = cfg.edit.resolution
         return {
-            "pixel_values": hostops.resize_bilinear_u8(crop.image, res, res),
-            "masks": hostops.resize_bilinear_u8(crop.mask, res, res),
-            "masked_images": hostops.resize_bilinear_u8(crop.masked_image,
-                                                        res, res),
+            "pixel_values": _resize(crop.image, res),
+            "masks": _resize(crop.mask, res),
+            "masked_images": _resize(crop.masked_image, res),
             # condition on the (possibly truncated) visible text
             "glyph_image": render_glyph(crop.text, cfg.glyph),
         }
@@ -109,6 +229,11 @@ def make_unet_batch(examples: List[Dict[str, np.ndarray]],
         "glyph_pixels": trocr_preprocess_host(
             [e["glyph_image"] for e in examples], config.trocr),
     }
+
+
+def make_vae_batch(examples: List[Dict[str, np.ndarray]]
+                   ) -> Dict[str, np.ndarray]:
+    return {"pixel_values": np.stack([e["pixel_values"] for e in examples])}
 
 
 # Epoch-shuffle permutations above this dataset size would cost GBs of host

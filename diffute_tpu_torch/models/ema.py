@@ -29,3 +29,15 @@ class EmaState:
         decay = min(max_decay, (1.0 + self.step) / (10.0 + self.step))
         diff = torch._foreach_sub(self.params, list(new_params))
         torch._foreach_add_(self.params, diff, alpha=-(1.0 - decay))
+
+    def state_dict(self) -> dict:
+        return {"params": list(self.params), "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["params"]) != len(self.params):
+            raise ValueError(f"{len(state['params'])} EMA tensors for "
+                             f"{len(self.params)} parameters")
+        for dst, src in zip(self.params, state["params"]):
+            dst.copy_(src)
+        self.step = int(state["step"])

@@ -5,6 +5,9 @@ Counterpart of ``diffute_tpu/models/vae.py`` with diffusers' module tree
 decoder.up_blocks.i.upsamplers.0, quant_conv, ...).  The mid-block's
 single-head attention (head_dim 512) takes the dense path: the flash kernel
 takes head_dim 64 only.  Sampling and the 0.18215 scale are the caller's.
+With ``config.remat`` the encoder's and decoder's resnet blocks are
+recomputed in the backward instead of keeping their activations
+(``torch.utils.checkpoint``), as the JAX module wraps them in ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffute_tpu_torch.config import VAEConfig
 from diffute_tpu_torch.models.attention import Attention
@@ -53,10 +57,18 @@ class MidBlock(nn.Module):
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
 
 
+def _resnet(config: VAEConfig, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A down or up block's resnet, rematerialised when training with
+    ``config.remat``."""
+    if config.remat and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False)
+    return block(x)
+
+
 class Encoder(nn.Module):
     def __init__(self, config: VAEConfig):
         super().__init__()
-        cfg = config
+        cfg = self.config = config
         chs = cfg.block_out_channels
         g = cfg.norm_num_groups
         self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
@@ -78,7 +90,7 @@ class Encoder(nn.Module):
         x = self.conv_in(x)
         for blk in self.down_blocks:
             for res in blk.resnets:
-                x = res(x)
+                x = _resnet(self.config, res, x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
         x = self.mid_block(x)
@@ -88,7 +100,7 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, config: VAEConfig):
         super().__init__()
-        cfg = config
+        cfg = self.config = config
         rev = tuple(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
@@ -110,7 +122,7 @@ class Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             for res in blk.resnets:
-                x = res(x)
+                x = _resnet(self.config, res, x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
         return self.conv_out(nn.functional.silu(self.conv_norm_out(x)))

@@ -9,8 +9,15 @@ The flags are ``diffute_tpu.serve.cli``'s, plus ``--device`` (default
 is given) and the UNet's opt-in kernels: ``--fused-gn``, ``--fused-conv``,
 ``--int8``, ``--reuse K`` and ``--res {512,768,1024}`` (``bench.py``'s
 serving flags) and ``--pipeline-fwd`` (its A/B switch).  On the card the
-models run in bf16 with the flash kernel, on the CPU in fp32.  The models are
-random-init from ``--seed``; ``--checkpoint`` is not yet ported and raises.
+models run in bf16 with the flash kernel, on the CPU in fp32.  The weights
+come from ``--checkpoint`` (a diffusers-layout directory: a trainer's
+checkpoint, ``unet_ema/`` preferred; components it lacks are random-init
+from seed 0), else they are random-init from ``--seed``.  The model scale
+is ``--scale`` (``--tiny``), else the one the checkpoint's ``config.json``
+files match, else full.
+
+  python -m diffute_tpu_torch.serve.cli --checkpoint out/checkpoint-1000 \\
+      --image in.png --box 40,50,200,90 --text "NEW TEXT"
 
   python -m diffute_tpu_torch.serve.cli --image in.png --box 40,50,200,90 \\
       --text "NEW TEXT" --sampler dpmpp --steps 20 --guidance_scale 3 \\
@@ -50,16 +57,13 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="edited.png")
     p.add_argument("--mask-out", default=None)
-    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="diffusers-layout directory (random init without)")
     p.add_argument("--scale", default=None, choices=["full", "small", "tiny"])
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     args = p.parse_args(argv)
-
-    if args.checkpoint is not None:
-        raise SystemExit("--checkpoint is not yet ported to the PyTorch port "
-                         "(ROADMAP.md queue 1)")
 
     from PIL import Image
 
@@ -67,13 +71,16 @@ def main(argv=None) -> None:
                                           small_config, tiny_test_config)
     from diffute_tpu_torch.ops.flash_attention import set_pipeline_fwd
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.serve.loading import (layout_scale,
+                                                 load_diffusers_layout)
     from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"cli: {e}")
-    scale = args.scale or ("tiny" if args.tiny else "full")
+    scale = (args.scale or ("tiny" if args.tiny else None)
+             or (args.checkpoint and layout_scale(args.checkpoint)) or "full")
     config = {"full": DiffUTEConfig, "small": small_config,
               "tiny": tiny_test_config}[scale]()
     config = dataclasses.replace(
@@ -92,8 +99,11 @@ def main(argv=None) -> None:
         # the card's main path: bf16 with the flash kernel
         config = card_serving_config(config)
     set_pipeline_fwd(args.pipeline_fwd)
-    pipe = DiffUTEPipeline(config, init_pipeline_params(config, args.seed,
-                                                        device), device)
+    params = (load_diffusers_layout(args.checkpoint, config, device)
+              if args.checkpoint else
+              init_pipeline_params(config, args.seed, device))
+    pipe = DiffUTEPipeline(config, params, device)
+    del params
 
     img = np.asarray(Image.open(args.image).convert("RGB"))
     box = tuple(int(v) for v in args.box.split(","))

@@ -19,13 +19,15 @@ serialized behind a lock -- one job on the card at a time.
 
 Launch::
 
+    python -m diffute_tpu_torch.serve.web --checkpoint out/checkpoint-1000
     python -m diffute_tpu_torch.serve.web --scale full --port 7860
     python -m diffute_tpu_torch.serve.web --scale tiny --device cpu
 
 The models run on the card by default (bf16, flash attention; without a card
 the command exits non-zero) and on the CPU only with ``--device cpu`` (fp32).
-Weights are random-init from a seed: ``--checkpoint`` is not yet ported and
-raises.
+Weights come from ``--checkpoint`` (a diffusers-layout directory; the scale
+is the one its ``config.json`` files match unless ``--scale`` is given),
+else they are random-init from seed 0.
 """
 
 from __future__ import annotations
@@ -199,38 +201,35 @@ def make_server(backend: DemoBackend, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), handler)
 
 
-def build_pipeline(checkpoint: Optional[str], scale: str, device="cuda"):
-    """The demo's pipeline at ``scale`` with random weights from seed 0, on
-    ``device``: the card by default (raises without one; bf16 with the
-    flash kernel), the CPU only when asked (fp32)."""
-    if checkpoint:
-        raise NotImplementedError(
-            "--checkpoint is not yet ported to the PyTorch port "
-            "(ROADMAP queue 1 item 5)")
-    from diffute_tpu_torch.config import (
-        DiffUTEConfig,
-        card_serving_config,
-        small_config,
-        tiny_test_config,
-    )
+def build_pipeline(checkpoint: Optional[str], scale: Optional[str],
+                   device="cuda"):
+    """The demo's pipeline on ``device``: the card by default (raises
+    without one; bf16 with the flash kernel), the CPU only when asked
+    (fp32).  Weights from the diffusers-layout directory ``checkpoint``, else
+    random from seed 0; ``scale`` None takes the checkpoint's (else full)."""
+    from diffute_tpu_torch.config import card_serving_config
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.serve.loading import (SCALES, layout_scale,
+                                                 load_diffusers_layout)
     from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
     device = resolve_device(device)
-    config = {"full": DiffUTEConfig, "small": small_config,
-              "tiny": tiny_test_config}[scale]()
+    scale = scale or (checkpoint and layout_scale(checkpoint)) or "full"
+    config = SCALES[scale]()
     if device.type == "cuda":
         config = card_serving_config(config)
-    return DiffUTEPipeline(config, init_pipeline_params(config, 0, device),
-                           device)
+    params = (load_diffusers_layout(checkpoint, config, device) if checkpoint
+              else init_pipeline_params(config, 0, device))
+    return DiffUTEPipeline(config, params, device)
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--checkpoint", default=None,
-                   help="not yet ported (random init from a seed)")
-    p.add_argument("--scale", default="full",
-                   choices=("full", "small", "tiny"))
+                   help="diffusers-layout directory (random init without)")
+    p.add_argument("--scale", default=None,
+                   choices=("full", "small", "tiny"),
+                   help="default: the checkpoint's, else full")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--device", default="cuda",
@@ -238,12 +237,13 @@ def main(argv=None) -> None:
     a = p.parse_args(argv)
     try:
         pipe = build_pipeline(a.checkpoint, a.scale, a.device)
-    except (NotImplementedError, RuntimeError) as e:
+    except (OSError, RuntimeError) as e:
         raise SystemExit(f"web: {e}")
     server = make_server(DemoBackend(pipe), a.host, a.port, quiet=False)
     host, port = server.server_address[:2]
-    print(f"DiffUTE demo: http://{host}:{port}/  (scale={a.scale}, "
-          f"device={pipe.device}, random-init weights)", flush=True)
+    print(f"DiffUTE demo: http://{host}:{port}/  (resolution "
+          f"{pipe.config.edit.resolution}, device={pipe.device}, weights "
+          f"{a.checkpoint or 'random-init'})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

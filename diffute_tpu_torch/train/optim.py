@@ -132,6 +132,22 @@ class AdamW:
             torch._foreach_copy_(self.mu, mu)
         return norm
 
+    def state_dict(self) -> dict:
+        """The moments (the tensors themselves, no copy) and the count; the
+        LR schedule is a function of the count."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), state[name]
+            if len(theirs) != len(mine):
+                raise ValueError(f"{name}: {len(theirs)} tensors for "
+                                 f"{len(mine)} parameters")
+            for dst, src in zip(mine, theirs):
+                dst.copy_(src)
+        self.count = int(state["count"])
+
 
 def build_optimizer(params: Sequence[torch.Tensor], config: OptimizerConfig,
                     total_steps: int, total_batch_size: int = 1) -> AdamW:

@@ -1,95 +1,66 @@
 """Stage-2 training entry point (the reference's ``train_diffute_v1.py``).
 
-  python -m diffute_tpu_torch.train.run_unet --model_scale full \\
-      --train_batch_size 4 --mixed_precision bf16 --gradient_checkpointing \\
-      --max_train_steps 3
+  python -m diffute_tpu_torch.train.run_unet --manifest doc_select.csv \\
+      --pretrained <stage-1 checkpoint dir> --output_dir out \\
+      --model_scale full --train_batch_size 4 --mixed_precision bf16 \\
+      --gradient_checkpointing [--resume_from_checkpoint latest]
   python -m diffute_tpu_torch.train.run_unet --smoke --device cpu
 
-Flag names are ``diffute_tpu.train.run_unet``'s.  The models are random-init
-from ``--seed`` and the data is the procedural ``SyntheticSceneDataset``.
-Runs on the card unless ``--device cpu`` is given; without a card it exits
-non-zero.  On the card ``--mixed_precision bf16`` turns the flash-attention
-kernels on (they take bf16 only).  Not yet ported, each raising with its
-ROADMAP item: ``--manifest``, ``--pretrained``, ``--resume_from_checkpoint``
-(and checkpoint saving: nothing is written), ``--report_to tensorboard``,
-``--optimizer adafactor|adamw8bit``.
+Flag names and semantics are ``diffute_tpu.train.run_unet``'s: the data is
+a manifest (``image_path`` / ``ocr_path`` CSV) or the procedural
+``SyntheticSceneDataset``; ``--pretrained`` loads a diffusers-layout
+directory (only the components it lacks are random-initialized, from seed
+0), else the models are random-init from ``--seed``.  Every checkpoint
+holds the trainer's whole state and exports ``unet/``, ``unet_ema/`` (with
+``--use_ema``), ``vae/`` and ``trocr/`` (``train.loop``).  Runs on the card
+unless ``--device cpu`` is given; without a card it exits non-zero.  On the
+card ``--mixed_precision bf16`` turns the flash-attention kernels on (they
+take bf16 only).  ``--report_to`` defaults to ``tensorboard``, as in the JAX
+package.  Not yet ported, each raising with its ROADMAP item:
+``--optimizer adafactor|adamw8bit``, ``--steps_per_call`` above 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence
+
+from diffute_tpu_torch.train import loop
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a card) or cpu")
-    p.add_argument("--manifest", default=None)
-    p.add_argument("--pretrained", default=None)
-    p.add_argument("--train_batch_size", type=int, default=16)
+    loop.add_common_args(p, output_dir="diffute-unet", checkpointing_steps=1000)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
-    p.add_argument("--max_train_steps", "--max-train-steps", type=int,
-                   default=None)
-    p.add_argument("--learning_rate", type=float, default=1e-4)
-    p.add_argument("--lr_scheduler", default="constant")
-    p.add_argument("--lr_warmup_steps", type=int, default=500)
-    p.add_argument("--max_grad_norm", type=float, default=1.0)
-    p.add_argument("--scale_lr", action="store_true")
-    p.add_argument("--optimizer", default="adamw",
-                   choices=["adamw", "adafactor", "adamw8bit"])
     p.add_argument("--use_8bit_adam", action="store_true",
                    help="low-memory Adam: first moment stored in bf16")
-    p.add_argument("--mixed_precision", default="no", choices=["no", "bf16"])
     p.add_argument("--use_ema", action="store_true")
-    p.add_argument("--gradient_checkpointing", action="store_true")
-    p.add_argument("--resume_from_checkpoint", "--resume-from-checkpoint",
-                   default=None)
     p.add_argument("--prediction_type", default=None,
                    choices=[None, "epsilon", "v_prediction"])
     p.add_argument("--noise_offset", type=float, default=0.0)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--report_to", default="none",
-                   choices=["none", "tensorboard"])
-    p.add_argument("--dataloader_num_workers", type=int, default=4)
-    p.add_argument("--smoke", action="store_true",
-                   help="tiny config + synthetic data, 2 steps")
     p.add_argument("--synthetic_vocab", default="fixed",
                    choices=["fixed", "mixed", "random"])
-    p.add_argument("--model_scale", default="full", choices=["full", "small"])
     return p.parse_args(argv)
 
 
-def _check_ported(args: argparse.Namespace) -> None:
-    for bad, what, item in (
-            (args.manifest, "--manifest", "manifest datasets and io/storage.py"),
-            (args.pretrained, "--pretrained", "the safetensors loader"),
-            (args.resume_from_checkpoint, "--resume_from_checkpoint",
-             "train/checkpoint.py"),
-            (args.report_to == "tensorboard", "--report_to tensorboard",
-             "utils/metrics.py")):
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not yet ported to the PyTorch port "
-                f"(ROADMAP.md queue 1: {item})")
-
-
-def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
-    """Train; returns one ``{"step", "loss", "grad_norm", "seconds",
-    "max_memory_allocated"}`` per optimizer step."""
+def prepare(argv: Optional[Sequence[str]] = None
+            ) -> Optional[loop.TrainingRun]:
+    """Parse, build (or restore) the trainer and its loader; None when the
+    checkpoint to resume from already satisfies the step budget."""
     args = parse_args(argv)
-    _check_ported(args)
+    loop.check_ported(args)
 
-    import torch
-
+    from diffute_tpu_torch.compat.diffusers import (diffusers_unet_config_json,
+                                                    diffusers_vae_config_json,
+                                                    vit_config_json)
     from diffute_tpu_torch.config import (DiffUTEConfig, OptimizerConfig,
                                           TrainConfig, small_config,
                                           tiny_test_config)
-    from diffute_tpu_torch.io.dataset import (PrefetchLoader,
-                                              SyntheticSceneDataset,
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              UNetManifestDataset,
                                               make_unet_batch)
+    from diffute_tpu_torch.train.checkpoint import export_diffusers_layout
     from diffute_tpu_torch.train.unet_train import UNetTrainer
     from diffute_tpu_torch.utils import init_pipeline_params, resolve_device
 
@@ -100,15 +71,19 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
     on_card = device.type == "cuda"
 
     accum = args.gradient_accumulation_steps
-    max_steps = 2 if args.smoke else (args.max_train_steps or 10_000)
     train_cfg = TrainConfig(
         train_batch_size=args.train_batch_size,
         gradient_accumulation_steps=accum,
-        max_train_steps=max_steps,
+        num_train_epochs=args.num_train_epochs,
         mixed_precision=args.mixed_precision,
         gradient_checkpointing=args.gradient_checkpointing,
         use_ema=args.use_ema,
+        checkpointing_steps=args.checkpointing_steps,
+        checkpoints_total_limit=args.checkpoints_total_limit,
+        resume_from_checkpoint=args.resume_from_checkpoint,
         seed=args.seed,
+        output_dir=args.output_dir,
+        logging_dir=args.logging_dir,
         noise_offset=args.noise_offset,
         prediction_type=args.prediction_type,
         dataloader_num_workers=args.dataloader_num_workers,
@@ -141,7 +116,24 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
             config, scheduler=dataclasses.replace(
                 config.scheduler, prediction_type=args.prediction_type))
 
-    params = init_pipeline_params(config, seed=args.seed, device=device)
+    if args.manifest:
+        dataset = UNetManifestDataset(args.manifest, config, seed=args.seed)
+    else:
+        dataset = SyntheticSceneDataset(config, seed=args.seed,
+                                        vocab=args.synthetic_vocab)
+    max_steps, epoch_mode, steps_per_epoch = loop.step_budget(
+        args, len(dataset), batch_size * accum, default=10_000)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, max_train_steps=max_steps))
+    if loop.satisfied(args, max_steps):
+        return None
+
+    if args.pretrained:
+        from diffute_tpu_torch.serve.loading import load_diffusers_layout
+
+        params = load_diffusers_layout(args.pretrained, config, device)
+    else:
+        params = init_pipeline_params(config, seed=args.seed, device=device)
     trainer = UNetTrainer(config, params["unet"],
                           {"vae": params["vae"], "trocr": params["trocr"]},
                           device=device, total_steps=max_steps)
@@ -154,35 +146,33 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
                  for k, v in b.items()}
         return b
 
-    dataset = SyntheticSceneDataset(config, seed=args.seed,
-                                    vocab=args.synthetic_vocab)
-    loader = PrefetchLoader(dataset, batch_size * accum, collate,
-                            num_threads=max(1, args.dataloader_num_workers),
-                            seed=args.seed)
+    # the frozen models go into every checkpoint, in fp32 (the compute
+    # dtype's values), so each one is a self-contained pipeline directory;
+    # they never change, so their host copy is made once
+    frozen = {name: {k: v.detach().float().cpu() for k, v in
+                     getattr(trainer, name).state_dict().items()}
+              for name in ("vae", "trocr")}
 
-    history: List[Dict[str, float]] = []
-    t_prev = time.perf_counter()
-    for batch in loader:
-        if trainer.state.step >= max_steps:
-            break
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(device)
-        metrics = trainer.step(batch)
-        # reading the metrics waits for the step's device work
-        rec = {"step": trainer.state.step, "loss": float(metrics["loss"]),
-               "grad_norm": float(metrics["grad_norm"])}
-        now = time.perf_counter()
-        rec["seconds"], t_prev = now - t_prev, now
-        rec["max_memory_allocated"] = (
-            torch.cuda.max_memory_allocated(device) if on_card else 0)
-        history.append(rec)
-        print(f"step {rec['step']}: loss {rec['loss']:.4f} grad_norm "
-              f"{rec['grad_norm']:.4f} steps/s {1.0 / rec['seconds']:.3f}",
-              flush=True)
-    if history:
-        print(f"done at step {trainer.state.step}; final loss "
-              f"{history[-1]['loss']:.4f}")
-    return history
+    def export(path, host):
+        export_diffusers_layout(
+            path, unet_params=host["params"],
+            unet_ema_params=host["ema"]["params"] if host["ema"] else None,
+            unet_config=diffusers_unet_config_json(config.unet),
+            vae_params=frozen["vae"],
+            vae_config=diffusers_vae_config_json(config.vae),
+            trocr_params=frozen["trocr"],
+            trocr_config=vit_config_json(config.trocr))
+
+    return loop.start(args, trainer, dataset, batch_size * accum, collate,
+                      max_steps, epoch_mode, steps_per_epoch, export)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
+    """Train; returns one ``{"step", "loss", "grad_norm", "seconds",
+    "max_memory_allocated"}`` per optimizer step (none when the checkpoint
+    to resume from already satisfies the budget)."""
+    run = prepare(argv)
+    return run.train() if run is not None else []
 
 
 if __name__ == "__main__":

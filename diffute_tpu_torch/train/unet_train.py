@@ -23,7 +23,7 @@ updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -31,12 +31,10 @@ import torch
 from diffute_tpu_torch.config import DiffUTEConfig
 from diffute_tpu_torch.diffusion import add_noise, make_schedule, training_target
 from diffute_tpu_torch.models import AutoencoderKL, TrOCREncoder, UNet2DCondition
-from diffute_tpu_torch.models.ema import EmaState
 from diffute_tpu_torch.models.vae import sample_latent
 from diffute_tpu_torch.ops import nearest_resize_2d
 from diffute_tpu_torch.text import trocr_normalize
-from diffute_tpu_torch.train.optim import build_optimizer
-from diffute_tpu_torch.train.state import TrainState
+from diffute_tpu_torch.train.state import Trainer
 from diffute_tpu_torch.utils.device import configure_cuda_numerics, resolve_device
 from diffute_tpu_torch.utils.images import device_to_unit_range
 from diffute_tpu_torch.utils.params import load_module
@@ -73,7 +71,7 @@ class TrainDraws:
                    normal(batch, channels, 1, 1) if with_offset else None)
 
 
-class UNetTrainer:
+class UNetTrainer(Trainer):
     """Holds the trainable UNet, the frozen VAE and TrOCR encoder and the
     train state on ``device``: the card by default (raises without one),
     the CPU only when asked.
@@ -105,25 +103,9 @@ class UNetTrainer:
                                self.device, dtype)
         self.trocr = load_module(TrOCREncoder, config.trocr,
                                  frozen_params["trocr"], self.device, dtype)
-        # fp32 masters: copies, so the caller's tensors stay as they were
-        names = list(unet_params)
-        masters = [unet_params[n].detach().to(self.device, torch.float32,
-                                              copy=True) for n in names]
-        self.unet = load_module(UNet2DCondition, config.unet,
-                                dict(zip(names, masters)), self.device, dtype)
-        self.unet.requires_grad_(True)
-        self._compute_params = [self.unet.get_parameter(n) for n in names]
-        if not self.bf16:
-            masters = self._compute_params  # the module's own fp32 weights
-
-        total = total_steps or tc.max_train_steps or 10_000
-        tbs = tc.train_batch_size * tc.gradient_accumulation_steps
-        self.state = TrainState(
-            names=names, params=masters,
-            opt=build_optimizer(masters, tc.optimizer, total, tbs),
-            ema=EmaState(masters) if tc.use_ema else None)
+        self.unet = self._init_trained(UNet2DCondition, config.unet,
+                                       unet_params, total_steps)
         self.schedule = make_schedule(config.scheduler, device=self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(tc.seed)
 
     # ------------------------------------------------------------------
 
@@ -169,67 +151,3 @@ class UNetTrainer:
             x_in = torch.cat([noisy, mask_lat, masked_latents], dim=1).to(dtype)
         pred = self.unet(x_in, t, ctx)
         return torch.mean((pred.float() - target.float()) ** 2)
-
-    def accumulate_grads(self, batch: Batch,
-                         draws: Union[None, TrainDraws, Sequence[TrainDraws]]
-                         = None) -> torch.Tensor:
-        """Mean loss of the batch's micro-batches, with the mean of their
-        gradients left in the masters' ``.grad`` (fp32).
-
-        With ``gradient_accumulation_steps > 1`` every array of ``batch``
-        has leading dims (accum, micro) and ``draws`` is one
-        :class:`TrainDraws` per micro-batch; None draws them from the
-        trainer's generator."""
-        accum = self.config.train.gradient_accumulation_steps
-        micros = ([{k: v[i] for k, v in batch.items()} for i in range(accum)]
-                  if accum > 1 else [batch])
-        if draws is None:
-            draws = [self.draw(len(m["masks"])) for m in micros]
-        elif isinstance(draws, TrainDraws):
-            draws = [draws]
-        if len(draws) != len(micros):
-            raise ValueError(f"{len(draws)} draws for {len(micros)} micro-batches")
-        masters = self.state.params
-        for p in masters:
-            p.grad = None
-        loss_sum = torch.zeros((), device=self.device)
-        for micro, d in zip(micros, draws):
-            loss = self.loss_fn(micro, d)
-            loss.backward()
-            loss_sum += loss.detach()
-            if self.bf16:  # bf16 grads of the compute copy -> fp32 buffers
-                for m, c in zip(masters, self._compute_params):
-                    g = c.grad.float()
-                    m.grad = g if m.grad is None else m.grad.add_(g)
-                    c.grad = None
-        if accum > 1:
-            torch._foreach_div_([p.grad for p in masters], accum)
-        return loss_sum / accum
-
-    def apply_grads(self) -> torch.Tensor:
-        """Clip, AdamW and EMA on the accumulated gradients; returns the
-        pre-clip global gradient norm."""
-        state = self.state
-        grad_norm = state.opt.step()
-        for p in state.params:
-            p.grad = None
-        if self.bf16:
-            with torch.no_grad():
-                torch._foreach_copy_(self._compute_params, state.params)
-        if state.ema is not None:
-            state.ema.update(state.params, self.config.train.ema_decay)
-        state.step += 1
-        return grad_norm
-
-    def step(self, batch: Batch,
-             draws: Union[None, torch.Generator, TrainDraws,
-                          Sequence[TrainDraws]] = None
-             ) -> Dict[str, torch.Tensor]:
-        """One optimizer step.  ``draws``: None (the trainer's generator), a
-        ``torch.Generator`` on the trainer's device, or the draws themselves.
-        Returns 0-d tensors ``{"loss", "grad_norm"}``; reading them is the
-        step's only host synchronisation."""
-        if isinstance(draws, torch.Generator):
-            self.generator, draws = draws, None
-        loss = self.accumulate_grads(batch, draws)
-        return {"loss": loss, "grad_norm": self.apply_grads()}

@@ -71,18 +71,19 @@ def load_module(cls, config, state_dict: Dict[str, torch.Tensor], device,
 
 
 def init_pipeline_params(config: DiffUTEConfig, seed: int = 0,
-                         device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+                         device="cuda", components=("vae", "unet", "trocr")
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Random-init fp32 state_dicts for the three models on ``device`` (the
     card unless the caller asks for the CPU).  The UNet's dict is float
-    whatever ``use_int8_weights`` says: the pipeline quantises at load."""
+    whatever ``use_int8_weights`` says: the pipeline quantises at load.
+    ``components`` picks a subset; they are drawn in the order vae, unet,
+    trocr from one generator seeded with ``seed``."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     config = dataclasses.replace(config, unet=dataclasses.replace(
         config.unet, use_int8_weights=False))
-    return {
-        "vae": _init_state_dict(build_meta(AutoencoderKL, config.vae), gen, device),
-        "unet": _init_state_dict(build_meta(UNet2DCondition, config.unet), gen,
-                                 device),
-        "trocr": _init_state_dict(build_meta(TrOCREncoder, config.trocr), gen,
-                                  device),
-    }
+    models = {"vae": (AutoencoderKL, config.vae),
+              "unet": (UNet2DCondition, config.unet),
+              "trocr": (TrOCREncoder, config.trocr)}
+    return {name: _init_state_dict(build_meta(cls, cfg), gen, device)
+            for name, (cls, cfg) in models.items() if name in components}

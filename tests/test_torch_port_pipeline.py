@@ -192,6 +192,8 @@ def test_cli_edits_a_png(tmp_path):
     out2 = np.asarray(Image.open(tmp_path / "out2.png"))
     np.testing.assert_array_equal(out2[:30], src[:30])
     assert (out2 != out).any()
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # a checkpoint directory that does not exist is an error, not a random
+    # init (tests/test_torch_port_checkpoint.py edits from a real one)
+    with pytest.raises(FileNotFoundError, match="no checkpoint directory"):
         cli.main(["--image", "x.png", "--box", "1,1,2,2", "--text", "x",
-                  "--checkpoint", "dir"])
+                  "--checkpoint", str(tmp_path / "missing"), "--device", "cpu"])

@@ -237,11 +237,23 @@ def test_build_pipeline_defaults_to_the_card(pipe):
         web.main(["--scale", "tiny", "--port", "0"])
 
 
-def test_checkpoint_is_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        web.build_pipeline("some/dir", "tiny", device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 5"):
-        web.main(["--checkpoint", "some/dir", "--device", "cpu"])
+def test_checkpoint_loads_a_diffusers_layout(tmp_path):
+    from diffute_tpu_torch.compat.diffusers import diffusers_unet_config_json
+    from diffute_tpu_torch.config import tiny_test_config
+    from diffute_tpu_torch.train.checkpoint import export_diffusers_layout
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    cfg = tiny_test_config()
+    params = init_pipeline_params(cfg, seed=9, device="cpu")
+    export_diffusers_layout(str(tmp_path), unet_params=params["unet"],
+                            unet_config=diffusers_unet_config_json(cfg.unet))
+    pipe = web.build_pipeline(str(tmp_path), None, device="cpu")
+    # the scale comes from unet/config.json; the VAE and the TrOCR encoder,
+    # which the directory lacks, are random-init from seed 0
+    assert pipe.config.edit.resolution == cfg.edit.resolution
+    assert torch.equal(pipe.unet.conv_in.weight, params["unet"]["conv_in.weight"])
+    with pytest.raises(SystemExit, match="no checkpoint directory"):
+        web.main(["--checkpoint", str(tmp_path / "missing"), "--device", "cpu"])
 
 
 def test_server_imports_no_jax():

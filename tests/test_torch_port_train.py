@@ -95,7 +95,7 @@ def _port_trainer(tcfg, jparams):
 def _param_errs(trainer, j_unet_params):
     """|port - JAX| of every master weight, flattened in key order."""
     ref = unet_state_dict(j_unet_params)
-    mine = trainer.state.state_dict()
+    mine = trainer.state.params_dict()
     assert set(ref) == set(mine)
     return torch.cat([(mine[k].detach() - ref[k]).abs().flatten()
                       for k in sorted(ref)])
@@ -138,7 +138,7 @@ def test_two_train_steps_match_jax(jparams, monkeypatch):
     trainer = _port_trainer(tcfg, jparams)
     loss = trainer.accumulate_grads(batch, _draws(jcfg, rng))
     assert len(calls) == 3  # the 1024-token self-attentions took the flash route
-    grads = {k: v.grad.clone() for k, v in trainer.state.state_dict().items()}
+    grads = {k: v.grad.clone() for k, v in trainer.state.params_dict().items()}
     grad_norm = trainer.apply_grads()
 
     # fp32 on both sides, different op order: the loss agreed to 8e-7

@@ -59,7 +59,7 @@ def test_bf16_train_step_matches_jax(jparams):
     assert float(errs.max()) <= 2.5e-4 and float(errs.mean()) <= 1e-5
     # the bf16 compute copy follows the updated masters
     assert torch.equal(trainer.unet.conv_in.weight,
-                       trainer.state.state_dict()["conv_in.weight"].bfloat16())
+                       trainer.state.params_dict()["conv_in.weight"].bfloat16())
 
 
 def test_remat_changes_neither_loss_nor_grads(jparams):

@@ -6,8 +6,11 @@ with clipping, the EMA, the synthetic dataset and ``train_crop``, the
 
 import dataclasses
 import inspect
+import json
+import os
 import pathlib
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +39,8 @@ from diffute_tpu_torch.io import dataset as tdata
 from diffute_tpu_torch.models.ema import EmaState
 from diffute_tpu_torch.pipeline import DiffUTEPipeline
 from diffute_tpu_torch.pipeline import crop as tcrop
-from diffute_tpu_torch.train import UNetTrainer, build_optimizer, run_unet
+from diffute_tpu_torch.train import (UNetTrainer, build_optimizer, run_unet,
+                                     run_vae)
 from diffute_tpu_torch.utils import init_pipeline_params
 from diffute_tpu_torch.utils.images import device_to_unit_range
 
@@ -296,8 +300,9 @@ def test_prefetch_loader_batches_match_jax():
 
 # ---------------------------------------------------------------- the CLI
 
-def test_run_unet_smoke_on_cpu(capsys):
-    history = run_unet.main(["--smoke", "--device", "cpu"])
+def test_run_unet_smoke_on_cpu(capsys, tmp_path):
+    history = run_unet.main(["--smoke", "--device", "cpu", "--output_dir",
+                             str(tmp_path), "--report_to", "none"])
     assert [h["step"] for h in history] == [1, 2]
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
                and h["grad_norm"] > 0 for h in history)
@@ -305,9 +310,10 @@ def test_run_unet_smoke_on_cpu(capsys):
     assert "step 2: loss" in out and "done at step 2; final loss" in out
 
 
-def test_run_unet_options_on_cpu():
+def test_run_unet_options_on_cpu(tmp_path):
     history = run_unet.main([
-        "--smoke", "--device", "cpu", "--mixed_precision", "bf16",
+        "--smoke", "--device", "cpu", "--output_dir", str(tmp_path),
+        "--report_to", "none", "--mixed_precision", "bf16",
         "--gradient_checkpointing", "--gradient_accumulation_steps", "2",
         "--use_ema", "--use_8bit_adam", "--scale_lr", "--lr_scheduler", "cosine",
         "--lr_warmup_steps", "1", "--noise_offset", "0.1",
@@ -316,17 +322,66 @@ def test_run_unet_options_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--manifest", "x.csv"], "manifest datasets"),
-    (["--pretrained", "dir"], "safetensors loader"),
-    (["--resume_from_checkpoint", "latest"], "train/checkpoint.py"),
-    (["--report_to", "tensorboard"], "utils/metrics.py"),
     (["--optimizer", "adafactor"], "adafactor"),
     (["--optimizer", "adamw8bit"], "adamw8bit"),
+    (["--steps_per_call", "2"], "steps_per_call"),
 ])
-def test_run_unet_unported_flags_raise(flags, item):
+def test_run_unet_unported_flags_raise(flags, item, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=f"not yet ported.*ROADMAP.*{re.escape(item)}"):
-        run_unet.main(["--smoke", "--device", "cpu", *flags])
+        run_unet.main(["--smoke", "--device", "cpu", "--output_dir",
+                       str(tmp_path), "--report_to", "none", *flags])
+
+
+def _manifest(root):
+    from PIL import Image
+
+    img = np.full((300, 400, 3), 220, np.uint8)
+    img[60:90, 50:180] = 20
+    Image.fromarray(img).save(root / "page.png")
+    with open(root / "page.json", "w") as f:
+        json.dump({"document": [{"text": "hello", "score": 0.9, "box": [
+            [50, 60], [180, 60], [180, 90], [50, 90]]}]}, f)
+    with open(root / "docs.csv", "w") as f:
+        f.write(f"image_path,ocr_path\n{root / 'page.png'},{root / 'page.json'}\n")
+    return str(root / "docs.csv")
+
+
+@pytest.mark.parametrize("flag", ["--manifest", "--pretrained",
+                                  "--resume_from_checkpoint", "--report_to"])
+def test_run_unet_ported_flags_work(flag, tmp_path, monkeypatch, capsys):
+    out = tmp_path / "out"
+    common = ["--smoke", "--device", "cpu", "--output_dir", str(out),
+              "--dataloader_num_workers", "1", "--report_to", "none"]
+    if flag == "--manifest":
+        extra = [flag, _manifest(tmp_path)]
+    elif flag == "--pretrained":
+        run_vae.main(["--smoke", "--device", "cpu", "--output_dir",
+                      str(tmp_path / "vae"), "--report_to", "none"])
+        extra = [flag, str(tmp_path / "vae" / "checkpoint-2")]
+    elif flag == "--resume_from_checkpoint":
+        run_unet.main(common)
+        extra = [flag, "latest", "--max_train_steps", "3"]
+    else:
+        # tensorboardX, as torch.utils.tensorboard imports TensorFlow where
+        # it is installed (slow)
+        pytest.importorskip("tensorboardX")
+        monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+        extra = [flag, "tensorboard"]
+    capsys.readouterr()
+    history = run_unet.main([*common, *extra])
+    assert history and all(np.isfinite(h["loss"]) for h in history)
+    text = capsys.readouterr().out
+    if flag == "--resume_from_checkpoint":
+        assert [h["step"] for h in history] == [3]
+        assert "resumed from" in text
+    if flag == "--report_to":
+        assert any(f.startswith("events.out.tfevents")
+                   for f in os.listdir(out / "logs"))
+    last = max(int(d.split("-")[1]) for d in os.listdir(out)
+               if d.startswith("checkpoint-"))
+    assert sorted(os.listdir(out / f"checkpoint-{last}")) == [
+        "state", "trocr", "unet", "vae"]
 
 
 # ------------------------------------------------- device and import rules
@@ -336,6 +391,7 @@ def test_entry_points_default_to_the_card():
                init_pipeline_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert run_unet.parse_args([]).device == "cuda"
+    assert run_unet.parse_args([]).report_to == "tensorboard"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default is usable here")
     # without a card the defaults fail loudly instead of running on the CPU

@@ -1,0 +1,204 @@
+"""PyTorch port, stage 1: ``VAETrainer`` against the JAX package's
+``make_vae_train_step`` at tiny width, fp32, on the CPU.
+
+Both sides get the same weights (through the bridge), the same uint8 batch
+and the same posterior normal: the JAX step draws it with
+``jax.random.normal(rng, mean.shape)``, reproduced here and handed to the
+port as a tensor.  Then the trainer's own behaviour: gradient
+checkpointing changes nothing, bf16 keeps fp32 masters, a save and restore
+continues bit for bit, and ``run_vae``'s flags.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from diffute_tpu.config import tiny_test_config as j_tiny
+from diffute_tpu.train.optim import build_optimizer as j_build_optimizer
+from diffute_tpu.train.state import TrainState as JTrainState
+from diffute_tpu.train.vae_train import make_vae_train_step
+from diffute_tpu.utils.params import init_vae_params as j_init_vae
+
+from diffute_tpu_torch.compat import vae_state_dict
+from diffute_tpu_torch.config import tiny_test_config
+from diffute_tpu_torch.train import VAETrainer, run_vae
+from diffute_tpu_torch.train import checkpoint as ckpt
+
+BATCH, RES, TOTAL_STEPS = 2, 32, 10
+
+
+def _configs(accum=1, remat=False, mixed_precision="no"):
+    out = []
+    for cfg in (j_tiny(), tiny_test_config()):
+        opt = dataclasses.replace(cfg.train.optimizer, lr_scheduler="constant")
+        out.append(dataclasses.replace(
+            cfg, vae=dataclasses.replace(cfg.vae, remat=remat),
+            edit=dataclasses.replace(cfg.edit, resolution=RES),
+            train=dataclasses.replace(
+                cfg.train, train_batch_size=BATCH,
+                gradient_accumulation_steps=accum,
+                mixed_precision=mixed_precision, optimizer=opt)))
+    return out
+
+
+def _batch(seed, lead=(BATCH,)):
+    rng = np.random.RandomState(seed)
+    return {"pixel_values": rng.randint(0, 256, lead + (RES, RES, 3)).astype(
+        np.uint8)}
+
+
+def _normal(jcfg, rng):
+    """The JAX step's posterior normal for ``rng``, NCHW."""
+    r = RES // jcfg.vae.scale_factor
+    z = jax.random.normal(rng, (BATCH, r, r, jcfg.vae.latent_channels),
+                          jnp.float32)
+    return torch.tensor(np.asarray(z).transpose(0, 3, 1, 2))
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return j_init_vae(_configs()[0], jax.random.PRNGKey(3))
+
+
+def _trainer(tcfg, jparams):
+    return VAETrainer(tcfg, vae_state_dict(jparams), device="cpu",
+                      total_steps=TOTAL_STEPS)
+
+
+def test_vae_step_matches_jax(jparams):
+    """Loss, pre-clip grad norm, gradients and the updated weights."""
+    jcfg, tcfg = _configs()
+    batch, rng = _batch(0), jax.random.PRNGKey(4)
+    # the step with plain SGD(1) reads the gradients back (grads = params -
+    # new_params); AdamW then runs on them outside the step, as optax's
+    # chain in the step would
+    sgd = optax.sgd(1.0)
+    sgd_state, j_metrics = jax.jit(make_vae_train_step(jcfg, sgd))(
+        JTrainState.create(jparams, sgd), batch, rng)
+    j_grad_tree = jax.tree_util.tree_map(lambda p, n: p - n, jparams,
+                                         sgd_state.params)
+    tx = j_build_optimizer(jcfg.train.optimizer, TOTAL_STEPS, BATCH)
+    updates, _ = tx.update(j_grad_tree, tx.init(jparams), jparams)
+    j_grads = vae_state_dict(j_grad_tree)
+    new = vae_state_dict(optax.apply_updates(jparams, updates))
+
+    trainer = _trainer(tcfg, jparams)
+    loss = trainer.accumulate_grads(batch, _normal(jcfg, rng))
+    grads = {k: v.grad.clone() for k, v in trainer.state.params_dict().items()}
+    grad_norm = trainer.apply_grads()
+    # fp32 on both sides, different op order
+    np.testing.assert_allclose(float(loss), float(j_metrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(grad_norm), float(j_metrics["grad_norm"]),
+                               rtol=1e-4)
+    # the tolerance of the stage-2 step's gradient check
+    assert set(grads) == set(j_grads)
+    for key in sorted(grads):
+        np.testing.assert_allclose(grads[key].numpy(), j_grads[key].numpy(),
+                                   atol=2e-6, rtol=1e-3, err_msg=key)
+    # one AdamW step moves each weight by about lr = 1e-4; where the
+    # gradient is far above Adam's eps both sides agree to float precision
+    mine = trainer.state.params_dict()
+    errs = torch.cat([(mine[k].detach() - new[k]).abs().flatten()
+                      for k in sorted(new)])
+    big = torch.cat([j_grads[k].abs().flatten() for k in sorted(new)]) > 1e-4
+    assert float(errs[big].max()) <= 1e-7
+    assert float(errs.max()) <= 2e-5
+    assert trainer.state.step == 1
+
+
+def test_vae_accumulation_matches_jax(jparams):
+    jcfg, tcfg = _configs(accum=2)
+    tx = j_build_optimizer(jcfg.train.optimizer, TOTAL_STEPS, BATCH)
+    batch, rng = _batch(1, lead=(2, BATCH)), jax.random.PRNGKey(9)
+    _, j_metrics = jax.jit(make_vae_train_step(jcfg, tx))(
+        JTrainState.create(jparams, tx), batch, rng)
+    metrics = _trainer(tcfg, jparams).step(
+        batch, [_normal(jcfg, k) for k in jax.random.split(rng, 2)])
+    np.testing.assert_allclose(float(metrics["loss"]), float(j_metrics["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]),
+                               float(j_metrics["grad_norm"]), rtol=1e-4)
+
+
+def test_vae_remat_changes_neither_loss_nor_grads(jparams):
+    batch, noise = _batch(2), _normal(_configs()[0], jax.random.PRNGKey(1))
+    out = []
+    for remat in (False, True):
+        trainer = _trainer(_configs(remat=remat)[1], jparams)
+        loss = trainer.accumulate_grads(batch, noise)
+        out.append((loss, [p.grad.clone() for p in trainer.state.params]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_vae_bf16_keeps_fp32_masters(jparams):
+    trainer = _trainer(_configs(mixed_precision="bf16")[1], jparams)
+    assert trainer.vae.encoder.conv_in.weight.dtype == torch.bfloat16
+    assert trainer.draw(BATCH).shape == (BATCH, 4, RES // 2, RES // 2)
+    metrics = trainer.step(_batch(3))
+    assert np.isfinite(float(metrics["loss"]))
+    master = trainer.state.params_dict()["encoder.conv_in.weight"]
+    assert master.dtype == torch.float32
+    assert torch.equal(trainer.vae.encoder.conv_in.weight, master.bfloat16())
+
+
+def test_vae_save_restore_continues_bit_for_bit(tmp_path, jparams):
+    tcfg = _configs(mixed_precision="bf16")[1]
+    batches = [_batch(10 + i) for i in range(3)]
+    straight = _trainer(tcfg, jparams)
+    for b in batches:
+        straight.step(b)
+    first = _trainer(tcfg, jparams)
+    for b in batches[:2]:
+        first.step(b)
+    path = ckpt.save_checkpoint(str(tmp_path), first.state.step,
+                                first.state_dict())
+    second = _trainer(tcfg, jparams)
+    second.load_state_dict(ckpt.restore_checkpoint(path))
+    second.step(batches[2])
+    a, b = straight.state_dict(), second.state_dict()
+    assert a["step"] == b["step"] == 3
+    assert a["opt"]["count"] == b["opt"]["count"] == 3
+    assert torch.equal(a["generator"], b["generator"])
+    for part in ("params", "opt"):
+        for name in ("mu", "nu") if part == "opt" else (None,):
+            x = a[part][name] if name else a[part]
+            y = b[part][name] if name else b[part]
+            assert all(torch.equal(x[k], y[k]) for k in x), (part, name)
+
+
+def test_run_vae_smoke_resumes_and_refuses_unported(tmp_path, capsys):
+    out = str(tmp_path / "vae")
+    common = ["--smoke", "--device", "cpu", "--output_dir", out,
+              "--dataloader_num_workers", "1", "--report_to", "none"]
+    history = run_vae.main(common)
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in history)
+    history = run_vae.main([*common, "--resume_from_checkpoint", "latest",
+                            "--max_train_steps", "3",
+                            "--gradient_checkpointing"])
+    assert [h["step"] for h in history] == [3]
+    assert "resumed from" in capsys.readouterr().out
+    for flags, what in ((["--steps_per_call", "2"], "steps_per_call"),
+                        (["--optimizer", "adafactor"], "adafactor"),
+                        (["--optimizer", "adamw8bit"], "adamw8bit")):
+        with pytest.raises(NotImplementedError, match=f"not yet ported.*{what}"):
+            run_vae.main([*common, *flags])
+    assert run_vae.parse_args([]).device == "cuda"
+    assert run_vae.parse_args([]).checkpointing_steps == 500
+    assert run_vae.parse_args([]).report_to == "tensorboard"
+
+
+def test_vae_flash_attention_still_refused():
+    # the flash kernels take head_dim 64; the VAE mid-block's is 512
+    from diffute_tpu_torch.config import VAEConfig
+
+    with pytest.raises(NotImplementedError,
+                       match="not ported.*ROADMAP.*head_dim 512"):
+        VAEConfig(use_flash_attention=True)
+    assert VAEConfig(remat=True).remat
