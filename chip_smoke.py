@@ -84,13 +84,37 @@ Phases, one line each (any failure raises and exits non-zero):
      load_diffusers_layout from stage 2's final export and one from the
      trainer's in-memory state_dicts run the same 20-step 512^2 edit (200
      flash launches each; outputs within 1 LSB, equal so far), and
-     serve.cli --checkpoint completes the same edit.
+     serve.cli --checkpoint completes the same edit;
+  11. OCR verifier training: train.run_ocr at the small scale on synthetic
+     glyphs (batch 64, targets of 16 ids, 50 steps with 10 of warmup, a
+     checkpoint at 25 and at the end): finite loss and gradient norm, the
+     mean loss of the last 10 steps below the first 10's, a resume from
+     the latest restores the whole state bit for bit and takes a step
+     (seconds per step, peak memory);
+  12. eval: eval.run at full width (the serving pipeline, bf16 with the
+     flash kernel; the TrOCR-large encoder and 12-layer decoder, vocabulary
+     50,265, random-init, fp32, as the verifier) over 4 synthetic scenes at
+     20 steps: 200 flash launches an example, background SSIM 1.0, a
+     changed box, every field finite but the PSNRs; greedy_decode_cached
+     equal to greedy_decode token for token on the edited regions (both
+     timed); then at the small scale with phase 11's checkpoint as
+     --pretrained and --tokenizer char (200 launches an example, the text
+     match rate reported);
+  13. acceptance: eval.acceptance --model_scale full on phase 9's stage-2
+     export, fp32 with dense attention: --make_reference writes a bundle,
+     then the layout is held against it; both exit 0 with the pinned
+     parameter counts and stages 3-5 passing (seconds of each).
 Then one JSON line of kernel results, and last the device JSON line.
 Exits non-zero, with no result, when no CUDA device is available.
 
     python3 chip_smoke.py --workflow-only
 
 builds the kernels and runs phases 8-10 alone (about 2 minutes).
+
+    python3 chip_smoke.py --eval-only
+
+builds the kernels and runs phases 11-13 alone; phase 13 then certifies a
+full-width random-init layout exported by export_diffusers_layout.
 
     python3 chip_smoke.py --edits-only 6 [--package-root DIR]
 
@@ -574,11 +598,12 @@ def sdpa(q, k, v):
                                           scale=0.125)[0]
 
 
-# (BH, S, T): PIPELINED_SHAPES and a ragged one
+# (BH, S, T): PIPELINED_SHAPES, a ragged one, and the small-scale eval's
+# 256^2 edits (small_config: 2 heads at 4096 tokens, 4 at 1024)
 FORWARD_SHAPES = [(5, 4096, 4096), (10, 1024, 1024), (4, 1000, 577),
                   (20, 4096, 4096), (40, 1024, 1024), (5, 9216, 9216),
                   (10, 2304, 2304), (5, 16384, 16384), (10, 4096, 4096),
-                  (20, 1024, 1024)]
+                  (20, 1024, 1024), (2, 4096, 4096), (4, 1024, 1024)]
 
 
 def strided_qkv(g, dev, b=2, s=4096, h=5, n=3):
@@ -1486,12 +1511,13 @@ def dir_bytes(path: str) -> dict:
     return out
 
 
-def check_workflow(dev) -> dict:
+def check_workflow(dev, root: str):
     """Phases 8-10 on the card: stage 1 (run_vae on a manifest), stage 2
     from its checkpoint (run_unet --pretrained), both resumed, then serving
     from the stage-2 checkpoint, all at full width, 512^2, bf16 with
-    gradient checkpointing, in one temporary directory removed at the end.
-    Returns the launches by path and the numbers."""
+    gradient checkpointing, under ``root`` (the caller removes it).
+    Returns the launches by path and the numbers, and the stage-2
+    checkpoint, whose export phase 13 certifies."""
     from PIL import Image
 
     from diffute_tpu_torch.config import DiffUTEConfig, card_serving_config
@@ -1506,173 +1532,480 @@ def check_workflow(dev) -> dict:
     scale = ["--model_scale", "full", "--train_batch_size", str(WORKFLOW_BATCH),
              "--mixed_precision", "bf16", "--gradient_checkpointing",
              "--device", "cuda", "--seed", "0"]
-    root = tempfile.mkdtemp(prefix="diffute_workflow_")
     out = {"launches": {}}
-    try:
-        usage = shutil.disk_usage(root)
-        pages, docs = write_manifests(root, base)
-        d1, d2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
+    usage = shutil.disk_usage(root)
+    pages, docs = write_manifests(root, base)
+    d1, d2 = os.path.join(root, "stage1"), os.path.join(root, "stage2")
 
-        # ---- 8. stage 1: three steps, a checkpoint at 2 and at the end,
-        # then a resume from the latest that takes one step
-        run = run_vae.prepare([*scale, "--manifest", pages, "--output_dir", d1,
-                               "--max_train_steps", "3",
+    # ---- 8. stage 1: three steps, a checkpoint at 2 and at the end,
+    # then a resume from the latest that takes one step
+    run = run_vae.prepare([*scale, "--manifest", pages, "--output_dir", d1,
+                           "--max_train_steps", "3",
+                           "--checkpointing_steps", "2"])
+    n_vae = sum(p.numel() for p in run.trainer.state.params)
+    n_tensors = len(run.trainer.state.params)
+    before = [p.detach().clone() for p in run.trainer.state.params]
+    history = run.train()
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(before, run.trainer.state.params))
+    del before
+    saved = run.trainer.state_dict()
+    del run
+    resumed = run_vae.prepare([*scale, "--manifest", pages,
+                               "--output_dir", d1,
+                               "--resume_from_checkpoint", "latest",
+                               "--max_train_steps", "4",
                                "--checkpointing_steps", "2"])
-        n_vae = sum(p.numel() for p in run.trainer.state.params)
-        n_tensors = len(run.trainer.state.params)
-        before = [p.detach().clone() for p in run.trainer.state.params]
-        history = run.train()
-        changed = sum(not torch.equal(a, b) for a, b in
-                      zip(before, run.trainer.state.params))
-        del before
-        saved = run.trainer.state_dict()
-        del run
-        resumed = run_vae.prepare([*scale, "--manifest", pages,
-                                   "--output_dir", d1,
-                                   "--resume_from_checkpoint", "latest",
-                                   "--max_train_steps", "4",
-                                   "--checkpointing_steps", "2"])
-        diff = states_equal(saved, resumed.trainer.state_dict())
-        history2 = resumed.train()
-        del saved, resumed
-        stage1 = dict(vae_params=n_vae, tensors_changed=changed,
-                      tensors=n_tensors, steps=history,
-                      resumed_steps=history2, restored_differs_at=diff[:5],
-                      checkpoints=list_checkpoints(d1),
-                      free_bytes_at_start=usage.free)
-        phase("stage1", **stage1)
-        if n_vae != VAE_PARAMS or changed < n_tensors or diff:
-            raise RuntimeError(f"stage 1 failed: {n_vae} parameters, "
-                               f"{changed} of {n_tensors} tensors changed, "
-                               f"restore differs at {diff[:5]}")
-        if (len(history) != 3 or [h["step"] for h in history2] != [4]
-                or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
-                           for h in history + history2)):
-            raise RuntimeError(f"stage 1 steps: {history} {history2}")
-        out["stage1_step_seconds"] = [h["seconds"] for h in history + history2]
-        out["stage1_max_memory_allocated"] = [h["max_memory_allocated"]
-                                              for h in history + history2]
-        gc.collect()
+    diff = states_equal(saved, resumed.trainer.state_dict())
+    history2 = resumed.train()
+    del saved, resumed
+    stage1 = dict(vae_params=n_vae, tensors_changed=changed,
+                  tensors=n_tensors, steps=history,
+                  resumed_steps=history2, restored_differs_at=diff[:5],
+                  checkpoints=list_checkpoints(d1),
+                  free_bytes_at_start=usage.free)
+    phase("stage1", **stage1)
+    if n_vae != VAE_PARAMS or changed < n_tensors or diff:
+        raise RuntimeError(f"stage 1 failed: {n_vae} parameters, "
+                           f"{changed} of {n_tensors} tensors changed, "
+                           f"restore differs at {diff[:5]}")
+    if (len(history) != 3 or [h["step"] for h in history2] != [4]
+            or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                       for h in history + history2)):
+        raise RuntimeError(f"stage 1 steps: {history} {history2}")
+    out["stage1_step_seconds"] = [h["seconds"] for h in history + history2]
+    out["stage1_max_memory_allocated"] = [h["max_memory_allocated"]
+                                          for h in history + history2]
+    gc.collect()
 
-        # ---- 9. stage 2 from stage 1's checkpoint: the VAE from its vae/,
-        # the UNet and TrOCR random-init; two steps, then a resume to 3
-        stage1_dir = os.path.join(d1, "checkpoint-4")
-        flags = [*scale, "--manifest", docs, "--pretrained", stage1_dir,
-                 "--output_dir", d2, "--checkpointing_steps", "2",
-                 "--checkpoints_total_limit", "1"]
-        run = run_unet.prepare([*flags, "--max_train_steps", "2"])
-        trainer = run.trainer
-        vae_file = load_safetensors(os.path.join(
-            stage1_dir, "vae", "diffusion_pytorch_model.safetensors"))
-        frozen = trainer.vae.state_dict()
-        vae_diff = [k for k, v in vae_file.items()
-                    if not torch.equal(v.to(dev, trainer.dtype), frozen[k])]
-        if set(vae_file) != set(frozen) or vae_diff:
-            raise RuntimeError(f"stage 2's VAE is not stage 1's: {vae_diff[:5]}")
-        del vae_file, frozen
-        reset_counters()
-        history = run.train()
-        first_launches = counters()
-        saved = trainer.state_dict()
-        del run, trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-        run = run_unet.prepare([*flags, "--max_train_steps", "3",
-                                "--resume_from_checkpoint", "latest"])
-        diff = states_equal(saved, run.trainer.state_dict())
-        del saved
-        reset_counters()
-        history2 = run.train()
-        resume_launches = counters()
-        ckpt = os.path.join(d2, "checkpoint-3")
-        stage2 = dict(steps=history, resumed_steps=history2,
-                      restored_from=run.restored_from,
-                      restore_seconds=run.restore_seconds,
-                      save_seconds=run.manager.times,
-                      checkpoint_bytes=dir_bytes(ckpt),
-                      checkpoints=list_checkpoints(d2),
-                      restored_differs_at=diff[:5],
-                      launches_first_run=first_launches,
-                      launches_resumed_step=resume_launches)
-        phase("stage2", **stage2)
-        if diff or stage2["checkpoints"] != ["checkpoint-3"]:
-            raise RuntimeError(f"stage 2 restore differs at {diff[:5]}; "
-                               f"checkpoints {stage2['checkpoints']}")
-        if (len(history) != 2 or [h["step"] for h in history2] != [3]
-                or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
-                           for h in history + history2)):
-            raise RuntimeError(f"stage 2 steps: {history} {history2}")
-        # each step: 10 self-attentions run the forward twice (the
-        # gradient checkpoint recomputes it) and each backward once
-        expect_launches({"launches": first_launches}, flash_fwd=40,
-                        flash_bwd_dq=20, flash_bwd_dkv=20)
-        expect_launches({"launches": resume_launches}, flash_fwd=20,
-                        flash_bwd_dq=10, flash_bwd_dkv=10)
-        out["launches"].update(train_pretrained=first_launches,
-                               train_resume=resume_launches)
-        out["stage2_step_seconds"] = [h["seconds"] for h in history + history2]
-        out["stage2_checkpoint"] = dict(
-            bytes=stage2["checkpoint_bytes"], restore_seconds=run.restore_seconds,
-            **run.manager.times)
+    # ---- 9. stage 2 from stage 1's checkpoint: the VAE from its vae/,
+    # the UNet and TrOCR random-init; two steps, then a resume to 3
+    stage1_dir = os.path.join(d1, "checkpoint-4")
+    flags = [*scale, "--manifest", docs, "--pretrained", stage1_dir,
+             "--output_dir", d2, "--checkpointing_steps", "2",
+             "--checkpoints_total_limit", "1"]
+    run = run_unet.prepare([*flags, "--max_train_steps", "2"])
+    trainer = run.trainer
+    vae_file = load_safetensors(os.path.join(
+        stage1_dir, "vae", "diffusion_pytorch_model.safetensors"))
+    frozen = trainer.vae.state_dict()
+    vae_diff = [k for k, v in vae_file.items()
+                if not torch.equal(v.to(dev, trainer.dtype), frozen[k])]
+    if set(vae_file) != set(frozen) or vae_diff:
+        raise RuntimeError(f"stage 2's VAE is not stage 1's: {vae_diff[:5]}")
+    del vae_file, frozen
+    reset_counters()
+    history = run.train()
+    first_launches = counters()
+    saved = trainer.state_dict()
+    del run, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = run_unet.prepare([*flags, "--max_train_steps", "3",
+                            "--resume_from_checkpoint", "latest"])
+    diff = states_equal(saved, run.trainer.state_dict())
+    del saved
+    reset_counters()
+    history2 = run.train()
+    resume_launches = counters()
+    ckpt = os.path.join(d2, "checkpoint-3")
+    stage2 = dict(steps=history, resumed_steps=history2,
+                  restored_from=run.restored_from,
+                  restore_seconds=run.restore_seconds,
+                  save_seconds=run.manager.times,
+                  checkpoint_bytes=dir_bytes(ckpt),
+                  checkpoints=list_checkpoints(d2),
+                  restored_differs_at=diff[:5],
+                  launches_first_run=first_launches,
+                  launches_resumed_step=resume_launches)
+    phase("stage2", **stage2)
+    if diff or stage2["checkpoints"] != ["checkpoint-3"]:
+        raise RuntimeError(f"stage 2 restore differs at {diff[:5]}; "
+                           f"checkpoints {stage2['checkpoints']}")
+    if (len(history) != 2 or [h["step"] for h in history2] != [3]
+            or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                       for h in history + history2)):
+        raise RuntimeError(f"stage 2 steps: {history} {history2}")
+    # each step: 10 self-attentions run the forward twice (the
+    # gradient checkpoint recomputes it) and each backward once
+    expect_launches({"launches": first_launches}, flash_fwd=40,
+                    flash_bwd_dq=20, flash_bwd_dkv=20)
+    expect_launches({"launches": resume_launches}, flash_fwd=20,
+                    flash_bwd_dq=10, flash_bwd_dkv=10)
+    out["launches"].update(train_pretrained=first_launches,
+                           train_resume=resume_launches)
+    out["stage2_step_seconds"] = [h["seconds"] for h in history + history2]
+    out["stage2_checkpoint"] = dict(
+        bytes=stage2["checkpoint_bytes"], restore_seconds=run.restore_seconds,
+        **run.manager.times)
 
-        # ---- 10. serving: a pipeline from the checkpoint's export and one
-        # from the trainer's state_dicts, the same 20-step edit on each
-        config = dataclasses.replace(
-            card_serving_config(base),
-            edit=dataclasses.replace(base.edit, num_inference_steps=20))
-        trainer = run.trainer
-        in_memory = {"unet": trainer.state.params_dict(),
-                     "vae": trainer.vae.state_dict(),
-                     "trocr": trainer.trocr.state_dict()}
-        del run
-        pipes = {"checkpoint": DiffUTEPipeline(
-                     config, load_diffusers_layout(ckpt, config, dev), dev),
-                 "trainer_state": DiffUTEPipeline(config, in_memory, dev)}
-        del trainer, in_memory
-        gc.collect()
-        res = config.edit.resolution
-        image, box = scene(res)
-        edits = {}
-        for name, pipe in pipes.items():
-            reset_counters()
-            t0 = time.perf_counter()
-            edited = pipe.edit(image, box, "CHECKPOINT", seed=3)[0]
-            edits[name] = dict(out=edited, seconds=time.perf_counter() - t0,
-                               launches=counters())
-            only_boxes_changed(edited, image, [box])
-        del pipes
-        lsb = int(np.abs(edits["checkpoint"]["out"].astype(np.int16)
-                         - edits["trainer_state"]["out"]).max())
-        png = os.path.join(root, "scene.png")
-        Image.fromarray(image).save(png)
+    # ---- 10. serving: a pipeline from the checkpoint's export and one
+    # from the trainer's state_dicts, the same 20-step edit on each
+    config = dataclasses.replace(
+        card_serving_config(base),
+        edit=dataclasses.replace(base.edit, num_inference_steps=20))
+    trainer = run.trainer
+    in_memory = {"unet": trainer.state.params_dict(),
+                 "vae": trainer.vae.state_dict(),
+                 "trocr": trainer.trocr.state_dict()}
+    del run
+    pipes = {"checkpoint": DiffUTEPipeline(
+                 config, load_diffusers_layout(ckpt, config, dev), dev),
+             "trainer_state": DiffUTEPipeline(config, in_memory, dev)}
+    del trainer, in_memory
+    gc.collect()
+    res = config.edit.resolution
+    image, box = scene(res)
+    edits = {}
+    for name, pipe in pipes.items():
         reset_counters()
         t0 = time.perf_counter()
-        cli.main(["--checkpoint", ckpt, "--image", png, "--text", "CHECKPOINT",
-                  "--box", ",".join(map(str, box)), "--steps", "20",
-                  "--seed", "3",
-                  "--out", os.path.join(root, "cli.png")])
-        cli_rec = dict(seconds=time.perf_counter() - t0, launches=counters())
-        cli_out = np.asarray(Image.open(os.path.join(root, "cli.png")))
-        cli_lsb = int(np.abs(cli_out.astype(np.int16)
-                             - edits["checkpoint"]["out"]).max())
-        serving = dict(checkpoint_vs_trainer_state_max_lsb=lsb,
-                       cli_vs_checkpoint_max_lsb=cli_lsb, cli=cli_rec,
-                       **{k: {"seconds": v["seconds"], "launches": v["launches"]}
-                          for k, v in edits.items()})
-        phase("serve_checkpoint", **serving)
-        if lsb > 1 or cli_out.shape != image.shape:
-            raise RuntimeError(f"the checkpoint's edit differs from the "
-                               f"trainer state's by {lsb} LSB")
-        for rec in (*edits.values(), cli_rec):
-            expect_launches(rec, flash_fwd=200)
-        out["launches"].update(edit_checkpoint=edits["checkpoint"]["launches"],
-                               edit_trainer_state=edits["trainer_state"]["launches"],
-                               cli_checkpoint=cli_rec["launches"])
-        out["serve_seconds"] = {k: v["seconds"] for k, v in edits.items()}
-        out["serve_seconds"]["cli"] = cli_rec["seconds"]
-        out["checkpoint_vs_trainer_state_max_lsb"] = lsb
+        edited = pipe.edit(image, box, "CHECKPOINT", seed=3)[0]
+        edits[name] = dict(out=edited, seconds=time.perf_counter() - t0,
+                           launches=counters())
+        only_boxes_changed(edited, image, [box])
+    del pipes
+    lsb = int(np.abs(edits["checkpoint"]["out"].astype(np.int16)
+                     - edits["trainer_state"]["out"]).max())
+    png = os.path.join(root, "scene.png")
+    Image.fromarray(image).save(png)
+    reset_counters()
+    t0 = time.perf_counter()
+    cli.main(["--checkpoint", ckpt, "--image", png, "--text", "CHECKPOINT",
+              "--box", ",".join(map(str, box)), "--steps", "20",
+              "--seed", "3",
+              "--out", os.path.join(root, "cli.png")])
+    cli_rec = dict(seconds=time.perf_counter() - t0, launches=counters())
+    cli_out = np.asarray(Image.open(os.path.join(root, "cli.png")))
+    cli_lsb = int(np.abs(cli_out.astype(np.int16)
+                         - edits["checkpoint"]["out"]).max())
+    serving = dict(checkpoint_vs_trainer_state_max_lsb=lsb,
+                   cli_vs_checkpoint_max_lsb=cli_lsb, cli=cli_rec,
+                   **{k: {"seconds": v["seconds"], "launches": v["launches"]}
+                      for k, v in edits.items()})
+    phase("serve_checkpoint", **serving)
+    if lsb > 1 or cli_out.shape != image.shape:
+        raise RuntimeError(f"the checkpoint's edit differs from the "
+                           f"trainer state's by {lsb} LSB")
+    for rec in (*edits.values(), cli_rec):
+        expect_launches(rec, flash_fwd=200)
+    out["launches"].update(edit_checkpoint=edits["checkpoint"]["launches"],
+                           edit_trainer_state=edits["trainer_state"]["launches"],
+                           cli_checkpoint=cli_rec["launches"])
+    out["serve_seconds"] = {k: v["seconds"] for k, v in edits.items()}
+    out["serve_seconds"]["cli"] = cli_rec["seconds"]
+    out["checkpoint_vs_trainer_state_max_lsb"] = lsb
+    return out, ckpt
+
+
+OCR_BATCH, OCR_STEPS, OCR_MAX_LEN = 64, 50, 16
+EVAL_EXAMPLES, EVAL_STEPS = 4, 20
+# flash self-attentions of one UNet pass: full width at 512^2 (5 at 4096
+# tokens, 5 at 1024), small_config at 256^2 (64^2 latents: 2 down and 3 up
+# at 4096 tokens, 2 down and 3 up at 1024; the 256-token mid block is dense)
+FLASH_PER_PASS = {"full": 10, "small": 10}
+
+
+def finite_fields(report, path="report") -> list:
+    """Paths of the report's numbers that are not finite; a PSNR may be
+    inf (paste-back leaves the background as it was)."""
+    if isinstance(report, dict):
+        return [p for k, v in report.items()
+                for p in finite_fields(v, f"{path}.{k}")]
+    if isinstance(report, list):
+        return [p for i, v in enumerate(report)
+                for p in finite_fields(v, f"{path}[{i}]")]
+    if isinstance(report, float) and not np.isfinite(report):
+        leaf = path.rsplit(".", 1)[-1]
+        return [] if leaf.startswith("psnr") and report == float("inf") else [path]
+    return []
+
+
+def check_ocr_training(dev, root: str) -> tuple:
+    """Phase 11: train.run_ocr at the small scale on synthetic glyphs (batch
+    64, targets of 16 ids, warmup 10), a checkpoint midway and at the end,
+    then a resume from the latest that restores the whole state bit for
+    bit and takes one step.  Returns the numbers and the final checkpoint."""
+    from diffute_tpu_torch.train import run_ocr
+    from diffute_tpu_torch.train.checkpoint import list_checkpoints
+
+    out_dir = os.path.join(root, "ocr")
+    flags = ["--model_scale", "small", "--train_batch_size", str(OCR_BATCH),
+             "--max_len", str(OCR_MAX_LEN), "--lr_warmup_steps", "10",
+             "--checkpointing_steps", str(OCR_STEPS // 2), "--seed", "0",
+             "--output_dir", out_dir, "--report_to", "none",
+             "--device", "cuda"]
+    run = run_ocr.prepare([*flags, "--max_train_steps", str(OCR_STEPS)])
+    n_params = sum(p.numel() for p in run.trainer.state.params)
+    history = run.train()
+    saved = run.trainer.state_dict()
+    del run
+    resumed = run_ocr.prepare([*flags, "--max_train_steps", str(OCR_STEPS + 1),
+                               "--resume_from_checkpoint", "latest"])
+    diff = states_equal(saved, resumed.trainer.state_dict())
+    history2 = resumed.train()
+    del saved, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in history]
+    res = dict(params=n_params, steps=len(history),
+               loss_first10=float(np.mean(losses[:10])),
+               loss_last10=float(np.mean(losses[-10:])),
+               token_accuracy_last=history[-1]["token_accuracy"],
+               step_seconds=[h["seconds"] for h in history + history2],
+               max_memory_allocated=[h["max_memory_allocated"]
+                                     for h in history + history2],
+               resumed_steps=[h["step"] for h in history2],
+               restored_differs_at=diff[:5],
+               checkpoints=list_checkpoints(out_dir))
+    phase("ocr_train", **res)
+    if (len(history) != OCR_STEPS or res["resumed_steps"] != [OCR_STEPS + 1]
+            or diff or not all(np.isfinite(h["loss"])
+                               and np.isfinite(h["grad_norm"])
+                               for h in history + history2)
+            or not res["loss_last10"] < res["loss_first10"]):
+        raise RuntimeError(f"OCR training failed: {res}")
+    return res, os.path.join(out_dir, f"checkpoint-{OCR_STEPS + 1}")
+
+
+@contextlib.contextmanager
+def eval_probes():
+    """While eval.run runs: each DiffUTEPipeline.edit's seconds, flash
+    launches and edited box, each OCRVerifier.read's seconds, and the
+    (pipeline, verifier, config) that build_models made."""
+    from diffute_tpu_torch.eval import OCRVerifier
+    from diffute_tpu_torch.eval import run as eval_run
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+
+    probes = {"edits": [], "reads": [], "models": None}
+    edit, read, build = (DiffUTEPipeline.edit, OCRVerifier.read,
+                         eval_run.build_models)
+
+    def timed_edit(self, image, box, *a, **kw):
+        before = counters()["flash_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = edit(self, image, box, *a, **kw)
+        x1, y1, x2, y2 = box
+        probes["edits"].append(dict(
+            seconds=time.perf_counter() - t0,
+            flash_fwd=counters()["flash_fwd"] - before,
+            region=result[0][y1:y2, x1:x2]))
+        return result
+
+    def timed_read(self, images):
+        t0 = time.perf_counter()
+        ids = read(self, images)  # ends in a copy to the host
+        probes["reads"].append(time.perf_counter() - t0)
+        return ids
+
+    def kept(args):
+        probes["models"] = build(args)
+        return probes["models"]
+
+    DiffUTEPipeline.edit, OCRVerifier.read = timed_edit, timed_read
+    eval_run.build_models = kept
+    try:
+        yield probes
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        DiffUTEPipeline.edit, OCRVerifier.read = edit, read
+        eval_run.build_models = build
+
+
+def compare_decodes(verifier, regions) -> dict:
+    """greedy_decode_cached against greedy_decode on the verifier's reading
+    of ``regions``: token for token, each timed once (after a warm-up of
+    the cached one); on a difference, the first position and its top-2
+    margin."""
+    from diffute_tpu_torch.models.trocr_decoder import (greedy_decode,
+                                                        greedy_decode_cached)
+    from diffute_tpu_torch.text import trocr_normalize, trocr_preprocess_host
+
+    dev, n = verifier.device, verifier.max_len
+    with torch.inference_mode():
+        pixels = torch.from_numpy(trocr_preprocess_host(
+            regions, verifier.encoder_config)).to(dev)
+        enc = verifier.encoder(trocr_normalize(pixels).permute(0, 3, 1, 2))
+        greedy_decode_cached(verifier.decoder, enc, n)
+        out = {}
+        for name, fn in (("cached", greedy_decode_cached),
+                         ("uncached", greedy_decode)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn(verifier.decoder, enc, n)
+            torch.cuda.synchronize()
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+        cached, plain = out.pop("cached"), out.pop("uncached")
+        out["equal"] = bool(torch.equal(cached, plain))
+        out["ids"] = cached.cpu().tolist()
+        if not out["equal"]:
+            row, pos = (cached != plain).nonzero()[0].tolist()
+            cfg = verifier.decoder.config
+            prefix = torch.cat([torch.full((1, 1), cfg.decoder_start_token_id,
+                                           device=dev), plain[row:row + 1, :pos]],
+                               dim=1)
+            top2 = verifier.decoder(prefix, enc[row:row + 1])[0, -1].topk(2)
+            out["first_difference"] = dict(
+                row=row, position=pos, cached=int(cached[row, pos]),
+                uncached=int(plain[row, pos]),
+                top2_margin=float(top2.values[0] - top2.values[1]))
+    return out
+
+
+def eval_one(scale: str, extra: list, root: str) -> dict:
+    """One eval.run at ``scale`` over EVAL_EXAMPLES synthetic scenes at
+    EVAL_STEPS steps, every counter set to 0 before it, with the checks of
+    phase 12."""
+    from diffute_tpu_torch.eval import run as eval_run
+
+    report_path = os.path.join(root, f"eval_{scale}.json")
+    reset_counters()
+    t0 = time.perf_counter()
+    with eval_probes() as probes:
+        report = eval_run.main(["--model_scale", scale, "--synthetic",
+                                str(EVAL_EXAMPLES), "--steps", str(EVAL_STEPS),
+                                "--seed", "0", "--device", "cuda", *extra,
+                                "--out", report_path])
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    pipe, verifier, _ = probes["models"]
+    edits = probes["edits"]
+    dcfg = verifier.decoder.config
+    res = dict(seconds=seconds, edit_seconds=[e["seconds"] for e in edits],
+               flash_fwd_per_example=[e["flash_fwd"] for e in edits],
+               read_seconds=probes["reads"], launches=launches,
+               decoder_layers=dcfg.decoder_layers, vocab_size=dcfg.vocab_size,
+               verifier_dtype=str(verifier.decoder.embed_tokens.weight.dtype),
+               report={k: v for k, v in report.items() if k != "examples"})
+    if scale == "full":
+        res["decodes"] = compare_decodes(verifier, [e["region"] for e in edits])
+    del pipe, verifier, probes, edits
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"eval_{scale}", **res)
+    per_example = FLASH_PER_PASS[scale] * EVAL_STEPS
+    bad = finite_fields(report)
+    if (report["num_examples"] != EVAL_EXAMPLES
+            or res["flash_fwd_per_example"] != [per_example] * EVAL_EXAMPLES
+            or launches["flash_fwd"] != per_example * EVAL_EXAMPLES
+            or report["ssim_background_mean"] != 1.0
+            or not report["region_mean_abs_delta_mean"] > 0 or bad):
+        raise RuntimeError(f"eval at {scale} scale failed: {res}; "
+                           f"not finite: {bad}")
+    if res["verifier_dtype"] != "torch.float32" or (
+            "decodes" in res and not res["decodes"]["equal"]):
+        raise RuntimeError(f"the verifier at {scale} scale: {res}")
+    return res
+
+
+def check_eval(ocr_ckpt: str, root: str) -> dict:
+    """Phase 12: eval.run at full width (SD2-inpainting UNet and VAE, the
+    TrOCR-large encoder and decoder as the verifier, random-init from the
+    seed); then at the small scale with phase 11's verifier (--pretrained,
+    --tokenizer char)."""
+    full = eval_one("full", [], root)
+    if (full["decoder_layers"], full["vocab_size"]) != (12, 50265):
+        raise RuntimeError(f"the full-width verifier is not TrOCR-large's "
+                           f"decoder: {full['decoder_layers']} layers, "
+                           f"vocabulary {full['vocab_size']}")
+    small = eval_one("small", ["--pretrained", ocr_ckpt, "--tokenizer", "char"],
+                     root)
+    if "ocr_text_match_rate" not in small["report"]:
+        raise RuntimeError("the char tokenizer's text match is missing")
+    return {"full": full, "small": small,
+            "launches": {"eval_full": full["launches"],
+                         "eval_small": small["launches"]}}
+
+
+def check_acceptance(dev, layout: str, root: str) -> dict:
+    """Phase 13: eval.acceptance at full width on ``layout`` (fp32, dense
+    attention): --make_reference writes a bundle, then a second run holds
+    the layout against it.  Both exit 0 with the pinned parameter counts
+    and stages 3-5 passing."""
+    from diffute_tpu_torch.eval import acceptance
+
+    bundle = os.path.join(root, "bundle")
+    runs = {}
+    for name, flag in (("make_reference", "--make_reference"),
+                       ("check", "--reference_outputs")):
+        report_path = os.path.join(root, f"acceptance_{name}.json")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rc = acceptance.main(["--pretrained", layout, "--model_scale", "full",
+                              flag, bundle, "--device", "cuda",
+                              "--out", report_path])
+        with open(report_path) as f:
+            report = json.load(f)
+        runs[name] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                          stages={k: v["status"]
+                                  for k, v in report["stages"].items()},
+                          counts=report["stages"]["param_pins"].get("counts"))
+        if name == "check":
+            runs[name]["details"] = {k: report["stages"][k] for k in
+                                     ("goldens", "latents", "image")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("acceptance", **runs)
+    check = runs["check"]
+    if (any(r["rc"] != 0 for r in runs.values())
+            or check["counts"]["unet"] != 865_925_124
+            or check["counts"]["vae"] != VAE_PARAMS
+            or any(check["stages"][k] != "pass"
+                   for k in ("layout", "param_pins", "goldens", "latents",
+                             "image"))):
+        raise RuntimeError(f"acceptance failed: {runs}")
+    return runs
+
+
+def export_random_layout(dev, path: str) -> None:
+    """A full-width random-init diffusers layout (seed 0), for --eval-only."""
+    from diffute_tpu_torch.compat.diffusers import (diffusers_unet_config_json,
+                                                    diffusers_vae_config_json,
+                                                    vit_config_json)
+    from diffute_tpu_torch.config import DiffUTEConfig
+    from diffute_tpu_torch.train.checkpoint import export_diffusers_layout
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    cfg = DiffUTEConfig()
+    params = init_pipeline_params(cfg, seed=0, device=dev)
+    export_diffusers_layout(
+        path, unet_params=params["unet"], vae_params=params["vae"],
+        trocr_params=params["trocr"],
+        unet_config=diffusers_unet_config_json(cfg.unet),
+        vae_config=diffusers_vae_config_json(cfg.vae),
+        trocr_config=vit_config_json(cfg.trocr))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_verifier_paths(dev, root: str, layout: str) -> dict:
+    """Phases 11-13: OCR verifier training, eval at full width and at the
+    small scale from its checkpoint, acceptance at full width on
+    ``layout``."""
+    ocr, ocr_ckpt = check_ocr_training(dev, root)
+    evals = check_eval(ocr_ckpt, root)
+    return {"ocr_train": ocr, "eval": evals,
+            "acceptance": check_acceptance(dev, layout, root)}
+
+
+def verifier_summary(res: dict) -> dict:
+    """Phases 11-13's numbers for the result line."""
+    ocr, ev, acc = res["ocr_train"], res["eval"], res["acceptance"]
+    out = {"ocr_train": {k: ocr[k] for k in (
+               "params", "loss_first10", "loss_last10", "token_accuracy_last",
+               "step_seconds", "max_memory_allocated")},
+           "acceptance_seconds": {k: r["seconds"] for k, r in acc.items()},
+           "acceptance_max_memory_allocated": {
+               k: r["max_memory_allocated"] for k, r in acc.items()}}
+    for scale in ("full", "small"):
+        e = ev[scale]
+        out[f"eval_{scale}"] = {k: e[k] for k in (
+            "seconds", "edit_seconds", "read_seconds", "flash_fwd_per_example")}
+    d = ev["full"]["decodes"]
+    out["eval_full"].update(cached_seconds=d["cached_seconds"],
+                            uncached_seconds=d["uncached_seconds"])
     return out
 
 
@@ -1705,6 +2038,10 @@ def main(argv=None) -> None:
     p.add_argument("--workflow-only", action="store_true",
                    help="build the kernels and run phases 8-10 (the "
                    "two-stage workflow) alone")
+    p.add_argument("--eval-only", action="store_true",
+                   help="build the kernels and run phases 11-13 (OCR "
+                   "verifier training, eval, acceptance of a random-init "
+                   "full-width layout) alone")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -1727,12 +2064,23 @@ def main(argv=None) -> None:
         print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
         check_fused_kernels(torch.device("cuda", 0))
         return
-    if args.workflow_only:
+    if args.workflow_only or args.eval_only:
         from diffute_tpu_torch.ops import _build
 
         print(gpu_line(), flush=True)
         _build.load()
-        print(json.dumps(check_workflow(torch.device("cuda", 0))), flush=True)
+        dev = torch.device("cuda", 0)
+        root = tempfile.mkdtemp(prefix="diffute_workflow_")
+        try:
+            if args.workflow_only:
+                out = check_workflow(dev, root)[0]
+            else:
+                layout = os.path.join(root, "layout")
+                export_random_layout(dev, layout)
+                out = verifier_summary(check_verifier_paths(dev, root, layout))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps(out), flush=True)
         return
     if args.kernels_only:
         import diffute_tpu_torch
@@ -2034,9 +2382,16 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     # ---- 8-10. the two-stage workflow: stage 1 on a manifest, stage 2
-    # from its checkpoint, both resumed, and serving from the checkpoint
-    workflow = check_workflow(dev)
-    wl = workflow["launches"]
+    # from its checkpoint, both resumed, and serving from the checkpoint;
+    # 11-13. the OCR verifier's training, eval at full width and at the
+    # small scale with that verifier, acceptance of stage 2's export
+    root = tempfile.mkdtemp(prefix="diffute_workflow_")
+    try:
+        workflow, stage2_export = check_workflow(dev, root)
+        verifier_paths = check_verifier_paths(dev, root, stage2_export)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wl = {**workflow["launches"], **verifier_paths["eval"]["launches"]}
 
     def entry(name, source, replaces, results, launches):
         main = results[0]
@@ -2122,7 +2477,8 @@ def main(argv=None) -> None:
         "train_step_seconds": [h["seconds"] for h in history],
         "train_max_memory_allocated": [h["max_memory_allocated"]
                                        for h in history],
-        "workflow": {k: v for k, v in workflow.items() if k != "launches"}}),
+        "workflow": {k: v for k, v in workflow.items() if k != "launches"},
+        "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

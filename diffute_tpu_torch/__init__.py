@@ -9,17 +9,21 @@ stays beside it); this package imports torch, numpy and Pillow, never jax.
                                    ``csrc/flash_bwd.cu``) behind one autograd
                                    function, their plain versions, nearest resize
 - ``diffute_tpu_torch.models``     AutoencoderKL, UNet2DCondition (9ch), TrOCR
-                                   ViT encoder, with diffusers / HF names
+                                   ViT encoder and text decoder, with diffusers /
+                                   HF names
 - ``diffute_tpu_torch.diffusion``  noise schedule tables, training targets, the
                                    DDIM, DDPM and DPM-Solver++ steps
-- ``diffute_tpu_torch.text``       glyph raster and TrOCR preprocessing
+- ``diffute_tpu_torch.text``       glyph raster, TrOCR preprocessing, the char
+                                   tokenizer
 - ``diffute_tpu_torch.pipeline``   crop/mask policies and the edit pipeline
 - ``diffute_tpu_torch.io``         host image ops, blob storage (local, oss://),
                                    the manifest and synthetic datasets, the
                                    prefetching loader
-- ``diffute_tpu_torch.train``      stage-1 VAE and stage-2 UNet trainers, the
-                                   optimizer, checkpoints, ``run_vae``,
-                                   ``run_unet``
+- ``diffute_tpu_torch.train``      stage-1 VAE, stage-2 UNet and OCR verifier
+                                   trainers, the optimizer, checkpoints,
+                                   ``run_vae``, ``run_unet``, ``run_ocr``
+- ``diffute_tpu_torch.eval``       SSIM / PSNR, the OCR verifier, the eval CLI,
+                                   the weight-day acceptance command
 - ``diffute_tpu_torch.serve``      the edit CLI, the web demo, weights from a
                                    diffusers-layout directory
 - ``diffute_tpu_torch.compat``     JAX param tree -> state_dict bridge;

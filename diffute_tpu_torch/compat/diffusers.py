@@ -15,7 +15,12 @@ kept here (the port does not import the JAX package):
   ``(C, C)`` linear weights;
 - :func:`import_trocr_state_dict`: a VisionEncoderDecoder checkpoint's
   ``encoder.`` prefix is stripped, and the pooler and the text decoder's
-  weights are dropped.
+  weights are dropped;
+- :func:`import_trocr_decoder_state_dict` / :func:`export_trocr_decoder_
+  state_dict`: the text decoder under HF ``TrOCRForCausalLM``'s
+  ``model.decoder.`` prefix (``decoder.model.decoder.`` in a
+  VisionEncoderDecoder checkpoint), its ``output_projection`` dropped on
+  import as tied to ``embed_tokens``.
 
 Files are safetensors in fp32 with the JAX package's file names; each is
 written under a temporary name and renamed once complete.
@@ -34,6 +39,7 @@ import torch
 UNET_FILE = "diffusion_pytorch_model.safetensors"
 VAE_FILE = "diffusion_pytorch_model.safetensors"
 TROCR_FILE = "model.safetensors"
+DECODER_PREFIX = "model.decoder."  # HF TrOCRForCausalLM's decoder
 
 
 # ---------------------------------------------------------------------------
@@ -229,3 +235,27 @@ def import_trocr_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
         if _VIT_KEY.match(key):
             out[key] = _f32(value)
     return out
+
+
+def import_trocr_decoder_state_dict(state_dict: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """HF TrOCRForCausalLM (or VisionEncoderDecoderModel) state_dict -> the
+    port's TrOCRDecoder keys, fp32; the tied ``output_projection`` is
+    dropped."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        for prefix in ("decoder." + DECODER_PREFIX, DECODER_PREFIX, "decoder."):
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if key.startswith("output_projection"):
+            continue
+        out[key] = _f32(value)
+    return out
+
+
+def export_trocr_decoder_state_dict(state_dict: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """The port's TrOCRDecoder state_dict -> HF TrOCRForCausalLM keys
+    (``model.decoder.``-prefixed), the layout the JAX package writes."""
+    return {DECODER_PREFIX + k: v for k, v in state_dict.items()}

@@ -9,7 +9,8 @@ them) become PyTorch state_dicts with diffusers / transformers keys:
 - an int8 layer's ``kernel_q`` (I, O) int8 -> ``weight_q`` (O, I) int8 and
   ``kernel_scale`` (O,) -> ``weight_scale``
   (:class:`~diffute_tpu_torch.models.layers.QuantLinear`);
-- the flattened Flax module names -> dotted diffusers names.
+- the flattened Flax module names -> dotted diffusers names (transformers
+  names for the TrOCR encoder and decoder).
 
 The key rewrites re-implement ``diffute_tpu.compat.hf_import``'s export
 grammar here, because the port does not import the JAX package.
@@ -77,6 +78,12 @@ _VIT = [
 ]
 
 
+_DECODER = [
+    (r"^(embed_tokens|embed_positions)$", r"\1.weight"),
+    (r"^layers_(\d+)\.", r"layers.\1."),
+]
+
+
 def _convert(params: Mapping, rewrites) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, value in _iter_paths(params):
@@ -103,6 +110,12 @@ def vae_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 def trocr_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX TrOCREncoder params -> transformers ViTModel keys."""
     return _convert(params, _VIT)
+
+
+def trocr_decoder_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX TrOCRDecoder params -> the port's TrOCRDecoder keys (HF
+    TrOCRForCausalLM's ``model.decoder.*`` without the prefix)."""
+    return _convert(params, _DECODER)
 
 
 def pipeline_state_dicts(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:

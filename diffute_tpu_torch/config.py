@@ -102,12 +102,9 @@ class TrOCRConfig:
     layer_norm_eps: float = 1e-12
     qkv_bias: bool = True
     dtype: torch.dtype = torch.float32
+    # as in the JAX package: the flag reaches the attention gate, which sends
+    # the ViT's 577 (197) keys to dense attention (FLASH_MIN_KV is 1024)
     use_flash_attention: bool = False
-
-    def __post_init__(self):
-        if self.use_flash_attention:
-            raise _not_ported("TrOCRConfig", "use_flash_attention",
-                              "flash forward for the 577-token ViT")
 
     @property
     def seq_len(self) -> int:

@@ -13,6 +13,8 @@ modules underneath:
   random res^2 crop.
 - ``SyntheticSceneDataset``: procedural document-like pages with rendered
   text, so trainers run without external data.
+- ``SyntheticGlyphOCRDataset``: degraded glyph renders and their character
+  ids, the OCR verifier's training data.
 
 Manifests are read with the stdlib ``csv`` module (the JAX package uses
 pandas; the rows are the same).  Blobs come through ``io.storage`` (local,
@@ -42,7 +44,8 @@ from diffute_tpu_torch.pipeline.regions import (
     process_location,
 )
 from diffute_tpu_torch.io.storage import open_blob, read_image
-from diffute_tpu_torch.text import render_glyph, trocr_preprocess_host
+from diffute_tpu_torch.text import (CharTokenizer, render_glyph,
+                                    trocr_preprocess_host)
 
 
 def read_manifest(path: str) -> Dict[str, List[str]]:
@@ -216,6 +219,87 @@ class SyntheticSceneDataset:
             # condition on the (possibly truncated) visible text
             "glyph_image": render_glyph(crop.text, cfg.glyph),
         }
+
+
+class SyntheticGlyphOCRDataset:
+    """Glyph render -> character-id pairs for training the OCR verifier.
+
+    Half the examples are raw glyph canvases (what the conditioning branch
+    sees), half region-style crops: the glyph rescaled onto a light
+    background with the +10%-height bottom extension of eval's box crop.
+    Each then goes through, with probability 1/2 each, a down-up resize
+    blur, Gaussian noise and an ink-contrast fade, so the verifier reads
+    text that came through a VAE decode and a sampler.  Deterministic per
+    (seed, index)."""
+
+    def __init__(self, config: DiffUTEConfig, seed: int = 0,
+                 max_len: int = 16, words=SyntheticSceneDataset._WORDS):
+        self.config = config
+        self.seed = seed
+        self.max_len = max_len
+        self.words = words
+        self.tokenizer = CharTokenizer()
+        # sampling alphabet of the random strings (the tokenizer covers all
+        # printable ASCII)
+        self._alphabet = ("ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                          "abcdefghijklmnopqrstuvwxyz0123456789.,-:/% ")
+
+    def __len__(self) -> int:
+        return 1 << 30
+
+    def _sample_text(self, rng) -> str:
+        if rng.random() < 0.4:
+            return self.words[int(rng.integers(len(self.words)))]
+        n = int(rng.integers(1, self.max_len - 2))
+        s = "".join(self._alphabet[int(i)]
+                    for i in rng.integers(len(self._alphabet), size=n))
+        return s.strip() or "x"
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        rng = np.random.default_rng((self.seed, index))
+        text = self._sample_text(rng)
+        glyph = render_glyph(text, cfg.glyph)
+        if rng.random() < 0.5:
+            # region-style: the rescaled glyph on a light background with
+            # the +10%-height bottom extension
+            gh, gw = glyph.shape[:2]
+            s = float(rng.uniform(0.3, 1.0))
+            gh2, gw2 = max(8, int(gh * s)), max(8, int(gw * s))
+            scaled = hostops.resize_bilinear_u8(glyph, gh2, gw2)
+            bg = int(rng.integers(180, 255))
+            region = np.full((gh2 + max(1, gh2 // 10), gw2, 3), bg, np.uint8)
+            region[:gh2] = np.minimum(region[:gh2], scaled)
+            glyph = region
+        if rng.random() < 0.5:  # blur: down and up again
+            h0, w0 = glyph.shape[:2]
+            f = float(rng.uniform(0.45, 0.85))
+            small = hostops.resize_bilinear_u8(
+                glyph, max(4, int(h0 * f)), max(4, int(w0 * f)))
+            glyph = hostops.resize_bilinear_u8(small, h0, w0)
+        if rng.random() < 0.5:  # residual noise
+            noise = rng.normal(0.0, float(rng.uniform(2.0, 12.0)),
+                               glyph.shape)
+            glyph = np.clip(glyph.astype(np.float32) + noise,
+                            0, 255).astype(np.uint8)
+        if rng.random() < 0.5:
+            # ink-contrast fade toward the local white point
+            c = float(rng.uniform(0.35, 1.0))
+            white = float(glyph.max())
+            glyph = np.clip(white - (white - glyph.astype(np.float32)) * c,
+                            0, 255).astype(np.uint8)
+        return {"glyph_image": glyph,
+                "target_ids": self.tokenizer.encode(text, self.max_len)}
+
+
+def make_ocr_batch(examples: List[Dict[str, np.ndarray]],
+                   config: DiffUTEConfig) -> Dict[str, np.ndarray]:
+    """glyph_pixels (B, S, S, 3) uint8 and target_ids (B, max_len) int32."""
+    return {
+        "glyph_pixels": trocr_preprocess_host(
+            [e["glyph_image"] for e in examples], config.trocr),
+        "target_ids": np.stack([e["target_ids"] for e in examples]),
+    }
 
 
 def make_unet_batch(examples: List[Dict[str, np.ndarray]],

@@ -4,8 +4,8 @@ Counterpart of ``diffute_tpu/models/trocr.py`` with transformers' ViTModel
 module tree (embeddings.patch_embeddings.projection, encoder.layer.i.
 attention.attention.query, ...), so its state_dict keys are the HF keys.
 Pre-LN ViT: 16x16 patch conv -> CLS + 576 patches -> layers -> LayerNorm,
-output (B, 577, hidden).  Its attention is 577 tokens and takes the dense
-path.
+output (B, 577, hidden).  Its attention is 577 tokens, so the gate sends it
+to the dense path whatever ``use_flash_attention`` says.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ class ViTSelfAttention(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.use_flash = cfg.use_flash_attention
         self.query = nn.Linear(h, h, bias=cfg.qkv_bias)
         self.key = nn.Linear(h, h, bias=cfg.qkv_bias)
         self.value = nn.Linear(h, h, bias=cfg.qkv_bias)
@@ -54,7 +55,8 @@ class ViTSelfAttention(nn.Module):
         shape = (b, s, self.num_heads, h // self.num_heads)
         out = dot_product_attention(self.query(x).view(shape),
                                     self.key(x).view(shape),
-                                    self.value(x).view(shape))
+                                    self.value(x).view(shape),
+                                    use_flash=self.use_flash)
         return out.reshape(b, s, h)
 
 

@@ -21,9 +21,15 @@ FLASH_MIN_KV = 1024
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """fp32 logits, softmax, cast to ``v.dtype``, product (``_xla_attention``)."""
+                    scale: float, mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """fp32 logits, softmax, cast to ``v.dtype``, product (``_xla_attention``).
+    ``mask``: booleans broadcast against the (B, H, S, T) logits; a logit
+    where it is False becomes -1e30 before the softmax, as the JAX TrOCR
+    decoder applies its causal and key masks."""
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthd->bshd", weights, v)
 

@@ -3,10 +3,12 @@
 Counterpart of ``diffute_tpu/serve/loading.py``.  The directory holds
 ``unet/`` (or ``unet_ema/``, preferred) and ``vae/`` with
 ``diffusion_pytorch_model.safetensors``, and optionally ``trocr/`` with
-``model.safetensors`` in transformers naming: what the trainers export.
-Only the components the directory lacks are random-initialized, each from
-seed 0.  The result is the ``{"vae", "unet", "trocr"}`` state_dicts that
-``DiffUTEPipeline`` and ``UNetTrainer`` take.
+``model.safetensors`` in transformers naming and the OCR verifier's
+``trocr_decoder/``: what the trainers export.  Of the three models, only
+those the directory lacks are random-initialized, each from seed 0.  The
+result is the ``{"vae", "unet", "trocr"}`` state_dicts that
+``DiffUTEPipeline`` and ``UNetTrainer`` take, with ``"trocr_decoder"``
+where the directory has one.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from diffute_tpu_torch.compat.diffusers import (
     VAE_FILE,
     diffusers_unet_config_json,
     diffusers_vae_config_json,
+    import_trocr_decoder_state_dict,
     import_trocr_state_dict,
     import_unet_state_dict,
     import_vae_state_dict,
@@ -52,23 +55,28 @@ def resolve_diffusers_layout(path: str) -> Dict[str, Optional[str]]:
 
 
 def load_diffusers_layout(path: str, config: DiffUTEConfig, device="cuda",
-                          components=("vae", "unet", "trocr")
+                          components=("vae", "unet", "trocr", "trocr_decoder")
                           ) -> Dict[str, Dict[str, torch.Tensor]]:
     """fp32 state_dicts on ``device`` (the card unless the caller asks for
     the CPU) for the ``components`` asked for, read from the directory
-    ``path`` (which must exist)."""
+    ``path`` (which must exist).  The OCR verifier's decoder
+    (``trocr_decoder/model.safetensors``, HF ``TrOCRForCausalLM`` layout)
+    is returned only when the directory has it: its configuration is not
+    part of ``config``."""
     device = resolve_device(device)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint directory {path!r}")
     importers = {"unet": import_unet_state_dict, "vae": import_vae_state_dict,
-                 "trocr": import_trocr_state_dict}
-    files = resolve_diffusers_layout(path)
+                 "trocr": import_trocr_state_dict,
+                 "trocr_decoder": import_trocr_decoder_state_dict}
+    files = {**resolve_diffusers_layout(path),
+             "trocr_decoder": _find(path, "trocr_decoder", TROCR_FILE)}
     params = {}
     for name in components:
         if files[name]:
             params[name] = {k: v.to(device) for k, v in importers[name](
                 load_safetensors(files[name])).items()}
-        else:
+        elif name != "trocr_decoder":
             params.update(init_pipeline_params(config, 0, device, (name,)))
     return params
 

@@ -1,11 +1,12 @@
-"""What the two training entry points share: their common flags, the step
+"""What the training entry points share: their common flags, the step
 budget, the early exit, resume, and the loop that logs, checkpoints and
 exports.
 
-``run_vae`` (stage 1) and ``run_unet`` (stage 2) follow the JAX package's
-entry points (``diffute_tpu/train/run_vae.py``, ``run_unet.py``), whose
-loops are the same apart from the trainer and the export; here the loop is
-written once.  A run is built by the entry point's ``prepare(argv)`` (None
+``run_vae`` (stage 1), ``run_unet`` (stage 2) and ``run_ocr`` (the OCR
+verifier) follow the JAX package's entry points (``diffute_tpu/train/
+run_vae.py``, ``run_unet.py``, ``run_ocr.py``), whose loops are the same
+apart from the trainer, the flags and the export; here the loop is written
+once.  A run is built by the entry point's ``prepare(argv)`` (None
 when the newest checkpoint already satisfies the step budget) and driven by
 :meth:`TrainingRun.train`.
 
@@ -142,9 +143,10 @@ class TrainingRun:
 
     def train(self) -> List[Dict[str, float]]:
         """Step to ``max_steps``; returns one ``{"step", "loss",
-        "grad_norm", "seconds", "max_memory_allocated"}`` per optimizer
-        step ("seconds": the step's own, from the end of the previous step
-        or save to the metrics' read)."""
+        "grad_norm", (the trainer's other metrics), "seconds",
+        "max_memory_allocated"}`` per optimizer step ("seconds": the step's
+        own, from the end of the previous step or save to the metrics'
+        read)."""
         import torch
 
         from diffute_tpu_torch.utils.profiling import StepTimer
@@ -162,8 +164,8 @@ class TrainingRun:
                 torch.cuda.reset_peak_memory_stats(trainer.device)
             metrics = trainer.step(batch)
             # reading the metrics waits for the step's device work
-            rec = {"step": trainer.state.step, "loss": float(metrics["loss"]),
-                   "grad_norm": float(metrics["grad_norm"])}
+            rec = {"step": trainer.state.step,
+                   **{k: float(v) for k, v in metrics.items()}}
             now = time.perf_counter()
             rec["seconds"] = now - t_prev
             rec["max_memory_allocated"] = (
@@ -173,11 +175,11 @@ class TrainingRun:
             timer.tick()
             step = rec["step"]
             rate = 1.0 / timer.mean if timer.mean else 0.0
-            print(f"step {step}: loss {rec['loss']:.4f} grad_norm "
-                  f"{rec['grad_norm']:.4f} steps/s {1.0 / rec['seconds']:.3f}",
-                  flush=True)
-            self.writer.log(step, {"train_loss": rec["loss"],
-                                   "grad_norm": rec["grad_norm"],
+            more = {k: rec[k] for k in metrics if k != "loss"}
+            print(f"step {step}: loss {rec['loss']:.4f} "
+                  + "".join(f"{k} {v:.4f} " for k, v in more.items())
+                  + f"steps/s {1.0 / rec['seconds']:.3f}", flush=True)
+            self.writer.log(step, {"train_loss": rec["loss"], **more,
                                    "steps_per_sec": rate})
             if step % self.checkpointing_steps == 0 or step >= self.max_steps:
                 last_saved = step

@@ -2,11 +2,11 @@
 
 Counterpart of ``diffute_tpu/train/state.py``.  The JAX state is an
 immutable pytree replaced every step; this one is updated in place.
-:class:`Trainer` holds what ``UNetTrainer`` and ``VAETrainer`` share: fp32
-master weights of the trained module (with a bf16 compute copy under
-``mixed_precision="bf16"``), gradient accumulation, the optimizer step, the
-EMA, the draw generator, and the ``state_dict`` / ``load_state_dict`` pair
-that checkpoints save and restore.
+:class:`Trainer` holds what ``UNetTrainer``, ``VAETrainer`` and
+``OCRTrainer`` share: fp32 master weights of the trained module (with a bf16
+compute copy under ``mixed_precision="bf16"``), gradient accumulation, the
+optimizer step, the EMA, the draw generator, and the ``state_dict`` /
+``load_state_dict`` pair that checkpoints save and restore.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ class Trainer:
         micros = ([{k: v[i] for k, v in batch.items()} for i in range(accum)]
                   if accum > 1 else [batch])
         if draws is None:
-            draws = [self.draw(len(m["pixel_values"])) for m in micros]
+            draws = [self.draw(len(next(iter(m.values())))) for m in micros]
         elif not isinstance(draws, (list, tuple)):
             draws = [draws]
         if len(draws) != len(micros):

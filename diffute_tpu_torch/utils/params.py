@@ -5,7 +5,7 @@ Counterpart of ``diffute_tpu/utils/params.py``.  Each model is built on the
 every tensor is then drawn on ``device`` from an explicit
 ``torch.Generator``, with the JAX package's initializers: LeCun-normal conv
 and dense weights, zero biases, unit norm scales, N(0, 0.02) position
-embeddings, zero CLS token.  The result is a dict of state_dicts with the
+embeddings and embedding tables, zero CLS token.  The result is a dict of state_dicts with the
 diffusers / transformers keys, loadable with ``load_state_dict``.
 """
 
@@ -28,10 +28,12 @@ from diffute_tpu_torch.utils.device import resolve_device
 def _init_state_dict(module: nn.Module, gen: torch.Generator,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     out = {}
+    tables = {f"{n}.weight" for n, m in module.named_modules()
+              if isinstance(m, nn.Embedding)}
     for name, p in module.named_parameters():
         t = torch.empty(p.shape, dtype=torch.float32, device=device)
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "position_embeddings":
+        if leaf == "position_embeddings" or name in tables:
             t.normal_(0.0, 0.02, generator=gen)
         elif leaf == "weight" and p.dim() >= 2:
             fan_in = math.prod(p.shape[1:])
@@ -87,3 +89,15 @@ def init_pipeline_params(config: DiffUTEConfig, seed: int = 0,
               "trocr": (TrOCREncoder, config.trocr)}
     return {name: _init_state_dict(build_meta(cls, cfg), gen, device)
             for name, (cls, cfg) in models.items() if name in components}
+
+
+def init_trocr_decoder_params(config, seed: int = 0, device="cuda"
+                              ) -> Dict[str, torch.Tensor]:
+    """Random-init fp32 state_dict of a ``TrOCRDecoder(config)`` on
+    ``device`` (the card unless the caller asks for the CPU), from a
+    generator seeded with ``seed``."""
+    from diffute_tpu_torch.models.trocr_decoder import TrOCRDecoder
+
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return _init_state_dict(build_meta(TrOCRDecoder, config), gen, device)

@@ -8,6 +8,7 @@ Each golden is recomputed here exactly as tests/test_golden.py makes it
 the stored array at the goldens' own tolerance (atol 5e-5, rtol 1e-4, fp32).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -108,6 +109,24 @@ def test_trocr_golden(jax_params):
         out = model(_nchw(jax_params["x_i"]))
     np.testing.assert_allclose(out.numpy(), _golden("trocr_tiny"),
                                atol=5e-5, rtol=1e-4)
+
+
+def test_trocr_flash_flag_computes_what_jax_computes(jax_params):
+    # both sides pass TrOCRConfig.use_flash_attention to the attention gate,
+    # which sends the ViT's keys (5 here, 577 at full size) to dense
+    # attention: the golden's numbers, at the golden's tolerance
+    jcfg = dataclasses.replace(j_tiny().trocr, use_flash_attention=True)
+    cfg = dataclasses.replace(tiny_test_config().trocr, use_flash_attention=True)
+    model = _port(TrOCREncoder, cfg, trocr_state_dict(jax_params["trocr"]))
+    assert all(layer.attention.attention.use_flash
+               for layer in model.encoder.layer)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JTrOCR(jcfg).apply({"params": jax_params["trocr"]},
+                                            jnp.asarray(jax_params["x_i"])))
+    with torch.no_grad():
+        out = model(_nchw(jax_params["x_i"])).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(out, _golden("trocr_tiny"), atol=5e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("name,bridge,export,cls", [

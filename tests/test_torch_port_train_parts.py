@@ -386,12 +386,20 @@ def test_run_unet_ported_flags_work(flag, tmp_path, monkeypatch, capsys):
 
 # ------------------------------------------------- device and import rules
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
+    from diffute_tpu_torch.eval import OCRVerifier, acceptance
+    from diffute_tpu_torch.eval import run as eval_run
+    from diffute_tpu_torch.train import OCRTrainer, run_ocr
+
     for fn in (DiffUTEPipeline.__init__, UNetTrainer.__init__,
-               init_pipeline_params):
+               init_pipeline_params, OCRTrainer.__init__,
+               OCRVerifier.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert run_unet.parse_args([]).device == "cuda"
     assert run_unet.parse_args([]).report_to == "tensorboard"
+    for parse in (run_ocr.parse_args, eval_run.parse_args):
+        assert parse([]).device == "cuda"
+    assert acceptance.parse_args(["--pretrained", "x"]).device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default is usable here")
     # without a card the defaults fail loudly instead of running on the CPU
@@ -405,6 +413,17 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["--image", "x.png", "--box", "1,1,2,2", "--text", "x"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OCRTrainer(tiny_test_config(), None, {"encoder": {}, "decoder": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OCRVerifier(tiny_test_config().trocr, None, {}, {})
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        run_ocr.main(["--smoke", "--output_dir", str(tmp_path / "ocr")])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        eval_run.main(["--tiny", "--synthetic", "1", "--steps", "1"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        acceptance.main(["--pretrained", str(tmp_path), "--model_scale",
+                         "tiny"])
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
