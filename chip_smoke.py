@@ -37,6 +37,17 @@ Phases, one line each (any failure raises and exits non-zero):
      same criterion; all four give the same bits twice and the int8
      matmul's fused bias equals the two-step bit for bit; what ptxas says of
      the three sources (registers, spills, serialized wgmma);
+  3c. the head_dim-512 kernels (the VAE mid-block's single head,
+     csrc/flash_d512.cu): the forward at (B, S, T) = (1, 4096, 4096),
+     (4, 4096, 4096), (1, 16384, 16384) and a ragged (2, 1000, 1500), dq
+     (with delta), dk/dv and the pair at (4, 4096, 4096) and the ragged
+     shape, each against its tiled plain version at the kernels' 32-row kv
+     tile at the head_dim-64 criteria, the same bits twice, mutants of the
+     plain versions (the LSE left in base 2, the last kv tile never
+     consumed, dk x 1.02) failing, and strided (B, S, 1, 512) views of a
+     packed projection read bit for bit as the contiguous route; each timed
+     beside its plain one-pass version, its bound and SDPA (whose backend is
+     recorded); what ptxas says of the three kernels;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -73,6 +84,15 @@ Phases, one line each (any failure raises and exits non-zero):
      peak memory); every weight tensor changed; a resume from the latest
      checkpoint restores masters, moments, counts and generator bit for bit
      and takes one step;
+  8a. the VAE with VAEConfig.use_flash_attention at full width: an encode
+     and a decode at 512^2 and 1024^2 flag on against off (the same
+     weights; relative max error and peak memory); a 20-step 512^2 and
+     1024^2 edit with the flag (2 head_dim-512 forwards each, only the box
+     changed, the gap to the flag-off edit in LSB); one stage-2 step with
+     the flagged frozen VAE (2 head_dim-512 forwards, the UNet's 20/10/10);
+     the loss gradient of four weights flag on against off and against the
+     fp32 step; three stage-1 steps at batch 4 flag off and on (2 forward,
+     2 dq, 2 dk/dv launches a step; seconds and peak memory);
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -110,6 +130,11 @@ Exits non-zero, with no result, when no CUDA device is available.
     python3 chip_smoke.py --workflow-only
 
 builds the kernels and runs phases 8-10 alone (about 2 minutes).
+
+    python3 chip_smoke.py --d512-only
+
+builds the kernels and runs phases 3c and 8a alone (about a minute) and
+prints their kernels line.
 
     python3 chip_smoke.py --eval-only
 
@@ -606,12 +631,12 @@ FORWARD_SHAPES = [(5, 4096, 4096), (10, 1024, 1024), (4, 1000, 577),
                   (20, 1024, 1024), (2, 4096, 4096), (4, 1024, 1024)]
 
 
-def strided_qkv(g, dev, b=2, s=4096, h=5, n=3):
-    """q, k, v (and with n = 4 a dO) as (B, S, H, 64) views of one packed
-    (B, S, n * H * 64) projection, the serving layout at its least
+def strided_qkv(g, dev, b=2, s=4096, h=5, n=3, d=64):
+    """q, k, v (and with n = 4 a dO) as (B, S, H, d) views of one packed
+    (B, S, n * H * d) projection, the serving layout at its least
     contiguous."""
-    x = torch.randn((b, s, n * h * 64), generator=g, device=dev,
-                    dtype=torch.bfloat16).view(b, s, n, h, 64)
+    x = torch.randn((b, s, n * h * d), generator=g, device=dev,
+                    dtype=torch.bfloat16).view(b, s, n, h, d)
     return tuple(x[:, :, i] for i in range(n))
 
 
@@ -919,6 +944,221 @@ def check_backward(dev):
     return dq_results, dkv_results
 
 
+# (B*H, S, T) at head_dim 512, the VAE mid-block's single head: a 512^2
+# encode or decode (batch 1), stage 1's step (batch 4), a 1024^2 decode, and
+# a ragged shape
+D512_FORWARD_SHAPES = [(1, 4096, 4096), (4, 4096, 4096), (1, 16384, 16384),
+                       (2, 1000, 1500)]
+D512_BACKWARD_SHAPES = [(4, 4096, 4096), (2, 1000, 1500)]
+D512_SCALE = 512 ** -0.5
+
+
+def sdpa_d512(q, k, v):
+    """The library's call for the head_dim-512 forward's function (a
+    yardstick), on (BH, L, 512) tensors as one head each."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
+                                          scale=D512_SCALE)[:, 0]
+
+
+def sdpa_backends(q, k, v) -> dict:
+    """Which backend scaled_dot_product_attention picks for these inputs,
+    and which of its fused backends take them at all."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = {m.value: name for name, m in SDPBackend.__members__.items()}
+    args = (q[:, None], k[:, None], v[:, None])
+    try:
+        picked = names.get(
+            int(torch._fused_sdp_choice(*args, scale=D512_SCALE)), "unknown")
+    except Exception as exc:  # a private function: its absence is reported
+        picked = f"unknown ({type(exc).__name__})"
+    takes = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                sdpa_d512(q, k, v)
+            takes[name] = True
+        except RuntimeError:
+            takes[name] = False
+    return {"picked": picked, "takes": takes}
+
+
+def check_d512(dev) -> dict:
+    """Phase 3c: the head_dim-512 kernels (csrc/flash_d512.cu) against their
+    tiled plain versions at the kernels' kv tile (D512_BLOCK_KV), at the
+    head_dim-64 criteria: the forward at D512_FORWARD_SHAPES (3 half-ulps,
+    relative L2 2e-3, LSE 1e-4), dq (with delta), dk/dv and the pair at
+    D512_BACKWARD_SHAPES (3 half-ulps, relative L2 1e-3, delta 1e-5); the
+    same bits twice; mutants of the plain versions (the LSE left in base 2,
+    the last kv tile never consumed, dk x 1.02) must fail; strided
+    (B, S, 1, 512) views of a packed projection read without a copy, bit for
+    bit the contiguous route.  Each timed beside its plain one-pass
+    version, its bound and SDPA (whose backend is recorded).  Returns
+    {"fwd" | "dq" | "dkv": [result per shape]}."""
+    from diffute_tpu_torch.ops import _build
+
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    bkv, sc = fa.D512_BLOCK_KV, D512_SCALE
+    phase("ptxas", source="flash_d512.cu",
+          info=_build.ptxas_info("flash_d512.cu"))
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {"fwd": [], "dq": [], "dkv": []}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    for bh, s, t in D512_FORWARD_SHAPES:
+        q, k, v = randn(bh, s, 512), randn(bh, t, 512), randn(bh, t, 512)
+        o, lse = fa.flash_fwd_3d(q, k, v, sc)
+        o2, lse2 = fa.flash_fwd_3d(q, k, v, sc)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
+        lse_err = (lse - rlse).abs().max().item()
+        big = s >= 16384
+        res = dict(shape=[bh, s, t, 512], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+                   max_abs_err_lse=lse_err,
+                   same_bits_twice=(torch.equal(o, o2)
+                                    and torch.equal(lse, lse2)),
+                   ms=time_ms(lambda: fa.flash_fwd_3d(q, k, v, sc)),
+                   plain_ms=time_ms(
+                       lambda: fa.flash_attention_reference(q, k, v, sc),
+                       iters=5 if big else 25),
+                   library_ms=time_ms(lambda: sdpa_d512(q, k, v),
+                                      iters=5 if big else 25),
+                   library_call="scaled_dot_product_attention",
+                   sdpa=sdpa_backends(q, k, v),
+                   **bound(4 * s * t * 512 * bh,
+                           2 * 512 * bh * (2 * s + 2 * t) + 4 * bh * s))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if not out["fwd"]:
+            base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
+            mo, mlse = fa.flash_fwd_tiled_reference(q, k[:, :-bkv],
+                                                    v[:, :-bkv], sc, bkv)
+            dropped = bwd_errors(mo, ro, FUSED_HALF_ULPS)
+            m_lse = (mlse - rlse).abs().max().item()
+            if base2 <= TOL_FWD_LSE or fwd_ok(dropped, m_lse):
+                raise RuntimeError(f"the criterion passes a mutant: base-2 "
+                                   f"LSE {base2}, last tile dropped {dropped}")
+            res["mutants"] = {
+                "lse_base2_abs": base2,
+                "last_tile_dropped_rel_l2": dropped["rel_l2_err"],
+                "last_tile_dropped_lse_abs": m_lse}
+        del ro, rlse, o2, lse2
+        phase("kernel_fwd_d512", **res)
+        if not (fwd_ok(res, lse_err) and res["same_bits_twice"]):
+            raise RuntimeError(f"the head_dim-512 forward disagrees: {res}")
+        out["fwd"].append(res)
+
+    for bh, s, t in D512_BACKWARD_SHAPES:
+        q, k, v, do = (randn(bh, n, 512) for n in (s, t, t, s))
+        o, lse = fa.flash_fwd_3d(q, k, v, sc)
+
+        def run_dq():
+            return fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
+        dq, delta = run_dq()
+
+        def run_dkv():
+            return fa.flash_bwd_dkv_3d(q, k, v, do, lse, delta, sc)
+        dk, dv = run_dkv()
+        again = (*run_dq(), *run_dkv())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv),
+                                                     again))
+        rq, rk, rv = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc, bkv)
+        err = {n: bwd_errors(a, b)
+               for n, a, b in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        delta_err = (delta - fa._delta(o, do)).abs().max().item()
+        args = (q, k, v, do, lse, delta, sc)
+        try:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa_d512(*leaves)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, do, retain_graph=True), iters=5)
+            del lib_out, leaves
+        except RuntimeError as exc:  # the library may refuse the width
+            library_ms = None
+            phase("sdpa_backward_d512", error=str(exc)[:200])
+        io, st = 2 * 512 * bh, 4 * bh
+        common = dict(shape=[bh, s, t, 512], library_ms=library_ms,
+                      library_call="autograd.grad through "
+                      "scaled_dot_product_attention: dq, dk and dv together",
+                      same_bits_twice=same)
+        res_dq = dict(common, **err["dq"], max_abs_err_delta=delta_err,
+                      ms=time_ms(run_dq),
+                      plain_ms=time_ms(
+                          lambda: fa.flash_bwd_dq_reference(*args), iters=5),
+                      **bound(6 * s * t * 512 * bh,
+                              io * (4 * s + 2 * t) + st * 2 * s))
+        res_dkv = dict(common, max_abs_err=max(err["dk"]["max_abs_err"],
+                                               err["dv"]["max_abs_err"]),
+                       dk=err["dk"], dv=err["dv"], ms=time_ms(run_dkv),
+                       plain_ms=time_ms(
+                           lambda: fa.flash_bwd_dkv_reference(*args), iters=5),
+                       **bound(8 * s * t * 512 * bh,
+                               io * (2 * s + 4 * t) + st * 2 * s))
+        pair = dict(shape=[bh, s, t, 512], library_ms=library_ms,
+                    ms=time_ms(lambda: fa.flash_bwd_3d(q, k, v, o, lse, do,
+                                                       sc)),
+                    dq_plus_dkv_ms=res_dq["ms"] + res_dkv["ms"],
+                    **bound(10 * s * t * 512 * bh,
+                            io * (4 * s + 4 * t) + st * s))
+        for r in (res_dq, res_dkv, pair):
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if not out["dq"]:
+            scaled = bwd_errors(rk.float() * 1.02, rk)
+            if bwd_ok(scaled):
+                raise RuntimeError(f"the criterion passes dk x 1.02: {scaled}")
+            res_dkv["mutants"] = {
+                "dk_scaled_1.02_rel_l2": scaled["rel_l2_err"]}
+        del rq, rk, rv, again
+        phase("kernel_bwd_dq_d512", **res_dq)
+        phase("kernel_bwd_dkv_d512", **res_dkv)
+        phase("kernel_bwd_pair_d512", **pair)
+        if not (all(bwd_ok(e) for e in err.values()) and delta_err <= TOL_DELTA
+                and same):
+            raise RuntimeError(f"the head_dim-512 backward disagrees at "
+                               f"{(bh, s, t)}: {err}, delta {delta_err}, "
+                               f"same bits twice {same}")
+        out["dq"].append(res_dq)
+        out["dkv"].append(res_dkv)
+
+    # q, k, v, dO as (B, S, 1, 512) views of one packed (B, S, 4 * 512)
+    # projection: no copy, and the contiguous route's bits
+    q4, k4, v4, do4 = strided_qkv(g, dev, b=2, s=4096, h=1, n=4, d=512)
+    o4, lse4 = fa.flash_fwd(q4, k4, v4, sc)
+    grads = fa.flash_bwd(q4, k4, v4, o4, lse4, do4, sc)
+    flat = [x.contiguous() for x in (q4, k4, v4, do4)]
+    fo, flse = fa.flash_fwd(*flat[:3], sc)
+    fgrads = fa.flash_bwd(*flat[:3], fo, flse, flat[3], sc)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_fwd_tiled_reference(
+        *(fa._to3d(x) for x in (q4, k4, v4)), sc, bkv)
+    ref = fa.flash_bwd_tiled_reference(
+        *(fa._to3d(x) for x in (q4, k4, v4, o4)), lse4, fa._to3d(do4), sc, bkv)
+    err = {n: bwd_errors(fa._to3d(a), b)
+           for n, a, b in zip(("dq", "dk", "dv"), grads, ref)}
+    res = dict(shape=list(q4.shape), strides=list(q4.stride()),
+               **bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
+               max_abs_err_lse=(lse4 - rlse).abs().max().item(), grads=err,
+               out_contiguous=all(x.is_contiguous() for x in (o4, *grads)),
+               contiguous_route_bits=torch.equal(o4, fo) and all(
+                   torch.equal(a, b) for a, b in zip(grads, fgrads)))
+    phase("kernel_d512_strided", **res)
+    if not (fwd_ok(res, res["max_abs_err_lse"])
+            and all(bwd_ok(e) for e in err.values())
+            and res["out_contiguous"] and res["contiguous_route_bits"]):
+        raise RuntimeError(f"the head_dim-512 kernels on strided views "
+                           f"disagree: {res}")
+    out["fwd"].append(res)
+    out["dq"].append(dict(res, max_abs_err=err["dq"]["max_abs_err"]))
+    out["dkv"].append(dict(res, max_abs_err=max(err["dk"]["max_abs_err"],
+                                                err["dv"]["max_abs_err"])))
+    return out
+
+
 def serving_pipeline(dev, params=None, **unet_flags):
     """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0;
     ``unet_flags`` turn the UNet's opt-in kernels on, ``params`` shares one
@@ -955,6 +1195,9 @@ def counters() -> dict:
             "flash_fwd_pipelined": flash_attention.pipelined_launches,
             "flash_bwd_dq": flash_attention.bwd_dq_launches,
             "flash_bwd_dkv": flash_attention.bwd_dkv_launches,
+            "flash_fwd_d512": flash_attention.d512_launches,
+            "flash_bwd_dq_d512": flash_attention.d512_bwd_dq_launches,
+            "flash_bwd_dkv_d512": flash_attention.d512_bwd_dkv_launches,
             "gn_stats": group_norm_stats.launches,
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
@@ -999,6 +1242,9 @@ def reset_counters() -> None:
 
     flash_attention.launches = flash_attention.pipelined_launches = 0
     flash_attention.bwd_dq_launches = flash_attention.bwd_dkv_launches = 0
+    flash_attention.d512_launches = 0
+    flash_attention.d512_bwd_dq_launches = 0
+    flash_attention.d512_bwd_dkv_launches = 0
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
         fn.launches = 0
@@ -1007,13 +1253,11 @@ def reset_counters() -> None:
 def timed_edit(pipe, image, box, text, seed, edit_config=None, steps=None):
     """One edit with every counter set to 0 before it: its seconds, peak
     memory and launches; fails unless only the box's pixels changed."""
-    resident = torch.cuda.memory_allocated(pipe.device)
     rec = measured(pipe.device, lambda: pipe.edit(
         image, box, text, seed=seed, edit_config=edit_config,
         num_inference_steps=steps)[0])
     changed = only_boxes_changed(rec.pop("out"), image, [box])
-    return dict(text=text, memory_allocated_before=resident,
-                changed_pixels=changed, **rec)
+    return dict(text=text, changed_pixels=changed, **rec)
 
 
 def expect_launches(rec: dict, **expected) -> None:
@@ -1094,15 +1338,19 @@ def only_boxes_changed(out, image, boxes) -> int:
 
 def measured(dev, fn) -> dict:
     """Run ``fn`` with every launch counter set to 0 before it: its result,
-    seconds on the host clock (``fn`` ends in a copy to the host), launches
-    and peak memory."""
+    seconds on the host clock to the card's end of it (synchronised),
+    launches, the peak memory and the memory allocated before it."""
+    torch.cuda.synchronize()
     reset_counters()
+    resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = fn()
+    torch.cuda.synchronize()
     return dict(out=out, seconds=time.perf_counter() - t0,
                 launches=counters(),
-                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                memory_allocated_before=resident)
 
 
 def record(rec: dict, **more) -> dict:
@@ -1698,6 +1946,310 @@ def check_workflow(dev, root: str):
     return out, ckpt
 
 
+VAE_FLASH_STEPS, STAGE1_STEPS = 20, 3
+# full-width VAE, bf16, same weights and inputs: the mid-blocks through the
+# head_dim-512 kernels against dense attention, relative max error over max
+# |out| as phase 5 bounds the UNet (a wrong kernel gives O(1))
+TOL_VAE_FLASH_REL = TOL_UNET_REL
+
+
+def d512_launches(rec: dict) -> dict:
+    return {k: rec["launches"][k]
+            for k in ("flash_fwd_d512", "flash_bwd_dq_d512",
+                      "flash_bwd_dkv_d512")}
+
+
+# the loss gradient of these weights, stage 1 flag on against off
+STAGE1_PROBES = ["encoder.mid_block.attentions.0.to_q.weight",
+                 "decoder.mid_block.attentions.0.to_q.weight",
+                 "encoder.conv_in.weight", "decoder.conv_out.weight"]
+# flash's gradient against the fp32 dense one may be at most this many
+# times as far as the bf16 dense gradient is (both are bf16 computations)
+GRAD_VS_FP32_RATIO = 1.5
+
+
+def stage1_grad_check(dev, vae_params, stage1_config, batch) -> dict:
+    """The loss and the loss gradient of STAGE1_PROBES on the initial
+    weights, one posterior draw: the bf16 trainer with the flag on, with it
+    off, and the fp32 trainer with it off (the reference both bf16 ones are
+    held to).  Each probe passes when flash is within TOL_GRAD_REL of dense
+    in relative L2, or no further than GRAD_VS_FP32_RATIO times dense's
+    distance from the fp32 gradient."""
+    from diffute_tpu_torch.train import VAETrainer
+
+    runs = {}
+    draws = None
+    for name, on, precision in (("flash", True, "bf16"),
+                                ("dense", False, "bf16"),
+                                ("fp32_dense", False, "no")):
+        cfg = stage1_config(on)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, mixed_precision=precision))
+        trainer = VAETrainer(cfg, vae_params, device=dev, total_steps=1)
+        if draws is None:
+            draws = trainer.draw(WORKFLOW_BATCH).float()
+        loss = trainer.accumulate_grads(batch, draws).item()
+        masters = trainer.state.params_dict()
+        runs[name] = (loss, {n: masters[n].grad.float().clone()
+                             for n in STAGE1_PROBES})
+        del trainer, masters
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return {n: ((runs[a][1][n] - runs[b][1][n]).norm()
+                    / runs[b][1][n].norm()).item() for n in STAGE1_PROBES}
+
+    res = dict(loss={k: v[0] for k, v in runs.items()},
+               grad_rel_l2_err=rel("flash", "dense"),
+               flash_vs_fp32=rel("flash", "fp32_dense"),
+               dense_vs_fp32=rel("dense", "fp32_dense"),
+               tolerance=TOL_GRAD_REL, ratio_to_dense=GRAD_VS_FP32_RATIO,
+               loss_tolerance=TOL_LOSS_REL)
+    bad = [n for n in STAGE1_PROBES
+           if not (res["grad_rel_l2_err"][n] <= TOL_GRAD_REL
+                   or res["flash_vs_fp32"][n]
+                   <= GRAD_VS_FP32_RATIO * res["dense_vs_fp32"][n])]
+    loss_flash, loss_dense = res["loss"]["flash"], res["loss"]["dense"]
+    if bad or not abs(loss_flash - loss_dense) <= TOL_LOSS_REL * loss_dense:
+        raise RuntimeError(f"stage-1 gradient with flash differs at {bad}: "
+                           f"{res}")
+    return res
+
+
+def check_vae_flash(dev) -> dict:
+    """Phase 8a: the full-width SD2 VAE with VAEConfig.use_flash_attention
+    on every path that runs it.  One encode and one decode at 512^2 and
+    1024^2, flag on against flag off with the same weights (each output
+    within TOL_VAE_FLASH_REL; peak memory of each); a 20-step edit at 512^2
+    and at 1024^2 with the flag (2 head_dim-512 forwards each; only the box
+    changes; the gap to the same seed with the flag off in LSB); one
+    stage-2 step with the flagged frozen VAE (2 head_dim-512 forwards, the
+    UNet's 20/10/10); then, with the VAE's weights alone resident, the loss
+    gradient of four weights flag on against off (stage1_grad_check) and
+    three stage-1 steps through VAETrainer at batch 4, 512^2, bf16, remat,
+    flag off and on (seconds and peak memory; 2 forward, 2 dq and 2 dk/dv
+    launches a step).  Returns the numbers and the launches by path."""
+    from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
+                                          card_serving_config)
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch, make_vae_batch)
+    from diffute_tpu_torch.models import AutoencoderKL
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.train import UNetTrainer, VAETrainer
+    from diffute_tpu_torch.utils import init_pipeline_params
+    from diffute_tpu_torch.utils.params import load_module
+
+    bf16 = torch.bfloat16
+    base, resolutions = DiffUTEConfig(), (RES, 1024)
+    out = {"launches": {}}
+    params = init_pipeline_params(base, seed=0, device=dev)
+    flags = (False, True)
+
+    def vae_config(on, **more):
+        return dataclasses.replace(base.vae, use_flash_attention=on, **more)
+
+    # ---- encode and decode, flag off and on
+    vaes = {on: load_module(AutoencoderKL, vae_config(on, dtype=bf16),
+                            params["vae"], dev, bf16)
+            for on in flags}
+    g = torch.Generator(device=dev).manual_seed(11)
+    codec = {}
+    for res in resolutions:
+        x = torch.rand((1, 3, res, res), generator=g, device=dev) * 2 - 1
+        x = x.to(bf16)
+        with torch.inference_mode():
+            z = vaes[False].encode(x)[0]
+            runs = {(what, on): measured(dev, lambda: (
+                        vaes[on].encode(x)[0] if what == "encode"
+                        else vaes[on].decode(z)).float())
+                    for what in ("encode", "decode") for on in flags}
+        rec = {}
+        for what in ("encode", "decode"):
+            r_off, r_on = runs[(what, False)], runs[(what, True)]
+            ref = r_off["out"]
+            rel = ((r_on["out"] - ref).abs().max() / ref.abs().max()).item()
+            finite = bool(torch.isfinite(r_on["out"]).all()
+                          and torch.isfinite(ref).all())
+            rec[what] = dict(
+                rel_max_err=rel, finite=finite,
+                **{("flash" if k else "dense"): dict(
+                    seconds=r["seconds"], launches=d512_launches(r),
+                    max_memory_allocated=r["max_memory_allocated"],
+                    peak_above_resident=(r["max_memory_allocated"]
+                                         - r["memory_allocated_before"]))
+                   for k, r in ((False, r_off), (True, r_on))})
+            expect_launches(r_on, flash_fwd_d512=1, flash_fwd=0)
+            expect_launches(r_off, flash_fwd_d512=0)
+            if not (finite and rel <= TOL_VAE_FLASH_REL):
+                raise RuntimeError(f"VAE {what} at {res}^2 with flash "
+                                   f"differs from dense: {rec[what]}")
+            out["launches"][f"vae_{what}_{res}"] = r_on["launches"]
+        codec[res] = rec
+        del runs, z, x
+    phase("vae_flash_codec", tolerance_rel_max=TOL_VAE_FLASH_REL,
+          **{str(r): v for r, v in codec.items()})
+    out["codec"] = codec
+    del vaes
+
+    # ---- 20-step edits at 512^2 and 1024^2, flag off and on, same seed
+    serving = dataclasses.replace(
+        card_serving_config(base),
+        edit=dataclasses.replace(base.edit,
+                                 num_inference_steps=VAE_FLASH_STEPS))
+    pipes = {on: DiffUTEPipeline(dataclasses.replace(
+                 serving, vae=vae_config(on, dtype=bf16)), params, dev)
+             for on in flags}
+    edits = {}
+    # the UNet's flash self-attentions a pass: 10 at 512^2, 15 at 1024^2
+    for res, per_pass in zip(resolutions, (10, 15)):
+        image, box = scene(res)
+        ec = dataclasses.replace(serving.edit, resolution=res)
+        for pipe in pipes.values():
+            pipe.edit(image, box, "warm", seed=0, edit_config=ec,
+                      num_inference_steps=2)
+        runs = {on: measured(dev, lambda: pipes[on].edit(
+                    image, box, "VAE FLASH", seed=5, edit_config=ec)[0])
+                for on in flags}
+        for on in flags:
+            only_boxes_changed(runs[on]["out"], image, [box])
+            expect_launches(runs[on], flash_fwd=per_pass * VAE_FLASH_STEPS,
+                            flash_fwd_d512=2 if on else 0)
+        lsb = int(np.abs(runs[True]["out"].astype(np.int16)
+                         - runs[False]["out"]).max())
+        edits[res] = dict(max_lsb_flash_vs_dense=lsb, **{
+            ("flash" if on else "dense"): dict(
+                seconds=r["seconds"], launches=d512_launches(r),
+                max_memory_allocated=r["max_memory_allocated"])
+            for on, r in runs.items()})
+        out["launches"][f"edit_{res}_vae_flash"] = runs[True]["launches"]
+        phase("vae_flash_edit", resolution=res, steps=VAE_FLASH_STEPS,
+              **edits[res])
+    out["edits"] = edits
+    del pipes, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- stage 2: one step with the flagged frozen VAE
+    s2cfg = dataclasses.replace(
+        base, unet=dataclasses.replace(base.unet, use_flash_attention=True,
+                                       remat=True),
+        vae=vae_config(True),
+        edit=dataclasses.replace(base.edit, resolution=resolutions[0]),
+        train=TrainConfig(train_batch_size=WORKFLOW_BATCH,
+                          mixed_precision="bf16", gradient_checkpointing=True,
+                          max_train_steps=1))
+    trainer = UNetTrainer(s2cfg, params["unet"],
+                          {"vae": params["vae"], "trocr": params["trocr"]},
+                          device=dev, total_steps=1)
+    data = SyntheticSceneDataset(s2cfg, seed=0)
+    batch = make_unet_batch([data[i] for i in range(WORKFLOW_BATCH)], s2cfg)
+    r = measured(dev, lambda: {k: v.item() for k, v in
+                                 trainer.step(batch).items()})
+    stage2 = dict(r.pop("out"), seconds=r["seconds"], launches=r["launches"],
+                  max_memory_allocated=r["max_memory_allocated"])
+    phase("vae_flash_stage2", **stage2)
+    # the masked and the target image encoded at batch 4, no gradient: two
+    # head_dim-512 forwards; the UNet's flash counts as in phase 6
+    expect_launches(r, flash_fwd_d512=2, flash_bwd_dq_d512=0,
+                    flash_bwd_dkv_d512=0, flash_fwd=20, flash_bwd_dq=10,
+                    flash_bwd_dkv=10)
+    if not (np.isfinite(stage2["loss"]) and np.isfinite(stage2["grad_norm"])):
+        raise RuntimeError(f"stage-2 step with the flagged VAE: {stage2}")
+    out["launches"]["stage2_vae_flash"] = r["launches"]
+    out["stage2"] = stage2
+    del trainer, batch, data
+    # stage 1 holds the VAE's weights alone, as phase 8 does
+    del params["unet"], params["trocr"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- stage 1: three steps flag off, three flag on; the gradient of
+    # four weights flag on against off
+    def stage1_config(on):
+        return dataclasses.replace(
+            base, vae=vae_config(on, remat=True),
+            edit=dataclasses.replace(base.edit, resolution=resolutions[0]),
+            train=TrainConfig(train_batch_size=WORKFLOW_BATCH,
+                              mixed_precision="bf16",
+                              gradient_checkpointing=True,
+                              max_train_steps=STAGE1_STEPS))
+
+    data = SyntheticSceneDataset(stage1_config(False), seed=0)
+    batches = [make_vae_batch([data[WORKFLOW_BATCH * i + j]
+                               for j in range(WORKFLOW_BATCH)])
+               for i in range(STAGE1_STEPS)]
+    stage1 = {"grad_check": stage1_grad_check(
+        dev, params["vae"], stage1_config, batches[0])}
+    for on in flags:
+        trainer = VAETrainer(stage1_config(on), params["vae"], device=dev,
+                             total_steps=STAGE1_STEPS)
+        steps = []
+        for batch in batches:
+            r = measured(dev, lambda: {k: v.item() for k, v in
+                                         trainer.step(batch).items()})
+            steps.append(dict(r.pop("out"), seconds=r["seconds"],
+                              max_memory_allocated=r["max_memory_allocated"],
+                              memory_allocated_before=r[
+                                  "memory_allocated_before"],
+                              launches=d512_launches(r)))
+            expect_launches(r, flash_fwd_d512=2 if on else 0,
+                            flash_bwd_dq_d512=2 if on else 0,
+                            flash_bwd_dkv_d512=2 if on else 0, flash_fwd=0)
+            if on:
+                out["launches"][f"stage1_vae_flash_step{len(steps)}"] = (
+                    r["launches"])
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                   for s in steps):
+            raise RuntimeError(f"stage 1 steps not finite: {steps}")
+        stage1["flash" if on else "dense"] = steps
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("vae_flash_stage1", batch=WORKFLOW_BATCH, resolution=resolutions[0],
+          **stage1)
+    out["stage1"] = stage1
+    del batches, data, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_entry(name, source, replaces, results, launches) -> dict:
+    """One kernel's entry of the final ``kernels`` line: its launches by
+    path, and the main shape's (the first result's) times and bound."""
+    main = results[0]
+    return {"name": name, "route": "cuda",
+            "source": f"diffute_tpu_torch/csrc/{source}",
+            "replaces": f"diffute_tpu/ops/{replaces}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in results),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "shapes": results}
+
+
+def d512_entries(d512: dict, launches: dict) -> list:
+    """The three head_dim-512 kernels' entries, with phase 8a's launches by
+    path (``launches``: path -> counters read right after it ran)."""
+    def by_path(key):
+        return {path: rec[key] for path, rec in launches.items() if rec[key]}
+
+    return [kernel_entry("flash_fwd_d512_bf16", "flash_d512.cu",
+                         "flash_attention.py:275", d512["fwd"],
+                         by_path("flash_fwd_d512")),
+            kernel_entry("flash_bwd_dq_d512_bf16", "flash_d512.cu",
+                         "flash_attention.py:396", d512["dq"],
+                         by_path("flash_bwd_dq_d512")),
+            kernel_entry("flash_bwd_dkv_d512_bf16", "flash_d512.cu",
+                         "flash_attention.py:437", d512["dkv"],
+                         by_path("flash_bwd_dkv_d512"))]
+
+
+def vae_flash_summary(vae_flash: dict) -> dict:
+    return {k: v for k, v in vae_flash.items() if k != "launches"}
+
 OCR_BATCH, OCR_STEPS, OCR_MAX_LEN = 64, 50, 16
 EVAL_EXAMPLES, EVAL_STEPS = 4, 20
 # flash self-attentions of one UNet pass: full width at 512^2 (5 at 4096
@@ -2038,6 +2590,9 @@ def main(argv=None) -> None:
     p.add_argument("--workflow-only", action="store_true",
                    help="build the kernels and run phases 8-10 (the "
                    "two-stage workflow) alone")
+    p.add_argument("--d512-only", action="store_true",
+                   help="build the kernels and run phases 3c and 8a (the "
+                   "head_dim-512 kernels and the VAE's flash paths) alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -2063,6 +2618,18 @@ def main(argv=None) -> None:
 
         print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
         check_fused_kernels(torch.device("cuda", 0))
+        return
+    if args.d512_only:
+        from diffute_tpu_torch.ops import _build
+
+        print(gpu_line(), flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        d512 = check_d512(dev)
+        vae_flash = check_vae_flash(dev)
+        print(json.dumps({"kernels": d512_entries(d512, vae_flash["launches"]),
+                          "vae_flash": vae_flash_summary(vae_flash)}),
+              flush=True)
         return
     if args.workflow_only or args.eval_only:
         from diffute_tpu_torch.ops import _build
@@ -2090,6 +2657,9 @@ def main(argv=None) -> None:
         check_backward(torch.device("cuda", 0))
         check_pipelined_forward(torch.device("cuda", 0))
         check_fused_kernels(torch.device("cuda", 0))
+        fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+        if hasattr(fa, "D512_BLOCK_KV"):
+            check_d512(torch.device("cuda", 0))
         return
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
@@ -2149,6 +2719,9 @@ def main(argv=None) -> None:
 
     # ---- 3b. the three opt-in kernels against their plain versions
     fused = check_fused_kernels(dev)
+
+    # ---- 3c. the head_dim-512 kernels against their plain versions
+    d512 = check_d512(dev)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -2388,22 +2961,13 @@ def main(argv=None) -> None:
     root = tempfile.mkdtemp(prefix="diffute_workflow_")
     try:
         workflow, stage2_export = check_workflow(dev, root)
+        # ---- 8a. the VAE's flash paths at full width
+        vae_flash = check_vae_flash(dev)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    wl = {**workflow["launches"], **verifier_paths["eval"]["launches"]}
-
-    def entry(name, source, replaces, results, launches):
-        main = results[0]
-        return {"name": name, "route": "cuda",
-                "source": f"diffute_tpu_torch/csrc/{source}",
-                "replaces": f"diffute_tpu/ops/{replaces}",
-                "launches": sum(launches.values()),
-                "launches_by_path": launches,
-                "max_abs_err": max(x["max_abs_err"] for x in results),
-                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")},
-                "shapes": results}
+    wl = {**workflow["launches"], **verifier_paths["eval"]["launches"],
+          **vae_flash["launches"]}
 
     def path_launches(key):
         """``key``'s launches on each path, from the counters read right
@@ -2423,33 +2987,41 @@ def main(argv=None) -> None:
 
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": [
-        entry("flash_fwd_bf16", "flash_fwd.cu", "flash_attention.py:275",
-              fwd_results, {"edit": edit_launches,
-                            "edit_flags": flag_launches["flash_fwd"],
-                            "train": train_launches["fwd"],
-                            **path_launches("flash_fwd")}),
-        entry("flash_fwd_pipelined_bf16", "flash_fwd_pipelined.cu",
-              "flash_attention.py:149", pipelined_results,
-              path_launches("flash_fwd_pipelined")),
-        entry("flash_bwd_dq_bf16", "flash_bwd.cu", "flash_attention.py:396",
-              dq_results, {"train": train_launches["dq"],
-                           **path_launches("flash_bwd_dq")}),
-        entry("flash_bwd_dkv_bf16", "flash_bwd.cu", "flash_attention.py:437",
-              dkv_results, {"train": train_launches["dkv"],
-                            **path_launches("flash_bwd_dkv")}),
+        kernel_entry("flash_fwd_bf16", "flash_fwd.cu",
+                     "flash_attention.py:275", fwd_results,
+                     {"edit": edit_launches,
+                      "edit_flags": flag_launches["flash_fwd"],
+                      "train": train_launches["fwd"],
+                      **path_launches("flash_fwd")}),
+        kernel_entry("flash_fwd_pipelined_bf16", "flash_fwd_pipelined.cu",
+                     "flash_attention.py:149", pipelined_results,
+                     path_launches("flash_fwd_pipelined")),
+        kernel_entry("flash_bwd_dq_bf16", "flash_bwd.cu",
+                     "flash_attention.py:396", dq_results,
+                     {"train": train_launches["dq"],
+                      **path_launches("flash_bwd_dq")}),
+        kernel_entry("flash_bwd_dkv_bf16", "flash_bwd.cu",
+                     "flash_attention.py:437", dkv_results,
+                     {"train": train_launches["dkv"],
+                      **path_launches("flash_bwd_dkv")}),
         # the TPU kernel is one launch here (GN+SiLU); its statistics alone
         # are a second kernel, which the fused conv launches
-        entry("gn_stats_bf16", "groupnorm.cu", "groupnorm.py:31",
-              fused["gn_stats"], {"edit_flags": flag_launches["gn_stats"],
-                                  **path_launches("gn_stats")}),
-        entry("gn_silu_bf16", "groupnorm.cu", "groupnorm.py:31",
-              fused["gn_silu"], {"edit_flags": flag_launches["gn_silu"],
-                                 **path_launches("gn_silu")}),
-        entry("gn_silu_conv3x3_bf16", "conv_fused.cu", "conv_fused.py:40",
-              fused["conv"], {"edit_flags": flag_launches["conv"],
-                              **path_launches("conv")}),
-        entry("w8_matmul_bf16", "quant.cu", "quant.py:51", fused["w8"],
-              {"edit_flags": flag_launches["w8"], **path_launches("w8")}),
+        kernel_entry("gn_stats_bf16", "groupnorm.cu", "groupnorm.py:31",
+                     fused["gn_stats"],
+                     {"edit_flags": flag_launches["gn_stats"],
+                      **path_launches("gn_stats")}),
+        kernel_entry("gn_silu_bf16", "groupnorm.cu", "groupnorm.py:31",
+                     fused["gn_silu"],
+                     {"edit_flags": flag_launches["gn_silu"],
+                      **path_launches("gn_silu")}),
+        kernel_entry("gn_silu_conv3x3_bf16", "conv_fused.cu",
+                     "conv_fused.py:40", fused["conv"],
+                     {"edit_flags": flag_launches["conv"],
+                      **path_launches("conv")}),
+        kernel_entry("w8_matmul_bf16", "quant.cu", "quant.py:51", fused["w8"],
+                     {"edit_flags": flag_launches["w8"],
+                      **path_launches("w8")}),
+        *d512_entries(d512, vae_flash["launches"]),
     ], "edit_seconds": [e["seconds"] for e in edits],
         "edit_flags_seconds": [e["seconds"] for e in flag_edits],
         "edit_flags_max_memory_allocated": [e["max_memory_allocated"]
@@ -2478,6 +3050,7 @@ def main(argv=None) -> None:
         "train_max_memory_allocated": [h["max_memory_allocated"]
                                        for h in history],
         "workflow": {k: v for k, v in workflow.items() if k != "launches"},
+        "vae_flash": vae_flash_summary(vae_flash),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

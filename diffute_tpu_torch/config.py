@@ -2,11 +2,9 @@
 
 Counterpart of ``diffute_tpu/config.py``: the same frozen dataclasses, field
 names and defaults (SD2-inpainting UNet/VAE, TrOCR-large encoder, SD2 noise
-schedule), with torch dtypes.  Options whose kernels are not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
-``TrainConfig`` leaves out the JAX package's TPU-relay fields
-(``donate_state``, ``steps_per_call``) and its mesh fields (``dp_size``,
-``shard_optimizer_states``): the port trains on one card.
+schedule), with torch dtypes.  ``TrainConfig`` leaves out the JAX package's
+TPU-relay fields (``donate_state``, ``steps_per_call``) and its mesh fields
+(``dp_size``, ``shard_optimizer_states``): the port trains on one card.
 """
 
 from __future__ import annotations
@@ -15,14 +13,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-
-_ROADMAP = "ROADMAP.md queue 2"
-
-
-def _not_ported(cls: str, flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cls}.{flag} is not ported to the PyTorch port yet "
-        f"({_ROADMAP}: {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,12 +29,10 @@ class VAEConfig:
     scaling_factor: float = 0.18215
     dtype: torch.dtype = torch.float32
     remat: bool = False
+    # Route the mid-block's single-head attention (head_dim 512 at SD2
+    # width, 4096 to 16384 tokens) through the CUDA flash kernels
+    # (csrc/flash_d512.cu); bf16 only on the card.
     use_flash_attention: bool = False
-
-    def __post_init__(self):
-        if self.use_flash_attention:
-            raise _not_ported("VAEConfig", "use_flash_attention",
-                              "flash forward at head_dim 512")
 
     @property
     def scale_factor(self) -> int:

@@ -3,8 +3,10 @@
 Counterpart of ``diffute_tpu/models/vae.py`` with diffusers' module tree
 (encoder.down_blocks.i.resnets.j, encoder.mid_block.attentions.0.group_norm,
 decoder.up_blocks.i.upsamplers.0, quant_conv, ...).  The mid-block's
-single-head attention (head_dim 512) takes the dense path: the flash kernel
-takes head_dim 64 only.  Sampling and the 0.18215 scale are the caller's.
+single-head attention (head_dim 512 at SD2 width) goes through the flash
+kernels (``csrc/flash_d512.cu``) when ``config.use_flash_attention`` is set
+and it has at least 1024 keys, as the JAX module routes it; otherwise dense
+attention.  Sampling and the 0.18215 scale are the caller's.
 With ``config.remat`` the encoder's and decoder's resnet blocks are
 recomputed in the backward instead of keeping their activations
 (``torch.utils.checkpoint``), as the JAX module wraps them in ``nn.remat``.
@@ -31,9 +33,9 @@ from diffute_tpu_torch.models.layers import (
 class MidBlockAttention(Attention):
     """Single-head attention with its own GroupNorm, over NCHW maps."""
 
-    def __init__(self, channels: int, groups: int):
+    def __init__(self, channels: int, groups: int, use_flash: bool = False):
         super().__init__(channels, num_heads=1, head_dim=channels,
-                         qkv_bias=True)
+                         use_flash=use_flash, qkv_bias=True)
         self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -46,12 +48,13 @@ class MidBlockAttention(Attention):
 class MidBlock(nn.Module):
     """resnet -> single-head attention -> resnet (VAE mid block)."""
 
-    def __init__(self, channels: int, groups: int):
+    def __init__(self, channels: int, groups: int, use_flash: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock2D(channels, channels, groups=groups, eps=1e-6)
             for _ in range(2))
-        self.attentions = nn.ModuleList([MidBlockAttention(channels, groups)])
+        self.attentions = nn.ModuleList(
+            [MidBlockAttention(channels, groups, use_flash)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
@@ -82,7 +85,7 @@ class Encoder(nn.Module):
                 resnets, None, "downsamplers",
                 Downsample2D(ch, ch) if i < len(chs) - 1 else None))
         self.down_blocks = nn.ModuleList(blocks)
-        self.mid_block = MidBlock(chs[-1], g)
+        self.mid_block = MidBlock(chs[-1], g, cfg.use_flash_attention)
         self.conv_norm_out = nn.GroupNorm(g, chs[-1], eps=1e-6)
         self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
 
@@ -104,7 +107,7 @@ class Decoder(nn.Module):
         rev = tuple(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = MidBlock(rev[0], g)
+        self.mid_block = MidBlock(rev[0], g, cfg.use_flash_attention)
         blocks, x_ch = [], rev[0]
         for i, ch in enumerate(rev):
             resnets = []

@@ -3,10 +3,12 @@
 Counterpart of ``diffute_tpu/ops/attention.py``.  Layout
 ``(batch, seq, heads, head_dim)`` at the public functions, as in the JAX
 package.  Self-attention with at least 1024 keys goes to the CUDA flash
-kernel when ``use_flash`` is set; everything else (the 577-token
-cross-attention, the deep blocks' 256/64-token self-attention, the TrOCR
-ViT, the VAE mid-block) goes to :func:`dense_attention`, the port of what
-XLA compiled for ``_xla_attention``.
+kernels when ``use_flash`` is set: the UNet's (head_dim 64) and, with
+``VAEConfig.use_flash_attention``, the VAE mid-block's (head_dim 512).
+Everything else (the 577-token cross-attention, the deep blocks'
+256/64-token self-attention, the TrOCR ViT, an unflagged VAE mid-block)
+goes to :func:`dense_attention`, the port of what XLA compiled for
+``_xla_attention``.
 """
 
 from __future__ import annotations

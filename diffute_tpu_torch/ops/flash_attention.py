@@ -7,11 +7,15 @@ deferred-softmax forward behind the ``PIPELINE_FWD`` switch
 ``csrc/flash_fwd_pipelined.cu``) and the
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
-package joins them with ``jax.custom_vjp``.  Every kernel reads its bf16
-(batch, seq, heads, 64) inputs through their strides (TMA), so the callers
-hand them the views they have, and writes its outputs contiguous in that
-layout: no copy is made in either direction.  Every LSE is natural-log fp32
-(batch*heads, seq).
+package joins them with ``jax.custom_vjp``.  Those take head_dim 64 (the
+UNet's heads); at head_dim 512 (the VAE mid-block's single head) the
+forward and the two backward kernels are ``csrc/flash_d512.cu``, and the
+deferred-softmax forward is not ported (``PIPELINE_FWD`` raises there).
+Every kernel reads its bf16 (batch, seq, heads, 64) or (batch, seq, heads,
+512) inputs through their strides (TMA at 64, cp.async at 512), so the
+callers hand them the views they have, and writes its outputs contiguous in
+that layout: no copy is made in either direction.  Every LSE is natural-log
+fp32 (batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version, which is what the CPU
@@ -31,6 +35,9 @@ import torch
 PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
+# the head_dims the kernels take, and the kv tile of csrc/flash_d512.cu
+HEAD_DIMS = (64, 512)
+D512_BLOCK_KV = 32
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
@@ -129,10 +136,10 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
-    """Raise on a layout the forwards' TMA loads cannot read: a last
-    (head_dim) stride other than 1, another stride not a multiple of 8
-    elements (16 bytes of bf16), or a base not 16-byte aligned.  Nothing is
-    copied to make a layout fit."""
+    """Raise on a layout the kernels' loads (TMA at head_dim 64, 16-byte
+    cp.async at 512) cannot read: a last (head_dim) stride other than 1,
+    another stride not a multiple of 8 elements (16 bytes of bf16), or a
+    base not 16-byte aligned.  Nothing is copied to make a layout fit."""
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the last stride must be 1, got "
                          f"{x.stride()}")
@@ -145,26 +152,32 @@ def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
 
 def _check_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               **more: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take: every tensor on q's CUDA
-    device, bf16, (B, seq, H, 64) in a layout TMA reads; k and v of one
-    shape, and of q's batch and heads; ``more`` (o, dO) of q's shape."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    """Raise on anything the kernels do not take: bf16 (B, seq, H, 64) or
+    (B, seq, H, 512) in a layout they read (:func:`check_tma_layout`); k and
+    v of one shape, and of q's batch, heads and head_dim; ``more`` (o, dO)
+    of q's shape; every tensor on q's CUDA device.  The device is checked
+    last, so that on a ``meta`` tensor each other refusal shows."""
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
-        if x.device != q.device or x.dtype != torch.bfloat16:
-            raise ValueError(f"the flash kernel takes bf16 on {q.device}; "
-                             f"{name} is {x.dtype} on {x.device}")
-        if x.dim() != 4 or x.shape[-1] != 64:
-            raise ValueError(f"the flash kernel takes (B, seq, H, 64); "
-                             f"{name} is {tuple(x.shape)}")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"the flash kernels take bf16; {name} is "
+                             f"{x.dtype}")
+        if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"the flash kernels take (B, seq, H, D) with D "
+                             f"in {HEAD_DIMS}; {name} is {tuple(x.shape)}")
         check_tma_layout(x, name)
-    b, s_len, h, _ = q.shape
+    b, s_len, h, d = q.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
-            or s_len == 0 or k.shape[1] == 0
+            or k.shape[3] != d or s_len == 0 or k.shape[1] == 0
             or any(x.shape != q.shape for x in more.values())):
         raise ValueError("shape mismatch: " + ", ".join(
             f"{n} {tuple(x.shape)}"
             for n, x in (("q", q), ("k", k), ("v", v), *more.items())))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    for name, x in (("k", k), ("v", v), *more.items()):
+        if x.device != q.device:
+            raise ValueError(f"the flash kernels take every tensor on "
+                             f"{q.device}; {name} is on {x.device}")
 
 
 def _strides(*xs: torch.Tensor):
@@ -189,11 +202,16 @@ def _launch(name: str, *args) -> None:
 def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, pipelined: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch a forward kernel on (B, S, H, 64) q and (B, T, H, 64) k, v as
-    they lie: o comes back contiguous (B, S, H, 64), lse (B*H, S).  Raises
-    on anything the kernel does not take."""
+    """Launch a forward kernel on (B, S, H, D) q and (B, T, H, D) k, v as
+    they lie, D = 64 or 512: o comes back contiguous (B, S, H, D), lse
+    (B*H, S).  Raises on anything the kernels do not take."""
+    if pipelined and q.shape[-1] != 64:
+        raise NotImplementedError(
+            f"the deferred-softmax forward (PIPELINE_FWD) takes head_dim 64; "
+            f"at head_dim {q.shape[-1]} it is not ported yet (ROADMAP.md "
+            f"queue 2)")
     _check_4d(q, k, v)
-    b, s_len, h, _ = q.shape
+    b, s_len, h, d = q.shape
     t_len = k.shape[1]
     if pipelined and not _pipelined_takes(t_len):
         raise ValueError(f"the pipelined forward takes T a multiple of "
@@ -201,27 +219,39 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {t_len}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    name = "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16"
+    name = ("flash_fwd_d512_bf16" if d == 512 else
+            "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16")
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, s_len, t_len, _strides(q, k, v, o),
             float(scale), _stream(q))
-    if pipelined:
+    _count_forward(q, k, pipelined)
+    return o, lse
+
+
+def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
+    """Count one forward launch on (B, S, H, D) q and (B, T, H, D) k: its
+    counter by kernel, and its matrix-product FLOPs (4 B H S T D) in
+    ``flash_attention.flops``."""
+    b, s_len, h, d = q.shape
+    if d == 512:
+        flash_attention.d512_launches += 1
+    elif pipelined:
         flash_attention.pipelined_launches += 1
     else:
         flash_attention.launches += 1
-    flash_attention.flops += 4 * b * h * s_len * t_len * 64
-    return o, lse
+    flash_attention.flops += 4 * b * h * s_len * k.shape[1] * d
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, S, H, 64), k/v (B, T, H, 64) in any layout TMA reads
-    (:func:`check_tma_layout`) -> (o (B, S, H, 64) contiguous,
+    """q (B, S, H, D), k/v (B, T, H, D), D = 64 or 512, in any layout the
+    kernels read (:func:`check_tma_layout`) -> (o (B, S, H, D) contiguous,
     lse (B*H, S)).  No copy of q, k or v is made.
 
-    CUDA: the kernel on the current stream (the deferred-softmax one with
-    ``PIPELINE_FWD`` set and T a whole number (>= 2) of kv tiles).  CPU:
-    the matching plain version."""
+    CUDA: the kernel on the current stream (at head_dim 64 the
+    deferred-softmax one with ``PIPELINE_FWD`` set and T a whole number
+    (>= 2) of kv tiles; at 512 that switch raises, since that kernel is not
+    ported there).  CPU: the matching plain version, at any head_dim."""
     pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1])
     if q.device.type != "cpu":
         return _fwd_kernel(q, k, v, scale, pipelined)
@@ -233,7 +263,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (BH, S, 64), k/v (BH, T, 64) -> (o (BH, S, 64), lse (BH, S)):
+    """q (BH, S, D), k/v (BH, T, D) -> (o (BH, S, D), lse (BH, S)):
     :func:`flash_fwd` with H = 1, so the same dispatch (``PIPELINE_FWD``)
     and the same checks (raises on anything the kernel does not take)."""
     o, lse = flash_fwd(*_as4d(q, k, v), scale)
@@ -243,7 +273,7 @@ def flash_fwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _as4d(*xs: torch.Tensor):
     for x in xs:
         if x.dim() != 3:
-            raise ValueError(f"expected (BH, seq, 64), got {tuple(x.shape)}")
+            raise ValueError(f"expected (BH, seq, D), got {tuple(x.shape)}")
     return tuple(x[:, :, None] for x in xs)
 
 
@@ -362,12 +392,13 @@ def _check_stats(q: torch.Tensor, **stats: torch.Tensor) -> None:
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dq (B, S, H, 64) contiguous and delta = rowsum(dO * O) (B*H, S) fp32,
-    from (B, L, H, 64) q, k, v, the forward's o and lse, and the incoming
-    dO, in any layout TMA reads.  No copy is made.
+    """dq (B, S, H, D) contiguous and delta = rowsum(dO * O) (B*H, S) fp32,
+    from (B, L, H, D) q, k, v, the forward's o and lse, and the incoming
+    dO, in any layout the kernels read; D = 64 or 512.  No copy is made.
 
-    CUDA: the dq kernel on the current stream (it computes delta too);
-    raises on anything it does not take.  CPU: the plain versions."""
+    CUDA: the dq kernel of that head_dim on the current stream (it computes
+    delta too); raises on anything it does not take.  CPU: the plain
+    versions."""
     if q.device.type == "cpu":
         q3, k3, v3, o3, do3 = (_heads_first(x) for x in (q, k, v, o, do))
         delta = _delta(o3, do3)
@@ -375,25 +406,30 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _heads_last(dq, q.shape[0], q.shape[2]), delta
     _check_4d(q, k, v, o=o, do=do)
     _check_stats(q, lse=lse)
-    b, s_len, h, _ = q.shape
+    b, s_len, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dq_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("flash_bwd_dq_d512_bf16" if d == 512 else "flash_bwd_dq_bf16",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, s_len, k.shape[1],
             _strides(q, k, v, o, do, dq), float(scale), _stream(q))
-    flash_attention.bwd_dq_launches += 1
+    if d == 512:
+        flash_attention.d512_bwd_dq_launches += 1
+    else:
+        flash_attention.bwd_dq_launches += 1
     return dq, delta
 
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk, dv (B, T, H, 64) contiguous from (B, L, H, 64) q, k, v, dO in any
-    layout TMA reads, the forward's lse and :func:`flash_bwd_dq`'s delta.
+    """dk, dv (B, T, H, D) contiguous from (B, L, H, D) q, k, v, dO in any
+    layout the kernels read (D = 64 or 512), the forward's lse and
+    :func:`flash_bwd_dq`'s delta.
 
-    CUDA: the dk/dv kernel on the current stream; raises on anything it
-    does not take.  CPU: the plain version."""
+    CUDA: the dk/dv kernel of that head_dim on the current stream; raises
+    on anything it does not take.  CPU: the plain version."""
     if q.device.type == "cpu":
         dk, dv = flash_bwd_dkv_reference(
             *(_heads_first(x) for x in (q, k, v, do)), lse, delta, scale)
@@ -401,14 +437,18 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _heads_last(dv, v.shape[0], v.shape[2]))
     _check_4d(q, k, v, do=do)
     _check_stats(q, lse=lse, delta=delta)
-    b, s_len, h, _ = q.shape
+    b, s_len, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch("flash_bwd_dkv_bf16", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch("flash_bwd_dkv_d512_bf16" if d == 512 else "flash_bwd_dkv_bf16",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, s_len, k.shape[1],
             _strides(q, k, v, do, dk, dv), float(scale), _stream(q))
-    flash_attention.bwd_dkv_launches += 1
+    if d == 512:
+        flash_attention.d512_bwd_dkv_launches += 1
+    else:
+        flash_attention.bwd_dkv_launches += 1
     return dk, dv
 
 
@@ -416,9 +456,10 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
               scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients of :func:`flash_fwd`'s o w.r.t. q, k, v: (B, L, H, 64)
-    inputs in any layout TMA reads, the forward's o and lse, the incoming
-    dO -> dq, dk, dv contiguous (B, L, H, 64).  No copy is made.
+    """Gradients of :func:`flash_fwd`'s o w.r.t. q, k, v: (B, L, H, D)
+    inputs (D = 64 or 512) in any layout the kernels read, the forward's o
+    and lse, the incoming dO -> dq, dk, dv contiguous (B, L, H, D).  No copy
+    is made.
 
     CUDA: the dq kernel (with delta), then the dk/dv kernel, on the current
     stream; raises on anything they do not take.  CPU: the plain
@@ -429,7 +470,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_bwd_dq_3d(q, k, v, o, lse, do, scale
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(BH, S, 64) q, o, dO and (BH, T, 64) k, v -> (dq (BH, S, 64),
+    """(BH, S, D) q, o, dO and (BH, T, D) k, v -> (dq (BH, S, D),
     delta (BH, S)): :func:`flash_bwd_dq` with H = 1."""
     dq, delta = flash_bwd_dq(*_as4d(q, k, v, o), lse, *_as4d(do), scale)
     return dq[:, :, 0], delta
@@ -437,7 +478,7 @@ def flash_bwd_dq_3d(q, k, v, o, lse, do, scale
 
 def flash_bwd_dkv_3d(q, k, v, do, lse, delta, scale
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dk, dv (BH, T, 64): :func:`flash_bwd_dkv` with H = 1."""
+    """dk, dv (BH, T, D): :func:`flash_bwd_dkv` with H = 1."""
     dk, dv = flash_bwd_dkv(*_as4d(q, k, v, do), lse, delta, scale)
     return dk[:, :, 0], dv[:, :, 0]
 
@@ -453,9 +494,10 @@ def flash_bwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """(B, S, H, 64) attention whose forward and backward are the kernels.
+    """(B, S, H, D) attention, D = 64 or 512, whose forward and backward are
+    the kernels.
 
-    Both read the (B, L, H, 64) views they are given through their strides
+    Both read the (B, L, H, D) views they are given through their strides
     and return contiguous tensors of that layout: the forward saves q, k, v
     as given with o and the LSE, and no copy is made in either direction
     (so the caller's reshape of o, and autograd's of the gradients, are
@@ -483,7 +525,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Kernel launches are counted (CUDA only): ``flash_attention.launches``
     the forward, ``.pipelined_launches`` the deferred-softmax forward,
     ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two backward
-    kernels."""
+    kernels, all at head_dim 64; ``.d512_launches``,
+    ``.d512_bwd_dq_launches`` and ``.d512_bwd_dkv_launches`` the three
+    kernels at head_dim 512."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not (torch.is_grad_enabled()
@@ -501,3 +545,6 @@ flash_attention.pipelined_launches = 0
 flash_attention.flops = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0
+flash_attention.d512_launches = 0
+flash_attention.d512_bwd_dq_launches = 0
+flash_attention.d512_bwd_dkv_launches = 0

@@ -101,7 +101,7 @@ class DiffUTEPipeline:
                  params: Dict[str, Dict[str, torch.Tensor]], device="cuda"):
         self.config = config
         self.device = resolve_device(device)
-        configure_cuda_numerics(self.device, config.unet)
+        configure_cuda_numerics(self.device, config.unet, config.vae)
         self.vae = load_module(AutoencoderKL, config.vae, params["vae"],
                                self.device, config.vae.dtype)
         self.unet = load_module(UNet2DCondition, config.unet, params["unet"],

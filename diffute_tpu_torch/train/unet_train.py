@@ -97,7 +97,7 @@ class UNetTrainer(Trainer):
             unet=dataclasses.replace(config.unet, dtype=dtype),
             trocr=dataclasses.replace(config.trocr, dtype=dtype))
         self.device = resolve_device(device)
-        configure_cuda_numerics(self.device, config.unet)
+        configure_cuda_numerics(self.device, config.unet, config.vae)
 
         self.vae = load_module(AutoencoderKL, config.vae, frozen_params["vae"],
                                self.device, dtype)

@@ -51,7 +51,7 @@ class VAETrainer(Trainer):
         config = self.config = dataclasses.replace(
             config, vae=dataclasses.replace(config.vae, dtype=self.dtype))
         self.device = resolve_device(device)
-        configure_cuda_numerics(self.device)
+        configure_cuda_numerics(self.device, config.vae)
         self.vae = self._init_trained(AutoencoderKL, config.vae, vae_params,
                                       total_steps)
 

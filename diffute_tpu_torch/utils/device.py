@@ -19,18 +19,21 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-def configure_cuda_numerics(device: torch.device, unet_config=None) -> None:
-    """On a CUDA device: refuse a flash-routed UNet (``unet_config``, when
-    one is run) that is not bf16 (the kernels take bf16 only) and turn TF32
-    off, so that fp32 convolutions and matmuls run in full fp32 (cuDNN's
-    default is TF32) and an fp32 model computes what the JAX one does.  The
-    bf16 paths do not depend on it."""
+def configure_cuda_numerics(device: torch.device, *flash_configs) -> None:
+    """On a CUDA device: refuse a flash-routed model (each of
+    ``flash_configs``, a ``UNetConfig`` or ``VAEConfig`` that is run) that
+    is not bf16 (the kernels take bf16 only) and turn TF32 off, so that fp32
+    convolutions and matmuls run in full fp32 (cuDNN's default is TF32) and
+    an fp32 model computes what the JAX one does.  The bf16 paths do not
+    depend on it."""
     if device.type != "cuda":
         return
-    if (unet_config is not None and unet_config.use_flash_attention
-            and unet_config.dtype != torch.bfloat16):
-        raise ValueError("the CUDA flash kernels take bf16; set "
-                         "UNetConfig(dtype=torch.bfloat16) (--mixed_precision "
-                         "bf16) or turn use_flash_attention off")
+    for cfg in flash_configs:
+        if cfg.use_flash_attention and cfg.dtype != torch.bfloat16:
+            name = type(cfg).__name__
+            raise ValueError(f"the CUDA flash kernels take bf16; set "
+                             f"{name}(dtype=torch.bfloat16) "
+                             f"(--mixed_precision bf16) or turn "
+                             f"use_flash_attention off")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -6,7 +6,10 @@ and the same posterior normal: the JAX step draws it with
 ``jax.random.normal(rng, mean.shape)``, reproduced here and handed to the
 port as a tensor.  Then the trainer's own behaviour: gradient
 checkpointing changes nothing, bf16 keeps fp32 masters, a save and restore
-continues bit for bit, and ``run_vae``'s flags.
+continues bit for bit, and ``run_vae``'s flags.  With
+``VAEConfig.use_flash_attention`` set on both sides, at 64 x 64 so that the
+tiny VAE's mid-block sees 1024 keys and takes the gate's flash route (the
+JAX Pallas kernels in interpret mode): encode, decode and a step.
 """
 
 import dataclasses
@@ -19,26 +22,36 @@ import pytest
 import torch
 
 from diffute_tpu.config import tiny_test_config as j_tiny
+from diffute_tpu.models import AutoencoderKL as JVAE
 from diffute_tpu.train.optim import build_optimizer as j_build_optimizer
 from diffute_tpu.train.state import TrainState as JTrainState
 from diffute_tpu.train.vae_train import make_vae_train_step
 from diffute_tpu.utils.params import init_vae_params as j_init_vae
 
+import diffute_tpu_torch.ops.attention as tattn
 from diffute_tpu_torch.compat import vae_state_dict
 from diffute_tpu_torch.config import tiny_test_config
-from diffute_tpu_torch.train import VAETrainer, run_vae
+from diffute_tpu_torch.models import AutoencoderKL
+from diffute_tpu_torch.pipeline import DiffUTEPipeline
+from diffute_tpu_torch.train import UNetTrainer, VAETrainer, run_vae
 from diffute_tpu_torch.train import checkpoint as ckpt
+from diffute_tpu_torch.utils import init_pipeline_params
 
 BATCH, RES, TOTAL_STEPS = 2, 32, 10
+# the tiny VAE downsamples by 2: its mid-block sees (64 / 2)^2 = 1024 keys,
+# the least the gate sends to the flash kernels
+FLASH_RES = 64
 
 
-def _configs(accum=1, remat=False, mixed_precision="no"):
+def _configs(accum=1, remat=False, mixed_precision="no", flash=False,
+             res=RES):
     out = []
     for cfg in (j_tiny(), tiny_test_config()):
         opt = dataclasses.replace(cfg.train.optimizer, lr_scheduler="constant")
         out.append(dataclasses.replace(
-            cfg, vae=dataclasses.replace(cfg.vae, remat=remat),
-            edit=dataclasses.replace(cfg.edit, resolution=RES),
+            cfg, vae=dataclasses.replace(cfg.vae, remat=remat,
+                                         use_flash_attention=flash),
+            edit=dataclasses.replace(cfg.edit, resolution=res),
             train=dataclasses.replace(
                 cfg.train, train_batch_size=BATCH,
                 gradient_accumulation_steps=accum,
@@ -46,15 +59,15 @@ def _configs(accum=1, remat=False, mixed_precision="no"):
     return out
 
 
-def _batch(seed, lead=(BATCH,)):
+def _batch(seed, lead=(BATCH,), res=RES):
     rng = np.random.RandomState(seed)
-    return {"pixel_values": rng.randint(0, 256, lead + (RES, RES, 3)).astype(
+    return {"pixel_values": rng.randint(0, 256, lead + (res, res, 3)).astype(
         np.uint8)}
 
 
 def _normal(jcfg, rng):
     """The JAX step's posterior normal for ``rng``, NCHW."""
-    r = RES // jcfg.vae.scale_factor
+    r = jcfg.edit.resolution // jcfg.vae.scale_factor
     z = jax.random.normal(rng, (BATCH, r, r, jcfg.vae.latent_channels),
                           jnp.float32)
     return torch.tensor(np.asarray(z).transpose(0, 3, 1, 2))
@@ -72,8 +85,20 @@ def _trainer(tcfg, jparams):
 
 def test_vae_step_matches_jax(jparams):
     """Loss, pre-clip grad norm, gradients and the updated weights."""
-    jcfg, tcfg = _configs()
-    batch, rng = _batch(0), jax.random.PRNGKey(4)
+    _check_step_matches_jax(jparams, flash=False)
+
+
+def test_vae_flash_step_matches_jax(jparams):
+    """The same with both sides routing the mid-blocks through flash
+    attention (its plain versions here, the Pallas kernels in interpret
+    mode in JAX), at the same tolerances."""
+    _check_step_matches_jax(jparams, flash=True)
+
+
+def _check_step_matches_jax(jparams, flash):
+    res = FLASH_RES if flash else RES
+    jcfg, tcfg = _configs(flash=flash, res=res)
+    batch, rng = _batch(0, res=res), jax.random.PRNGKey(4)
     # the step with plain SGD(1) reads the gradients back (grads = params -
     # new_params); AdamW then runs on them outside the step, as optax's
     # chain in the step would
@@ -194,11 +219,68 @@ def test_run_vae_smoke_resumes_and_refuses_unported(tmp_path, capsys):
     assert run_vae.parse_args([]).report_to == "tensorboard"
 
 
-def test_vae_flash_attention_still_refused():
-    # the flash kernels take head_dim 64; the VAE mid-block's is 512
-    from diffute_tpu_torch.config import VAEConfig
+def _flash_spy(monkeypatch):
+    """Record the (q shape, grad enabled) of every call the attention gate
+    makes to flash_attention."""
+    calls = []
+    real = tattn.flash_attention
 
-    with pytest.raises(NotImplementedError,
-                       match="not ported.*ROADMAP.*head_dim 512"):
-        VAEConfig(use_flash_attention=True)
-    assert VAEConfig(remat=True).remat
+    def spy(q, k, v, scale=None):
+        calls.append((tuple(q.shape), torch.is_grad_enabled()))
+        return real(q, k, v, scale=scale)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    return calls
+
+
+def test_vae_flash_encode_decode_matches_jax(jparams, monkeypatch):
+    jcfg, tcfg = _configs(flash=True, res=FLASH_RES)
+    x = np.random.RandomState(7).uniform(
+        -1, 1, (BATCH, FLASH_RES, FLASH_RES, 3)).astype(np.float32)
+    jvae = JVAE(jcfg.vae)
+    j_mean, j_logvar = jvae.apply({"params": jparams}, jnp.asarray(x),
+                                  method=JVAE.encode)
+    j_dec = jvae.apply({"params": jparams}, j_mean, method=JVAE.decode)
+    model = AutoencoderKL(tcfg.vae).eval()
+    model.load_state_dict(vae_state_dict(jparams), strict=True)
+    calls = _flash_spy(monkeypatch)
+    with torch.no_grad():
+        mean, logvar = model.encode(torch.from_numpy(x).permute(0, 3, 1, 2))
+        dec = model.decode(mean)
+    # each mid-block once, single-head over 1024 tokens of 16 channels
+    assert calls == [((BATCH, 1024, 1, 16), False)] * 2
+    # the goldens' tolerance (tests/test_torch_port_models.py)
+    for name, mine, ref in (("mean", mean, j_mean), ("logvar", logvar, j_logvar),
+                            ("decode", dec, j_dec)):
+        np.testing.assert_allclose(mine.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(ref), atol=5e-5, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_vae_flash_step_reaches_flash_in_both_mid_blocks(jparams, monkeypatch):
+    # a training step differentiates through both: the autograd function
+    jcfg, tcfg = _configs(flash=True, res=FLASH_RES)
+    calls = _flash_spy(monkeypatch)
+    loss = _trainer(tcfg, jparams).accumulate_grads(
+        _batch(4, res=FLASH_RES), _normal(jcfg, jax.random.PRNGKey(5)))
+    assert np.isfinite(float(loss))
+    assert calls == [((BATCH, 1024, 1, 16), True)] * 2
+
+
+def test_vae_flash_flag_reaches_the_model_from_every_entry_point(jparams):
+    """The trainers replace the VAE config's dtype and keep the flag: stage
+    1 (bf16), stage 2's frozen VAE and the serving pipeline."""
+    cfg = _configs(mixed_precision="bf16", flash=True, res=FLASH_RES)[1]
+    params = init_pipeline_params(cfg, seed=0, device="cpu")
+    stage1 = _trainer(cfg, jparams)
+    stage2 = UNetTrainer(cfg, params["unet"],
+                         {"vae": params["vae"], "trocr": params["trocr"]},
+                         device="cpu", total_steps=TOTAL_STEPS)
+    pipe = DiffUTEPipeline(cfg, params, device="cpu")
+    for vae in (stage1.vae, stage2.vae, pipe.vae):
+        assert [vae.encoder.mid_block.attentions[0].use_flash,
+                vae.decoder.mid_block.attentions[0].use_flash] == [True, True]
+    assert stage1.config.vae.use_flash_attention
+    assert stage1.vae.encoder.conv_in.weight.dtype == torch.bfloat16
+    assert not any(m.use_flash for m in AutoencoderKL(
+        _configs()[1].vae).modules() if hasattr(m, "use_flash"))
