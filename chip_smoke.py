@@ -38,7 +38,7 @@ Phases, one line each (any failure raises and exits non-zero):
      matmul's fused bias equals the two-step bit for bit; what ptxas says of
      the three sources (registers, spills, serialized wgmma);
   3c. the head_dim-512 kernels (the VAE mid-block's single head,
-     csrc/flash_d512.cu): the forward at (B, S, T) = (1, 4096, 4096),
+     csrc/flash_wide.cu): the forward at (B, S, T) = (1, 4096, 4096),
      (4, 4096, 4096), (1, 16384, 16384) and a ragged (2, 1000, 1500), dq
      (with delta), dk/dv and the pair at (4, 4096, 4096) and the ragged
      shape, each against its tiled plain version at the kernels' 32-row kv
@@ -47,7 +47,10 @@ Phases, one line each (any failure raises and exits non-zero):
      consumed, dk x 1.02) failing, and strided (B, S, 1, 512) views of a
      packed projection read bit for bit as the contiguous route; each timed
      beside its plain one-pass version, its bound and SDPA (whose backend is
-     recorded); what ptxas says of the three kernels;
+     recorded); what ptxas says of the source's six kernels;
+  3d. the same at head_dim 256 (small_config's VAE mid-block, the same
+     source's other instantiation): the forward at (1, 4096, 4096),
+     (16, 4096, 4096) and (2, 1000, 1500), the backward at the last two;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -93,6 +96,14 @@ Phases, one line each (any failure raises and exits non-zero):
      the loss gradient of four weights flag on against off and against the
      fp32 step; three stage-1 steps at batch 4 flag off and on (2 forward,
      2 dq, 2 dk/dv launches a step; seconds and peak memory);
+  8b. the same for small_config's VAE (one head of 256 over 4,096 tokens
+     at 256^2), bf16, weights from seed 0: an encode and a decode at 256^2
+     flag on against off; 20-step 256^2 edits flag on and off (2
+     head_dim-256 forwards with the flag) and one with the masked-latent
+     blend (3); one small stage-2 step at batch 16 (2 forwards, the small
+     UNet's 20/10/10); the gradient check; three stage-1 steps at batch 16
+     flag off and on (2 forward, 2 dq, 2 dk/dv a step); every flash counter
+     asserted on each path of 8a and 8b;
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -132,9 +143,10 @@ Exits non-zero, with no result, when no CUDA device is available.
 builds the kernels and runs phases 8-10 alone (about 2 minutes).
 
     python3 chip_smoke.py --d512-only
+    python3 chip_smoke.py --d256-only
 
-builds the kernels and runs phases 3c and 8a alone (about a minute) and
-prints their kernels line.
+build the kernels and run phases 3c and 8a, or 3d and 8b, alone (about a
+minute) and print their kernels line.
 
     python3 chip_smoke.py --eval-only
 
@@ -944,22 +956,26 @@ def check_backward(dev):
     return dq_results, dkv_results
 
 
-# (B*H, S, T) at head_dim 512, the VAE mid-block's single head: a 512^2
-# encode or decode (batch 1), stage 1's step (batch 4), a 1024^2 decode, and
-# a ragged shape
-D512_FORWARD_SHAPES = [(1, 4096, 4096), (4, 4096, 4096), (1, 16384, 16384),
-                       (2, 1000, 1500)]
-D512_BACKWARD_SHAPES = [(4, 4096, 4096), (2, 1000, 1500)]
-D512_SCALE = 512 ** -0.5
+# (B*H, S, T) at the wide head_dims, the VAE mid-block's single head.  At
+# 512 (SD2 width): a 512^2 encode or decode (batch 1), stage 1's step
+# (batch 4), a 1024^2 decode, and a ragged shape.  At 256 (small_config): a
+# 256^2 encode or decode (batch 1), stage 1's step (batch 16), and a ragged
+# shape.
+WIDE_FORWARD_SHAPES = {
+    512: [(1, 4096, 4096), (4, 4096, 4096), (1, 16384, 16384),
+          (2, 1000, 1500)],
+    256: [(1, 4096, 4096), (16, 4096, 4096), (2, 1000, 1500)]}
+WIDE_BACKWARD_SHAPES = {512: [(4, 4096, 4096), (2, 1000, 1500)],
+                        256: [(16, 4096, 4096), (2, 1000, 1500)]}
 
 
-def sdpa_d512(q, k, v):
-    """The library's call for the head_dim-512 forward's function (a
-    yardstick), on (BH, L, 512) tensors as one head each."""
+def sdpa_wide(q, k, v):
+    """The library's call for a wide head_dim forward's function (a
+    yardstick), on (BH, L, D) tensors as one head each."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None],
-                                          scale=D512_SCALE)[:, 0]
+                                          scale=q.shape[-1] ** -0.5)[:, 0]
 
 
 def sdpa_backends(q, k, v) -> dict:
@@ -970,39 +986,54 @@ def sdpa_backends(q, k, v) -> dict:
     names = {m.value: name for name, m in SDPBackend.__members__.items()}
     args = (q[:, None], k[:, None], v[:, None])
     try:
-        picked = names.get(
-            int(torch._fused_sdp_choice(*args, scale=D512_SCALE)), "unknown")
+        picked = names.get(int(torch._fused_sdp_choice(
+            *args, scale=q.shape[-1] ** -0.5)), "unknown")
     except Exception as exc:  # a private function: its absence is reported
         picked = f"unknown ({type(exc).__name__})"
     takes = {}
     for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
-                sdpa_d512(q, k, v)
+                sdpa_wide(q, k, v)
             takes[name] = True
         except RuntimeError:
             takes[name] = False
     return {"picked": picked, "takes": takes}
 
 
-def check_d512(dev) -> dict:
-    """Phase 3c: the head_dim-512 kernels (csrc/flash_d512.cu) against their
-    tiled plain versions at the kernels' kv tile (D512_BLOCK_KV), at the
-    head_dim-64 criteria: the forward at D512_FORWARD_SHAPES (3 half-ulps,
-    relative L2 2e-3, LSE 1e-4), dq (with delta), dk/dv and the pair at
-    D512_BACKWARD_SHAPES (3 half-ulps, relative L2 1e-3, delta 1e-5); the
-    same bits twice; mutants of the plain versions (the LSE left in base 2,
-    the last kv tile never consumed, dk x 1.02) must fail; strided
-    (B, S, 1, 512) views of a packed projection read without a copy, bit for
-    bit the contiguous route.  Each timed beside its plain one-pass
-    version, its bound and SDPA (whose backend is recorded).  Returns
-    {"fwd" | "dq" | "dkv": [result per shape]}."""
+_PTXAS_SHOWN = set()
+
+
+def show_ptxas(source: str) -> None:
+    """Print what ptxas says of ``source`` once a run (the first phase that
+    checks one of its kernels prints it)."""
+    from diffute_tpu_torch.ops import _build
+
+    if source not in _PTXAS_SHOWN:
+        _PTXAS_SHOWN.add(source)
+        phase("ptxas", source=source, info=_build.ptxas_info(source))
+
+
+def check_wide(dev, d: int) -> dict:
+    """Phase 3c (d = 512) or 3d (d = 256): the wide head_dim kernels
+    (csrc/flash_wide.cu) against their tiled plain versions at the kernels'
+    kv tile (WIDE_BLOCK_KV), at the head_dim-64 criteria: the forward at
+    WIDE_FORWARD_SHAPES (3 half-ulps, relative L2 2e-3, LSE 1e-4), dq (with
+    delta), dk/dv and the pair at WIDE_BACKWARD_SHAPES (3 half-ulps,
+    relative L2 1e-3, delta 1e-5); the same bits twice; mutants of the plain
+    versions (the LSE left in base 2, the last kv tile never consumed, dk x
+    1.02) must fail; strided (B, S, 1, d) views of a packed projection read
+    without a copy, bit for bit the contiguous route.  Each timed beside its
+    plain one-pass version, its bound and SDPA (whose backend is recorded).
+    Returns {"fwd" | "dq" | "dkv": [result per shape]}."""
     from diffute_tpu_torch.ops import _build
 
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    bkv, sc = fa.D512_BLOCK_KV, D512_SCALE
-    phase("ptxas", source="flash_d512.cu",
-          info=_build.ptxas_info("flash_d512.cu"))
+    # D512_BLOCK_KV: the name a checkout from before head_dim 256 also has
+    bkv = fa.D512_BLOCK_KV
+    sc = d ** -0.5
+    show_ptxas("flash_wide.cu" if os.path.exists(
+        os.path.join(_build.CSRC, "flash_wide.cu")) else "flash_d512.cu")
     g = torch.Generator(device=dev).manual_seed(5)
     out = {"fwd": [], "dq": [], "dkv": []}
 
@@ -1010,15 +1041,15 @@ def check_d512(dev) -> dict:
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
 
-    for bh, s, t in D512_FORWARD_SHAPES:
-        q, k, v = randn(bh, s, 512), randn(bh, t, 512), randn(bh, t, 512)
+    for bh, s, t in WIDE_FORWARD_SHAPES[d]:
+        q, k, v = randn(bh, s, d), randn(bh, t, d), randn(bh, t, d)
         o, lse = fa.flash_fwd_3d(q, k, v, sc)
         o2, lse2 = fa.flash_fwd_3d(q, k, v, sc)
         torch.cuda.synchronize()
         ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
         lse_err = (lse - rlse).abs().max().item()
-        big = s >= 16384
-        res = dict(shape=[bh, s, t, 512], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+        big = bh * s * t >= 2 ** 28
+        res = dict(shape=[bh, s, t, d], **bwd_errors(o, ro, FUSED_HALF_ULPS),
                    max_abs_err_lse=lse_err,
                    same_bits_twice=(torch.equal(o, o2)
                                     and torch.equal(lse, lse2)),
@@ -1026,12 +1057,12 @@ def check_d512(dev) -> dict:
                    plain_ms=time_ms(
                        lambda: fa.flash_attention_reference(q, k, v, sc),
                        iters=5 if big else 25),
-                   library_ms=time_ms(lambda: sdpa_d512(q, k, v),
+                   library_ms=time_ms(lambda: sdpa_wide(q, k, v),
                                       iters=5 if big else 25),
                    library_call="scaled_dot_product_attention",
                    sdpa=sdpa_backends(q, k, v),
-                   **bound(4 * s * t * 512 * bh,
-                           2 * 512 * bh * (2 * s + 2 * t) + 4 * bh * s))
+                   **bound(4 * s * t * d * bh,
+                           2 * d * bh * (2 * s + 2 * t) + 4 * bh * s))
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
         if not out["fwd"]:
             base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
@@ -1047,13 +1078,13 @@ def check_d512(dev) -> dict:
                 "last_tile_dropped_rel_l2": dropped["rel_l2_err"],
                 "last_tile_dropped_lse_abs": m_lse}
         del ro, rlse, o2, lse2
-        phase("kernel_fwd_d512", **res)
+        phase(f"kernel_fwd_d{d}", **res)
         if not (fwd_ok(res, lse_err) and res["same_bits_twice"]):
-            raise RuntimeError(f"the head_dim-512 forward disagrees: {res}")
+            raise RuntimeError(f"the head_dim-{d} forward disagrees: {res}")
         out["fwd"].append(res)
 
-    for bh, s, t in D512_BACKWARD_SHAPES:
-        q, k, v, do = (randn(bh, n, 512) for n in (s, t, t, s))
+    for bh, s, t in WIDE_BACKWARD_SHAPES[d]:
+        q, k, v, do = (randn(bh, n, d) for n in (s, t, t, s))
         o, lse = fa.flash_fwd_3d(q, k, v, sc)
 
         def run_dq():
@@ -1074,15 +1105,15 @@ def check_d512(dev) -> dict:
         args = (q, k, v, do, lse, delta, sc)
         try:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-            lib_out = sdpa_d512(*leaves)
+            lib_out = sdpa_wide(*leaves)
             library_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, leaves, do, retain_graph=True), iters=5)
             del lib_out, leaves
         except RuntimeError as exc:  # the library may refuse the width
             library_ms = None
-            phase("sdpa_backward_d512", error=str(exc)[:200])
-        io, st = 2 * 512 * bh, 4 * bh
-        common = dict(shape=[bh, s, t, 512], library_ms=library_ms,
+            phase(f"sdpa_backward_d{d}", error=str(exc)[:200])
+        io, st = 2 * d * bh, 4 * bh
+        common = dict(shape=[bh, s, t, d], library_ms=library_ms,
                       library_call="autograd.grad through "
                       "scaled_dot_product_attention: dq, dk and dv together",
                       same_bits_twice=same)
@@ -1090,20 +1121,20 @@ def check_d512(dev) -> dict:
                       ms=time_ms(run_dq),
                       plain_ms=time_ms(
                           lambda: fa.flash_bwd_dq_reference(*args), iters=5),
-                      **bound(6 * s * t * 512 * bh,
+                      **bound(6 * s * t * d * bh,
                               io * (4 * s + 2 * t) + st * 2 * s))
         res_dkv = dict(common, max_abs_err=max(err["dk"]["max_abs_err"],
                                                err["dv"]["max_abs_err"]),
                        dk=err["dk"], dv=err["dv"], ms=time_ms(run_dkv),
                        plain_ms=time_ms(
                            lambda: fa.flash_bwd_dkv_reference(*args), iters=5),
-                       **bound(8 * s * t * 512 * bh,
+                       **bound(8 * s * t * d * bh,
                                io * (2 * s + 4 * t) + st * 2 * s))
-        pair = dict(shape=[bh, s, t, 512], library_ms=library_ms,
+        pair = dict(shape=[bh, s, t, d], library_ms=library_ms,
                     ms=time_ms(lambda: fa.flash_bwd_3d(q, k, v, o, lse, do,
                                                        sc)),
                     dq_plus_dkv_ms=res_dq["ms"] + res_dkv["ms"],
-                    **bound(10 * s * t * 512 * bh,
+                    **bound(10 * s * t * d * bh,
                             io * (4 * s + 4 * t) + st * s))
         for r in (res_dq, res_dkv, pair):
             r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -1114,20 +1145,20 @@ def check_d512(dev) -> dict:
             res_dkv["mutants"] = {
                 "dk_scaled_1.02_rel_l2": scaled["rel_l2_err"]}
         del rq, rk, rv, again
-        phase("kernel_bwd_dq_d512", **res_dq)
-        phase("kernel_bwd_dkv_d512", **res_dkv)
-        phase("kernel_bwd_pair_d512", **pair)
+        phase(f"kernel_bwd_dq_d{d}", **res_dq)
+        phase(f"kernel_bwd_dkv_d{d}", **res_dkv)
+        phase(f"kernel_bwd_pair_d{d}", **pair)
         if not (all(bwd_ok(e) for e in err.values()) and delta_err <= TOL_DELTA
                 and same):
-            raise RuntimeError(f"the head_dim-512 backward disagrees at "
+            raise RuntimeError(f"the head_dim-{d} backward disagrees at "
                                f"{(bh, s, t)}: {err}, delta {delta_err}, "
                                f"same bits twice {same}")
         out["dq"].append(res_dq)
         out["dkv"].append(res_dkv)
 
-    # q, k, v, dO as (B, S, 1, 512) views of one packed (B, S, 4 * 512)
+    # q, k, v, dO as (B, S, 1, d) views of one packed (B, S, 4 * d)
     # projection: no copy, and the contiguous route's bits
-    q4, k4, v4, do4 = strided_qkv(g, dev, b=2, s=4096, h=1, n=4, d=512)
+    q4, k4, v4, do4 = strided_qkv(g, dev, b=2, s=4096, h=1, n=4, d=d)
     o4, lse4 = fa.flash_fwd(q4, k4, v4, sc)
     grads = fa.flash_bwd(q4, k4, v4, o4, lse4, do4, sc)
     flat = [x.contiguous() for x in (q4, k4, v4, do4)]
@@ -1146,11 +1177,11 @@ def check_d512(dev) -> dict:
                out_contiguous=all(x.is_contiguous() for x in (o4, *grads)),
                contiguous_route_bits=torch.equal(o4, fo) and all(
                    torch.equal(a, b) for a, b in zip(grads, fgrads)))
-    phase("kernel_d512_strided", **res)
+    phase(f"kernel_d{d}_strided", **res)
     if not (fwd_ok(res, res["max_abs_err_lse"])
             and all(bwd_ok(e) for e in err.values())
             and res["out_contiguous"] and res["contiguous_route_bits"]):
-        raise RuntimeError(f"the head_dim-512 kernels on strided views "
+        raise RuntimeError(f"the head_dim-{d} kernels on strided views "
                            f"disagree: {res}")
     out["fwd"].append(res)
     out["dq"].append(dict(res, max_abs_err=err["dq"]["max_abs_err"]))
@@ -1198,6 +1229,11 @@ def counters() -> dict:
             "flash_fwd_d512": flash_attention.d512_launches,
             "flash_bwd_dq_d512": flash_attention.d512_bwd_dq_launches,
             "flash_bwd_dkv_d512": flash_attention.d512_bwd_dkv_launches,
+            # (a checkout from before head_dim 256 has no such counters)
+            **{key: getattr(flash_attention, name, 0) for key, name in (
+                ("flash_fwd_d256", "d256_launches"),
+                ("flash_bwd_dq_d256", "d256_bwd_dq_launches"),
+                ("flash_bwd_dkv_d256", "d256_bwd_dkv_launches"))},
             "gn_stats": group_norm_stats.launches,
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
@@ -1245,6 +1281,9 @@ def reset_counters() -> None:
     flash_attention.d512_launches = 0
     flash_attention.d512_bwd_dq_launches = 0
     flash_attention.d512_bwd_dkv_launches = 0
+    flash_attention.d256_launches = 0
+    flash_attention.d256_bwd_dq_launches = 0
+    flash_attention.d256_bwd_dkv_launches = 0
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
         fn.launches = 0
@@ -1953,10 +1992,10 @@ VAE_FLASH_STEPS, STAGE1_STEPS = 20, 3
 TOL_VAE_FLASH_REL = TOL_UNET_REL
 
 
-def d512_launches(rec: dict) -> dict:
+def wide_launches(rec: dict, d: int) -> dict:
     return {k: rec["launches"][k]
-            for k in ("flash_fwd_d512", "flash_bwd_dq_d512",
-                      "flash_bwd_dkv_d512")}
+            for k in (f"flash_fwd_d{d}", f"flash_bwd_dq_d{d}",
+                      f"flash_bwd_dkv_d{d}")}
 
 
 # the loss gradient of these weights, stage 1 flag on against off
@@ -1968,16 +2007,139 @@ STAGE1_PROBES = ["encoder.mid_block.attentions.0.to_q.weight",
 GRAD_VS_FP32_RATIO = 1.5
 
 
-def stage1_grad_check(dev, vae_params, stage1_config, batch) -> dict:
+@contextlib.contextmanager
+def flash_route_spy(records: list):
+    """Keep, for each call the model makes of the flash route
+    (ops.attention.flash_attention), its q, k, v and o, the gradient that
+    reaches o, and the gradients the route returns for q, k and v."""
+    att = importlib.import_module("diffute_tpu_torch.ops.attention")
+    real = att.flash_attention
+
+    def spy(q, k, v, scale=None):
+        rec = {"q": q.detach().clone(), "k": k.detach().clone(),
+               "v": v.detach().clone()}
+        records.append(rec)
+
+        def keep(name):
+            def hook(grad):
+                rec[name] = grad.detach().clone()
+            return hook
+        for name, x in (("dq", q), ("dk", k), ("dv", v)):
+            x.register_hook(keep(name))
+        o = real(q, k, v, scale=scale)
+        rec["o"] = o.detach().clone()
+        o.register_hook(keep("do"))
+        return o
+
+    att.flash_attention = spy
+    try:
+        yield records
+    finally:
+        att.flash_attention = real
+
+
+@contextlib.contextmanager
+def latent_grad_spy(grads: list):
+    """Keep the loss gradient that reaches the stage-1 trainer's latent
+    sample z (everything the encoder's weights learn passes through it)."""
+    vt = importlib.import_module("diffute_tpu_torch.train.vae_train")
+    real = vt.sample_latent
+
+    def spy(*args):
+        z = real(*args)
+        z.register_hook(lambda g: grads.append(g.detach().float().clone()))
+        return z
+
+    vt.sample_latent = spy
+    try:
+        yield grads
+    finally:
+        vt.sample_latent = real
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def flash_route_check(records: list, d: int) -> list:
+    """The flash route held at its own boundary inside a stage-1 step: for
+    each mid-block call the flagged step made, on the q, k, v and dO the
+    step gave it, o against the tiled plain forward and the dq, dk and dv
+    the step's backward produced against the tiled plain backward (fed the
+    route's o and the plain LSE), at the kernel criteria (3 half-ulps of
+    max |ref|; relative L2 2e-3 for o, 1e-3 for the gradients).  Mutants of
+    the route's gradients (dk x 1.02, dq and dk swapped, dq and dk at the
+    scale of twice the width) must fail.  For scale, the route's and the
+    dense bf16 route's gradients are also read against fp32 dense attention
+    on the same inputs.  Unlike the weight probes these see no rounding of
+    the layers around the attention, so they separate at every scale."""
+    from diffute_tpu_torch.ops.attention import dense_attention
+
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    sc, bkv = d ** -0.5, fa.WIDE_BLOCK_KV
+    if len(records) != 2 or any(n not in r for r in records
+                                for n in ("dq", "dk", "dv", "do")):
+        raise RuntimeError(f"the flagged step did not take two mid-block "
+                           f"calls through the flash route, forward and "
+                           f"backward: {[sorted(r) for r in records]}")
+    out = []
+    for rec in records:
+        q, k, v, o, do = (fa._heads_first(rec[n])
+                          for n in ("q", "k", "v", "o", "do"))
+        ro, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
+        ref = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_tiled_reference(
+            q, k, v, o, lse, do, sc, bkv)))
+        got = {n: fa._heads_first(rec[n]) for n in ref}
+        err = {n: bwd_errors(got[n], ref[n]) for n in ref}
+        res = dict(shape=list(rec["q"].shape),
+                   o=bwd_errors(o, ro, FUSED_HALF_ULPS), **err)
+        ok = fused_ok(res["o"]) and all(bwd_ok(err[n]) for n in ref)
+        mutants = {
+            "dk_x1.02": dict(got, dk=got["dk"] * 1.02),
+            "dq_dk_swapped": dict(got, dq=got["dk"], dk=got["dq"]),
+            "scale_of_2d": dict(got, dq=got["dq"] * 2 ** -0.5,
+                                dk=got["dk"] * 2 ** -0.5)}
+        res["mutants_rel_l2"] = {
+            m: max(rel_l2(g[n], ref[n]) for n in ref)
+            for m, g in mutants.items()}
+        passed = [m for m, g in mutants.items()
+                  if all(bwd_ok(bwd_errors(g[n], ref[n])) for n in ref)]
+        vs_fp32 = {}
+        for route, dtype in (("dense_bf16", torch.bfloat16),
+                             ("fp32", torch.float32)):
+            leaves = [rec[n].detach().to(dtype).requires_grad_()
+                      for n in ("q", "k", "v")]
+            vs_fp32[route] = torch.autograd.grad(
+                dense_attention(*leaves, sc), leaves, rec["do"].to(dtype))
+            del leaves
+        exact = dict(zip(("dq", "dk", "dv"), vs_fp32.pop("fp32")))
+        dense = dict(zip(("dq", "dk", "dv"), vs_fp32.pop("dense_bf16")))
+        res["flash_vs_fp32"] = {n: rel_l2(rec[n], exact[n]) for n in exact}
+        res["dense_vs_fp32"] = {n: rel_l2(dense[n], exact[n]) for n in exact}
+        del ro, lse, ref, got, mutants, exact, dense
+        torch.cuda.empty_cache()
+        if not ok or passed:
+            raise RuntimeError(f"the flash route inside the stage-1 step "
+                               f"disagrees with its plain version, or the "
+                               f"criterion passes the mutants {passed}: "
+                               f"{res}")
+        out.append(res)
+    return out
+
+
+def stage1_grad_check(dev, vae_params, stage1_config, batch, d) -> dict:
     """The loss and the loss gradient of STAGE1_PROBES on the initial
     weights, one posterior draw: the bf16 trainer with the flag on, with it
     off, and the fp32 trainer with it off (the reference both bf16 ones are
     held to).  Each probe passes when flash is within TOL_GRAD_REL of dense
     in relative L2, or no further than GRAD_VS_FP32_RATIO times dense's
-    distance from the fp32 gradient."""
+    distance from the fp32 gradient.  The flagged step's flash route is
+    also held at its own boundary (flash_route_check); and the gradient
+    reaching the latent sample is read in each run, which says how far the
+    bf16 runs' rounding alone moves what the encoder's probes receive."""
     from diffute_tpu_torch.train import VAETrainer
 
-    runs = {}
+    runs, records, dz = {}, [], {}
     draws = None
     for name, on, precision in (("flash", True, "bf16"),
                                 ("dense", False, "bf16"),
@@ -1987,8 +2149,10 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch) -> dict:
             cfg.train, mixed_precision=precision))
         trainer = VAETrainer(cfg, vae_params, device=dev, total_steps=1)
         if draws is None:
-            draws = trainer.draw(WORKFLOW_BATCH).float()
-        loss = trainer.accumulate_grads(batch, draws).item()
+            draws = trainer.draw(cfg.train.train_batch_size).float()
+        spy = flash_route_spy(records) if on else contextlib.nullcontext()
+        with spy, latent_grad_spy(dz.setdefault(name, [])):
+            loss = trainer.accumulate_grads(batch, draws).item()
         masters = trainer.state.params_dict()
         runs[name] = (loss, {n: masters[n].grad.float().clone()
                              for n in STAGE1_PROBES})
@@ -1997,13 +2161,19 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch) -> dict:
         torch.cuda.empty_cache()
 
     def rel(a, b):
-        return {n: ((runs[a][1][n] - runs[b][1][n]).norm()
-                    / runs[b][1][n].norm()).item() for n in STAGE1_PROBES}
+        return {n: rel_l2(runs[a][1][n], runs[b][1][n])
+                for n in STAGE1_PROBES}
 
     res = dict(loss={k: v[0] for k, v in runs.items()},
                grad_rel_l2_err=rel("flash", "dense"),
                flash_vs_fp32=rel("flash", "fp32_dense"),
                dense_vs_fp32=rel("dense", "fp32_dense"),
+               grad_norm_fp32={n: runs["fp32_dense"][1][n].norm().item()
+                               for n in STAGE1_PROBES},
+               latent_grad=dict(
+                   dense_vs_fp32=rel_l2(dz["dense"][0], dz["fp32_dense"][0]),
+                   flash_vs_dense=rel_l2(dz["flash"][0], dz["dense"][0]),
+                   norm_fp32=dz["fp32_dense"][0].norm().item()),
                tolerance=TOL_GRAD_REL, ratio_to_dense=GRAD_VS_FP32_RATIO,
                loss_tolerance=TOL_LOSS_REL)
     bad = [n for n in STAGE1_PROBES
@@ -2014,24 +2184,50 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch) -> dict:
     if bad or not abs(loss_flash - loss_dense) <= TOL_LOSS_REL * loss_dense:
         raise RuntimeError(f"stage-1 gradient with flash differs at {bad}: "
                            f"{res}")
+    res["flash_route"] = flash_route_check(records, d)
     return res
 
 
-def check_vae_flash(dev) -> dict:
-    """Phase 8a: the full-width SD2 VAE with VAEConfig.use_flash_attention
-    on every path that runs it.  One encode and one decode at 512^2 and
-    1024^2, flag on against flag off with the same weights (each output
-    within TOL_VAE_FLASH_REL; peak memory of each); a 20-step edit at 512^2
-    and at 1024^2 with the flag (2 head_dim-512 forwards each; only the box
-    changes; the gap to the same seed with the flag off in LSB); one
-    stage-2 step with the flagged frozen VAE (2 head_dim-512 forwards, the
+def expect_flash(rec: dict, **nonzero) -> None:
+    """Every flash counter of ``rec``: those named as given, the others 0
+    (the head_dim-64, -256 and -512 kernels alike)."""
+    expect_launches(rec, **{k: nonzero.get(k, 0) for k in rec["launches"]
+                            if k.startswith("flash_")})
+
+
+# The VAE's flash paths by scale: phase 8a (full, SD2 width: head_dim 512)
+# and 8b (small, small_config: head_dim 256).  ``per_pass``: the UNet's flash
+# self-attentions a pass at each resolution (full: 10 at 512^2, 15 at
+# 1024^2; small: 10 at 256^2); ``blend``: also a 20-step edit with the
+# masked-latent blend (three encodes and decodes).
+VAE_FLASH_SCALES = {
+    "full": dict(d=512, resolutions=(RES, 1024), per_pass=(10, 15),
+                 batch=WORKFLOW_BATCH, blend=False, prefix=""),
+    "small": dict(d=256, resolutions=(256,), per_pass=(10,), batch=16,
+                  blend=True, prefix="small_")}
+
+
+def check_vae_flash(dev, scale: str = "full") -> dict:
+    """Phase 8a (``scale`` "full": the SD2 VAE, head_dim 512) or 8b
+    ("small": small_config's VAE, block_out_channels (64, 128, 256), one
+    head of 256 over 4,096 tokens at 256^2) with
+    VAEConfig.use_flash_attention on every path that runs it, at the
+    scale's full width, bf16, weights from seed 0 (VAE_FLASH_SCALES).  One
+    encode and one decode at each resolution, flag on against flag off with
+    the same weights (each output within TOL_VAE_FLASH_REL; peak memory of
+    each; 1 wide forward each); a 20-step edit at each resolution with the
+    flag (2 wide forwards; only the box changes; the gap to the same seed
+    with the flag off in LSB), at the small scale also one with the blend
+    (3); one stage-2 step with the flagged frozen VAE (2 wide forwards, the
     UNet's 20/10/10); then, with the VAE's weights alone resident, the loss
     gradient of four weights flag on against off (stage1_grad_check) and
-    three stage-1 steps through VAETrainer at batch 4, 512^2, bf16, remat,
-    flag off and on (seconds and peak memory; 2 forward, 2 dq and 2 dk/dv
-    launches a step).  Returns the numbers and the launches by path."""
+    three stage-1 steps through VAETrainer (batch 4 full, 16 small; the
+    first resolution; bf16, remat), flag off and on (seconds and peak
+    memory; 2 forward, 2 dq and 2 dk/dv launches a step).  Every flash
+    counter is asserted on each path.  Returns the numbers and the launches
+    by path."""
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
-                                          card_serving_config)
+                                          card_serving_config, small_config)
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
                                               make_unet_batch, make_vae_batch)
     from diffute_tpu_torch.models import AutoencoderKL
@@ -2040,8 +2236,11 @@ def check_vae_flash(dev) -> dict:
     from diffute_tpu_torch.utils import init_pipeline_params
     from diffute_tpu_torch.utils.params import load_module
 
+    sc = VAE_FLASH_SCALES[scale]
+    d, resolutions, batch_size = sc["d"], sc["resolutions"], sc["batch"]
+    pre, fwd_key = sc["prefix"], f"flash_fwd_d{d}"
     bf16 = torch.bfloat16
-    base, resolutions = DiffUTEConfig(), (RES, 1024)
+    base = DiffUTEConfig() if scale == "full" else small_config()
     out = {"launches": {}}
     params = init_pipeline_params(base, seed=0, device=dev)
     flags = (False, True)
@@ -2074,25 +2273,25 @@ def check_vae_flash(dev) -> dict:
             rec[what] = dict(
                 rel_max_err=rel, finite=finite,
                 **{("flash" if k else "dense"): dict(
-                    seconds=r["seconds"], launches=d512_launches(r),
+                    seconds=r["seconds"], launches=wide_launches(r, d),
                     max_memory_allocated=r["max_memory_allocated"],
                     peak_above_resident=(r["max_memory_allocated"]
                                          - r["memory_allocated_before"]))
                    for k, r in ((False, r_off), (True, r_on))})
-            expect_launches(r_on, flash_fwd_d512=1, flash_fwd=0)
-            expect_launches(r_off, flash_fwd_d512=0)
+            expect_flash(r_on, **{fwd_key: 1})
+            expect_flash(r_off)
             if not (finite and rel <= TOL_VAE_FLASH_REL):
                 raise RuntimeError(f"VAE {what} at {res}^2 with flash "
                                    f"differs from dense: {rec[what]}")
-            out["launches"][f"vae_{what}_{res}"] = r_on["launches"]
+            out["launches"][f"{pre}vae_{what}_{res}"] = r_on["launches"]
         codec[res] = rec
         del runs, z, x
-    phase("vae_flash_codec", tolerance_rel_max=TOL_VAE_FLASH_REL,
+    phase(f"{pre}vae_flash_codec", tolerance_rel_max=TOL_VAE_FLASH_REL,
           **{str(r): v for r, v in codec.items()})
     out["codec"] = codec
     del vaes
 
-    # ---- 20-step edits at 512^2 and 1024^2, flag off and on, same seed
+    # ---- 20-step edits at each resolution, flag off and on, same seed
     serving = dataclasses.replace(
         card_serving_config(base),
         edit=dataclasses.replace(base.edit,
@@ -2101,8 +2300,7 @@ def check_vae_flash(dev) -> dict:
                  serving, vae=vae_config(on, dtype=bf16)), params, dev)
              for on in flags}
     edits = {}
-    # the UNet's flash self-attentions a pass: 10 at 512^2, 15 at 1024^2
-    for res, per_pass in zip(resolutions, (10, 15)):
+    for res, per_pass in zip(resolutions, sc["per_pass"]):
         image, box = scene(res)
         ec = dataclasses.replace(serving.edit, resolution=res)
         for pipe in pipes.values():
@@ -2113,17 +2311,30 @@ def check_vae_flash(dev) -> dict:
                 for on in flags}
         for on in flags:
             only_boxes_changed(runs[on]["out"], image, [box])
-            expect_launches(runs[on], flash_fwd=per_pass * VAE_FLASH_STEPS,
-                            flash_fwd_d512=2 if on else 0)
+            expect_flash(runs[on], flash_fwd=per_pass * VAE_FLASH_STEPS,
+                         **{fwd_key: 2 if on else 0})
         lsb = int(np.abs(runs[True]["out"].astype(np.int16)
                          - runs[False]["out"]).max())
         edits[res] = dict(max_lsb_flash_vs_dense=lsb, **{
             ("flash" if on else "dense"): dict(
-                seconds=r["seconds"], launches=d512_launches(r),
+                seconds=r["seconds"], launches=wide_launches(r, d),
                 max_memory_allocated=r["max_memory_allocated"])
             for on, r in runs.items()})
-        out["launches"][f"edit_{res}_vae_flash"] = runs[True]["launches"]
-        phase("vae_flash_edit", resolution=res, steps=VAE_FLASH_STEPS,
+        out["launches"][f"{pre}edit_{res}_vae_flash"] = runs[True]["launches"]
+        if sc["blend"]:
+            # the crop is encoded too: three encodes and decodes
+            bec = dataclasses.replace(ec, masked_latent_blend=True)
+            r = measured(dev, lambda: pipes[True].edit(
+                image, box, "VAE FLASH", seed=5, edit_config=bec)[0])
+            only_boxes_changed(r["out"], image, [box])
+            expect_flash(r, flash_fwd=per_pass * VAE_FLASH_STEPS,
+                         **{fwd_key: 3})
+            edits[res]["flash_blend"] = dict(
+                seconds=r["seconds"], launches=wide_launches(r, d),
+                max_memory_allocated=r["max_memory_allocated"])
+            out["launches"][f"{pre}edit_{res}_vae_flash_blend"] = (
+                r["launches"])
+        phase(f"{pre}vae_flash_edit", resolution=res, steps=VAE_FLASH_STEPS,
               **edits[res])
     out["edits"] = edits
     del pipes, runs
@@ -2136,27 +2347,27 @@ def check_vae_flash(dev) -> dict:
                                        remat=True),
         vae=vae_config(True),
         edit=dataclasses.replace(base.edit, resolution=resolutions[0]),
-        train=TrainConfig(train_batch_size=WORKFLOW_BATCH,
+        train=TrainConfig(train_batch_size=batch_size,
                           mixed_precision="bf16", gradient_checkpointing=True,
                           max_train_steps=1))
     trainer = UNetTrainer(s2cfg, params["unet"],
                           {"vae": params["vae"], "trocr": params["trocr"]},
                           device=dev, total_steps=1)
     data = SyntheticSceneDataset(s2cfg, seed=0)
-    batch = make_unet_batch([data[i] for i in range(WORKFLOW_BATCH)], s2cfg)
+    batch = make_unet_batch([data[i] for i in range(batch_size)], s2cfg)
     r = measured(dev, lambda: {k: v.item() for k, v in
                                  trainer.step(batch).items()})
-    stage2 = dict(r.pop("out"), seconds=r["seconds"], launches=r["launches"],
+    stage2 = dict(r.pop("out"), batch=batch_size, seconds=r["seconds"],
+                  launches=r["launches"],
                   max_memory_allocated=r["max_memory_allocated"])
-    phase("vae_flash_stage2", **stage2)
-    # the masked and the target image encoded at batch 4, no gradient: two
-    # head_dim-512 forwards; the UNet's flash counts as in phase 6
-    expect_launches(r, flash_fwd_d512=2, flash_bwd_dq_d512=0,
-                    flash_bwd_dkv_d512=0, flash_fwd=20, flash_bwd_dq=10,
-                    flash_bwd_dkv=10)
+    phase(f"{pre}vae_flash_stage2", **stage2)
+    # the masked and the target image encoded, no gradient: two wide
+    # forwards; the UNet's flash counts as in phase 6
+    expect_flash(r, **{fwd_key: 2}, flash_fwd=20, flash_bwd_dq=10,
+                 flash_bwd_dkv=10)
     if not (np.isfinite(stage2["loss"]) and np.isfinite(stage2["grad_norm"])):
         raise RuntimeError(f"stage-2 step with the flagged VAE: {stage2}")
-    out["launches"]["stage2_vae_flash"] = r["launches"]
+    out["launches"][f"{pre}stage2_vae_flash"] = r["launches"]
     out["stage2"] = stage2
     del trainer, batch, data
     # stage 1 holds the VAE's weights alone, as phase 8 does
@@ -2170,17 +2381,17 @@ def check_vae_flash(dev) -> dict:
         return dataclasses.replace(
             base, vae=vae_config(on, remat=True),
             edit=dataclasses.replace(base.edit, resolution=resolutions[0]),
-            train=TrainConfig(train_batch_size=WORKFLOW_BATCH,
+            train=TrainConfig(train_batch_size=batch_size,
                               mixed_precision="bf16",
                               gradient_checkpointing=True,
                               max_train_steps=STAGE1_STEPS))
 
     data = SyntheticSceneDataset(stage1_config(False), seed=0)
-    batches = [make_vae_batch([data[WORKFLOW_BATCH * i + j]
-                               for j in range(WORKFLOW_BATCH)])
+    batches = [make_vae_batch([data[batch_size * i + j]
+                               for j in range(batch_size)])
                for i in range(STAGE1_STEPS)]
     stage1 = {"grad_check": stage1_grad_check(
-        dev, params["vae"], stage1_config, batches[0])}
+        dev, params["vae"], stage1_config, batches[0], d)}
     for on in flags:
         trainer = VAETrainer(stage1_config(on), params["vae"], device=dev,
                              total_steps=STAGE1_STEPS)
@@ -2192,12 +2403,12 @@ def check_vae_flash(dev) -> dict:
                               max_memory_allocated=r["max_memory_allocated"],
                               memory_allocated_before=r[
                                   "memory_allocated_before"],
-                              launches=d512_launches(r)))
-            expect_launches(r, flash_fwd_d512=2 if on else 0,
-                            flash_bwd_dq_d512=2 if on else 0,
-                            flash_bwd_dkv_d512=2 if on else 0, flash_fwd=0)
+                              launches=wide_launches(r, d)))
+            expect_flash(r, **({f"flash_fwd_d{d}": 2,
+                                f"flash_bwd_dq_d{d}": 2,
+                                f"flash_bwd_dkv_d{d}": 2} if on else {}))
             if on:
-                out["launches"][f"stage1_vae_flash_step{len(steps)}"] = (
+                out["launches"][f"{pre}stage1_vae_flash_step{len(steps)}"] = (
                     r["launches"])
         if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
                    for s in steps):
@@ -2206,8 +2417,8 @@ def check_vae_flash(dev) -> dict:
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-    phase("vae_flash_stage1", batch=WORKFLOW_BATCH, resolution=resolutions[0],
-          **stage1)
+    phase(f"{pre}vae_flash_stage1", batch=batch_size,
+          resolution=resolutions[0], **stage1)
     out["stage1"] = stage1
     del batches, data, params
     gc.collect()
@@ -2230,21 +2441,19 @@ def kernel_entry(name, source, replaces, results, launches) -> dict:
             "shapes": results}
 
 
-def d512_entries(d512: dict, launches: dict) -> list:
-    """The three head_dim-512 kernels' entries, with phase 8a's launches by
-    path (``launches``: path -> counters read right after it ran)."""
+def wide_entries(results: dict, launches: dict, d: int) -> list:
+    """The three head_dim-``d`` kernels' entries (phase 3c or 3d), with the
+    VAE's flash paths' launches by path (``launches``: path -> counters read
+    right after it ran)."""
     def by_path(key):
         return {path: rec[key] for path, rec in launches.items() if rec[key]}
 
-    return [kernel_entry("flash_fwd_d512_bf16", "flash_d512.cu",
-                         "flash_attention.py:275", d512["fwd"],
-                         by_path("flash_fwd_d512")),
-            kernel_entry("flash_bwd_dq_d512_bf16", "flash_d512.cu",
-                         "flash_attention.py:396", d512["dq"],
-                         by_path("flash_bwd_dq_d512")),
-            kernel_entry("flash_bwd_dkv_d512_bf16", "flash_d512.cu",
-                         "flash_attention.py:437", d512["dkv"],
-                         by_path("flash_bwd_dkv_d512"))]
+    return [kernel_entry(f"{name}_d{d}_bf16", "flash_wide.cu",
+                         f"flash_attention.py:{line}", results[part],
+                         by_path(f"{name}_d{d}"))
+            for name, part, line in (("flash_fwd", "fwd", 275),
+                                     ("flash_bwd_dq", "dq", 396),
+                                     ("flash_bwd_dkv", "dkv", 437))]
 
 
 def vae_flash_summary(vae_flash: dict) -> dict:
@@ -2593,6 +2802,10 @@ def main(argv=None) -> None:
     p.add_argument("--d512-only", action="store_true",
                    help="build the kernels and run phases 3c and 8a (the "
                    "head_dim-512 kernels and the VAE's flash paths) alone")
+    p.add_argument("--d256-only", action="store_true",
+                   help="build the kernels and run phases 3d and 8b (the "
+                   "head_dim-256 kernels and the small VAE's flash paths) "
+                   "alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -2619,15 +2832,17 @@ def main(argv=None) -> None:
         print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
         check_fused_kernels(torch.device("cuda", 0))
         return
-    if args.d512_only:
+    if args.d512_only or args.d256_only:
         from diffute_tpu_torch.ops import _build
 
         print(gpu_line(), flush=True)
         _build.load()
         dev = torch.device("cuda", 0)
-        d512 = check_d512(dev)
-        vae_flash = check_vae_flash(dev)
-        print(json.dumps({"kernels": d512_entries(d512, vae_flash["launches"]),
+        d, scale = (512, "full") if args.d512_only else (256, "small")
+        wide = check_wide(dev, d)
+        vae_flash = check_vae_flash(dev, scale)
+        print(json.dumps({"kernels": wide_entries(wide, vae_flash["launches"],
+                                                  d),
                           "vae_flash": vae_flash_summary(vae_flash)}),
               flush=True)
         return
@@ -2659,7 +2874,9 @@ def main(argv=None) -> None:
         check_fused_kernels(torch.device("cuda", 0))
         fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
         if hasattr(fa, "D512_BLOCK_KV"):
-            check_d512(torch.device("cuda", 0))
+            check_wide(torch.device("cuda", 0), 512)
+        if 256 in fa.HEAD_DIMS:
+            check_wide(torch.device("cuda", 0), 256)
         return
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
@@ -2721,7 +2938,10 @@ def main(argv=None) -> None:
     fused = check_fused_kernels(dev)
 
     # ---- 3c. the head_dim-512 kernels against their plain versions
-    d512 = check_d512(dev)
+    d512 = check_wide(dev, 512)
+
+    # ---- 3d. the head_dim-256 kernels against their plain versions
+    d256 = check_wide(dev, 256)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -2961,13 +3181,15 @@ def main(argv=None) -> None:
     root = tempfile.mkdtemp(prefix="diffute_workflow_")
     try:
         workflow, stage2_export = check_workflow(dev, root)
-        # ---- 8a. the VAE's flash paths at full width
+        # ---- 8a. the VAE's flash paths at full width; 8b. those of
+        # small_config's VAE
         vae_flash = check_vae_flash(dev)
+        small_vae_flash = check_vae_flash(dev, "small")
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wl = {**workflow["launches"], **verifier_paths["eval"]["launches"],
-          **vae_flash["launches"]}
+          **vae_flash["launches"], **small_vae_flash["launches"]}
 
     def path_launches(key):
         """``key``'s launches on each path, from the counters read right
@@ -3021,7 +3243,8 @@ def main(argv=None) -> None:
         kernel_entry("w8_matmul_bf16", "quant.cu", "quant.py:51", fused["w8"],
                      {"edit_flags": flag_launches["w8"],
                       **path_launches("w8")}),
-        *d512_entries(d512, vae_flash["launches"]),
+        *wide_entries(d512, vae_flash["launches"], 512),
+        *wide_entries(d256, small_vae_flash["launches"], 256),
     ], "edit_seconds": [e["seconds"] for e in edits],
         "edit_flags_seconds": [e["seconds"] for e in flag_edits],
         "edit_flags_max_memory_allocated": [e["max_memory_allocated"]
@@ -3051,6 +3274,7 @@ def main(argv=None) -> None:
                                        for h in history],
         "workflow": {k: v for k, v in workflow.items() if k != "launches"},
         "vae_flash": vae_flash_summary(vae_flash),
+        "small_vae_flash": vae_flash_summary(small_vae_flash),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

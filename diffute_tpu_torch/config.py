@@ -30,8 +30,8 @@ class VAEConfig:
     dtype: torch.dtype = torch.float32
     remat: bool = False
     # Route the mid-block's single-head attention (head_dim 512 at SD2
-    # width, 4096 to 16384 tokens) through the CUDA flash kernels
-    # (csrc/flash_d512.cu); bf16 only on the card.
+    # width, 4096 to 16384 tokens; 256 at small_config, 4096 tokens) through
+    # the CUDA flash kernels (csrc/flash_wide.cu); bf16 only on the card.
     use_flash_attention: bool = False
 
     @property

@@ -1,20 +1,22 @@
-// Flash attention at head_dim 512 for Hopper (sm_90a): the forward, the dq
-// kernel (which also writes delta) and the dk/dv kernel, bf16 in and out,
-// fp32 LSE and delta.
+// Flash attention at the wide head_dims, 256 and 512, for Hopper (sm_90a):
+// the forward, the dq kernel (which also writes delta) and the dk/dv kernel,
+// bf16 in and out, fp32 LSE and delta.  One source, templated on the width
+// (`Wide<D>`), instantiated at head_dim 512 (the SD2 VAE mid-block's single
+// head) and 256 (the small VAE's, `small_config`).
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py at
-// the VAE mid-block's width: `_fwd_kernel` (pl.pallas_call in
-// `_flash_fwd_3d`), `_bwd_dq_kernel` and `_bwd_dkv_kernel` (both in
-// `_flash_bwd_3d`).  The Pallas kernels take any head_dim; their BlockSpecs
-// put whole 512-wide rows in VMEM and carry (m, l, acc), dq or dk/dv in
-// VMEM scratch across a sequential grid axis.  Here one block owns a tile of
-// rows of one (batch, head) and loops over the other axis itself, as the
-// head_dim-64 kernels (flash_fwd.cu, flash_bwd.cu) do; those stay as they
-// are, with their tiles fixed for 64 columns (flash_sm90.cuh).
+// those widths: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
+// `_bwd_dq_kernel` and `_bwd_dkv_kernel` (both in `_flash_bwd_3d`).  The
+// Pallas kernels take any head_dim; their BlockSpecs put whole rows in VMEM
+// and carry (m, l, acc), dq or dk/dv in VMEM scratch across a sequential
+// grid axis.  Here one block owns a tile of rows of one (batch, head) and
+// loops over the other axis itself, as the head_dim-64 kernels
+// (flash_fwd.cu, flash_bwd.cu) do; those stay as they are, with their tiles
+// fixed for 64 columns (flash_sm90.cuh).
 //
-//   q (B, S, H, 512), k/v (B, T, H, 512)  bf16, any strides that are
-//     multiples of 8 elements with the last one 1 (16-byte cp.async)
-//   o, dq (B, S, H, 512), dk, dv (B, T, H, 512) bf16 through their strides
+//   q (B, S, H, D), k/v (B, T, H, D)  bf16, any strides that are multiples
+//     of 8 elements with the last one 1 (16-byte cp.async)
+//   o, dq (B, S, H, D), dk, dv (B, T, H, D) bf16 through their strides
 //   lse, delta (B*H, S) fp32 contiguous; lse natural log
 //
 //   forward:  s = q k^T, online softmax in base 2 (scale*log2 e folded into
@@ -23,31 +25,43 @@
 //             ds = p * (dO v^T - delta), dq = bf16(ds) k * scale
 //   dk/dv:    dv = bf16(p)^T dO, dk = bf16(ds)^T q * scale
 //
-// What bounds them on the H100: operations.  At head_dim 512 a score costs
-// 2*512 FLOPs in each product against one exp2, so the exp2 that competes
-// with the products at head_dim 64 is an eighth as heavy here; the inputs
-// are a few MB to tens of MB, read once per tile of the other axis (from L2).
-// What is scarce is on-chip room.  One 512-wide bf16 row is 1 KB, and a
-// 32 x 512 fp32 accumulator is 64 KB: an o (or dq) tile of 32 rows takes a
-// quarter of an SM's registers, dk plus dv half.
+// What bounds them on the H100: operations.  At these widths a score costs
+// 2*D FLOPs in each product against one exp2, so the exp2 that competes
+// with the products at head_dim 64 is a quarter (256) or an eighth (512) as
+// heavy here; the inputs are a few MB to tens of MB, read once per tile of
+// the other axis (from L2).  What is scarce is on-chip room.  One 512-wide
+// bf16 row is 1 KB, and a 32 x 512 fp32 accumulator is 64 KB: an o (or dq)
+// tile of 32 rows takes a quarter of an SM's registers, dk plus dv half.
 //
-// Layout chosen: every tile is 32 rows; a block is 8 warps, two groups of
-// 16 rows times four slices of 128 columns of head_dim.  A warp keeps its
+// Layout: every tile is 32 rows.  head_dim is cut into D / 128 slices of
+// 128 columns and the resident tile (q; q and dO; k and v) into two groups
+// of 16 rows; a block is one warp per (group, slice).  A warp keeps its
 // 16 x 128 slice of each accumulator in registers (64 fp32 a thread; 128
-// for dk and dv), so the 512 columns are split between warps.  The
-// contraction over head_dim in s = q k^T (and dp = dO v^T) is then split
-// too: each warp multiplies its 128 columns and writes its 16 x 32 fp32
-// partial scores to shared memory (16 KB a product), and after a barrier
-// every warp of a row group sums the four partials in the same order, so
-// the four slices see bit-identical scores and p.  That costs a barrier and
-// 16 KB of shared-memory traffic a product and tile, against no redundant
-// product (splitting head_dim across blocks instead would recompute s in
-// every block).  Shared memory, 227 KB a block, holds one resident 32-row
-// tile per operand that stays (q; or q and dO; or k and v) and two stages
-// of the streamed pair (k, v; or q, dO), 32 KB a tile, plus the partials:
-// 176 KB for the forward, 224 KB for each backward kernel, so one block an
-// SM.  Tiles are XOR-swizzled by 16-byte chunk (chunk ^ (row & 7)) so that
-// ldmatrix reads 8 rows of one column chunk without bank conflicts.
+// for dk and dv), so the columns are split between warps.  The contraction over head_dim in
+// s = q k^T (and dp = dO v^T) is then split too: each warp multiplies its
+// 128 columns and writes its 16 x 32 fp32 partial scores to shared memory,
+// and after a barrier every warp of a row group sums the D / 128 partials in
+// the same (slice) order, so the slices see bit-identical scores and p.
+// That costs a barrier and the partials' shared-memory traffic a product and
+// tile, against no redundant product (splitting head_dim across blocks
+// instead would recompute s in every block).  The streamed operands (k, v;
+// or q, dO) come in 32-row tiles, two stages deep.  Shared memory, 227 KB a
+// block, holds the resident tiles, the two stages and the partials:
+//
+//   D = 512: 8 warps (2 groups x 4 slices); 176 KB forward, 224 KB each
+//     backward kernel, so one block an SM;
+//   D = 256: 4 warps (2 groups x 2 slices); 88 KB forward, 112 KB each
+//     backward kernel, so two blocks an SM.
+//
+// At 256 a 64-row resident tile (8 warps, one block an SM) would halve the
+// L2 traffic of the streamed axis; timed on an H100 it was slower at every
+// shape of the small VAE's paths (PERF.md, section 6), so the 32-row tile
+// stays.  At 512 a 64-row tile does not fit (16 warps of 166 to 253
+// registers, and 320 KB of shared memory for the backward).
+//
+// Tiles are XOR-swizzled by 16-byte chunk (chunk ^ (row & 7)) so that
+// ldmatrix reads 8 rows of one column chunk without bank conflicts (a row is
+// 512 or 1,024 bytes, a multiple of the 128 bytes the XOR spans).
 //
 // This first cut uses mma.sync m16n8k16 and a double-buffered cp.async ring;
 // TMA (a 512-wide row is 8 boxes of 64 columns under a 128-byte swizzle),
@@ -66,24 +80,49 @@
 
 namespace {
 
-constexpr int kD = 512;                         // head_dim
-constexpr int kRows = 32;                       // rows of every tile
-constexpr int kGroups = kRows / 16;             // 16-row groups a tile
-constexpr int kSlices = 4;                      // head_dim slices
-constexpr int kSlice = kD / kSlices;            // 128 columns a slice
-constexpr int kThreads = kGroups * kSlices * 32;  // 256
-constexpr int kTile = kRows * kD * 2;           // 32 KB of bf16
-constexpr int kPart = kSlices * kGroups * 4 * 32 * 16;  // 16 KB of partials
+constexpr int kRows = 32;            // rows of every tile
+constexpr int kGroups = kRows / 16;  // 16-row groups a tile
+constexpr int kSlice = 128;          // head_dim columns a warp owns
 constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
+
+// The tiling of one instantiation at head_dim D.
+template <int D>
+struct Wide {
+  static constexpr int kD = D;
+  static constexpr int kSlices = D / kSlice;     // 128-column slices
+  static constexpr int kThreads = kGroups * kSlices * 32;
+  static constexpr int kChunks = D / 8;          // 16-byte chunks a row
+  static constexpr int kChunkLog = log2_of(kChunks);
+  static constexpr int kTile = kRows * D * 2;    // bytes of bf16
+  static constexpr int kPart = kSlices * kGroups * 4 * 32 * 16;  // partials
+  // q | k[2] | v[2] | partials
+  static constexpr int kFwdSmem = 5 * kTile + kPart;
+  // q | dO | k[2] | v[2] | partials of s | of dp | lse*log2e | delta
+  static constexpr int kDqSmem = 6 * kTile + 2 * kPart + 2 * kRows * 4;
+  // k | v | q[2] | dO[2] | partials of s^T | of dp^T | lse[2] | delta[2]
+  static constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * kRows * 4;
+  static_assert(D % 256 == 0, "whole slices, and delta's rows");
+  static_assert(kChunks == 1 << kChunkLog, "rows of a power of two chunks");
+  static_assert((kRows * kChunks) % kThreads == 0, "whole chunks a thread");
+  static_assert(kRows % (kThreads / 32) == 0, "delta's rows");
+  static_assert(kThreads >= 2 * kRows, "load_row_stats' threads");
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448, "227 KB a block");
+};
+
+using D512 = Wide<512>;
+using D256 = Wide<256>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// byte offset of 16-byte chunk `chunk` (0..63) of row `row` in a swizzled
-// [rows][512] bf16 tile
+// byte offset of 16-byte chunk `chunk` of row `row` in a swizzled [rows][D]
+// bf16 tile
+template <class W>
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return row * (kD * 2) + ((chunk ^ (row & 7)) << 4);
+  return row * (W::kD * 2) + ((chunk ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
@@ -137,7 +176,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A (B, L, H, 512) operand of one (batch, head): its first row and the
+// A (B, L, H, D) operand of one (batch, head): its first row and the
 // element stride between rows.
 struct Rows {
   const __nv_bfloat16* p;
@@ -150,24 +189,26 @@ __device__ __forceinline__ Rows rows_of(const void* base, const long long* st,
           st[1]};
 }
 
-// Copy rows [row0, row0 + 32) of `src` into the swizzled tile at `dst`;
-// rows at or past `n_rows` are zero-filled.  8 chunks of 16 bytes a thread,
-// neighbouring threads on neighbouring chunks of one row.
+// Copy rows [row0, row0 + N) of `src` into the swizzled tile at `dst`;
+// rows at or past `n_rows` are zero-filled.  N * D / 8 / threads chunks of
+// 16 bytes a thread, neighbouring threads on neighbouring chunks of one row.
+template <class W, int N>
 __device__ __forceinline__ void load_tile(uint32_t dst, Rows src, int row0,
                                           int n_rows) {
 #pragma unroll
-  for (int i = 0; i < kRows * 64 / kThreads; ++i) {
-    const int id = threadIdx.x + i * kThreads;
-    const int r = id >> 6, c = id & 63;
+  for (int i = 0; i < N * W::kChunks / W::kThreads; ++i) {
+    const int id = threadIdx.x + i * W::kThreads;
+    const int r = id >> W::kChunkLog, c = id & (W::kChunks - 1);
     const bool ok = row0 + r < n_rows;
     const __nv_bfloat16* g = src.p + (ok ? (row0 + r) * src.stride : 0) + c * 8;
-    cp_async_16(dst + swz(r, c), g, ok ? 16 : 0);
+    cp_async_16(dst + swz<W>(r, c), g, ok ? 16 : 0);
   }
 }
 
 // acc (16 x 32) = rows [a0, a0 + 16) of tile `a` times rows [0, 32) of tile
 // `b`, transposed, over the 128 columns of `slice`: this warp's share of the
 // contraction over head_dim.
+template <class W>
 __device__ __forceinline__ void mma_slice_nt(float (&acc)[4][4], uint32_t a,
                                              int a0, uint32_t b, int slice) {
   const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
@@ -180,12 +221,13 @@ __device__ __forceinline__ void mma_slice_nt(float (&acc)[4][4], uint32_t a,
     const int chunk = (slice * kSlice + kk * 16) >> 3;
     // A matrices: (rows 0-7, k lo), (8-15, k lo), (0-7, k hi), (8-15, k hi)
     uint32_t fa[4];
-    ldmatrix_x4(fa, a + swz(a0 + (mi & 1) * 8 + mr, chunk + (mi >> 1)));
+    ldmatrix_x4(fa, a + swz<W>(a0 + (mi & 1) * 8 + mr, chunk + (mi >> 1)));
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       // B matrices: (n0, k lo), (n0, k hi), (n0 + 8, k lo), (n0 + 8, k hi)
       uint32_t fb[4];
-      ldmatrix_x4(fb, b + swz(p * 16 + (mi >> 1) * 8 + mr, chunk + (mi & 1)));
+      ldmatrix_x4(fb,
+                  b + swz<W>(p * 16 + (mi >> 1) * 8 + mr, chunk + (mi & 1)));
       mma_bf16(acc[2 * p], fa, fb[0], fb[1]);
       mma_bf16(acc[2 * p + 1], fa, fb[2], fb[3]);
     }
@@ -194,6 +236,7 @@ __device__ __forceinline__ void mma_slice_nt(float (&acc)[4][4], uint32_t a,
 
 // acc (16 x 128) += frags (16 x 32, bf16 A fragments) times rows [0, 32) of
 // tile `b` (the contraction runs over the tile's rows), columns of `slice`.
+template <class W>
 __device__ __forceinline__ void mma_slice_nn(float (&acc)[16][4],
                                              const uint32_t (&fa)[2][4],
                                              uint32_t b, int slice) {
@@ -206,7 +249,7 @@ __device__ __forceinline__ void mma_slice_nn(float (&acc)[16][4],
       // transposed: (k lo, n0), (k hi, n0), (k lo, n0 + 8), (k hi, n0 + 8)
       uint32_t fb[4];
       ldmatrix_x4_trans(
-          fb, b + swz(row, ((slice * kSlice + p * 16) >> 3) + (mi >> 1)));
+          fb, b + swz<W>(row, ((slice * kSlice + p * 16) >> 3) + (mi >> 1)));
       mma_bf16(acc[2 * p], fa[kk], fb[0], fb[1]);
       mma_bf16(acc[2 * p + 1], fa[kk], fb[2], fb[3]);
     }
@@ -228,6 +271,7 @@ __device__ __forceinline__ void pack_frags(uint32_t (&a)[2][4],
 
 // Partial scores: float4 [slice][group][n-tile][lane], each thread's four
 // values of one n-tile in one float4, lanes contiguous (no bank conflict).
+template <class W>
 __device__ __forceinline__ void put_part(float4* part, const float (&s)[4][4],
                                          int group, int slice) {
   float4* p = part + (slice * kGroups + group) * 4 * 32 + (threadIdx.x & 31);
@@ -236,8 +280,9 @@ __device__ __forceinline__ void put_part(float4* part, const float (&s)[4][4],
     p[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
 }
 
-// s = the four slices' partials of this thread's scores, summed in slice
-// order: every warp of a row group gets the same bits.
+// s = the slices' partials of this thread's scores, summed in slice order:
+// every warp of a row group gets the same bits.
+template <class W>
 __device__ __forceinline__ void sum_parts(float (&s)[4][4], const float4* part,
                                           int group) {
   const float4* p = part + group * 4 * 32 + (threadIdx.x & 31);
@@ -245,7 +290,7 @@ __device__ __forceinline__ void sum_parts(float (&s)[4][4], const float4* part,
   for (int n = 0; n < 4; ++n) {
     float4 x = p[n * 32];
 #pragma unroll
-    for (int sl = 1; sl < kSlices; ++sl) {
+    for (int sl = 1; sl < W::kSlices; ++sl) {
       const float4 y = p[(sl * kGroups * 4 + n) * 32];
       x.x += y.x;
       x.y += y.y;
@@ -314,13 +359,12 @@ struct Params {
 // forward: strides of q, k, v, o
 // ---------------------------------------------------------------------------
 
-constexpr int kFwdSmem = 5 * kTile + kPart;  // q | k[2] | v[2] | partials
-
-__global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
+template <class W>
+__global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t q_s = smem_u32(smem), k_s = q_s + kTile,
-                 v_s = k_s + 2 * kTile;
-  float4* part = reinterpret_cast<float4*>(smem + 5 * kTile);
+  const uint32_t q_s = smem_u32(smem), k_s = q_s + W::kTile,
+                 v_s = k_s + 2 * W::kTile;
+  float4* part = reinterpret_cast<float4*>(smem + 5 * W::kTile);
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -331,9 +375,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
              v = rows_of(p.v, p.st + 6, b, h);
 
   const int n_tiles = (p.t_len + kRows - 1) / kRows;
-  load_tile(q_s, q, q0, p.s_len);
-  load_tile(k_s, k, 0, p.t_len);
-  load_tile(v_s, v, 0, p.t_len);
+  load_tile<W, kRows>(q_s, q, q0, p.s_len);
+  load_tile<W, kRows>(k_s, k, 0, p.t_len);
+  load_tile<W, kRows>(v_s, v, 0, p.t_len);
   cp_async_commit();
 
   float o[16][4];
@@ -344,8 +388,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(k_s + (buf ^ 1) * kTile, k, (j + 1) * kRows, p.t_len);
-      load_tile(v_s + (buf ^ 1) * kTile, v, (j + 1) * kRows, p.t_len);
+      load_tile<W, kRows>(k_s + (buf ^ 1) * W::kTile, k, (j + 1) * kRows,
+                        p.t_len);
+      load_tile<W, kRows>(v_s + (buf ^ 1) * W::kTile, v, (j + 1) * kRows,
+                        p.t_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -353,12 +399,12 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
     }
     __syncthreads();
 
-    // ---- s = q k^T: this slice's share, then the four slices' sum
+    // ---- s = q k^T: this slice's share, then the slices' sum
     float s[4][4];
-    mma_slice_nt(s, q_s, group * 16, k_s + buf * kTile, slice);
-    put_part(part, s, group, slice);
+    mma_slice_nt<W>(s, q_s, group * 16, k_s + buf * W::kTile, slice);
+    put_part<W>(part, s, group, slice);
     __syncthreads();
-    sum_parts(s, part, group);
+    sum_parts<W>(s, part, group);
     mask_cols(s, j * kRows, p.t_len);
 
     // ---- online softmax in base 2; rows g (lo) and g + 8 (hi)
@@ -402,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
     // ---- o += p v over this slice's columns
     uint32_t pa[2][4];
     pack_frags(pa, s);
-    mma_slice_nn(o, pa, v_s + buf * kTile, slice);
+    mma_slice_nn<W>(o, pa, v_s + buf * W::kTile, slice);
     __syncthreads();  // the partials and this stage are written next
   }
 
@@ -428,16 +474,15 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_d512_kernel(Params p) {
 // dq and delta: strides of q, k, v, o, dO, dq
 // ---------------------------------------------------------------------------
 
-// q | dO | k[2] | v[2] | partials of s | partials of dp | lse*log2e | delta
-constexpr int kDqSmem = 6 * kTile + 2 * kPart + 2 * kRows * 4;
-
-__global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
+template <class W>
+__global__ void __launch_bounds__(W::kThreads, 1) dq_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t q_s = smem_u32(smem), do_s = q_s + kTile,
-                 k_s = do_s + kTile, v_s = k_s + 2 * kTile;
-  float4* part_s = reinterpret_cast<float4*>(smem + 6 * kTile);
-  float4* part_dp = part_s + kPart / 16;
-  float* lse2_s = reinterpret_cast<float*>(smem + 6 * kTile + 2 * kPart);
+  const uint32_t q_s = smem_u32(smem), do_s = q_s + W::kTile,
+                 k_s = do_s + W::kTile, v_s = k_s + 2 * W::kTile;
+  unsigned char* rest = smem + 6 * W::kTile;
+  float4* part_s = reinterpret_cast<float4*>(rest);
+  float4* part_dp = part_s + W::kPart / 16;
+  float* lse2_s = reinterpret_cast<float*>(rest + 2 * W::kPart);
   float* delta_s = lse2_s + kRows;
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
@@ -450,26 +495,28 @@ __global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
              dout = rows_of(p.dout, p.st + 12, b, h);
 
   const int n_tiles = (p.t_len + kRows - 1) / kRows;
-  load_tile(q_s, q, q0, p.s_len);
-  load_tile(do_s, dout, q0, p.s_len);
-  load_tile(k_s, k, 0, p.t_len);
-  load_tile(v_s, v, 0, p.t_len);
+  load_tile<W, kRows>(q_s, q, q0, p.s_len);
+  load_tile<W, kRows>(do_s, dout, q0, p.s_len);
+  load_tile<W, kRows>(k_s, k, 0, p.t_len);
+  load_tile<W, kRows>(v_s, v, 0, p.t_len);
   cp_async_commit();
 
-  // ---- delta = rowsum(dO * O) in fp32, 4 rows a warp, 16 columns a lane
-  // summed in order, then across the warp by a fixed tree; lse in log2
-  // units.  Rows past S get 0 and are not written.
+  // ---- delta = rowsum(dO * O) in fp32, R / warps rows a warp, D / 32
+  // columns a lane summed in order, then across the warp by a fixed tree;
+  // lse in log2 units.  Rows past S get 0 and are not written.
+  constexpr int kRowsAWarp = kRows / (W::kThreads / 32);
+  constexpr int kVecs = W::kD / 256;  // 16-byte vectors a lane
 #pragma unroll
-  for (int i = 0; i < kRows / (kThreads / 32); ++i) {
-    const int r = warp * (kRows / (kThreads / 32)) + i, row = q0 + r;
+  for (int i = 0; i < kRowsAWarp; ++i) {
+    const int r = warp * kRowsAWarp + i, row = q0 + r;
     float acc = 0.f;
     if (row < p.s_len) {
       const uint4* ov = reinterpret_cast<const uint4*>(o.p + row * o.stride);
       const uint4* dv =
           reinterpret_cast<const uint4*>(dout.p + row * dout.stride);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint4 a = ov[lane * 2 + c], d = dv[lane * 2 + c];
+      for (int c = 0; c < kVecs; ++c) {
+        const uint4 a = ov[lane * kVecs + c], d = dv[lane * kVecs + c];
         const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
@@ -499,8 +546,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(k_s + (buf ^ 1) * kTile, k, (j + 1) * kRows, p.t_len);
-      load_tile(v_s + (buf ^ 1) * kTile, v, (j + 1) * kRows, p.t_len);
+      load_tile<W, kRows>(k_s + (buf ^ 1) * W::kTile, k, (j + 1) * kRows,
+                        p.t_len);
+      load_tile<W, kRows>(v_s + (buf ^ 1) * W::kTile, v, (j + 1) * kRows,
+                        p.t_len);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -514,15 +563,15 @@ __global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
       delta_hi = delta_s[group * 16 + g + 8];
     }
 
-    // ---- s = q k^T and dp = dO v^T, each summed over the four slices
+    // ---- s = q k^T and dp = dO v^T, each summed over the slices
     float s[4][4], dp[4][4];
-    mma_slice_nt(s, q_s, group * 16, k_s + buf * kTile, slice);
-    mma_slice_nt(dp, do_s, group * 16, v_s + buf * kTile, slice);
-    put_part(part_s, s, group, slice);
-    put_part(part_dp, dp, group, slice);
+    mma_slice_nt<W>(s, q_s, group * 16, k_s + buf * W::kTile, slice);
+    mma_slice_nt<W>(dp, do_s, group * 16, v_s + buf * W::kTile, slice);
+    put_part<W>(part_s, s, group, slice);
+    put_part<W>(part_dp, dp, group, slice);
     __syncthreads();
-    sum_parts(s, part_s, group);
-    sum_parts(dp, part_dp, group);
+    sum_parts<W>(s, part_s, group);
+    sum_parts<W>(dp, part_dp, group);
     mask_cols(s, j * kRows, p.t_len);
 
     // ---- ds = p * (dp - delta), p = exp2(s*scale*log2e - lse*log2e)
@@ -537,7 +586,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
     // ---- dq += ds k over this slice's columns
     uint32_t dsa[2][4];
     pack_frags(dsa, s);
-    mma_slice_nn(dq, dsa, k_s + buf * kTile, slice);
+    mma_slice_nn<W>(dq, dsa, k_s + buf * W::kTile, slice);
     __syncthreads();
   }
 
@@ -551,9 +600,6 @@ __global__ void __launch_bounds__(kThreads, 1) dq_d512_kernel(Params p) {
 // ---------------------------------------------------------------------------
 // dk and dv: strides of q, k, v, dO, dk, dv
 // ---------------------------------------------------------------------------
-
-// k | v | q[2] | dO[2] | partials of s^T | of dp^T | lse[2] | delta[2]
-constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * kRows * 4;
 
 // lse and delta of q rows [row0, row0 + 32) into shared memory (threads
 // 0..31 copy lse, 32..63 delta); rows at or past s_len are zero-filled.
@@ -569,13 +615,15 @@ __device__ __forceinline__ void load_row_stats(float* lse_dst, float* delta_dst,
   cp_async_4(smem_u32(dst), src, ok ? 4 : 0);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
+template <class W>
+__global__ void __launch_bounds__(W::kThreads, 1) dkv_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t k_s = smem_u32(smem), v_s = k_s + kTile,
-                 q_s = v_s + kTile, do_s = q_s + 2 * kTile;
-  float4* part_s = reinterpret_cast<float4*>(smem + 6 * kTile);
-  float4* part_dp = part_s + kPart / 16;
-  float* lse_s = reinterpret_cast<float*>(smem + 6 * kTile + 2 * kPart);
+  const uint32_t k_s = smem_u32(smem), v_s = k_s + W::kTile,
+                 q_s = v_s + W::kTile, do_s = q_s + 2 * W::kTile;
+  unsigned char* rest = smem + 6 * W::kTile;
+  float4* part_s = reinterpret_cast<float4*>(rest);
+  float4* part_dp = part_s + W::kPart / 16;
+  float* lse_s = reinterpret_cast<float*>(rest + 2 * W::kPart);
   float* delta_s = lse_s + 2 * kRows;
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
@@ -590,10 +638,10 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
   const float* db = p.delta + (long long)bh * p.s_len;
 
   const int n_tiles = (p.s_len + kRows - 1) / kRows;
-  load_tile(k_s, k, kv0, p.t_len);
-  load_tile(v_s, v, kv0, p.t_len);
-  load_tile(q_s, q, 0, p.s_len);
-  load_tile(do_s, dout, 0, p.s_len);
+  load_tile<W, kRows>(k_s, k, kv0, p.t_len);
+  load_tile<W, kRows>(v_s, v, kv0, p.t_len);
+  load_tile<W, kRows>(q_s, q, 0, p.s_len);
+  load_tile<W, kRows>(do_s, dout, 0, p.s_len);
   load_row_stats(lse_s, delta_s, lb, db, 0, p.s_len);
   cp_async_commit();
 
@@ -604,8 +652,10 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
   for (int i = 0; i < n_tiles; ++i) {
     const int buf = i & 1;
     if (i + 1 < n_tiles) {
-      load_tile(q_s + (buf ^ 1) * kTile, q, (i + 1) * kRows, p.s_len);
-      load_tile(do_s + (buf ^ 1) * kTile, dout, (i + 1) * kRows, p.s_len);
+      load_tile<W, kRows>(q_s + (buf ^ 1) * W::kTile, q, (i + 1) * kRows,
+                        p.s_len);
+      load_tile<W, kRows>(do_s + (buf ^ 1) * W::kTile, dout, (i + 1) * kRows,
+                        p.s_len);
       load_row_stats(lse_s + (buf ^ 1) * kRows, delta_s + (buf ^ 1) * kRows,
                      lb, db, (i + 1) * kRows, p.s_len);
       cp_async_commit();
@@ -616,15 +666,15 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
     __syncthreads();
 
     // ---- s^T = k q^T and dp^T = v dO^T (16 kv rows x 32 q columns), each
-    // summed over the four slices; lse and delta index the columns
+    // summed over the slices; lse and delta index the columns
     float st[4][4], dpt[4][4];
-    mma_slice_nt(st, k_s, group * 16, q_s + buf * kTile, slice);
-    mma_slice_nt(dpt, v_s, group * 16, do_s + buf * kTile, slice);
-    put_part(part_s, st, group, slice);
-    put_part(part_dp, dpt, group, slice);
+    mma_slice_nt<W>(st, k_s, group * 16, q_s + buf * W::kTile, slice);
+    mma_slice_nt<W>(dpt, v_s, group * 16, do_s + buf * W::kTile, slice);
+    put_part<W>(part_s, st, group, slice);
+    put_part<W>(part_dp, dpt, group, slice);
     __syncthreads();
-    sum_parts(st, part_s, group);
-    sum_parts(dpt, part_dp, group);
+    sum_parts<W>(st, part_s, group);
+    sum_parts<W>(dpt, part_dp, group);
 
     const float* ls = lse_s + buf * kRows;
     const float* dl = delta_s + buf * kRows;
@@ -641,7 +691,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
     // ---- dv += p^T dO
     uint32_t a[2][4];
     pack_frags(a, st);
-    mma_slice_nn(dv, a, do_s + buf * kTile, slice);
+    mma_slice_nn<W>(dv, a, do_s + buf * W::kTile, slice);
 
     // ---- ds^T = p^T * (dp^T - delta); dk += ds^T q
 #pragma unroll
@@ -653,7 +703,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
       st[n][3] *= dpt[n][3] - dl[c + 1];
     }
     pack_frags(a, st);
-    mma_slice_nn(dk, a, q_s + buf * kTile, slice);
+    mma_slice_nn<W>(dk, a, q_s + buf * W::kTile, slice);
     __syncthreads();
   }
 
@@ -666,6 +716,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_d512_kernel(Params p) {
               vs[1], dv, row0, p.t_len, slice, 1.f, 1.f);
 }
 
+// Launch `kernel` over ceil(rows / R) tiles of the resident axis times B*H.
+template <class W>
 int launch(void (*kernel)(Params), int smem_bytes, int rows, Params& p,
            int b, int h, int s_len, int t_len, const long long* strides,
            int n_strides, float scale, void* stream) {
@@ -678,25 +730,18 @@ int launch(void (*kernel)(Params), int smem_bytes, int rows, Params& p,
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   dim3 grid((rows + kRows - 1) / kRows, b * h);
-  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, W::kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry points for ctypes, with the head_dim-64 entries' argument
-// lists.  Tensors (B, len, H, 512) bf16 with the element strides in
-// `strides` (sb, sl, sh each; head_dim stride 1), lse and delta (B*H, S)
-// fp32 contiguous.  Each launches on `stream`, allocates nothing, and
-// returns a CUDA error code (0 = launched).
-
 // o and lse; strides of q, k, v, o.
-extern "C" int flash_fwd_d512_bf16(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int b, int h, int s_len,
-                                   int t_len, const long long* strides,
-                                   float scale, void* stream) {
+template <class W>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        int b, int h, int s_len, int t_len, const long long* strides,
+        float scale, void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fwd_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+      fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kFwdSmem);
   if (attr != cudaSuccess) return (int)attr;
   Params p{};
   p.q = q;
@@ -704,20 +749,18 @@ extern "C" int flash_fwd_d512_bf16(const void* q, const void* k, const void* v,
   p.v = v;
   p.out0 = o;
   p.lse = static_cast<float*>(lse);
-  return launch(fwd_d512_kernel, kFwdSmem, s_len, p, b, h, s_len, t_len,
-                strides, 12, scale, stream);
+  return launch<W>(fwd_kernel<W>, W::kFwdSmem, s_len, p, b, h, s_len, t_len,
+                   strides, 12, scale, stream);
 }
 
 // dq and delta; strides of q, k, v, o, dO, dq.
-extern "C" int flash_bwd_dq_d512_bf16(const void* q, const void* k,
-                                      const void* v, const void* o,
-                                      const void* dout, const void* lse,
-                                      void* delta, void* dq, int b, int h,
-                                      int s_len, int t_len,
-                                      const long long* strides, float scale,
-                                      void* stream) {
+template <class W>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* delta, void* dq, int b,
+           int h, int s_len, int t_len, const long long* strides, float scale,
+           void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dq_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+      dq_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kDqSmem);
   if (attr != cudaSuccess) return (int)attr;
   Params p{};
   p.q = q;
@@ -728,20 +771,18 @@ extern "C" int flash_bwd_dq_d512_bf16(const void* q, const void* k,
   p.out0 = dq;
   p.lse = static_cast<float*>(const_cast<void*>(lse));
   p.delta = static_cast<float*>(delta);
-  return launch(dq_d512_kernel, kDqSmem, s_len, p, b, h, s_len, t_len,
-                strides, 18, scale, stream);
+  return launch<W>(dq_kernel<W>, W::kDqSmem, s_len, p, b, h, s_len, t_len,
+                   strides, 18, scale, stream);
 }
 
 // dk and dv from the dq kernel's delta; strides of q, k, v, dO, dk, dv.
-extern "C" int flash_bwd_dkv_d512_bf16(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       void* dk, void* dv, int b, int h,
-                                       int s_len, int t_len,
-                                       const long long* strides, float scale,
-                                       void* stream) {
+template <class W>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, int b,
+            int h, int s_len, int t_len, const long long* strides, float scale,
+            void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dkv_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+      dkv_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::kDkvSmem);
   if (attr != cudaSuccess) return (int)attr;
   Params p{};
   p.q = q;
@@ -752,6 +793,42 @@ extern "C" int flash_bwd_dkv_d512_bf16(const void* q, const void* k,
   p.out1 = dv;
   p.lse = static_cast<float*>(const_cast<void*>(lse));
   p.delta = static_cast<float*>(const_cast<void*>(delta));
-  return launch(dkv_d512_kernel, kDkvSmem, t_len, p, b, h, s_len, t_len,
-                strides, 18, scale, stream);
+  return launch<W>(dkv_kernel<W>, W::kDkvSmem, t_len, p, b, h, s_len, t_len,
+                   strides, 18, scale, stream);
 }
+
+}  // namespace
+
+// Plain C entry points for ctypes, with the head_dim-64 entries' argument
+// lists.  Tensors (B, len, H, D) bf16, D = 512 or 256 as the name says, with
+// the element strides in `strides` (sb, sl, sh each; head_dim stride 1), lse
+// and delta (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates
+// nothing, and returns a CUDA error code (0 = launched).
+
+#define FLASH_WIDE_ENTRIES(W, d)                                              \
+  extern "C" int flash_fwd_##d##_bf16(                                        \
+      const void* q, const void* k, const void* v, void* o, void* lse, int b, \
+      int h, int s_len, int t_len, const long long* strides, float scale,     \
+      void* stream) {                                                         \
+    return fwd<W>(q, k, v, o, lse, b, h, s_len, t_len, strides, scale,        \
+                  stream);                                                    \
+  }                                                                           \
+  extern "C" int flash_bwd_dq_##d##_bf16(                                     \
+      const void* q, const void* k, const void* v, const void* o,             \
+      const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
+      int s_len, int t_len, const long long* strides, float scale,            \
+      void* stream) {                                                         \
+    return bwd_dq<W>(q, k, v, o, dout, lse, delta, dq, b, h, s_len, t_len,    \
+                     strides, scale, stream);                                 \
+  }                                                                           \
+  extern "C" int flash_bwd_dkv_##d##_bf16(                                    \
+      const void* q, const void* k, const void* v, const void* dout,          \
+      const void* lse, const void* delta, void* dk, void* dv, int b, int h,   \
+      int s_len, int t_len, const long long* strides, float scale,            \
+      void* stream) {                                                         \
+    return bwd_dkv<W>(q, k, v, dout, lse, delta, dk, dv, b, h, s_len, t_len,  \
+                      strides, scale, stream);                                \
+  }
+
+FLASH_WIDE_ENTRIES(D512, d512)
+FLASH_WIDE_ENTRIES(D256, d256)

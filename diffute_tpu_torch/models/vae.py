@@ -3,10 +3,10 @@
 Counterpart of ``diffute_tpu/models/vae.py`` with diffusers' module tree
 (encoder.down_blocks.i.resnets.j, encoder.mid_block.attentions.0.group_norm,
 decoder.up_blocks.i.upsamplers.0, quant_conv, ...).  The mid-block's
-single-head attention (head_dim 512 at SD2 width) goes through the flash
-kernels (``csrc/flash_d512.cu``) when ``config.use_flash_attention`` is set
-and it has at least 1024 keys, as the JAX module routes it; otherwise dense
-attention.  Sampling and the 0.18215 scale are the caller's.
+single-head attention (head_dim 512 at SD2 width, 256 at ``small_config``'s)
+goes through the flash kernels (``csrc/flash_wide.cu``) when
+``config.use_flash_attention`` is set and it has at least 1024 keys, as the
+JAX module routes it; otherwise dense attention.  Sampling and the 0.18215 scale are the caller's.
 With ``config.remat`` the encoder's and decoder's resnet blocks are
 recomputed in the backward instead of keeping their activations
 (``torch.utils.checkpoint``), as the JAX module wraps them in ``nn.remat``.

@@ -82,10 +82,13 @@ def _signatures() -> dict:
         #  B, H, S, T, 18 element strides, scale, stream)
         "flash_bwd_dq_bf16": bwd,
         "flash_bwd_dkv_bf16": bwd,
-        # the same three at head_dim 512 (csrc/flash_d512.cu)
+        # the same three at head_dim 512 and 256 (csrc/flash_wide.cu)
         "flash_fwd_d512_bf16": fwd,
         "flash_bwd_dq_d512_bf16": bwd,
         "flash_bwd_dkv_d512_bf16": bwd,
+        "flash_fwd_d256_bf16": fwd,
+        "flash_bwd_dq_d256_bf16": bwd,
+        "flash_bwd_dkv_d256_bf16": bwd,
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream)
         "gn_stats_bf16": [p] * 3 + [i] * 4 + [f, p],
         # (x, gamma, beta, affine_bf16, y, B, C, HW, groups, cluster, threads,

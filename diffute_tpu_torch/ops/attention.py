@@ -4,7 +4,8 @@ Counterpart of ``diffute_tpu/ops/attention.py``.  Layout
 ``(batch, seq, heads, head_dim)`` at the public functions, as in the JAX
 package.  Self-attention with at least 1024 keys goes to the CUDA flash
 kernels when ``use_flash`` is set: the UNet's (head_dim 64) and, with
-``VAEConfig.use_flash_attention``, the VAE mid-block's (head_dim 512).
+``VAEConfig.use_flash_attention``, the VAE mid-block's (head_dim 512, or
+256 at ``small_config``).
 Everything else (the 577-token cross-attention, the deep blocks'
 256/64-token self-attention, the TrOCR ViT, an unflagged VAE mid-block)
 goes to :func:`dense_attention`, the port of what XLA compiled for

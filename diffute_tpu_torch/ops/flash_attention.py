@@ -8,14 +8,15 @@ deferred-softmax forward behind the ``PIPELINE_FWD`` switch
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
 package joins them with ``jax.custom_vjp``.  Those take head_dim 64 (the
-UNet's heads); at head_dim 512 (the VAE mid-block's single head) the
-forward and the two backward kernels are ``csrc/flash_d512.cu``, and the
-deferred-softmax forward is not ported (``PIPELINE_FWD`` raises there).
-Every kernel reads its bf16 (batch, seq, heads, 64) or (batch, seq, heads,
-512) inputs through their strides (TMA at 64, cp.async at 512), so the
-callers hand them the views they have, and writes its outputs contiguous in
-that layout: no copy is made in either direction.  Every LSE is natural-log
-fp32 (batch*heads, seq).
+UNet's heads); at head_dim 512 and 256 (the VAE mid-block's single head at
+SD2 width and at ``small_config``'s) the forward and the two backward
+kernels are ``csrc/flash_wide.cu``, one source templated on the width, and
+the deferred-softmax forward is not ported (``PIPELINE_FWD`` raises there).
+Every kernel reads its bf16 (batch, seq, heads, D) inputs, D in
+:data:`HEAD_DIMS`, through their strides (TMA at 64, cp.async at 256 and
+512), so the callers hand them the views they have, and writes its outputs
+contiguous in that layout: no copy is made in either direction.  Every LSE
+is natural-log fp32 (batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version, which is what the CPU
@@ -35,9 +36,11 @@ import torch
 PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
-# the head_dims the kernels take, and the kv tile of csrc/flash_d512.cu
-HEAD_DIMS = (64, 512)
-D512_BLOCK_KV = 32
+# the head_dims the kernels take, and the rows of every tile of
+# csrc/flash_wide.cu (kRows there), which serves 256 and 512
+HEAD_DIMS = (64, 256, 512)
+WIDE_BLOCK_KV = 32
+D512_BLOCK_KV = WIDE_BLOCK_KV  # the name before head_dim 256 was ported
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
@@ -152,8 +155,8 @@ def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
 
 def _check_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               **more: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take: bf16 (B, seq, H, 64) or
-    (B, seq, H, 512) in a layout they read (:func:`check_tma_layout`); k and
+    """Raise on anything the kernels do not take: bf16 (B, seq, H, D), D in
+    :data:`HEAD_DIMS`, in a layout they read (:func:`check_tma_layout`); k and
     v of one shape, and of q's batch, heads and head_dim; ``more`` (o, dO)
     of q's shape; every tensor on q's CUDA device.  The device is checked
     last, so that on a ``meta`` tensor each other refusal shows."""
@@ -203,8 +206,8 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, pipelined: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a forward kernel on (B, S, H, D) q and (B, T, H, D) k, v as
-    they lie, D = 64 or 512: o comes back contiguous (B, S, H, D), lse
-    (B*H, S).  Raises on anything the kernels do not take."""
+    they lie, D in :data:`HEAD_DIMS`: o comes back contiguous (B, S, H, D),
+    lse (B*H, S).  Raises on anything the kernels do not take."""
     if pipelined and q.shape[-1] != 64:
         raise NotImplementedError(
             f"the deferred-softmax forward (PIPELINE_FWD) takes head_dim 64; "
@@ -219,7 +222,7 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {t_len}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    name = ("flash_fwd_d512_bf16" if d == 512 else
+    name = (f"flash_fwd_d{d}_bf16" if d != 64 else
             "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16")
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, s_len, t_len, _strides(q, k, v, o),
@@ -235,6 +238,8 @@ def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
     b, s_len, h, d = q.shape
     if d == 512:
         flash_attention.d512_launches += 1
+    elif d == 256:
+        flash_attention.d256_launches += 1
     elif pipelined:
         flash_attention.pipelined_launches += 1
     else:
@@ -244,14 +249,15 @@ def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, S, H, D), k/v (B, T, H, D), D = 64 or 512, in any layout the
-    kernels read (:func:`check_tma_layout`) -> (o (B, S, H, D) contiguous,
-    lse (B*H, S)).  No copy of q, k or v is made.
+    """q (B, S, H, D), k/v (B, T, H, D), D in :data:`HEAD_DIMS`, in any
+    layout the kernels read (:func:`check_tma_layout`) -> (o (B, S, H, D)
+    contiguous, lse (B*H, S)).  No copy of q, k or v is made.
 
     CUDA: the kernel on the current stream (at head_dim 64 the
     deferred-softmax one with ``PIPELINE_FWD`` set and T a whole number
-    (>= 2) of kv tiles; at 512 that switch raises, since that kernel is not
-    ported there).  CPU: the matching plain version, at any head_dim."""
+    (>= 2) of kv tiles; at 256 and 512 that switch raises, since that kernel
+    is not ported there).  CPU: the matching plain version, at any
+    head_dim."""
     pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1])
     if q.device.type != "cpu":
         return _fwd_kernel(q, k, v, scale, pipelined)
@@ -394,7 +400,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dq (B, S, H, D) contiguous and delta = rowsum(dO * O) (B*H, S) fp32,
     from (B, L, H, D) q, k, v, the forward's o and lse, and the incoming
-    dO, in any layout the kernels read; D = 64 or 512.  No copy is made.
+    dO, in any layout the kernels read; D in :data:`HEAD_DIMS`.  No copy is
+    made.
 
     CUDA: the dq kernel of that head_dim on the current stream (it computes
     delta too); raises on anything it does not take.  CPU: the plain
@@ -409,13 +416,16 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s_len, h, d = q.shape
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd_dq_d512_bf16" if d == 512 else "flash_bwd_dq_bf16",
+    _launch(f"flash_bwd_dq_d{d}_bf16" if d != 64
+            else "flash_bwd_dq_bf16",
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), b, h, s_len, k.shape[1],
             _strides(q, k, v, o, do, dq), float(scale), _stream(q))
     if d == 512:
         flash_attention.d512_bwd_dq_launches += 1
+    elif d == 256:
+        flash_attention.d256_bwd_dq_launches += 1
     else:
         flash_attention.bwd_dq_launches += 1
     return dq, delta
@@ -425,7 +435,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv (B, T, H, D) contiguous from (B, L, H, D) q, k, v, dO in any
-    layout the kernels read (D = 64 or 512), the forward's lse and
+    layout the kernels read (D in :data:`HEAD_DIMS`), the forward's lse and
     :func:`flash_bwd_dq`'s delta.
 
     CUDA: the dk/dv kernel of that head_dim on the current stream; raises
@@ -440,13 +450,16 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s_len, h, d = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch("flash_bwd_dkv_d512_bf16" if d == 512 else "flash_bwd_dkv_bf16",
+    _launch(f"flash_bwd_dkv_d{d}_bf16" if d != 64
+            else "flash_bwd_dkv_bf16",
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, s_len, k.shape[1],
             _strides(q, k, v, do, dk, dv), float(scale), _stream(q))
     if d == 512:
         flash_attention.d512_bwd_dkv_launches += 1
+    elif d == 256:
+        flash_attention.d256_bwd_dkv_launches += 1
     else:
         flash_attention.bwd_dkv_launches += 1
     return dk, dv
@@ -457,9 +470,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of :func:`flash_fwd`'s o w.r.t. q, k, v: (B, L, H, D)
-    inputs (D = 64 or 512) in any layout the kernels read, the forward's o
-    and lse, the incoming dO -> dq, dk, dv contiguous (B, L, H, D).  No copy
-    is made.
+    inputs (D in :data:`HEAD_DIMS`) in any layout the kernels read, the
+    forward's o and lse, the incoming dO -> dq, dk, dv contiguous
+    (B, L, H, D).  No copy is made.
 
     CUDA: the dq kernel (with delta), then the dk/dv kernel, on the current
     stream; raises on anything they do not take.  CPU: the plain
@@ -494,8 +507,8 @@ def flash_bwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """(B, S, H, D) attention, D = 64 or 512, whose forward and backward are
-    the kernels.
+    """(B, S, H, D) attention, D in :data:`HEAD_DIMS`, whose forward and
+    backward are the kernels.
 
     Both read the (B, L, H, D) views they are given through their strides
     and return contiguous tensors of that layout: the forward saves q, k, v
@@ -527,7 +540,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two backward
     kernels, all at head_dim 64; ``.d512_launches``,
     ``.d512_bwd_dq_launches`` and ``.d512_bwd_dkv_launches`` the three
-    kernels at head_dim 512."""
+    kernels at head_dim 512, ``.d256_launches``, ``.d256_bwd_dq_launches``
+    and ``.d256_bwd_dkv_launches`` the same three at head_dim 256."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not (torch.is_grad_enabled()
@@ -548,3 +562,6 @@ flash_attention.bwd_dkv_launches = 0
 flash_attention.d512_launches = 0
 flash_attention.d512_bwd_dq_launches = 0
 flash_attention.d512_bwd_dkv_launches = 0
+flash_attention.d256_launches = 0
+flash_attention.d256_bwd_dq_launches = 0
+flash_attention.d256_bwd_dkv_launches = 0

@@ -9,7 +9,9 @@ checkpointing changes nothing, bf16 keeps fp32 masters, a save and restore
 continues bit for bit, and ``run_vae``'s flags.  With
 ``VAEConfig.use_flash_attention`` set on both sides, at 64 x 64 so that the
 tiny VAE's mid-block sees 1024 keys and takes the gate's flash route (the
-JAX Pallas kernels in interpret mode): encode, decode and a step.
+JAX Pallas kernels in interpret mode): encode, decode and a step, with the
+tiny VAE's 16-wide mid-block and with one 256 wide (``small_config``'s
+head_dim, which the port's ``csrc/flash_wide.cu`` takes on the card).
 """
 
 import dataclasses
@@ -41,16 +43,22 @@ BATCH, RES, TOTAL_STEPS = 2, 32, 10
 # the tiny VAE downsamples by 2: its mid-block sees (64 / 2)^2 = 1024 keys,
 # the least the gate sends to the flash kernels
 FLASH_RES = 64
+# a VAE of the tiny topology whose mid-block is 256 wide: one head of 256,
+# the width of small_config's mid-block
+WIDE_CHANNELS = (32, 256)
 
 
 def _configs(accum=1, remat=False, mixed_precision="no", flash=False,
-             res=RES):
+             res=RES, channels=None):
     out = []
     for cfg in (j_tiny(), tiny_test_config()):
         opt = dataclasses.replace(cfg.train.optimizer, lr_scheduler="constant")
+        vae = dataclasses.replace(cfg.vae, remat=remat,
+                                  use_flash_attention=flash)
+        if channels:
+            vae = dataclasses.replace(vae, block_out_channels=channels)
         out.append(dataclasses.replace(
-            cfg, vae=dataclasses.replace(cfg.vae, remat=remat,
-                                         use_flash_attention=flash),
+            cfg, vae=vae,
             edit=dataclasses.replace(cfg.edit, resolution=res),
             train=dataclasses.replace(
                 cfg.train, train_batch_size=BATCH,
@@ -78,6 +86,12 @@ def jparams():
     return j_init_vae(_configs()[0], jax.random.PRNGKey(3))
 
 
+@pytest.fixture(scope="module")
+def jparams_wide():
+    return j_init_vae(_configs(channels=WIDE_CHANNELS)[0],
+                      jax.random.PRNGKey(3))
+
+
 def _trainer(tcfg, jparams):
     return VAETrainer(tcfg, vae_state_dict(jparams), device="cpu",
                       total_steps=TOTAL_STEPS)
@@ -95,9 +109,18 @@ def test_vae_flash_step_matches_jax(jparams):
     _check_step_matches_jax(jparams, flash=True)
 
 
-def _check_step_matches_jax(jparams, flash):
+def test_vae_flash_256_step_matches_jax(jparams_wide, monkeypatch):
+    """The same with a 256-wide mid-block (head_dim 256), and the step
+    reaches flash attention in both mid-blocks."""
+    calls = _flash_spy(monkeypatch)
+    _check_step_matches_jax(jparams_wide, flash=True,
+                            channels=WIDE_CHANNELS)
+    assert calls == [((BATCH, 1024, 1, 256), True)] * 2
+
+
+def _check_step_matches_jax(jparams, flash, channels=None):
     res = FLASH_RES if flash else RES
-    jcfg, tcfg = _configs(flash=flash, res=res)
+    jcfg, tcfg = _configs(flash=flash, res=res, channels=channels)
     batch, rng = _batch(0, res=res), jax.random.PRNGKey(4)
     # the step with plain SGD(1) reads the gradients back (grads = params -
     # new_params); AdamW then runs on them outside the step, as optax's
@@ -234,7 +257,18 @@ def _flash_spy(monkeypatch):
 
 
 def test_vae_flash_encode_decode_matches_jax(jparams, monkeypatch):
-    jcfg, tcfg = _configs(flash=True, res=FLASH_RES)
+    _check_encode_decode_matches_jax(jparams, monkeypatch, width=16)
+
+
+def test_vae_flash_256_encode_decode_matches_jax(jparams_wide, monkeypatch):
+    """A 256-wide mid-block: single-head attention at head_dim 256."""
+    _check_encode_decode_matches_jax(jparams_wide, monkeypatch, width=256,
+                                     channels=WIDE_CHANNELS)
+
+
+def _check_encode_decode_matches_jax(jparams, monkeypatch, width,
+                                     channels=None):
+    jcfg, tcfg = _configs(flash=True, res=FLASH_RES, channels=channels)
     x = np.random.RandomState(7).uniform(
         -1, 1, (BATCH, FLASH_RES, FLASH_RES, 3)).astype(np.float32)
     jvae = JVAE(jcfg.vae)
@@ -247,8 +281,8 @@ def test_vae_flash_encode_decode_matches_jax(jparams, monkeypatch):
     with torch.no_grad():
         mean, logvar = model.encode(torch.from_numpy(x).permute(0, 3, 1, 2))
         dec = model.decode(mean)
-    # each mid-block once, single-head over 1024 tokens of 16 channels
-    assert calls == [((BATCH, 1024, 1, 16), False)] * 2
+    # each mid-block once, single-head over 1024 tokens of its width
+    assert calls == [((BATCH, 1024, 1, width), False)] * 2
     # the goldens' tolerance (tests/test_torch_port_models.py)
     for name, mine, ref in (("mean", mean, j_mean), ("logvar", logvar, j_logvar),
                             ("decode", dec, j_dec)):
