@@ -51,6 +51,17 @@ Phases, one line each (any failure raises and exits non-zero):
   3d. the same at head_dim 256 (small_config's VAE mid-block, the same
      source's other instantiation): the forward at (1, 4096, 4096),
      (16, 4096, 4096) and (2, 1000, 1500), the backward at the last two;
+  3e. the deferred-softmax forward at both wide head_dims (the same
+     source's fwd_deferred_kernel, behind PIPELINE_FWD) at 3c's and 3d's
+     forward shapes that its dispatch rule takes (T a multiple of 32, two
+     tiles or more), against its plain version at the head_dim-64
+     criteria and against the standard wide forward (the same bits), the
+     same bits twice, mutants of the plain version (the LSE left in base
+     2, the last kv tile never consumed, tile j's softmax on tile j - 1's
+     scores) failing; strided views through the switch bit for bit as
+     the contiguous call, and the ragged (2, 1000, 1500) sent to the
+     standard kernel; each timed beside the standard forward, the plain
+     one-pass version, its bound and SDPA;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -102,8 +113,13 @@ Phases, one line each (any failure raises and exits non-zero):
      head_dim-256 forwards with the flag) and one with the masked-latent
      blend (3); one small stage-2 step at batch 16 (2 forwards, the small
      UNet's 20/10/10); the gradient check; three stage-1 steps at batch 16
-     flag off and on (2 forward, 2 dq, 2 dk/dv a step); every flash counter
-     asserted on each path of 8a and 8b;
+     flag off and on (2 forward, 2 dq, 2 dk/dv a step); in 8a and 8b each
+     flagged path also with PIPELINE_FWD on (the wide forwards deferred,
+     the UNet's head_dim-64 ones too): encodes and decodes equal to the
+     switch off bit for bit, edits within 2 LSB, the stage-2 loss within
+     1e-2, the stage-1 steps and the gradient check's probes bit for bit,
+     the flash route of the switch-on step; every flash counter asserted on
+     each path of 8a and 8b;
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -145,8 +161,8 @@ builds the kernels and runs phases 8-10 alone (about 2 minutes).
     python3 chip_smoke.py --d512-only
     python3 chip_smoke.py --d256-only
 
-build the kernels and run phases 3c and 8a, or 3d and 8b, alone (about a
-minute) and print their kernels line.
+build the kernels and run phases 3c, 3e and 8a, or 3d, 3e and 8b, alone
+(a few minutes) and print their kernels line.
 
     python3 chip_smoke.py --eval-only
 
@@ -170,7 +186,7 @@ pipelines over one set of weights in one process, taking turns.
     python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 builds the kernels and runs phase 3's kernel rows (forward and backward),
-3a and 3b alone; with --package-root another checkout's kernels, so two
+3a, 3b and 3c-3e alone; with --package-root another checkout's kernels, so two
 commits' kernels can be timed in turns on one card.
 
     python3 chip_smoke.py --fused-only [--package-root DIR]
@@ -1190,6 +1206,146 @@ def check_wide(dev, d: int) -> dict:
     return out
 
 
+def wrong_parity(fa, q, k, v, sc, bkv):
+    """A mutant of the deferred forward's plain version: tile j's softmax
+    takes tile j - 1's scores (the partial buffer of the wrong parity), with
+    v_j."""
+    shifted = torch.cat([k[:, :bkv], k[:, :-bkv]], 1)
+    return fa.flash_fwd_tiled_reference(q, shifted, v, sc, bkv)
+
+
+def check_wide_pipelined(dev, d: int) -> list:
+    """Phase 3e: the deferred-softmax forward at head_dim ``d``
+    (csrc/flash_wide.cu's fwd_deferred_kernel) at the WIDE_FORWARD_SHAPES
+    the dispatch rule takes, against its plain version at the kernels' kv
+    tile (WIDE_BLOCK_KV) at the kernel criteria (3 half-ulps, relative L2
+    2e-3, LSE 1e-4) and against the standard wide forward on the same
+    inputs: the same arithmetic in another order, so the same bits; the
+    same bits twice; mutants of the plain version (the LSE left in base 2,
+    the last kv tile never consumed, tile j's softmax on tile j - 1's
+    scores) must fail.  Strided (B, S, 1, d) views read through the
+    PIPELINE_FWD dispatch bit for bit as the contiguous call, and the ragged
+    (2, 1000, 1500), which the rule refuses, goes to the standard kernel and
+    is counted there.  Each shape timed beside the standard forward, the
+    plain one-pass version, the bound and SDPA."""
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    bkv, sc = fa.WIDE_BLOCK_KV, d ** -0.5
+    show_ptxas("flash_wide.cu")
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    def pipelined(q, k, v):
+        return fa.flash_fwd_3d_pipelined(q, k, v, sc)
+
+    for bh, s, t in WIDE_FORWARD_SHAPES[d]:
+        if not fa._pipelined_takes(t, d):
+            continue
+        q, k, v = randn(bh, s, d), randn(bh, t, d), randn(bh, t, d)
+        reset_counters()
+        o, lse = pipelined(q, k, v)
+        o2, lse2 = pipelined(q, k, v)
+        so, slse = fa.flash_fwd_3d(q, k, v, sc)
+        torch.cuda.synchronize()
+        launches = counters()
+        ro, rlse = fa.flash_fwd_pipelined_reference(q, k, v, sc, bkv)
+        lse_err = (lse - rlse).abs().max().item()
+        big = bh * s * t >= 2 ** 28
+        res = dict(shape=[bh, s, t, d], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+                   max_abs_err_lse=lse_err,
+                   same_bits_twice=(torch.equal(o, o2)
+                                    and torch.equal(lse, lse2)),
+                   equals_standard=(torch.equal(o, so)
+                                    and torch.equal(lse, slse)),
+                   vs_standard=dict(bwd_errors(o, so, FUSED_HALF_ULPS),
+                                    max_abs_err_lse=(lse - slse).abs().max()
+                                    .item()),
+                   ms=time_ms(lambda: pipelined(q, k, v)),
+                   standard_ms=time_ms(lambda: fa.flash_fwd_3d(q, k, v, sc)),
+                   plain_ms=time_ms(
+                       lambda: fa.flash_attention_reference(q, k, v, sc),
+                       iters=5 if big else 25),
+                   library_ms=time_ms(lambda: sdpa_wide(q, k, v),
+                                      iters=5 if big else 25),
+                   library_call="scaled_dot_product_attention",
+                   sdpa=sdpa_backends(q, k, v),
+                   **bound(4 * s * t * d * bh,
+                           2 * d * bh * (2 * s + 2 * t) + 4 * bh * s))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if not out:
+            base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
+            mo, mlse = fa.flash_fwd_tiled_reference(q, k[:, :-bkv],
+                                                    v[:, :-bkv], sc, bkv)
+            dropped = bwd_errors(mo, ro, FUSED_HALF_ULPS)
+            m_lse = (mlse - rlse).abs().max().item()
+            wo, wlse = wrong_parity(fa, q, k, v, sc, bkv)
+            parity = bwd_errors(wo, ro, FUSED_HALF_ULPS)
+            w_lse = (wlse - rlse).abs().max().item()
+            if (base2 <= TOL_FWD_LSE or fwd_ok(dropped, m_lse)
+                    or fwd_ok(parity, w_lse)):
+                raise RuntimeError(f"the criterion passes a mutant: base-2 "
+                                   f"LSE {base2}, last tile dropped "
+                                   f"{dropped}, wrong parity {parity}")
+            res["mutants"] = {
+                "lse_base2_abs": base2,
+                "last_tile_dropped_rel_l2": dropped["rel_l2_err"],
+                "last_tile_dropped_lse_abs": m_lse,
+                "wrong_parity_rel_l2": parity["rel_l2_err"],
+                "wrong_parity_lse_abs": w_lse}
+        del ro, rlse, o2, lse2, so, slse
+        phase(f"kernel_fwd_pipelined_d{d}", **res)
+        expect_flash({"launches": launches},
+                     **{f"flash_fwd_pipelined_d{d}": 2, f"flash_fwd_d{d}": 1})
+        if not (fwd_ok(res, lse_err) and res["same_bits_twice"]
+                and res["equals_standard"]):
+            raise RuntimeError(f"the head_dim-{d} deferred forward disagrees: "
+                               f"{res}")
+        out.append(res)
+
+    # q, k, v as (B, S, 1, d) views of one packed (B, S, 3 * d) projection,
+    # through the dispatch with the switch on: no copy, the contiguous
+    # call's bits; then the ragged shape, which the rule sends to the
+    # standard kernel
+    q4, k4, v4 = strided_qkv(g, dev, b=2, s=4096, h=1, n=3, d=d)
+    qr, kr, vr = randn(2, 1000, d), randn(2, 1500, d), randn(2, 1500, d)
+    with pipeline_fwd(True):
+        reset_counters()
+        o4, lse4 = fa.flash_fwd(q4, k4, v4, sc)
+        fo, flse = fa.flash_fwd(*(x.contiguous() for x in (q4, k4, v4)), sc)
+        torch.cuda.synchronize()
+        strided_launches = counters()
+        reset_counters()
+        ragged = fa.flash_fwd_3d(qr, kr, vr, sc)
+        torch.cuda.synchronize()
+        ragged_launches = counters()
+    ragged_std = fa.flash_fwd_3d(qr, kr, vr, sc)
+    ro, rlse = fa.flash_fwd_pipelined_reference(
+        *(fa._to3d(x) for x in (q4, k4, v4)), sc, bkv)
+    res = dict(shape=list(q4.shape), strides=list(q4.stride()),
+               **bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
+               max_abs_err_lse=(lse4 - rlse).abs().max().item(),
+               out_contiguous=o4.is_contiguous(),
+               contiguous_route_bits=(torch.equal(o4, fo)
+                                      and torch.equal(lse4, flse)),
+               ragged_shape=[2, 1000, 1500, d],
+               ragged_equals_standard=all(
+                   torch.equal(a, b) for a, b in zip(ragged, ragged_std)))
+    phase(f"kernel_fwd_pipelined_d{d}_strided", **res)
+    expect_flash({"launches": strided_launches},
+                 **{f"flash_fwd_pipelined_d{d}": 2})
+    expect_flash({"launches": ragged_launches}, **{f"flash_fwd_d{d}": 1})
+    if not (fwd_ok(res, res["max_abs_err_lse"]) and res["out_contiguous"]
+            and res["contiguous_route_bits"]
+            and res["ragged_equals_standard"]):
+        raise RuntimeError(f"the head_dim-{d} deferred forward on strided "
+                           f"views or the ragged dispatch disagrees: {res}")
+    out.append(res)
+    return out
+
+
 def serving_pipeline(dev, params=None, **unet_flags):
     """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0;
     ``unet_flags`` turn the UNet's opt-in kernels on, ``params`` shares one
@@ -1229,11 +1385,14 @@ def counters() -> dict:
             "flash_fwd_d512": flash_attention.d512_launches,
             "flash_bwd_dq_d512": flash_attention.d512_bwd_dq_launches,
             "flash_bwd_dkv_d512": flash_attention.d512_bwd_dkv_launches,
-            # (a checkout from before head_dim 256 has no such counters)
+            # (a checkout from before head_dim 256, or before the wide
+            # deferred forward, has no such counters)
             **{key: getattr(flash_attention, name, 0) for key, name in (
                 ("flash_fwd_d256", "d256_launches"),
                 ("flash_bwd_dq_d256", "d256_bwd_dq_launches"),
-                ("flash_bwd_dkv_d256", "d256_bwd_dkv_launches"))},
+                ("flash_bwd_dkv_d256", "d256_bwd_dkv_launches"),
+                ("flash_fwd_pipelined_d512", "d512_pipelined_launches"),
+                ("flash_fwd_pipelined_d256", "d256_pipelined_launches"))},
             "gn_stats": group_norm_stats.launches,
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
@@ -1284,6 +1443,8 @@ def reset_counters() -> None:
     flash_attention.d256_launches = 0
     flash_attention.d256_bwd_dq_launches = 0
     flash_attention.d256_bwd_dkv_launches = 0
+    flash_attention.d512_pipelined_launches = 0
+    flash_attention.d256_pipelined_launches = 0
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
         fn.launches = 0
@@ -1994,8 +2155,25 @@ TOL_VAE_FLASH_REL = TOL_UNET_REL
 
 def wide_launches(rec: dict, d: int) -> dict:
     return {k: rec["launches"][k]
-            for k in (f"flash_fwd_d{d}", f"flash_bwd_dq_d{d}",
-                      f"flash_bwd_dkv_d{d}")}
+            for k in (f"flash_fwd_d{d}", f"flash_fwd_pipelined_d{d}",
+                      f"flash_bwd_dq_d{d}", f"flash_bwd_dkv_d{d}")}
+
+
+# a 20-step edit with the deferred-softmax switch on against the same edit
+# with it off: at most this many LSB apart, as phase 5a bounds the switch
+# (the UNet's head_dim-64 forwards change kernel; the VAE's give the same
+# bits)
+PIPELINE_EDIT_LSB = 2
+
+
+@contextlib.contextmanager
+def pipeline_fwd(on: bool):
+    """PIPELINE_FWD set to ``on`` while the block runs, off after it."""
+    set_pipeline_fwd(on)
+    try:
+        yield
+    finally:
+        set_pipeline_fwd(False)
 
 
 # the loss gradient of these weights, stage 1 flag on against off
@@ -2136,12 +2314,16 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch, d) -> dict:
     distance from the fp32 gradient.  The flagged step's flash route is
     also held at its own boundary (flash_route_check); and the gradient
     reaching the latent sample is read in each run, which says how far the
-    bf16 runs' rounding alone moves what the encoder's probes receive."""
+    bf16 runs' rounding alone moves what the encoder's probes receive.  The
+    flagged step runs again with PIPELINE_FWD on (the deferred-softmax
+    forward), held by the same rule and at its own boundary, and read
+    against the switch-off flagged step."""
     from diffute_tpu_torch.train import VAETrainer
 
-    runs, records, dz = {}, [], {}
+    runs, records, dz = {}, {"flash": [], "flash_pipelined": []}, {}
     draws = None
     for name, on, precision in (("flash", True, "bf16"),
+                                ("flash_pipelined", True, "bf16"),
                                 ("dense", False, "bf16"),
                                 ("fp32_dense", False, "no")):
         cfg = stage1_config(on)
@@ -2150,9 +2332,17 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch, d) -> dict:
         trainer = VAETrainer(cfg, vae_params, device=dev, total_steps=1)
         if draws is None:
             draws = trainer.draw(cfg.train.train_batch_size).float()
-        spy = flash_route_spy(records) if on else contextlib.nullcontext()
-        with spy, latent_grad_spy(dz.setdefault(name, [])):
+        spy = (flash_route_spy(records[name]) if on
+               else contextlib.nullcontext())
+        with spy, latent_grad_spy(dz.setdefault(name, [])), \
+                pipeline_fwd(name == "flash_pipelined"):
+            reset_counters()
             loss = trainer.accumulate_grads(batch, draws).item()
+            if name == "flash_pipelined":
+                expect_flash({"launches": counters()},
+                             **{f"flash_fwd_pipelined_d{d}": 2,
+                                f"flash_bwd_dq_d{d}": 2,
+                                f"flash_bwd_dkv_d{d}": 2})
         masters = trainer.state.params_dict()
         runs[name] = (loss, {n: masters[n].grad.float().clone()
                              for n in STAGE1_PROBES})
@@ -2166,6 +2356,12 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch, d) -> dict:
 
     res = dict(loss={k: v[0] for k, v in runs.items()},
                grad_rel_l2_err=rel("flash", "dense"),
+               pipelined_vs_flash=rel("flash_pipelined", "flash"),
+               pipelined_equals_flash=all(
+                   torch.equal(runs["flash_pipelined"][1][n],
+                               runs["flash"][1][n]) for n in STAGE1_PROBES)
+               and runs["flash_pipelined"][0] == runs["flash"][0],
+               pipelined_vs_fp32=rel("flash_pipelined", "fp32_dense"),
                flash_vs_fp32=rel("flash", "fp32_dense"),
                dense_vs_fp32=rel("dense", "fp32_dense"),
                grad_norm_fp32={n: runs["fp32_dense"][1][n].norm().item()
@@ -2176,15 +2372,23 @@ def stage1_grad_check(dev, vae_params, stage1_config, batch, d) -> dict:
                    norm_fp32=dz["fp32_dense"][0].norm().item()),
                tolerance=TOL_GRAD_REL, ratio_to_dense=GRAD_VS_FP32_RATIO,
                loss_tolerance=TOL_LOSS_REL)
-    bad = [n for n in STAGE1_PROBES
-           if not (res["grad_rel_l2_err"][n] <= TOL_GRAD_REL
-                   or res["flash_vs_fp32"][n]
+    flash_dense = rel("flash_pipelined", "dense")
+    bad = [(run, n) for run, vs_dense in (("flash", res["grad_rel_l2_err"]),
+                                          ("flash_pipelined", flash_dense))
+           for n in STAGE1_PROBES
+           if not (vs_dense[n] <= TOL_GRAD_REL
+                   or res[("pipelined" if run != "flash" else run)
+                          + "_vs_fp32"][n]
                    <= GRAD_VS_FP32_RATIO * res["dense_vs_fp32"][n])]
-    loss_flash, loss_dense = res["loss"]["flash"], res["loss"]["dense"]
-    if bad or not abs(loss_flash - loss_dense) <= TOL_LOSS_REL * loss_dense:
+    loss_dense = res["loss"]["dense"]
+    if bad or not res["pipelined_equals_flash"] or not all(
+            abs(res["loss"][run] - loss_dense) <= TOL_LOSS_REL * loss_dense
+            for run in ("flash", "flash_pipelined")):
         raise RuntimeError(f"stage-1 gradient with flash differs at {bad}: "
                            f"{res}")
-    res["flash_route"] = flash_route_check(records, d)
+    res["flash_route"] = flash_route_check(records["flash"], d)
+    res["flash_route_pipelined"] = flash_route_check(
+        records["flash_pipelined"], d)
     return res
 
 
@@ -2223,9 +2427,17 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
     gradient of four weights flag on against off (stage1_grad_check) and
     three stage-1 steps through VAETrainer (batch 4 full, 16 small; the
     first resolution; bf16, remat), flag off and on (seconds and peak
-    memory; 2 forward, 2 dq and 2 dk/dv launches a step).  Every flash
-    counter is asserted on each path.  Returns the numbers and the launches
-    by path."""
+    memory; 2 forward, 2 dq and 2 dk/dv launches a step).  Every flagged
+    path runs again with PIPELINE_FWD on: the wide forwards move to the
+    deferred-softmax kernel and the UNet's head_dim-64 ones to its own; the
+    encodes and decodes give the switch-off flagged run's bits, the edits
+    are within PIPELINE_EDIT_LSB of it (the UNet's forwards change kernel
+    too), the stage-2 step's loss within TOL_LOSS_REL, the stage-1 steps'
+    losses and gradient norms and the gradient check's probes equal to the
+    bit, and the gradient check holds the switch-on step's flash route at
+    its boundary.
+    Every flash counter is asserted on each path.  Returns the numbers and
+    the launches by path."""
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           card_serving_config, small_config)
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
@@ -2239,6 +2451,7 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
     sc = VAE_FLASH_SCALES[scale]
     d, resolutions, batch_size = sc["d"], sc["resolutions"], sc["batch"]
     pre, fwd_key = sc["prefix"], f"flash_fwd_d{d}"
+    pipe_key = f"flash_fwd_pipelined_d{d}"
     bf16 = torch.bfloat16
     base = DiffUTEConfig() if scale == "full" else small_config()
     out = {"launches": {}}
@@ -2259,13 +2472,17 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
         x = x.to(bf16)
         with torch.inference_mode():
             z = vaes[False].encode(x)[0]
-            runs = {(what, on): measured(dev, lambda: (
-                        vaes[on].encode(x)[0] if what == "encode"
-                        else vaes[on].decode(z)).float())
-                    for what in ("encode", "decode") for on in flags}
+            runs = {}
+            for what in ("encode", "decode"):
+                for on in (False, True, "pipelined"):
+                    with pipeline_fwd(on == "pipelined"):
+                        runs[(what, on)] = measured(dev, lambda: (
+                            vaes[bool(on)].encode(x)[0] if what == "encode"
+                            else vaes[bool(on)].decode(z)).float())
         rec = {}
         for what in ("encode", "decode"):
             r_off, r_on = runs[(what, False)], runs[(what, True)]
+            r_pipe = runs[(what, "pipelined")]
             ref = r_off["out"]
             rel = ((r_on["out"] - ref).abs().max() / ref.abs().max()).item()
             finite = bool(torch.isfinite(r_on["out"]).all()
@@ -2278,12 +2495,25 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
                     peak_above_resident=(r["max_memory_allocated"]
                                          - r["memory_allocated_before"]))
                    for k, r in ((False, r_off), (True, r_on))})
+            rec[what]["flash_pipelined"] = dict(
+                seconds=r_pipe["seconds"], launches=wide_launches(r_pipe, d),
+                max_memory_allocated=r_pipe["max_memory_allocated"],
+                peak_above_resident=(r_pipe["max_memory_allocated"]
+                                     - r_pipe["memory_allocated_before"]),
+                equals_flash=torch.equal(r_pipe["out"], r_on["out"]))
             expect_flash(r_on, **{fwd_key: 1})
             expect_flash(r_off)
+            expect_flash(r_pipe, **{pipe_key: 1})
             if not (finite and rel <= TOL_VAE_FLASH_REL):
                 raise RuntimeError(f"VAE {what} at {res}^2 with flash "
                                    f"differs from dense: {rec[what]}")
+            if not rec[what]["flash_pipelined"]["equals_flash"]:
+                raise RuntimeError(f"VAE {what} at {res}^2 with PIPELINE_FWD "
+                                   f"differs from the switch off: "
+                                   f"{rec[what]}")
             out["launches"][f"{pre}vae_{what}_{res}"] = r_on["launches"]
+            out["launches"][f"{pre}vae_{what}_{res}_pipelined"] = (
+                r_pipe["launches"])
         codec[res] = rec
         del runs, z, x
     phase(f"{pre}vae_flash_codec", tolerance_rel_max=TOL_VAE_FLASH_REL,
@@ -2321,6 +2551,7 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
                 max_memory_allocated=r["max_memory_allocated"])
             for on, r in runs.items()})
         out["launches"][f"{pre}edit_{res}_vae_flash"] = runs[True]["launches"]
+        variants = [("", ec, 2, runs[True]["out"])]
         if sc["blend"]:
             # the crop is encoded too: three encodes and decodes
             bec = dataclasses.replace(ec, masked_latent_blend=True)
@@ -2334,6 +2565,29 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
                 max_memory_allocated=r["max_memory_allocated"])
             out["launches"][f"{pre}edit_{res}_vae_flash_blend"] = (
                 r["launches"])
+            variants.append(("_blend", bec, 3, r["out"]))
+        # the same edits with the switch on: every flash forward deferred
+        with pipeline_fwd(True):
+            pipes[True].edit(image, box, "warm", seed=0, edit_config=ec,
+                             num_inference_steps=2)
+            for suffix, cfg, n_wide, ref in variants:
+                r = measured(dev, lambda: pipes[True].edit(
+                    image, box, "VAE FLASH", seed=5, edit_config=cfg)[0])
+                only_boxes_changed(r["out"], image, [box])
+                expect_flash(r, flash_fwd_pipelined=per_pass * VAE_FLASH_STEPS,
+                             **{pipe_key: n_wide})
+                gap = int(np.abs(r["out"].astype(np.int16) - ref).max())
+                edits[res][f"flash{suffix}_pipelined"] = dict(
+                    seconds=r["seconds"], launches=wide_launches(r, d),
+                    max_memory_allocated=r["max_memory_allocated"],
+                    max_lsb_vs_switch_off=gap)
+                out["launches"][
+                    f"{pre}edit_{res}_vae_flash{suffix}_pipelined"] = (
+                        r["launches"])
+                if gap > PIPELINE_EDIT_LSB:
+                    raise RuntimeError(f"the {res}^2 edit{suffix} with "
+                                       f"PIPELINE_FWD is {gap} LSB from the "
+                                       f"switch off")
         phase(f"{pre}vae_flash_edit", resolution=res, steps=VAE_FLASH_STEPS,
               **edits[res])
     out["edits"] = edits
@@ -2350,26 +2604,41 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
         train=TrainConfig(train_batch_size=batch_size,
                           mixed_precision="bf16", gradient_checkpointing=True,
                           max_train_steps=1))
-    trainer = UNetTrainer(s2cfg, params["unet"],
-                          {"vae": params["vae"], "trocr": params["trocr"]},
-                          device=dev, total_steps=1)
     data = SyntheticSceneDataset(s2cfg, seed=0)
     batch = make_unet_batch([data[i] for i in range(batch_size)], s2cfg)
-    r = measured(dev, lambda: {k: v.item() for k, v in
-                                 trainer.step(batch).items()})
-    stage2 = dict(r.pop("out"), batch=batch_size, seconds=r["seconds"],
-                  launches=r["launches"],
-                  max_memory_allocated=r["max_memory_allocated"])
+    stage2 = {}
+    for name in ("flash", "flash_pipelined"):
+        trainer = UNetTrainer(s2cfg, params["unet"],
+                              {"vae": params["vae"],
+                               "trocr": params["trocr"]},
+                              device=dev, total_steps=1)
+        with pipeline_fwd(name == "flash_pipelined"):
+            r = measured(dev, lambda: {k: v.item() for k, v in
+                                         trainer.step(batch).items()})
+        stage2[name] = dict(r.pop("out"), batch=batch_size,
+                            seconds=r["seconds"], launches=r["launches"],
+                            max_memory_allocated=r["max_memory_allocated"])
+        # the masked and the target image encoded, no gradient: two wide
+        # forwards; the UNet's flash counts as in phase 6
+        expect_flash(r, **{(pipe_key if name == "flash_pipelined"
+                            else fwd_key): 2},
+                     **{("flash_fwd_pipelined" if name == "flash_pipelined"
+                         else "flash_fwd"): 20},
+                     flash_bwd_dq=10, flash_bwd_dkv=10)
+        out["launches"][f"{pre}stage2_vae_{name}"] = r["launches"]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    loss_on, loss_off = (stage2[n]["loss"] for n in ("flash_pipelined",
+                                                     "flash"))
+    stage2["pipelined_loss_rel_diff"] = abs(loss_on - loss_off) / loss_off
     phase(f"{pre}vae_flash_stage2", **stage2)
-    # the masked and the target image encoded, no gradient: two wide
-    # forwards; the UNet's flash counts as in phase 6
-    expect_flash(r, **{fwd_key: 2}, flash_fwd=20, flash_bwd_dq=10,
-                 flash_bwd_dkv=10)
-    if not (np.isfinite(stage2["loss"]) and np.isfinite(stage2["grad_norm"])):
+    if not (all(np.isfinite(stage2[n][k]) for n in ("flash", "flash_pipelined")
+                for k in ("loss", "grad_norm"))
+            and stage2["pipelined_loss_rel_diff"] <= TOL_LOSS_REL):
         raise RuntimeError(f"stage-2 step with the flagged VAE: {stage2}")
-    out["launches"][f"{pre}stage2_vae_flash"] = r["launches"]
     out["stage2"] = stage2
-    del trainer, batch, data
+    del batch, data
     # stage 1 holds the VAE's weights alone, as phase 8 does
     del params["unet"], params["trocr"]
     gc.collect()
@@ -2392,31 +2661,42 @@ def check_vae_flash(dev, scale: str = "full") -> dict:
                for i in range(STAGE1_STEPS)]
     stage1 = {"grad_check": stage1_grad_check(
         dev, params["vae"], stage1_config, batches[0], d)}
-    for on in flags:
+    for name, on, switch in (("dense", False, False), ("flash", True, False),
+                             ("flash_pipelined", True, True)):
         trainer = VAETrainer(stage1_config(on), params["vae"], device=dev,
                              total_steps=STAGE1_STEPS)
         steps = []
         for batch in batches:
-            r = measured(dev, lambda: {k: v.item() for k, v in
-                                         trainer.step(batch).items()})
+            with pipeline_fwd(switch):
+                r = measured(dev, lambda: {k: v.item() for k, v in
+                                             trainer.step(batch).items()})
             steps.append(dict(r.pop("out"), seconds=r["seconds"],
                               max_memory_allocated=r["max_memory_allocated"],
                               memory_allocated_before=r[
                                   "memory_allocated_before"],
                               launches=wide_launches(r, d)))
-            expect_flash(r, **({f"flash_fwd_d{d}": 2,
-                                f"flash_bwd_dq_d{d}": 2,
+            fwd = pipe_key if switch else f"flash_fwd_d{d}"
+            expect_flash(r, **({fwd: 2, f"flash_bwd_dq_d{d}": 2,
                                 f"flash_bwd_dkv_d{d}": 2} if on else {}))
             if on:
-                out["launches"][f"{pre}stage1_vae_flash_step{len(steps)}"] = (
+                out["launches"][f"{pre}stage1_vae_{name}_step{len(steps)}"] = (
                     r["launches"])
         if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
                    for s in steps):
             raise RuntimeError(f"stage 1 steps not finite: {steps}")
-        stage1["flash" if on else "dense"] = steps
+        stage1[name] = steps
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+    pairs = list(zip(stage1["flash_pipelined"], stage1["flash"]))
+    stage1["pipelined_vs_flash"] = dict(
+        same_bits=[a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                   for a, b in pairs])
+    # only the wide forward changes kernel, and it gives the standard one's
+    # bits (phase 3e), so the steps' losses and gradient norms are equal
+    if not all(stage1["pipelined_vs_flash"]["same_bits"]):
+        raise RuntimeError(f"stage 1 with PIPELINE_FWD differs: "
+                           f"{stage1['pipelined_vs_flash']}")
     phase(f"{pre}vae_flash_stage1", batch=batch_size,
           resolution=resolutions[0], **stage1)
     out["stage1"] = stage1
@@ -2452,6 +2732,8 @@ def wide_entries(results: dict, launches: dict, d: int) -> list:
                          f"flash_attention.py:{line}", results[part],
                          by_path(f"{name}_d{d}"))
             for name, part, line in (("flash_fwd", "fwd", 275),
+                                     ("flash_fwd_pipelined", "fwd_pipelined",
+                                      149),
                                      ("flash_bwd_dq", "dq", 396),
                                      ("flash_bwd_dkv", "dkv", 437))]
 
@@ -2800,10 +3082,11 @@ def main(argv=None) -> None:
                    help="build the kernels and run phases 8-10 (the "
                    "two-stage workflow) alone")
     p.add_argument("--d512-only", action="store_true",
-                   help="build the kernels and run phases 3c and 8a (the "
-                   "head_dim-512 kernels and the VAE's flash paths) alone")
+                   help="build the kernels and run phases 3c, 3e and 8a "
+                   "(the head_dim-512 kernels and the VAE's flash paths) "
+                   "alone")
     p.add_argument("--d256-only", action="store_true",
-                   help="build the kernels and run phases 3d and 8b (the "
+                   help="build the kernels and run phases 3d, 3e and 8b (the "
                    "head_dim-256 kernels and the small VAE's flash paths) "
                    "alone")
     p.add_argument("--eval-only", action="store_true",
@@ -2813,6 +3096,7 @@ def main(argv=None) -> None:
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False)")
@@ -2839,8 +3123,17 @@ def main(argv=None) -> None:
         _build.load()
         dev = torch.device("cuda", 0)
         d, scale = (512, "full") if args.d512_only else (256, "small")
-        wide = check_wide(dev, d)
-        vae_flash = check_vae_flash(dev, scale)
+        seconds = {}
+        for name, fn in (("wide", lambda: check_wide(dev, d)),
+                         ("wide_pipelined",
+                          lambda: check_wide_pipelined(dev, d)),
+                         ("vae_flash", lambda: check_vae_flash(dev, scale))):
+            t0 = time.perf_counter()
+            seconds[name] = (fn(), time.perf_counter() - t0)
+        phase("seconds", **{k: v[1] for k, v in seconds.items()},
+              run=time.perf_counter() - t_run)
+        wide, vae_flash = seconds["wide"][0], seconds["vae_flash"][0]
+        wide["fwd_pipelined"] = seconds["wide_pipelined"][0]
         print(json.dumps({"kernels": wide_entries(wide, vae_flash["launches"],
                                                   d),
                           "vae_flash": vae_flash_summary(vae_flash)}),
@@ -2877,6 +3170,9 @@ def main(argv=None) -> None:
             check_wide(torch.device("cuda", 0), 512)
         if 256 in fa.HEAD_DIMS:
             check_wide(torch.device("cuda", 0), 256)
+        if hasattr(fa, "pipelined_block_kv"):
+            for d in (512, 256):
+                check_wide_pipelined(torch.device("cuda", 0), d)
         return
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
@@ -2942,6 +3238,13 @@ def main(argv=None) -> None:
 
     # ---- 3d. the head_dim-256 kernels against their plain versions
     d256 = check_wide(dev, 256)
+
+    # ---- 3e. the deferred-softmax forward at both wide head_dims, against
+    # its plain version and the standard wide forward
+    t0 = time.perf_counter()
+    d512["fwd_pipelined"] = check_wide_pipelined(dev, 512)
+    d256["fwd_pipelined"] = check_wide_pipelined(dev, 256)
+    phase("phase_3e", seconds=time.perf_counter() - t0)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -3182,9 +3485,13 @@ def main(argv=None) -> None:
     try:
         workflow, stage2_export = check_workflow(dev, root)
         # ---- 8a. the VAE's flash paths at full width; 8b. those of
-        # small_config's VAE
+        # small_config's VAE; each flagged path also with PIPELINE_FWD
+        t0 = time.perf_counter()
         vae_flash = check_vae_flash(dev)
+        phase("phase_8a", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
         small_vae_flash = check_vae_flash(dev, "small")
+        phase("phase_8b", seconds=time.perf_counter() - t0)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3207,6 +3514,7 @@ def main(argv=None) -> None:
         by_path.update({name: rec[key] for name, rec in wl.items()})
         return {k: v for k, v in by_path.items() if v}
 
+    phase("run", seconds=time.perf_counter() - t_run)
     print(gpu_line(), flush=True)
     print(json.dumps({"kernels": [
         kernel_entry("flash_fwd_bf16", "flash_fwd.cu",

@@ -1,12 +1,14 @@
 // Flash attention at the wide head_dims, 256 and 512, for Hopper (sm_90a):
-// the forward, the dq kernel (which also writes delta) and the dk/dv kernel,
-// bf16 in and out, fp32 LSE and delta.  One source, templated on the width
-// (`Wide<D>`), instantiated at head_dim 512 (the SD2 VAE mid-block's single
-// head) and 256 (the small VAE's, `small_config`).
+// the forward, the deferred-softmax forward, the dq kernel (which also
+// writes delta) and the dk/dv kernel, bf16 in and out, fp32 LSE and delta.
+// One source, templated on the width (`Wide<D>`), instantiated at head_dim
+// 512 (the SD2 VAE mid-block's single head) and 256 (the small VAE's,
+// `small_config`).
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py at
 // those widths: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
-// `_bwd_dq_kernel` and `_bwd_dkv_kernel` (both in `_flash_bwd_3d`).  The
+// `_fwd_kernel_pipelined` (in `_flash_fwd_3d_pipelined`), `_bwd_dq_kernel`
+// and `_bwd_dkv_kernel` (both in `_flash_bwd_3d`).  The
 // Pallas kernels take any head_dim; their BlockSpecs put whole rows in VMEM
 // and carry (m, l, acc), dq or dk/dv in VMEM scratch across a sequential
 // grid axis.  Here one block owns a tile of rows of one (batch, head) and
@@ -20,7 +22,8 @@
 //   lse, delta (B*H, S) fp32 contiguous; lse natural log
 //
 //   forward:  s = q k^T, online softmax in base 2 (scale*log2 e folded into
-//             one FMA), p rounded to bf16 against the running max, o += p v
+//             one FMA), p rounded to bf16 against the running max, o += p v;
+//             the deferred one computes the same, in another order
 //   dq:       delta = rowsum(dO * O); p = exp2(s*scale*log2 e - lse*log2 e),
 //             ds = p * (dO v^T - delta), dq = bf16(ds) k * scale
 //   dk/dv:    dv = bf16(p)^T dO, dk = bf16(ds)^T q * scale
@@ -48,10 +51,10 @@
 // or q, dO) come in 32-row tiles, two stages deep.  Shared memory, 227 KB a
 // block, holds the resident tiles, the two stages and the partials:
 //
-//   D = 512: 8 warps (2 groups x 4 slices); 176 KB forward, 224 KB each
-//     backward kernel, so one block an SM;
-//   D = 256: 4 warps (2 groups x 2 slices); 88 KB forward, 112 KB each
-//     backward kernel, so two blocks an SM.
+//   D = 512: 8 warps (2 groups x 4 slices); 176 KB forward (192 KB the
+//     deferred one), 224 KB each backward kernel, so one block an SM;
+//   D = 256: 4 warps (2 groups x 2 slices); 88 KB forward (96 KB), 112 KB
+//     each backward kernel, so two blocks an SM.
 //
 // At 256 a 64-row resident tile (8 warps, one block an SM) would halve the
 // L2 traffic of the streamed axis; timed on an H100 it was slower at every
@@ -97,8 +100,9 @@ struct Wide {
   static constexpr int kChunkLog = log2_of(kChunks);
   static constexpr int kTile = kRows * D * 2;    // bytes of bf16
   static constexpr int kPart = kSlices * kGroups * 4 * 32 * 16;  // partials
-  // q | k[2] | v[2] | partials
+  // q | k[2] | v[2] | partials (the deferred forward: partials[2])
   static constexpr int kFwdSmem = 5 * kTile + kPart;
+  static constexpr int kFwdDeferredSmem = 5 * kTile + 2 * kPart;
   // q | dO | k[2] | v[2] | partials of s | of dp | lse*log2e | delta
   static constexpr int kDqSmem = 6 * kTile + 2 * kPart + 2 * kRows * 4;
   // k | v | q[2] | dO[2] | partials of s^T | of dp^T | lse[2] | delta[2]
@@ -108,7 +112,9 @@ struct Wide {
   static_assert((kRows * kChunks) % kThreads == 0, "whole chunks a thread");
   static_assert(kRows % (kThreads / 32) == 0, "delta's rows");
   static_assert(kThreads >= 2 * kRows, "load_row_stats' threads");
-  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448, "227 KB a block");
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448 &&
+                    kFwdDeferredSmem <= 232448,
+                "227 KB a block");
 };
 
 using D512 = Wide<512>;
@@ -359,6 +365,87 @@ struct Params {
 // forward: strides of q, k, v, o
 // ---------------------------------------------------------------------------
 
+// The online softmax of one thread's two rows (g and g + 8 of its warp's
+// 16): the running max in log2 units and this thread's share of the sum.
+struct RowStats {
+  float m_lo, m_hi, l_lo, l_hi;
+};
+
+// Tile j's online softmax in base 2 on its summed scores `s`, then
+// o += p v_j over this slice's columns.  Both forwards run this same code
+// on the same scores, so they give the same bits.
+template <class W>
+__device__ __forceinline__ void consume_tile(float (&s)[4][4],
+                                             float (&o)[16][4], RowStats& r,
+                                             float scale_log2, uint32_t v_tile,
+                                             int slice) {
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  const float mn_lo = fmaxf(r.m_lo, mx_lo * scale_log2);
+  const float mn_hi = fmaxf(r.m_hi, mx_hi * scale_log2);
+  const float alpha_lo = exp2f(r.m_lo - mn_lo);
+  const float alpha_hi = exp2f(r.m_hi - mn_hi);
+  r.m_lo = mn_lo;
+  r.m_hi = mn_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    s[n][0] = exp2f(fmaf(s[n][0], scale_log2, -mn_lo));
+    s[n][1] = exp2f(fmaf(s[n][1], scale_log2, -mn_lo));
+    s[n][2] = exp2f(fmaf(s[n][2], scale_log2, -mn_hi));
+    s[n][3] = exp2f(fmaf(s[n][3], scale_log2, -mn_hi));
+    sum_lo += s[n][0] + s[n][1];
+    sum_hi += s[n][2] + s[n][3];
+  }
+  r.l_lo = r.l_lo * alpha_lo + sum_lo;
+  r.l_hi = r.l_hi * alpha_hi + sum_hi;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    o[n][0] *= alpha_lo;
+    o[n][1] *= alpha_lo;
+    o[n][2] *= alpha_hi;
+    o[n][3] *= alpha_hi;
+  }
+  uint32_t pa[2][4];
+  pack_frags(pa, s);
+  mma_slice_nn<W>(o, pa, v_tile, slice);
+}
+
+// o = acc / l as bf16 through o's strides, and the natural-log LSE of the
+// block's rows [q0, q0 + 32).
+__device__ __forceinline__ void store_fwd(const Params& p, float (&o)[16][4],
+                                          RowStats r, int q0, int group,
+                                          int slice) {
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    r.l_lo += __shfl_xor_sync(0xffffffffu, r.l_lo, off);
+    r.l_hi += __shfl_xor_sync(0xffffffffu, r.l_hi, off);
+  }
+  const long long* os = p.st + 9;
+  __nv_bfloat16* ob =
+      static_cast<__nv_bfloat16*>(p.out0) + b * os[0] + h * os[2];
+  const int row0 = q0 + group * 16;
+  store_slice(ob, os[1], o, row0, p.s_len, slice, 1.f / r.l_lo, 1.f / r.l_hi);
+  if (slice == 0 && tig == 0) {
+    const float ln2 = 0.6931471805599453f;
+    float* lb = p.lse + (long long)bh * p.s_len;
+    if (row0 + g < p.s_len) lb[row0 + g] = (r.m_lo + log2f(r.l_lo)) * ln2;
+    if (row0 + g + 8 < p.s_len)
+      lb[row0 + g + 8] = (r.m_hi + log2f(r.l_hi)) * ln2;
+  }
+}
+
 template <class W>
 __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -367,9 +454,8 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
   float4* part = reinterpret_cast<float4*>(smem + 5 * W::kTile);
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int group = warp % kGroups, slice = warp / kGroups;
-  const int g = lane >> 2, tig = lane & 3;
   const int q0 = blockIdx.x * kRows;
   const Rows q = rows_of(p.q, p.st, b, h), k = rows_of(p.k, p.st + 3, b, h),
              v = rows_of(p.v, p.st + 6, b, h);
@@ -382,8 +468,7 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
 
   float o[16][4];
   zero16(o);
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max, log2 units
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the sum
+  RowStats r = {-INFINITY, -INFINITY, 0.f, 0.f};
 
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
@@ -407,67 +492,111 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
     sum_parts<W>(s, part, group);
     mask_cols(s, j * kRows, p.t_len);
 
-    // ---- online softmax in base 2; rows g (lo) and g + 8 (hi)
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo * p.scale_log2);
-    const float mn_hi = fmaxf(m_hi, mx_hi * p.scale_log2);
-    const float alpha_lo = exp2f(m_lo - mn_lo);
-    const float alpha_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      s[n][0] = exp2f(fmaf(s[n][0], p.scale_log2, -mn_lo));
-      s[n][1] = exp2f(fmaf(s[n][1], p.scale_log2, -mn_lo));
-      s[n][2] = exp2f(fmaf(s[n][2], p.scale_log2, -mn_hi));
-      s[n][3] = exp2f(fmaf(s[n][3], p.scale_log2, -mn_hi));
-      sum_lo += s[n][0] + s[n][1];
-      sum_hi += s[n][2] + s[n][3];
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      o[n][0] *= alpha_lo;
-      o[n][1] *= alpha_lo;
-      o[n][2] *= alpha_hi;
-      o[n][3] *= alpha_hi;
-    }
-
-    // ---- o += p v over this slice's columns
-    uint32_t pa[2][4];
-    pack_frags(pa, s);
-    mma_slice_nn<W>(o, pa, v_s + buf * W::kTile, slice);
+    // ---- online softmax, o += p v
+    consume_tile<W>(s, o, r, p.scale_log2, v_s + buf * W::kTile, slice);
     __syncthreads();  // the partials and this stage are written next
   }
+  store_fwd(p, o, r, q0, group, slice);
+}
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+// ---------------------------------------------------------------------------
+// deferred-softmax forward: strides of q, k, v, o
+// ---------------------------------------------------------------------------
+//
+// Replaces `_fwd_kernel_pipelined` at these widths: the same function as
+// fwd_kernel, with tile j + 1's scores issued ahead of tile j's softmax.
+// The TPU kernel walks n_kv + 1 grid steps; step j writes S_j = q k_j^T
+// into one of two VMEM score buffers by parity and runs tile j - 1's
+// softmax and p v from the other, so that the matrix unit and the vector
+// unit have independent work in one body.  Here body j sums S_j's partials
+// (written by the previous body), issues S_{j+1}'s product and writes its
+// partials, and runs tile j's softmax and o += p v_j: the products of
+// S_{j+1} and tile j's exp2 have no dependence inside the body.  T is a
+// multiple of 32 with at least two tiles (the dispatch rule), so no column
+// is masked.
+//
+// The partial-score exchange.  S_{j+1}'s partials are written while other
+// warps may still be summing S_j's, so they go to a second buffer: two by
+// parity (part[j & 1] holds S_j's).  With the k and v refills issued after
+// the barrier, that makes one __syncthreads a kv tile (fwd_kernel takes
+// three):
+//
+//   prologue: q, k_0 | k_1, v_0 (two cp.async groups); wait for the first;
+//             barrier; S_0's partials into part[0]
+//   body j:   wait for every group; barrier (k_{j+1}, v_j and S_j's
+//             partials are in, and every read of k_j, v_{j-1} and S_{j-1}'s
+//             partials is done); refill k_{j+2} where k_j was and v_{j+1}
+//             where v_{j-1} was, one group; S_j = sum of part[j & 1];
+//             S_{j+1}'s partials into part[(j + 1) & 1]; tile j's softmax
+//             and o += p v_j
+//
+// So the k stream runs one tile ahead of the v stream, each two stages
+// deep, and each refill has the rest of its body to land.  The last body
+// produces nothing: it is written out after the loop, so that no branch
+// sits between a product and the softmax it overlaps.  Shared memory:
+// fwd_kernel's plus one partial buffer (192 KB at 512, 96 KB at 256: still
+// two blocks an SM there).
+
+template <class W>
+__global__ void __launch_bounds__(W::kThreads, 1)
+    fwd_deferred_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem), k_s = q_s + W::kTile,
+                 v_s = k_s + 2 * W::kTile;
+  float4* part = reinterpret_cast<float4*>(smem + 5 * W::kTile);
+  constexpr int kPartVecs = W::kPart / 16;  // float4s of one partial buffer
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int warp = threadIdx.x >> 5;
+  const int group = warp % kGroups, slice = warp / kGroups;
+  const int q0 = blockIdx.x * kRows;
+  const Rows q = rows_of(p.q, p.st, b, h), k = rows_of(p.k, p.st + 3, b, h),
+             v = rows_of(p.v, p.st + 6, b, h);
+
+  const int n_tiles = p.t_len / kRows;
+  load_tile<W, kRows>(q_s, q, q0, p.s_len);
+  load_tile<W, kRows>(k_s, k, 0, p.t_len);
+  cp_async_commit();
+  load_tile<W, kRows>(k_s + W::kTile, k, kRows, p.t_len);
+  load_tile<W, kRows>(v_s, v, 0, p.t_len);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  {
+    float s0[4][4];
+    mma_slice_nt<W>(s0, q_s, group * 16, k_s, slice);
+    put_part<W>(part, s0, group, slice);
   }
-  const long long* os = p.st + 9;
-  __nv_bfloat16* ob =
-      static_cast<__nv_bfloat16*>(p.out0) + b * os[0] + h * os[2];
-  const int row0 = q0 + group * 16;
-  store_slice(ob, os[1], o, row0, p.s_len, slice, 1.f / l_lo, 1.f / l_hi);
-  if (slice == 0 && tig == 0) {
-    const float ln2 = 0.6931471805599453f;
-    float* lb = p.lse + (long long)bh * p.s_len;
-    if (row0 + g < p.s_len) lb[row0 + g] = (m_lo + log2f(l_lo)) * ln2;
-    if (row0 + g + 8 < p.s_len) lb[row0 + g + 8] = (m_hi + log2f(l_hi)) * ln2;
+
+  float o[16][4];
+  zero16(o);
+  RowStats r = {-INFINITY, -INFINITY, 0.f, 0.f};
+
+  int j = 0;
+  for (; j < n_tiles - 1; ++j) {
+    const int cur = j & 1, nxt = cur ^ 1;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 2 < n_tiles)
+      load_tile<W, kRows>(k_s + cur * W::kTile, k, (j + 2) * kRows, p.t_len);
+    load_tile<W, kRows>(v_s + nxt * W::kTile, v, (j + 1) * kRows, p.t_len);
+    cp_async_commit();
+
+    float s[4][4], sn[4][4];
+    sum_parts<W>(s, part + cur * kPartVecs, group);
+    // ---- produce S_{j+1}: this slice's share, summed by the next body
+    mma_slice_nt<W>(sn, q_s, group * 16, k_s + nxt * W::kTile, slice);
+    put_part<W>(part + nxt * kPartVecs, sn, group, slice);
+    // ---- consume tile j
+    consume_tile<W>(s, o, r, p.scale_log2, v_s + cur * W::kTile, slice);
   }
+  // ---- the last body: consume only
+  cp_async_wait<0>();
+  __syncthreads();
+  float s[4][4];
+  sum_parts<W>(s, part + (j & 1) * kPartVecs, group);
+  consume_tile<W>(s, o, r, p.scale_log2, v_s + (j & 1) * W::kTile, slice);
+  store_fwd(p, o, r, q0, group, slice);
 }
 
 // ---------------------------------------------------------------------------
@@ -753,6 +882,27 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                    strides, 12, scale, stream);
 }
 
+// The deferred-softmax forward: o and lse as fwd; t_len a multiple of 32 of
+// at least 64 (cudaErrorInvalidValue otherwise: the dispatch rule).
+template <class W>
+int fwd_deferred(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int b, int h, int s_len, int t_len,
+                 const long long* strides, float scale, void* stream) {
+  if (t_len % kRows || t_len < 2 * kRows) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_deferred_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W::kFwdDeferredSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out0 = o;
+  p.lse = static_cast<float*>(lse);
+  return launch<W>(fwd_deferred_kernel<W>, W::kFwdDeferredSmem, s_len, p, b,
+                   h, s_len, t_len, strides, 12, scale, stream);
+}
+
 // dq and delta; strides of q, k, v, o, dO, dq.
 template <class W>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o,
@@ -800,7 +950,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Plain C entry points for ctypes, with the head_dim-64 entries' argument
-// lists.  Tensors (B, len, H, D) bf16, D = 512 or 256 as the name says, with
+// lists (flash_fwd_pipelined_* refuses a t_len the dispatch rule refuses).  Tensors (B, len, H, D) bf16, D = 512 or 256 as the name says, with
 // the element strides in `strides` (sb, sl, sh each; head_dim stride 1), lse
 // and delta (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates
 // nothing, and returns a CUDA error code (0 = launched).
@@ -812,6 +962,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       void* stream) {                                                         \
     return fwd<W>(q, k, v, o, lse, b, h, s_len, t_len, strides, scale,        \
                   stream);                                                    \
+  }                                                                           \
+  extern "C" int flash_fwd_pipelined_##d##_bf16(                              \
+      const void* q, const void* k, const void* v, void* o, void* lse, int b, \
+      int h, int s_len, int t_len, const long long* strides, float scale,     \
+      void* stream) {                                                         \
+    return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
+                           scale, stream);                                    \
   }                                                                           \
   extern "C" int flash_bwd_dq_##d##_bf16(                                     \
       const void* q, const void* k, const void* v, const void* o,             \

@@ -82,11 +82,13 @@ def _signatures() -> dict:
         #  B, H, S, T, 18 element strides, scale, stream)
         "flash_bwd_dq_bf16": bwd,
         "flash_bwd_dkv_bf16": bwd,
-        # the same three at head_dim 512 and 256 (csrc/flash_wide.cu)
+        # the same four at head_dim 512 and 256 (csrc/flash_wide.cu)
         "flash_fwd_d512_bf16": fwd,
+        "flash_fwd_pipelined_d512_bf16": fwd,
         "flash_bwd_dq_d512_bf16": bwd,
         "flash_bwd_dkv_d512_bf16": bwd,
         "flash_fwd_d256_bf16": fwd,
+        "flash_fwd_pipelined_d256_bf16": fwd,
         "flash_bwd_dq_d256_bf16": bwd,
         "flash_bwd_dkv_d256_bf16": bwd,
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream)

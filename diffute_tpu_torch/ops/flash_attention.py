@@ -9,9 +9,8 @@ backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
 package joins them with ``jax.custom_vjp``.  Those take head_dim 64 (the
 UNet's heads); at head_dim 512 and 256 (the VAE mid-block's single head at
-SD2 width and at ``small_config``'s) the forward and the two backward
-kernels are ``csrc/flash_wide.cu``, one source templated on the width, and
-the deferred-softmax forward is not ported (``PIPELINE_FWD`` raises there).
+SD2 width and at ``small_config``'s) both forwards and the two backward
+kernels are ``csrc/flash_wide.cu``, one source templated on the width.
 Every kernel reads its bf16 (batch, seq, heads, D) inputs, D in
 :data:`HEAD_DIMS`, through their strides (TMA at 64, cp.async at 256 and
 512), so the callers hand them the views they have, and writes its outputs
@@ -31,8 +30,9 @@ from typing import Optional, Tuple
 import torch
 
 # Route forwards whose kv length is a whole number (>= 2) of kv tiles through
-# the deferred-softmax kernel.  Module-level, off by default, as in the JAX
-# package: the switch exists so the two forwards can be timed in turns.
+# the deferred-softmax kernel (the tile by head_dim: pipelined_block_kv).
+# Module-level, off by default, as in the JAX package: the switch exists so
+# the two forwards can be timed in turns.
 PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
@@ -40,6 +40,7 @@ PIPELINED_BLOCK_KV = 64
 # csrc/flash_wide.cu (kRows there), which serves 256 and 512
 HEAD_DIMS = (64, 256, 512)
 WIDE_BLOCK_KV = 32
+WIDE_HEAD_DIMS = (256, 512)
 D512_BLOCK_KV = WIDE_BLOCK_KV  # the name before head_dim 256 was ported
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
@@ -120,14 +121,22 @@ def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
     return (acc / l).to(q.dtype), lse[..., 0]
 
 
+def pipelined_block_kv(head_dim: int) -> int:
+    """The kv tile of the deferred-softmax kernel at ``head_dim``: 32 at 256
+    and 512 (``csrc/flash_wide.cu``), 64 at any other (``csrc/
+    flash_fwd_pipelined.cu`` at 64; the plain version elsewhere)."""
+    return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
+
+
 def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, scale: float,
                                   block_kv: int = PIPELINED_BLOCK_KV
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the deferred-softmax kernel.  The kernel issues tile
+    """Plain version of the deferred-softmax kernels.  A kernel issues tile
     ``j + 1``'s scores before tile ``j``'s softmax, which reorders the work
     and not the arithmetic: :func:`flash_fwd_tiled_reference`, restricted to
-    the dispatch rule's T.
+    the dispatch rule's T.  ``block_kv`` is the kernel's tile
+    (:func:`pipelined_block_kv` of the head_dim).
 
     q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
     least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""
@@ -140,9 +149,10 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
     """Raise on a layout the kernels' loads (TMA at head_dim 64, 16-byte
-    cp.async at 512) cannot read: a last (head_dim) stride other than 1,
-    another stride not a multiple of 8 elements (16 bytes of bf16), or a
-    base not 16-byte aligned.  Nothing is copied to make a layout fit."""
+    cp.async at 256 and 512) cannot read: a last (head_dim) stride other
+    than 1, another stride not a multiple of 8 elements (16 bytes of bf16),
+    or a base not 16-byte aligned.  Nothing is copied to make a layout
+    fit."""
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the last stride must be 1, got "
                          f"{x.stride()}")
@@ -207,23 +217,19 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a forward kernel on (B, S, H, D) q and (B, T, H, D) k, v as
     they lie, D in :data:`HEAD_DIMS`: o comes back contiguous (B, S, H, D),
-    lse (B*H, S).  Raises on anything the kernels do not take."""
-    if pipelined and q.shape[-1] != 64:
-        raise NotImplementedError(
-            f"the deferred-softmax forward (PIPELINE_FWD) takes head_dim 64; "
-            f"at head_dim {q.shape[-1]} it is not ported yet (ROADMAP.md "
-            f"queue 2)")
+    lse (B*H, S).  ``pipelined``: the deferred-softmax kernel of that
+    head_dim.  Raises on anything the kernels do not take."""
     _check_4d(q, k, v)
     b, s_len, h, d = q.shape
     t_len = k.shape[1]
-    if pipelined and not _pipelined_takes(t_len):
-        raise ValueError(f"the pipelined forward takes T a multiple of "
-                         f"{PIPELINED_BLOCK_KV} with at least two tiles; "
-                         f"got {t_len}")
+    if pipelined and not _pipelined_takes(t_len, d):
+        raise ValueError(f"the pipelined forward at head_dim {d} takes T a "
+                         f"multiple of {pipelined_block_kv(d)} with at least "
+                         f"two tiles; got {t_len}")
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
-    name = (f"flash_fwd_d{d}_bf16" if d != 64 else
-            "flash_fwd_pipelined_bf16" if pipelined else "flash_fwd_bf16")
+    name = ("flash_fwd" + ("_pipelined" if pipelined else "")
+            + ("" if d == 64 else f"_d{d}") + "_bf16")
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, s_len, t_len, _strides(q, k, v, o),
             float(scale), _stream(q))
@@ -236,14 +242,9 @@ def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
     counter by kernel, and its matrix-product FLOPs (4 B H S T D) in
     ``flash_attention.flops``."""
     b, s_len, h, d = q.shape
-    if d == 512:
-        flash_attention.d512_launches += 1
-    elif d == 256:
-        flash_attention.d256_launches += 1
-    elif pipelined:
-        flash_attention.pipelined_launches += 1
-    else:
-        flash_attention.launches += 1
+    prefix = "" if d == 64 else f"d{d}_"
+    counter = prefix + ("pipelined_launches" if pipelined else "launches")
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     flash_attention.flops += 4 * b * h * s_len * k.shape[1] * d
 
 
@@ -253,17 +254,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layout the kernels read (:func:`check_tma_layout`) -> (o (B, S, H, D)
     contiguous, lse (B*H, S)).  No copy of q, k or v is made.
 
-    CUDA: the kernel on the current stream (at head_dim 64 the
-    deferred-softmax one with ``PIPELINE_FWD`` set and T a whole number
-    (>= 2) of kv tiles; at 256 and 512 that switch raises, since that kernel
-    is not ported there).  CPU: the matching plain version, at any
-    head_dim."""
-    pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1])
+    CUDA: the kernel on the current stream: with ``PIPELINE_FWD`` set and T
+    a whole number (>= 2) of the deferred-softmax kernel's kv tiles
+    (:func:`pipelined_block_kv`: 64 at head_dim 64, 32 at 256 and 512),
+    that kernel; otherwise the standard one.  CPU: the matching plain
+    version, at any head_dim."""
+    d = q.shape[-1]
+    pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1], d)
     if q.device.type != "cpu":
         return _fwd_kernel(q, k, v, scale, pipelined)
-    ref = (flash_fwd_pipelined_reference if pipelined
-           else flash_attention_reference)
-    o3, lse = ref(*(_heads_first(x) for x in (q, k, v)), scale)
+    q3, k3, v3 = (_heads_first(x) for x in (q, k, v))
+    if pipelined:
+        o3, lse = flash_fwd_pipelined_reference(q3, k3, v3, scale,
+                                                pipelined_block_kv(d))
+    else:
+        o3, lse = flash_attention_reference(q3, k3, v3, scale)
     return _heads_last(o3, q.shape[0], q.shape[2]), lse
 
 
@@ -283,21 +288,26 @@ def _as4d(*xs: torch.Tensor):
     return tuple(x[:, :, None] for x in xs)
 
 
-def _pipelined_takes(t_len: int) -> bool:
-    return (t_len % PIPELINED_BLOCK_KV == 0
-            and t_len // PIPELINED_BLOCK_KV >= 2)
+def _pipelined_takes(t_len: int, head_dim: int) -> bool:
+    """The dispatch rule of ``PIPELINE_FWD``, as the JAX package's
+    ``_flash_fwd_3d``: T a multiple of the kernel's kv tile with at least
+    two tiles (the tile by head_dim: :func:`pipelined_block_kv`)."""
+    block = pipelined_block_kv(head_dim)
+    return t_len % block == 0 and t_len // block >= 2
 
 
 def flash_fwd_3d_pipelined(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`flash_fwd_3d`'s contract through the deferred-softmax kernel;
-    T must be a multiple of the kv tile with at least two tiles (raises
-    otherwise: nothing is padded).
+    """:func:`flash_fwd_3d`'s contract through the deferred-softmax kernel
+    of q's head_dim; T must be a multiple of its kv tile
+    (:func:`pipelined_block_kv`) with at least two tiles (raises otherwise:
+    nothing is padded).
 
     CUDA: checks and launches the kernel on the current stream.  CPU: its
     plain version."""
     if q.device.type == "cpu":
-        return flash_fwd_pipelined_reference(q, k, v, scale)
+        return flash_fwd_pipelined_reference(q, k, v, scale,
+                                             pipelined_block_kv(q.shape[-1]))
     o, lse = _fwd_kernel(*_as4d(q, k, v), scale, pipelined=True)
     return o[:, :, 0], lse
 
@@ -539,9 +549,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the forward, ``.pipelined_launches`` the deferred-softmax forward,
     ``.bwd_dq_launches`` and ``.bwd_dkv_launches`` the two backward
     kernels, all at head_dim 64; ``.d512_launches``,
-    ``.d512_bwd_dq_launches`` and ``.d512_bwd_dkv_launches`` the three
-    kernels at head_dim 512, ``.d256_launches``, ``.d256_bwd_dq_launches``
-    and ``.d256_bwd_dkv_launches`` the same three at head_dim 256."""
+    ``.d512_pipelined_launches``, ``.d512_bwd_dq_launches`` and
+    ``.d512_bwd_dkv_launches`` the four kernels at head_dim 512, and
+    ``.d256_*`` the same four at head_dim 256."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not (torch.is_grad_enabled()
@@ -560,8 +570,10 @@ flash_attention.flops = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0
 flash_attention.d512_launches = 0
+flash_attention.d512_pipelined_launches = 0
 flash_attention.d512_bwd_dq_launches = 0
 flash_attention.d512_bwd_dkv_launches = 0
 flash_attention.d256_launches = 0
+flash_attention.d256_pipelined_launches = 0
 flash_attention.d256_bwd_dq_launches = 0
 flash_attention.d256_bwd_dkv_launches = 0

@@ -4,8 +4,10 @@ forward and backward on the CPU against the JAX package's flash attention
 and ``jax.grad`` through it (Pallas kernels in interpret mode, as
 tests/test_flash_attention.py runs them), the tiled plain versions at
 ``csrc/flash_wide.cu``'s kv tile against the one-pass ones, the wrappers'
-refusals, and the forward's FLOP count.  Each case runs at both widths; a
-head_dim-512 case keeps the test id it had before head_dim 256 was added.
+refusals, and the forward's FLOP count (the deferred-softmax forward at
+these widths: tests/test_torch_port_flash_wide_pipelined.py).  Each case
+runs at both widths; a head_dim-512 case keeps the test id it had before
+head_dim 256 was added.
 
 The CUDA kernels run only on a card: their tests are marked ``cuda`` and
 skip elsewhere.  This file imports only ``diffute_tpu.ops`` of the JAX
@@ -172,31 +174,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dtype, d, match):
         tfa.flash_bwd_dkv(q, k, v, do, lse, lse, d ** -0.5)
 
 
-def _pipelined_raises_not_ported(d):
-    # the deferred-softmax kernel is head_dim 64 only: the switch at a wide
-    # head_dim raises rather than run the standard kernel in its place
-    q, k, v = (_meta(1, 4096, 1, d) for _ in range(3))
-    was = tfa.set_pipeline_fwd(True)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            flash_fwd(q, k, v, d ** -0.5)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-            flash_attention(q, k, v)
-    finally:
-        tfa.set_pipeline_fwd(was)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        tfa.flash_fwd_3d_pipelined(q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                                   d ** -0.5)
-
-
-def test_pipelined_forward_at_head_dim_512_raises_not_ported():
-    _pipelined_raises_not_ported(512)
-
-
-def test_pipelined_forward_at_head_dim_256_raises_not_ported():
-    _pipelined_raises_not_ported(256)
-
-
 @pytest.mark.parametrize("d,counter", [(512, "d512_launches"),
                                        (64, "launches"),
                                        (256, "d256_launches")])
@@ -332,22 +309,21 @@ def test_cuda_kernels_read_strided_views_without_a_copy(d):
 
 
 @pytest.mark.cuda
-def test_cuda_refusals_launch_nothing():
+@pytest.mark.parametrize("switch", [False, True])
+def test_cuda_refusals_launch_nothing(monkeypatch, switch):
     _skip_without_card()
+    # fp32, and head_dims no kernel takes, raise with PIPELINE_FWD off or on
+    # (1024 keys: the deferred kernel's rule takes them at every width)
+    monkeypatch.setattr(tfa, "PIPELINE_FWD", switch)
     q, k, v, _ = _cuda_inputs(3, 1, 1024, 1024, 512)
-    counts = ("launches", "pipelined_launches", *WIDE_COUNTERS)
+    counts = ("launches", "pipelined_launches", "d512_pipelined_launches",
+              "d256_pipelined_launches", *WIDE_COUNTERS)
     before = [getattr(flash_attention, n) for n in counts]
-    with pytest.raises(ValueError, match="take bf16"):
-        flash_fwd_3d(q.float(), k.float(), v.float(), 512 ** -0.5)
+    for d in WIDTHS:
+        with pytest.raises(ValueError, match="take bf16"):
+            flash_fwd_3d(q[..., :d].float(), k[..., :d].float(),
+                         v[..., :d].float(), d ** -0.5)
     for d in (128, 384):
         with pytest.raises(ValueError, match=r"D in \(64, 256, 512\)"):
             flash_fwd_3d(q[..., :d], k[..., :d], v[..., :d], d ** -0.5)
-    was = tfa.set_pipeline_fwd(True)
-    try:
-        for d in WIDTHS:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md queue 2"):
-                flash_fwd_3d(q[..., :d], k[..., :d], v[..., :d], d ** -0.5)
-    finally:
-        tfa.set_pipeline_fwd(was)
     assert before == [getattr(flash_attention, n) for n in counts]

@@ -11,10 +11,13 @@ continues bit for bit, and ``run_vae``'s flags.  With
 tiny VAE's mid-block sees 1024 keys and takes the gate's flash route (the
 JAX Pallas kernels in interpret mode): encode, decode and a step, with the
 tiny VAE's 16-wide mid-block and with one 256 wide (``small_config``'s
-head_dim, which the port's ``csrc/flash_wide.cu`` takes on the card).
+head_dim, which the port's ``csrc/flash_wide.cu`` takes on the card); and
+each again with both packages' ``PIPELINE_FWD`` switches on, where the port
+takes its deferred-softmax plain version.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +41,10 @@ from diffute_tpu_torch.pipeline import DiffUTEPipeline
 from diffute_tpu_torch.train import UNetTrainer, VAETrainer, run_vae
 from diffute_tpu_torch.train import checkpoint as ckpt
 from diffute_tpu_torch.utils import init_pipeline_params
+
+# the modules (each package's ops exports a function of the module's name)
+jfa = importlib.import_module("diffute_tpu.ops.flash_attention")
+tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 
 BATCH, RES, TOTAL_STEPS = 2, 32, 10
 # the tiny VAE downsamples by 2: its mid-block sees (64 / 2)^2 = 1024 keys,
@@ -118,22 +125,80 @@ def test_vae_flash_256_step_matches_jax(jparams_wide, monkeypatch):
     assert calls == [((BATCH, 1024, 1, 256), True)] * 2
 
 
-def _check_step_matches_jax(jparams, flash, channels=None):
+def test_vae_flash_step_pipelined_matches_jax(jparams, monkeypatch):
+    """test_vae_flash_step_matches_jax with both switches on: the port's
+    mid-blocks take the deferred-softmax forward (16 kv tiles of 64 at
+    head_dim 16), and the backward its LSE."""
+    calls = _switch_pipelined_on(monkeypatch, 16)
+    _check_step_matches_jax(jparams, flash=True, every_update=False)
+    assert calls == [64] * 2
+
+
+def test_vae_flash_256_step_pipelined_matches_jax(jparams_wide, monkeypatch):
+    """The same at head_dim 256: 32 kv tiles of 32, the tile of
+    csrc/flash_wide.cu's deferred kernel."""
+    calls = _switch_pipelined_on(monkeypatch, 256)
+    _check_step_matches_jax(jparams_wide, flash=True,
+                            channels=WIDE_CHANNELS, every_update=False)
+    assert calls == [tfa.WIDE_BLOCK_KV] * 2
+
+
+def _switch_pipelined_on(monkeypatch, width):
+    """Set PIPELINE_FWD in both packages; return the list into which the
+    kv tile of each call the port makes of its deferred-softmax plain
+    version is recorded.  JAX's own dispatcher takes its pipelined kernel
+    only at two or more kv blocks; at the mid-block's 1024 keys it picks
+    one 1024-wide block (``_pick_blocks``), so the JAX side computes what
+    it computes with the switch off, and the results computed for the
+    switch-off tests (the same function) are reused."""
+    monkeypatch.setattr(jfa, "PIPELINE_FWD", True)
+    monkeypatch.setattr(tfa, "PIPELINE_FWD", True)
+    bq, bkv = jfa._resolve_blocks(1024, None, None)
+    assert jfa._pick_blocks(1024, 1024, bq, bkv, jnp.float32)[1] == 1024
+    assert tfa._pipelined_takes(1024, width)
+    calls = []
+    real = tfa.flash_fwd_pipelined_reference
+    monkeypatch.setattr(tfa, "flash_fwd_pipelined_reference",
+                        lambda *a: calls.append(a[-1]) or real(*a))
+    return calls
+
+
+# JAX's results by what was computed and for which VAE: the pipelined
+# twins reuse those of the switch-off tests (see _switch_pipelined_on)
+_JAX_RESULTS = {}
+
+
+def _jax_step(jparams, jcfg, batch, rng, flash, channels):
+    key = ("step", flash, channels)
+    if key not in _JAX_RESULTS:
+        # the step with plain SGD(1) reads the gradients back (grads =
+        # params - new_params); AdamW then runs on them outside the step,
+        # as optax's chain in the step would
+        sgd = optax.sgd(1.0)
+        sgd_state, j_metrics = jax.jit(make_vae_train_step(jcfg, sgd))(
+            JTrainState.create(jparams, sgd), batch, rng)
+        j_grad_tree = jax.tree_util.tree_map(lambda p, n: p - n, jparams,
+                                             sgd_state.params)
+        tx = j_build_optimizer(jcfg.train.optimizer, TOTAL_STEPS, BATCH)
+        updates, _ = tx.update(j_grad_tree, tx.init(jparams), jparams)
+        _JAX_RESULTS[key] = (
+            j_metrics, vae_state_dict(j_grad_tree),
+            vae_state_dict(optax.apply_updates(jparams, updates)))
+    return _JAX_RESULTS[key]
+
+
+def _check_step_matches_jax(jparams, flash, channels=None, every_update=True):
+    """``every_update``: also bound the AdamW update of every weight, those
+    whose gradient is near Adam's eps included, where the update divides
+    by the gradient's size and so magnifies its rounding (the switch-off
+    cases; the pipelined twins hold the gradients and the updates of the
+    weights with a gradient far above eps, which is what the attention
+    route moves)."""
     res = FLASH_RES if flash else RES
     jcfg, tcfg = _configs(flash=flash, res=res, channels=channels)
     batch, rng = _batch(0, res=res), jax.random.PRNGKey(4)
-    # the step with plain SGD(1) reads the gradients back (grads = params -
-    # new_params); AdamW then runs on them outside the step, as optax's
-    # chain in the step would
-    sgd = optax.sgd(1.0)
-    sgd_state, j_metrics = jax.jit(make_vae_train_step(jcfg, sgd))(
-        JTrainState.create(jparams, sgd), batch, rng)
-    j_grad_tree = jax.tree_util.tree_map(lambda p, n: p - n, jparams,
-                                         sgd_state.params)
-    tx = j_build_optimizer(jcfg.train.optimizer, TOTAL_STEPS, BATCH)
-    updates, _ = tx.update(j_grad_tree, tx.init(jparams), jparams)
-    j_grads = vae_state_dict(j_grad_tree)
-    new = vae_state_dict(optax.apply_updates(jparams, updates))
+    j_metrics, j_grads, new = _jax_step(jparams, jcfg, batch, rng, flash,
+                                        channels)
 
     trainer = _trainer(tcfg, jparams)
     loss = trainer.accumulate_grads(batch, _normal(jcfg, rng))
@@ -155,7 +220,8 @@ def _check_step_matches_jax(jparams, flash, channels=None):
                       for k in sorted(new)])
     big = torch.cat([j_grads[k].abs().flatten() for k in sorted(new)]) > 1e-4
     assert float(errs[big].max()) <= 1e-7
-    assert float(errs.max()) <= 2e-5
+    if every_update:
+        assert float(errs.max()) <= 2e-5
     assert trainer.state.step == 1
 
 
@@ -266,15 +332,35 @@ def test_vae_flash_256_encode_decode_matches_jax(jparams_wide, monkeypatch):
                                      channels=WIDE_CHANNELS)
 
 
+def test_vae_flash_encode_decode_pipelined_matches_jax(jparams, monkeypatch):
+    """test_vae_flash_encode_decode_matches_jax with both switches on."""
+    calls = _switch_pipelined_on(monkeypatch, 16)
+    _check_encode_decode_matches_jax(jparams, monkeypatch, width=16)
+    assert calls == [64] * 2
+
+
+def test_vae_flash_256_encode_decode_pipelined_matches_jax(jparams_wide,
+                                                           monkeypatch):
+    """The 256-wide mid-block with both switches on."""
+    calls = _switch_pipelined_on(monkeypatch, 256)
+    _check_encode_decode_matches_jax(jparams_wide, monkeypatch, width=256,
+                                     channels=WIDE_CHANNELS)
+    assert calls == [tfa.WIDE_BLOCK_KV] * 2
+
+
 def _check_encode_decode_matches_jax(jparams, monkeypatch, width,
                                      channels=None):
     jcfg, tcfg = _configs(flash=True, res=FLASH_RES, channels=channels)
     x = np.random.RandomState(7).uniform(
         -1, 1, (BATCH, FLASH_RES, FLASH_RES, 3)).astype(np.float32)
-    jvae = JVAE(jcfg.vae)
-    j_mean, j_logvar = jvae.apply({"params": jparams}, jnp.asarray(x),
-                                  method=JVAE.encode)
-    j_dec = jvae.apply({"params": jparams}, j_mean, method=JVAE.decode)
+    key = ("encode_decode", channels)
+    if key not in _JAX_RESULTS:
+        jvae = JVAE(jcfg.vae)
+        j_mean, j_logvar = jvae.apply({"params": jparams}, jnp.asarray(x),
+                                      method=JVAE.encode)
+        j_dec = jvae.apply({"params": jparams}, j_mean, method=JVAE.decode)
+        _JAX_RESULTS[key] = (j_mean, j_logvar, j_dec)
+    j_mean, j_logvar, j_dec = _JAX_RESULTS[key]
     model = AutoencoderKL(tcfg.vae).eval()
     model.load_state_dict(vae_state_dict(jparams), strict=True)
     calls = _flash_spy(monkeypatch)
