@@ -62,6 +62,19 @@ Phases, one line each (any failure raises and exits non-zero):
      the contiguous call, and the ragged (2, 1000, 1500) sent to the
      standard kernel; each timed beside the standard forward, the plain
      one-pass version, its bound and SDPA;
+  3f. the fp32 kernels (csrc/flash_fp32.cu, 3xTF32 products; the forward,
+     the deferred forward, dq with delta and dk/dv at head_dims 64, 256 and
+     512) against their plain fp32 versions at the same domain (natural;
+     the deferred forward base 2 on prescaled q): o, dq, dk, dv within
+     relative L2 1e-5, the LSE and delta within 1e-5, the same bits twice;
+     the forwards at the edit's, the training step's and the VAE's shapes
+     and a ragged one, the backward at the training shapes and the ragged
+     one; mutants (operands rounded to TF32, the LSE in base 2, the last kv
+     tile dropped, dk x (1 + 1e-4), natural exp on prescaled q) must FAIL;
+     strided views bit for bit as the contiguous route, the switch on too;
+     each timed beside its plain one-pass version, SDPA on fp32 with TF32
+     off (its backend recorded) and the bound at 164.9 TFLOP/s (the TF32
+     rate over three products); what ptxas says of the source;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -120,6 +133,19 @@ Phases, one line each (any failure raises and exits non-zero):
      1e-2, the stage-1 steps and the gradient check's probes bit for bit,
      the flash route of the switch-on step; every flash counter asserted on
      each path of 8a and 8b;
+  8c. the fp32 paths with the fp32 kernels, full width, weights from seed
+     0: a 20-step 512^2 edit with UNet, VAE and TrOCR in fp32 and both
+     flash flags (200 head_dim-64 and 2 head_dim-512 fp32 forwards),
+     against the same edit dense and with PIPELINE_FWD on (200 + 2
+     deferred), each within 1 LSB; train.run_unet --mixed_precision no
+     (batch 4, checkpointing, 2 steps; 20/10/10 fp32 launches a step); one
+     UNetTrainer step with the VAE's flag too (2 head_dim-512 forwards)
+     against flash off (the loss within 1e-5, four probes' gradients within
+     1e-4 relative L2); three fp32 stage-1 steps on the SD2 VAE at 512^2,
+     batch 4, flag on and off (2/2/2 at head_dim 512 a step, the losses
+     within 1e-5); small_config's VAE: an encode and a decode at 256^2 flag
+     on (switch off and on) against off, three fp32 stage-1 steps at batch
+     16 (2/2/2 at 256);
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -153,6 +179,11 @@ Phases, one line each (any failure raises and exits non-zero):
      parameter counts and stages 3-5 passing (seconds of each).
 Then one JSON line of kernel results, and last the device JSON line.
 Exits non-zero, with no result, when no CUDA device is available.
+
+    python3 chip_smoke.py --fp32-only
+
+builds the kernels and runs phases 3f and 8c (the fp32 flash kernels and
+the fp32 paths) alone and prints their kernels line.
 
     python3 chip_smoke.py --workflow-only
 
@@ -337,10 +368,11 @@ def time_ms(fn, iters: int = 25) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations over the bf16 peak or
-    bytes (inputs read once, outputs written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: operations over the peak (bf16
+    by default) or bytes (inputs read once, outputs written once) over the
+    memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes}
@@ -1346,6 +1378,307 @@ def check_wide_pipelined(dev, d: int) -> list:
     return out
 
 
+# ---- phase 3f: the fp32 kernels (csrc/flash_fp32.cu)
+# (B*H, S, T) by head_dim: the forwards at the 512^2 edit's and the training
+# step's shapes (64: batch 1 and 4, 5 heads at 4096 tokens, 10 at 1024), the
+# VAE mid-block's (512: encode/decode at 512^2, stage 1 at batch 4, 1024^2;
+# 256: small_config at 256^2, batch 16) and a ragged one; the backward at
+# the training steps' shapes and the ragged one.  The deferred forward runs
+# at the forward shapes its dispatch rule takes.
+FP32_FORWARD_SHAPES = {
+    64: [(5, 4096, 4096), (10, 1024, 1024), (20, 4096, 4096),
+         (40, 1024, 1024), (4, 1000, 577)],
+    256: [(1, 4096, 4096), (16, 4096, 4096), (2, 1000, 1500)],
+    512: [(1, 4096, 4096), (4, 4096, 4096), (1, 16384, 16384),
+          (2, 1000, 1500)]}
+FP32_BACKWARD_SHAPES = {64: [(20, 4096, 4096), (40, 1024, 1024),
+                             (4, 1000, 577)],
+                        256: [(16, 4096, 4096), (2, 1000, 1500)],
+                        512: [(4, 4096, 4096), (2, 1000, 1500)]}
+# the precision contract of csrc/flash_fp32.cu: o, dq, dk, dv within
+# relative L2 TOL_FP32_REL_L2 of the plain fp32 version at the same domain,
+# the LSE (and delta) within TOL_FP32_ABS; TF32 alone reads about 1e-3
+TOL_FP32_REL_L2, TOL_FP32_ABS = 1e-5, 1e-5
+# the H100 SXM's dense TF32 rate over the three products fp32 accuracy
+# takes (3xTF32): the fp32 kernels' operations bound
+PEAK_FP32_FLOPS = 494.7e12 / 3
+FP32_KINDS = ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+# the TPU kernel each kind replaces (diffute_tpu/ops/flash_attention.py)
+FP32_REPLACES = {"fwd": 275, "fwd_pipelined": 149, "bwd_dq": 396,
+                 "bwd_dkv": 437}
+
+
+def fp32_errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    diff = got.float() - ref.float()
+    return {"max_abs_err": diff.abs().max().item(),
+            "rel_l2_err": (diff.norm() / ref.float().norm()).item()}
+
+
+def fp32_held(err: dict) -> bool:
+    return err["rel_l2_err"] <= TOL_FP32_REL_L2
+
+
+def fp32_entry(kind: str, d: int) -> str:
+    """The C entry (and counters() key) of an fp32 kernel."""
+    return f"flash_{kind}" + ("" if d == 64 else f"_d{d}") + "_fp32"
+
+
+def fp32_counter(kind: str, d: int) -> str:
+    """The flash_attention attribute that counts fp32_entry's launches."""
+    return ("fp32_" + ("" if d == 64 else f"d{d}_")
+            + {"fwd": "", "fwd_pipelined": "pipelined_"}.get(kind, kind + "_")
+            + "launches")
+
+
+def check_fp32(dev) -> dict:
+    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32) at
+    head_dims 64, 256 and 512 against their plain fp32 versions at the
+    kernels' kv tile (FP32_BLOCK_KV) and at the same domain (the standard
+    forward and the backward natural, the deferred forward base 2 on
+    prescaled q), to the precision contract (TOL_FP32_REL_L2, TOL_FP32_ABS
+    on the LSE and delta), the same bits twice, at FP32_FORWARD_SHAPES and
+    FP32_BACKWARD_SHAPES; the mutants (every product's operands rounded to
+    TF32, the LSE left in base 2, the last kv tile never consumed, dk x
+    (1 + 1e-4), the deferred forward's scores taken in the natural domain)
+    must fail; strided (B, S, H, d) views of a packed projection give the
+    contiguous route's bits, the switch on too.  Each timed (CUDA-event
+    medians of 25; 5 for the largest) beside its plain one-pass version,
+    SDPA on the same fp32 inputs with TF32 off (its backend recorded) and
+    the bound at PEAK_FP32_FLOPS.  Returns {entry name: [result per
+    shape]}."""
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    show_ptxas("flash_fp32.cu")
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {fp32_entry(kind, d): [] for d in (64, 256, 512)
+           for kind in FP32_KINDS}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def must_fail(name, err, lse_err=0.0):
+        if fp32_held(err) and lse_err <= TOL_FP32_ABS:
+            raise RuntimeError(f"the fp32 criterion passes the mutant "
+                               f"{name}: {err}, LSE {lse_err}")
+        return err["rel_l2_err"]
+
+    for d in (64, 256, 512):
+        sc, bkv = d ** -0.5, fa.FP32_BLOCK_KV[d]
+        for bh, s, t in FP32_FORWARD_SHAPES[d]:
+            q, k, v = randn(bh, s, d), randn(bh, t, d), randn(bh, t, d)
+            big = bh * s * t >= 2 ** 28
+            common = dict(
+                shape=[bh, s, t, d],
+                plain_ms=time_ms(
+                    lambda: fa.flash_attention_reference(q, k, v, sc),
+                    iters=5 if big else 25),
+                library_ms=time_ms(lambda: sdpa_wide(q, k, v),
+                                   iters=5 if big else 25),
+                library_call="scaled_dot_product_attention, fp32, TF32 off",
+                sdpa=sdpa_backends(q, k, v),
+                **bound(4 * s * t * d * bh,
+                        4 * d * bh * (2 * s + 2 * t) + 4 * bh * s,
+                        PEAK_FP32_FLOPS))
+            for kind in ("fwd", "fwd_pipelined"):
+                pipelined = kind == "fwd_pipelined"
+                if pipelined and not fa._pipelined_takes(t, d):
+                    continue
+                name = fp32_entry(kind, d)
+
+                def run():
+                    if pipelined:
+                        return fa.flash_fwd_3d_pipelined(q, k, v, sc)
+                    return fa.flash_fwd_3d(q, k, v, sc)
+                reset_counters()
+                o, lse = run()
+                o2, lse2 = run()
+                torch.cuda.synchronize()
+                launches = counters()
+                domain = "prescaled" if pipelined else "natural"
+                ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv,
+                                                        domain)
+                lse_err = (lse - rlse).abs().max().item()
+                res = dict(common, **fp32_errors(o, ro),
+                           max_abs_err_lse=lse_err,
+                           same_bits_twice=(torch.equal(o, o2)
+                                            and torch.equal(lse, lse2)),
+                           ms=time_ms(run), domain=domain)
+                res["share_of_bound"] = res["bound_ms"] / res["ms"]
+                if not out[name]:
+                    mo, mlse = fa.flash_fwd_tiled_reference(
+                        q, k, v, sc, bkv, domain, tf32=True)
+                    res["mutants"] = {"tf32_rel_l2": must_fail(
+                        "tf32", fp32_errors(mo, ro),
+                        (mlse - rlse).abs().max().item())}
+                    res["mutants"]["lse_base2_abs"] = (
+                        rlse / 0.6931471805599453 - rlse).abs().max().item()
+                    if res["mutants"]["lse_base2_abs"] <= TOL_FP32_ABS:
+                        raise RuntimeError("the criterion passes a base-2 LSE")
+                    mo, mlse = fa.flash_fwd_tiled_reference(
+                        q, k[:, :-bkv], v[:, :-bkv], sc, bkv, domain)
+                    res["mutants"]["last_tile_dropped_rel_l2"] = must_fail(
+                        "last tile dropped", fp32_errors(mo, ro),
+                        (mlse - rlse).abs().max().item())
+                    if pipelined:
+                        mo, mlse = fa.flash_fwd_tiled_reference(
+                            q * (sc * 1.4426950408889634), k, v, 1.0, bkv,
+                            "natural")
+                        res["mutants"]["natural_on_prescaled_rel_l2"] = (
+                            must_fail("natural domain on prescaled q",
+                                      fp32_errors(mo, ro),
+                                      (mlse - rlse).abs().max().item()))
+                del ro, rlse, o2, lse2
+                phase(f"kernel_{name}", **res)
+                expect_flash({"launches": launches}, **{name: 2})
+                if not (fp32_held(res) and lse_err <= TOL_FP32_ABS
+                        and res["same_bits_twice"]):
+                    raise RuntimeError(f"{name} disagrees at {(bh, s, t)}: "
+                                       f"{res}")
+                out[name].append(res)
+            del q, k, v
+
+        dq_name, dkv_name = fp32_entry("bwd_dq", d), fp32_entry("bwd_dkv", d)
+        for bh, s, t in FP32_BACKWARD_SHAPES[d]:
+            q, k, v, do = (randn(bh, n, d) for n in (s, t, t, s))
+            o, lse = fa.flash_fwd_3d(q, k, v, sc)
+
+            def run_dq():
+                return fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
+            reset_counters()
+            dq, delta = run_dq()
+
+            def run_dkv():
+                return fa.flash_bwd_dkv_3d(q, k, v, do, lse, delta, sc)
+            dk, dv = run_dkv()
+            again = (*run_dq(), *run_dkv())
+            torch.cuda.synchronize()
+            launches = counters()
+            same = all(torch.equal(a, b)
+                       for a, b in zip((dq, delta, dk, dv), again))
+            ref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc, bkv)
+            err = {n: fp32_errors(a, b)
+                   for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+            delta_err = (delta - fa._delta(o, do)).abs().max().item()
+            args = (q, k, v, do, lse, delta, sc)
+            try:
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                lib_out = sdpa_wide(*leaves)
+                library_ms = time_ms(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True), iters=5)
+                del lib_out, leaves
+            except RuntimeError as exc:  # the library may refuse the width
+                library_ms = None
+                phase(f"sdpa_backward_fp32_d{d}", error=str(exc)[:200])
+            io, st = 4 * d * bh, 4 * bh
+            common = dict(shape=[bh, s, t, d], library_ms=library_ms,
+                          library_call="autograd.grad through "
+                          "scaled_dot_product_attention, fp32, TF32 off: dq, "
+                          "dk and dv together", same_bits_twice=same)
+            res_dq = dict(common, **err["dq"], max_abs_err_delta=delta_err,
+                          ms=time_ms(run_dq),
+                          plain_ms=time_ms(
+                              lambda: fa.flash_bwd_dq_reference(*args),
+                              iters=5),
+                          **bound(6 * s * t * d * bh,
+                                  io * (4 * s + 2 * t) + st * 2 * s,
+                                  PEAK_FP32_FLOPS))
+            res_dkv = dict(common, max_abs_err=max(err["dk"]["max_abs_err"],
+                                                   err["dv"]["max_abs_err"]),
+                           dk=err["dk"], dv=err["dv"], ms=time_ms(run_dkv),
+                           plain_ms=time_ms(
+                               lambda: fa.flash_bwd_dkv_reference(*args),
+                               iters=5),
+                           **bound(8 * s * t * d * bh,
+                                   io * (2 * s + 4 * t) + st * 2 * s,
+                                   PEAK_FP32_FLOPS))
+            for r in (res_dq, res_dkv):
+                r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            if not out[dq_name]:
+                mref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc,
+                                                    bkv, tf32=True)
+                res_dq["mutants"] = {"tf32_rel_l2": must_fail(
+                    "tf32 dq", fp32_errors(mref[0], ref[0]))}
+                res_dkv["mutants"] = {
+                    "tf32_dk_rel_l2": must_fail(
+                        "tf32 dk", fp32_errors(mref[1], ref[1])),
+                    "tf32_dv_rel_l2": must_fail(
+                        "tf32 dv", fp32_errors(mref[2], ref[2])),
+                    "dk_scaled_rel_l2": must_fail(
+                        "dk x (1 + 1e-4)",
+                        fp32_errors(ref[1] * (1 + 1e-4), ref[1]))}
+                del mref
+            del ref, again
+            phase(f"kernel_{dq_name}", **res_dq)
+            phase(f"kernel_{dkv_name}", **res_dkv)
+            expect_flash({"launches": launches},
+                         **{dq_name: 2, dkv_name: 2})
+            if not (all(fp32_held(e) for e in err.values())
+                    and delta_err <= TOL_FP32_ABS and same):
+                raise RuntimeError(f"the fp32 head_dim-{d} backward "
+                                   f"disagrees at {(bh, s, t)}: {err}, delta "
+                                   f"{delta_err}, same bits twice {same}")
+            out[dq_name].append(res_dq)
+            out[dkv_name].append(res_dkv)
+            del q, k, v, do, o, lse, dq, dk, dv, delta
+
+        # q, k, v, dO as (B, S, H, d) views of one packed (B, S, 4, H, d)
+        # projection: no copy, the contiguous route's bits, the switch off
+        # and on
+        h = 5 if d == 64 else 1
+        x = randn(2, 4096, 4, h, d)
+        q4, k4, v4, do4 = (x[:, :, i] for i in range(4))
+        flat = [y.contiguous() for y in (q4, k4, v4, do4)]
+        o4, lse4 = fa.flash_fwd(q4, k4, v4, sc)
+        grads = fa.flash_bwd(q4, k4, v4, o4, lse4, do4, sc)
+        fo, flse = fa.flash_fwd(*flat[:3], sc)
+        fgrads = fa.flash_bwd(*flat[:3], fo, flse, flat[3], sc)
+        with pipeline_fwd(True):
+            reset_counters()
+            po, plse = fa.flash_fwd(q4, k4, v4, sc)
+            pfo, pflse = fa.flash_fwd(*flat[:3], sc)
+            torch.cuda.synchronize()
+            switch_launches = counters()
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_fwd_tiled_reference(
+            *(fa._to3d(y) for y in (q4, k4, v4)), sc, bkv)
+        rgrads = fa.flash_bwd_tiled_reference(
+            *(fa._to3d(y) for y in (q4, k4, v4, o4)), lse4, fa._to3d(do4), sc,
+            bkv)
+        err = {n: fp32_errors(fa._to3d(a), b)
+               for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+        res = dict(shape=list(q4.shape), strides=list(q4.stride()),
+                   **fp32_errors(fa._to3d(o4), ro),
+                   max_abs_err_lse=(lse4 - rlse).abs().max().item(),
+                   grads=err,
+                   out_contiguous=all(y.is_contiguous()
+                                      for y in (o4, po, *grads)),
+                   contiguous_route_bits=(
+                       torch.equal(o4, fo) and torch.equal(lse4, flse)
+                       and all(torch.equal(a, b)
+                               for a, b in zip(grads, fgrads))),
+                   pipelined_contiguous_route_bits=(
+                       torch.equal(po, pfo) and torch.equal(plse, pflse)))
+        phase(f"kernel_fp32_d{d}_strided", **res)
+        expect_flash({"launches": switch_launches},
+                     **{fp32_entry("fwd_pipelined", d): 2})
+        if not (fp32_held(res) and res["max_abs_err_lse"] <= TOL_FP32_ABS
+                and all(fp32_held(e) for e in err.values())
+                and res["out_contiguous"] and res["contiguous_route_bits"]
+                and res["pipelined_contiguous_route_bits"]):
+            raise RuntimeError(f"the fp32 head_dim-{d} kernels on strided "
+                               f"views disagree: {res}")
+        for kind in FP32_KINDS:
+            out[fp32_entry(kind, d)].append(dict(
+                res, max_abs_err=(res["max_abs_err"] if kind.startswith("fwd")
+                                  else max(e["max_abs_err"]
+                                           for e in err.values()))))
+        del x, q4, k4, v4, do4, flat, o4, grads, fo, fgrads, po, pfo
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def serving_pipeline(dev, params=None, **unet_flags):
     """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0;
     ``unet_flags`` turn the UNet's opt-in kernels on, ``params`` shares one
@@ -1392,7 +1725,10 @@ def counters() -> dict:
                 ("flash_bwd_dq_d256", "d256_bwd_dq_launches"),
                 ("flash_bwd_dkv_d256", "d256_bwd_dkv_launches"),
                 ("flash_fwd_pipelined_d512", "d512_pipelined_launches"),
-                ("flash_fwd_pipelined_d256", "d256_pipelined_launches"))},
+                ("flash_fwd_pipelined_d256", "d256_pipelined_launches"),
+                # the fp32 kernels (a checkout from before them has none)
+                *((fp32_entry(kind, d), fp32_counter(kind, d))
+                  for kind in FP32_KINDS for d in (64, 256, 512)))},
             "gn_stats": group_norm_stats.launches,
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
@@ -1445,6 +1781,10 @@ def reset_counters() -> None:
     flash_attention.d256_bwd_dkv_launches = 0
     flash_attention.d512_pipelined_launches = 0
     flash_attention.d256_pipelined_launches = 0
+    for kind in FP32_KINDS:
+        for d in (64, 256, 512):
+            if hasattr(flash_attention, fp32_counter(kind, d)):
+                setattr(flash_attention, fp32_counter(kind, d), 0)
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
         fn.launches = 0
@@ -2741,6 +3081,302 @@ def wide_entries(results: dict, launches: dict, d: int) -> list:
 def vae_flash_summary(vae_flash: dict) -> dict:
     return {k: v for k, v in vae_flash.items() if k != "launches"}
 
+
+# ---- phase 8c: the fp32 paths at full width with flash
+# a 20-step fp32 edit with flash against the same edit dense, and with the
+# deferred-softmax switch on against off: at most this many LSB apart (both
+# fp32, the kernels within relative L2 1e-5 of fp32 attention)
+FP32_EDIT_LSB = 1
+# one fp32 stage-2 step and three stage-1 steps, flash on against off, the
+# same weights and draws: the loss within TOL_FP32_LOSS_REL, the loss
+# gradient of each probe within TOL_FP32_GRAD_REL (relative L2)
+TOL_FP32_LOSS_REL, TOL_FP32_GRAD_REL = 1e-5, 1e-4
+FP32_TRAIN_STEPS = 2
+
+
+def fp32_launches(rec: dict, widths=(64, 256, 512)) -> dict:
+    """The fp32 flash counters of a measured run, by entry."""
+    return {fp32_entry(kind, d): rec["launches"][fp32_entry(kind, d)]
+            for kind in FP32_KINDS for d in widths}
+
+
+def check_fp32_paths(dev) -> dict:
+    """Phase 8c: the fp32 paths at full width with the fp32 flash kernels,
+    weights from seed 0.  Serving (bench.py --dtype fp32's configuration
+    with the VAE's flag, as benchmarks/vae_bench.py --flash): one 20-step
+    512^2 edit through DiffUTEPipeline with UNet, VAE and TrOCR in fp32 and
+    both flash flags on (200 head_dim-64 and 2 head_dim-512 fp32 forwards),
+    the same edit with both flags off (dense fp32) and with PIPELINE_FWD on
+    (200 + 2 deferred launches): only the box changes, each within
+    FP32_EDIT_LSB of the flagged switch-off edit.  Stage 2:
+    train.run_unet --mixed_precision no at full width (batch 4, gradient
+    checkpointing, AdamW, synthetic scenes, FP32_TRAIN_STEPS steps; 20 fp32
+    forwards, 10 dq, 10 dk/dv a step), then one UNetTrainer step with the
+    VAE's flag too (2 head_dim-512 forwards in the frozen encodes) against
+    the same step with flash off (the loss within TOL_FP32_LOSS_REL, the
+    loss gradient of four UNet weights within TOL_FP32_GRAD_REL).  Stage 1:
+    VAETrainer on the SD2 VAE at 512^2 in fp32 (the JAX trainer's default
+    precision), batch 4, gradient checkpointing, 3 steps flag on and 3 off
+    (2 forwards, 2 dq, 2 dk/dv at head_dim 512 a step; the losses within
+    TOL_FP32_LOSS_REL).  small_config: an encode and a decode at 256^2 flag
+    on, and with PIPELINE_FWD on too, against off, and 3 stage-1 steps at
+    batch 16 (2, 2, 2 at head_dim 256 a step).  Seconds and peak memory of each; every flash counter
+    asserted on each path.  Returns the numbers and the launches by path."""
+    from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
+                                          small_config)
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch, make_vae_batch)
+    from diffute_tpu_torch.models import AutoencoderKL
+    from diffute_tpu_torch.models.attention import Attention
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.train import UNetTrainer, VAETrainer, run_unet
+    from diffute_tpu_torch.utils import init_pipeline_params
+    from diffute_tpu_torch.utils.params import load_module
+
+    f32 = torch.float32
+    base = DiffUTEConfig()
+    out = {"launches": {}}
+
+    def flags(cfg, on, **unet):
+        return dataclasses.replace(
+            cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=on,
+                                          **unet),
+            vae=dataclasses.replace(cfg.vae, use_flash_attention=on))
+
+    def keep(r, **more):
+        return dict(seconds=r["seconds"],
+                    max_memory_allocated=r["max_memory_allocated"],
+                    launches=fp32_launches(r), **more)
+
+    # ---- serving: a 20-step 512^2 edit, flash, dense, switch on
+    params = init_pipeline_params(base, seed=0, device=dev)
+    image, box = scene()
+    edits, outs = {}, {}
+    serving = dataclasses.replace(base, edit=dataclasses.replace(
+        base.edit, resolution=RES, num_inference_steps=VAE_FLASH_STEPS))
+    for name, on, switch in (("flash", True, False), ("dense", False, False),
+                             ("flash_pipelined", True, True)):
+        pipe = DiffUTEPipeline(flags(serving, on), params, dev)
+        with pipeline_fwd(switch):
+            pipe.edit(image, box, "warm", seed=0, num_inference_steps=2)
+            r = measured(dev, lambda: pipe.edit(image, box, "FP32 FLASH",
+                                                seed=5)[0])
+        only_boxes_changed(r["out"], image, [box])
+        expect_flash(r, **({} if not on else {
+            fp32_entry("fwd_pipelined" if switch else "fwd", 64):
+                10 * VAE_FLASH_STEPS,
+            fp32_entry("fwd_pipelined" if switch else "fwd", 512): 2}))
+        outs[name] = r.pop("out")
+        edits[name] = keep(r)
+        if on:
+            out["launches"][f"fp32_edit_{name}"] = r["launches"]
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("dense", "flash_pipelined"):
+        edits[name]["max_lsb_vs_flash"] = int(np.abs(
+            outs[name].astype(np.int16) - outs["flash"]).max())
+    phase("fp32_edit", steps=VAE_FLASH_STEPS, tolerance_lsb=FP32_EDIT_LSB,
+          **edits)
+    if any(edits[n]["max_lsb_vs_flash"] > FP32_EDIT_LSB
+           for n in ("dense", "flash_pipelined")):
+        raise RuntimeError(f"the fp32 edits differ: {edits}")
+    out["edit"] = edits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- stage 2 through run_unet's entry point, fp32
+    train_dir = tempfile.mkdtemp(prefix="diffute_fp32_train_")
+    reset_counters()
+    try:
+        history = run_unet.main([
+            "--model_scale", "full", "--train_batch_size", str(TRAIN_BATCH),
+            "--mixed_precision", "no", "--gradient_checkpointing",
+            "--max_train_steps", str(FP32_TRAIN_STEPS), "--seed", "0",
+            "--report_to", "none", "--output_dir", train_dir])
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    rec = {"launches": counters()}
+    expect_flash(rec, **{fp32_entry("fwd", 64): 20 * FP32_TRAIN_STEPS,
+                         fp32_entry("bwd_dq", 64): 10 * FP32_TRAIN_STEPS,
+                         fp32_entry("bwd_dkv", 64): 10 * FP32_TRAIN_STEPS})
+    if len(history) != FP32_TRAIN_STEPS or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+            and h["grad_norm"] > 0 for h in history):
+        raise RuntimeError(f"fp32 training metrics: {history}")
+    out["launches"]["fp32_train"] = rec["launches"]
+    out["train"] = dict(steps=history, launches=fp32_launches(rec))
+    phase("fp32_train", **out["train"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one UNetTrainer step with both flags, against flash off
+    s2cfg = dataclasses.replace(
+        flags(base, True, remat=True),
+        train=TrainConfig(train_batch_size=TRAIN_BATCH, mixed_precision="no",
+                          gradient_checkpointing=True, max_train_steps=1))
+    params = init_pipeline_params(s2cfg, seed=0, device=dev)
+    trainer = UNetTrainer(s2cfg, params["unet"],
+                          {"vae": params["vae"], "trocr": params["trocr"]},
+                          device=dev, total_steps=1)
+    data = SyntheticSceneDataset(s2cfg, seed=0)
+    batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)], s2cfg)
+    draws = trainer.draw(TRAIN_BATCH)
+    probes = ["conv_in.weight",
+              "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+              "up_blocks.3.attentions.2.transformer_blocks.0.attn1.to_v.weight",
+              "conv_out.weight"]
+    masters = trainer.state.params_dict()
+    r_on = measured(dev, lambda: trainer.accumulate_grads(batch, draws).item())
+    grads_on = {n: masters[n].grad.clone() for n in probes}
+    expect_flash(r_on, **{fp32_entry("fwd", 64): 20,
+                          fp32_entry("bwd_dq", 64): 10,
+                          fp32_entry("bwd_dkv", 64): 10,
+                          fp32_entry("fwd", 512): 2})
+    attns = [m for model in (trainer.unet, trainer.vae)
+             for m in model.modules() if isinstance(m, Attention)]
+    for m in attns:
+        m.use_flash = False
+    r_off = measured(dev, lambda: trainer.accumulate_grads(batch,
+                                                           draws).item())
+    expect_flash(r_off)
+    rel = {n: rel_l2(grads_on[n], masters[n].grad) for n in probes}
+    loss_on, loss_off = r_on.pop("out"), r_off.pop("out")
+    step = dict(batch=TRAIN_BATCH, loss_flash=loss_on, loss_dense=loss_off,
+                loss_rel_diff=abs(loss_on - loss_off) / abs(loss_off),
+                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
+                grad_tolerance=TOL_FP32_GRAD_REL,
+                flash=keep(r_on), dense=keep(r_off))
+    out["launches"]["fp32_stage2_vae_flash"] = r_on["launches"]
+    phase("fp32_stage2_step", **step)
+    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
+            and max(rel.values()) <= TOL_FP32_GRAD_REL):
+        raise RuntimeError(f"the fp32 stage-2 step with flash differs: "
+                           f"{step}")
+    out["stage2"] = step
+    del trainer, masters, grads_on, attns, batch, data, draws
+    del params["unet"], params["trocr"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- stage 1 on the SD2 VAE at 512^2, fp32, flag on and off
+    def stage1(cfg, on, batch_size, res):
+        return dataclasses.replace(
+            cfg, vae=dataclasses.replace(cfg.vae, use_flash_attention=on,
+                                         remat=True),
+            edit=dataclasses.replace(cfg.edit, resolution=res),
+            train=TrainConfig(train_batch_size=batch_size,
+                              mixed_precision="no",
+                              gradient_checkpointing=True,
+                              max_train_steps=STAGE1_STEPS))
+
+    def stage1_steps(cfg_of, vae_params, batch_size, d, runs, prefix):
+        data = SyntheticSceneDataset(cfg_of(False), seed=0)
+        batches = [make_vae_batch([data[batch_size * i + j]
+                                   for j in range(batch_size)])
+                   for i in range(STAGE1_STEPS)]
+        res = {}
+        for name, on in runs:
+            trainer = VAETrainer(cfg_of(on), vae_params, device=dev,
+                                 total_steps=STAGE1_STEPS)
+            steps = []
+            for b in batches:
+                r = measured(dev, lambda: {k: v.item() for k, v in
+                                             trainer.step(b).items()})
+                expect_flash(r, **({fp32_entry(kind, d): 2
+                                    for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+                                   if on else {}))
+                steps.append(dict(r.pop("out"), **keep(
+                    r, memory_allocated_before=r["memory_allocated_before"])))
+                if on:
+                    out["launches"][f"{prefix}stage1_vae_{name}_step"
+                                    f"{len(steps)}"] = r["launches"]
+            if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                       for s in steps):
+                raise RuntimeError(f"fp32 stage-1 steps not finite: {steps}")
+            res[name] = steps
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        return res
+
+    s1 = stage1_steps(lambda on: stage1(base, on, WORKFLOW_BATCH, RES),
+                      params["vae"], WORKFLOW_BATCH, 512,
+                      (("dense", False), ("flash", True)), "fp32_")
+    s1["loss_rel_diff"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(s1["flash"], s1["dense"])]
+    phase("fp32_stage1", batch=WORKFLOW_BATCH, resolution=RES,
+          loss_tolerance=TOL_FP32_LOSS_REL, **s1)
+    if not max(s1["loss_rel_diff"]) <= TOL_FP32_LOSS_REL:
+        raise RuntimeError(f"fp32 stage 1 with flash differs: {s1}")
+    out["stage1"] = s1
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- small_config: encode and decode at 256^2, 3 stage-1 steps
+    small = small_config()
+    sparams = init_pipeline_params(small, seed=0, device=dev)
+    vaes = {on: load_module(AutoencoderKL, dataclasses.replace(
+                small.vae, use_flash_attention=on), sparams["vae"], dev, f32)
+            for on in (False, True)}
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand((1, 3, 256, 256), generator=g, device=dev) * 2 - 1
+    codec = {}
+    with torch.inference_mode():
+        z = vaes[False].encode(x)[0]
+        for what in ("encode", "decode"):
+            runs = {}
+            for name, on in (("dense", False), ("flash", True),
+                             ("flash_pipelined", True)):
+                with pipeline_fwd(name == "flash_pipelined"):
+                    runs[name] = measured(dev, lambda: (
+                        vaes[on].encode(x)[0] if what == "encode"
+                        else vaes[on].decode(z)))
+            expect_flash(runs["dense"])
+            expect_flash(runs["flash"], **{fp32_entry("fwd", 256): 1})
+            expect_flash(runs["flash_pipelined"],
+                         **{fp32_entry("fwd_pipelined", 256): 1})
+            ref = runs["dense"].pop("out")
+            codec[what] = {}
+            for name in ("flash", "flash_pipelined"):
+                rel = ((runs[name].pop("out") - ref).abs().max()
+                       / ref.abs().max()).item()
+                codec[what][name] = keep(runs[name], rel_max_err=rel)
+                out["launches"][f"fp32_small_vae_{what}_256" + (
+                    "_pipelined" if name == "flash_pipelined" else "")] = (
+                        runs[name]["launches"])
+            codec[what]["dense"] = keep(runs["dense"])
+            if not all(codec[what][n]["rel_max_err"] <= TOL_VAE_FLASH_REL
+                       for n in ("flash", "flash_pipelined")):
+                raise RuntimeError(f"fp32 small VAE {what} with flash "
+                                   f"differs: {codec[what]}")
+    del vaes, z, x
+    small_s1 = stage1_steps(lambda on: stage1(small, on, 16, 256),
+                            sparams["vae"], 16, 256, (("flash", True),),
+                            "fp32_small_")
+    phase("fp32_small", codec=codec, stage1_batch=16, **small_s1)
+    out["small"] = dict(codec=codec, stage1=small_s1)
+    del sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_entries(results: dict, launches: dict) -> list:
+    """The twelve fp32 kernels' entries (phase 3f) with the fp32 paths'
+    launches by path (phase 8c: path -> counters read right after it
+    ran)."""
+    def by_path(key):
+        return {path: rec[key] for path, rec in launches.items() if rec[key]}
+
+    return [kernel_entry(fp32_entry(kind, d), "flash_fp32.cu",
+                         f"flash_attention.py:{FP32_REPLACES[kind]}",
+                         results[fp32_entry(kind, d)],
+                         by_path(fp32_entry(kind, d)))
+            for d in (64, 256, 512) for kind in FP32_KINDS]
+
 OCR_BATCH, OCR_STEPS, OCR_MAX_LEN = 64, 50, 16
 EVAL_EXAMPLES, EVAL_STEPS = 4, 20
 # flash self-attentions of one UNet pass: full width at 512^2 (5 at 4096
@@ -3089,6 +3725,9 @@ def main(argv=None) -> None:
                    help="build the kernels and run phases 3d, 3e and 8b (the "
                    "head_dim-256 kernels and the small VAE's flash paths) "
                    "alone")
+    p.add_argument("--fp32-only", action="store_true",
+                   help="build the kernels and run phases 3f and 8c (the "
+                   "fp32 flash kernels and the fp32 paths with flash) alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -3137,6 +3776,26 @@ def main(argv=None) -> None:
         print(json.dumps({"kernels": wide_entries(wide, vae_flash["launches"],
                                                   d),
                           "vae_flash": vae_flash_summary(vae_flash)}),
+              flush=True)
+        return
+    if args.fp32_only:
+        from diffute_tpu_torch.ops import _build
+
+        print(gpu_line(), flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds = {}
+        for name, fn in (("phase_3f", lambda: check_fp32(dev)),
+                         ("phase_8c", lambda: check_fp32_paths(dev))):
+            t0 = time.perf_counter()
+            seconds[name] = (fn(), time.perf_counter() - t0)
+        phase("seconds", **{k: v[1] for k, v in seconds.items()},
+              run=time.perf_counter() - t_run)
+        fp32, fp32_paths = seconds["phase_3f"][0], seconds["phase_8c"][0]
+        print(gpu_line(), flush=True)
+        print(json.dumps({"kernels": fp32_entries(fp32,
+                                                  fp32_paths["launches"]),
+                          "fp32_paths": vae_flash_summary(fp32_paths)}),
               flush=True)
         return
     if args.workflow_only or args.eval_only:
@@ -3245,6 +3904,12 @@ def main(argv=None) -> None:
     d512["fwd_pipelined"] = check_wide_pipelined(dev, 512)
     d256["fwd_pipelined"] = check_wide_pipelined(dev, 256)
     phase("phase_3e", seconds=time.perf_counter() - t0)
+
+    # ---- 3f. the fp32 kernels at head_dims 64, 256 and 512 against their
+    # plain fp32 versions
+    t0 = time.perf_counter()
+    fp32 = check_fp32(dev)
+    phase("phase_3f", seconds=time.perf_counter() - t0)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -3492,11 +4157,16 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         small_vae_flash = check_vae_flash(dev, "small")
         phase("phase_8b", seconds=time.perf_counter() - t0)
+        # ---- 8c. the fp32 paths with the fp32 flash kernels
+        t0 = time.perf_counter()
+        fp32_paths = check_fp32_paths(dev)
+        phase("phase_8c", seconds=time.perf_counter() - t0)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     wl = {**workflow["launches"], **verifier_paths["eval"]["launches"],
-          **vae_flash["launches"], **small_vae_flash["launches"]}
+          **vae_flash["launches"], **small_vae_flash["launches"],
+          **fp32_paths["launches"]}
 
     def path_launches(key):
         """``key``'s launches on each path, from the counters read right
@@ -3514,9 +4184,7 @@ def main(argv=None) -> None:
         by_path.update({name: rec[key] for name, rec in wl.items()})
         return {k: v for k, v in by_path.items() if v}
 
-    phase("run", seconds=time.perf_counter() - t_run)
-    print(gpu_line(), flush=True)
-    print(json.dumps({"kernels": [
+    kernels = [
         kernel_entry("flash_fwd_bf16", "flash_fwd.cu",
                      "flash_attention.py:275", fwd_results,
                      {"edit": edit_launches,
@@ -3553,7 +4221,17 @@ def main(argv=None) -> None:
                       **path_launches("w8")}),
         *wide_entries(d512, vae_flash["launches"], 512),
         *wide_entries(d256, small_vae_flash["launches"], 256),
-    ], "edit_seconds": [e["seconds"] for e in edits],
+        *fp32_entries(fp32, fp32_paths["launches"]),
+    ]
+    # every kernel ran on some path (the comparison launches of phase 3
+    # are not counted there)
+    idle = [e["name"] for e in kernels if not e["launches"]]
+    if idle:
+        raise RuntimeError(f"no path launched {idle}")
+    phase("run", seconds=time.perf_counter() - t_run)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"kernels": kernels,
+        "edit_seconds": [e["seconds"] for e in edits],
         "edit_flags_seconds": [e["seconds"] for e in flag_edits],
         "edit_flags_max_memory_allocated": [e["max_memory_allocated"]
                                             for e in flag_edits],
@@ -3583,6 +4261,7 @@ def main(argv=None) -> None:
         "workflow": {k: v for k, v in workflow.items() if k != "launches"},
         "vae_flash": vae_flash_summary(vae_flash),
         "small_vae_flash": vae_flash_summary(small_vae_flash),
+        "fp32_paths": vae_flash_summary(fp32_paths),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,8 @@ class VAEConfig:
     remat: bool = False
     # Route the mid-block's single-head attention (head_dim 512 at SD2
     # width, 4096 to 16384 tokens; 256 at small_config, 4096 tokens) through
-    # the CUDA flash kernels (csrc/flash_wide.cu); bf16 only on the card.
+    # the CUDA flash kernels (csrc/flash_wide.cu on bf16, csrc/flash_fp32.cu
+    # on fp32).
     use_flash_attention: bool = False
 
     @property
@@ -60,7 +61,8 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     dtype: torch.dtype = torch.float32
     # Route self-attention with >= 1024 keys through the CUDA flash kernels
-    # (csrc/flash_fwd.cu, csrc/flash_bwd.cu); bf16 only on the card.
+    # (csrc/flash_fwd.cu, csrc/flash_bwd.cu on bf16, csrc/flash_fp32.cu on
+    # fp32).
     use_flash_attention: bool = False
     # GroupNorm+SiLU as one kernel (csrc/groupnorm.cu) in conv_norm_out and,
     # without use_fused_conv, in the resnets.

@@ -91,6 +91,11 @@ def _signatures() -> dict:
         "flash_fwd_pipelined_d256_bf16": fwd,
         "flash_bwd_dq_d256_bf16": bwd,
         "flash_bwd_dkv_d256_bf16": bwd,
+        # the same four on fp32 inputs at head_dim 64, 256 and 512
+        # (csrc/flash_fp32.cu)
+        **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd
+           for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+           for width in ("", "_d256", "_d512")},
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream)
         "gn_stats_bf16": [p] * 3 + [i] * 4 + [f, p],
         # (x, gamma, beta, affine_bf16, y, B, C, HW, groups, cluster, threads,

@@ -14,10 +14,11 @@ directory (only the components it lacks are random-initialized, from seed
 holds the trainer's whole state and exports ``unet/``, ``unet_ema/`` (with
 ``--use_ema``), ``vae/`` and ``trocr/`` (``train.loop``).  Runs on the card
 unless ``--device cpu`` is given; without a card it exits non-zero.  On the
-card ``--mixed_precision bf16`` turns the flash-attention kernels on (they
-take bf16 only).  ``--report_to`` defaults to ``tensorboard``, as in the JAX
-package.  Not yet ported, each raising with its ROADMAP item:
-``--optimizer adafactor|adamw8bit``, ``--steps_per_call`` above 1.
+card the flash-attention kernels are on at both precisions (bf16 kernels
+with ``--mixed_precision bf16``, the fp32 ones with ``no``).
+``--report_to`` defaults to ``tensorboard``, as in the JAX package.  Not
+yet ported, each raising with its ROADMAP item: ``--optimizer
+adafactor|adamw8bit``, ``--steps_per_call`` above 1.
 """
 
 from __future__ import annotations
@@ -107,10 +108,9 @@ def prepare(argv: Optional[Sequence[str]] = None
         base, train=train_cfg,
         unet=dataclasses.replace(
             base.unet, remat=args.gradient_checkpointing,
-            # the flash kernels take bf16 only; on the CPU the config's own
-            # setting stands (the plain version takes any dtype)
-            use_flash_attention=(args.mixed_precision == "bf16" if on_card
-                                 else base.unet.use_flash_attention)))
+            # on the card the flash kernels take both precisions; on the
+            # CPU the config's own setting stands (the plain version)
+            use_flash_attention=on_card or base.unet.use_flash_attention))
     if args.prediction_type:
         config = dataclasses.replace(
             config, scheduler=dataclasses.replace(

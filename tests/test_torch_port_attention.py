@@ -126,10 +126,13 @@ def test_nearest_resize_matches_jax(shape, out_hw):
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
     # CPU tensors never reach the kernel; the checks guard CUDA inputs, and
-    # an unsupported device must raise rather than compute something else
-    q = torch.zeros((1, 4, 64), device="meta")
-    with pytest.raises(ValueError):
+    # an unsupported dtype (fp16: the kernels take bf16 and fp32) or device
+    # must raise rather than compute something else
+    q = torch.zeros((1, 4, 64), device="meta", dtype=torch.float16)
+    with pytest.raises(ValueError, match="take bf16 or fp32"):
         flash_fwd_3d(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="runs on cuda or cpu, not meta"):
+        flash_fwd_3d(*(q.float() for _ in range(3)), 0.125)
     launches = flash_attention.launches
     flash_fwd_3d(*(torch.zeros((1, 4, 64)) for _ in range(3)), 0.125)
     assert flash_attention.launches == launches  # CPU: no kernel launch
@@ -248,4 +251,4 @@ def test_cuda_kernel_matches_plain(bh, s, t, strided):
     assert diff.norm() / ro.float().norm() <= 2e-3
     assert (lse - rlse).abs().max().item() <= 1e-4
     with pytest.raises(ValueError):
-        flash_fwd_3d(q.float(), k.float(), v.float(), 0.125)  # no fallback
+        flash_fwd_3d(q.half(), k.half(), v.half(), 0.125)  # no fallback

@@ -284,8 +284,8 @@ def test_cuda_backward_kernels_match_plain(bh, s, t):
     assert all(torch.equal(a, b) for a, b in zip(
         got, flash_bwd_3d(q, k, v, o, lse, g, 0.125)))
     with pytest.raises(ValueError):  # no fallback for what the kernels refuse
-        flash_bwd_3d(q.float(), k.float(), v.float(), o.float(), lse,
-                     g.float(), 0.125)
+        flash_bwd_3d(q.half(), k.half(), v.half(), o.half(), lse,
+                     g.half(), 0.125)
 
 
 @pytest.mark.cuda

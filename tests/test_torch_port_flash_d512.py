@@ -155,12 +155,14 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(shape, device="meta", dtype=dtype)
 
 
+# fp16 is the dtype no kernel takes (fp32 has kernels since
+# csrc/flash_fp32.cu; the message reads "take bf16 or fp32")
 @pytest.mark.parametrize("dtype,d,match", [
-    (torch.float32, 512, "take bf16"),
+    (torch.float16, 512, "take bf16"),
     (torch.bfloat16, 128, r"D in \(64, 256, 512\)"),
     # head_dim 512 passes every check but the device's
     (torch.bfloat16, 512, "runs on cuda or cpu, not meta"),
-    (torch.float32, 256, "take bf16"),
+    (torch.float16, 256, "take bf16"),
     (torch.bfloat16, 256, "runs on cuda or cpu, not meta")])
 def test_wrappers_refuse_what_the_kernels_do_not_take(dtype, d, match):
     q, k, v, o, do = (_meta(1, n, 1, d, dtype=dtype)
@@ -312,17 +314,20 @@ def test_cuda_kernels_read_strided_views_without_a_copy(d):
 @pytest.mark.parametrize("switch", [False, True])
 def test_cuda_refusals_launch_nothing(monkeypatch, switch):
     _skip_without_card()
-    # fp32, and head_dims no kernel takes, raise with PIPELINE_FWD off or on
-    # (1024 keys: the deferred kernel's rule takes them at every width)
+    # fp16, and head_dims no kernel takes, raise with PIPELINE_FWD off or on
+    # (1024 keys: the deferred kernel's rule takes them at every width);
+    # neither a bf16 nor an fp32 kernel launches
     monkeypatch.setattr(tfa, "PIPELINE_FWD", switch)
     q, k, v, _ = _cuda_inputs(3, 1, 1024, 1024, 512)
     counts = ("launches", "pipelined_launches", "d512_pipelined_launches",
-              "d256_pipelined_launches", *WIDE_COUNTERS)
+              "d256_pipelined_launches", *WIDE_COUNTERS,
+              *(tfa.counter_name(kind, d, torch.float32)
+                for kind in ("fwd", "fwd_pipelined") for d in WIDTHS))
     before = [getattr(flash_attention, n) for n in counts]
     for d in WIDTHS:
         with pytest.raises(ValueError, match="take bf16"):
-            flash_fwd_3d(q[..., :d].float(), k[..., :d].float(),
-                         v[..., :d].float(), d ** -0.5)
+            flash_fwd_3d(q[..., :d].half(), k[..., :d].half(),
+                         v[..., :d].half(), d ** -0.5)
     for d in (128, 384):
         with pytest.raises(ValueError, match=r"D in \(64, 256, 512\)"):
             flash_fwd_3d(q[..., :d], k[..., :d], v[..., :d], d ** -0.5)

@@ -225,7 +225,7 @@ def test_cuda_wrapper_raises_and_does_not_fall_back():
     with pytest.raises(ValueError):
         tfa.flash_fwd_3d_pipelined(q, k, v, 0.125)
     with pytest.raises(ValueError):
-        tfa.flash_fwd_3d_pipelined(q.float(), k[:, :128].float(),
-                                   v[:, :128].float(), 0.125)
+        tfa.flash_fwd_3d_pipelined(q.half(), k[:, :128].half(),
+                                   v[:, :128].half(), 0.125)
     assert before == (tfa.flash_attention.launches,
                       tfa.flash_attention.pipelined_launches)

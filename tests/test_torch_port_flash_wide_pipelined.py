@@ -159,7 +159,10 @@ def test_pipelined_launches_are_counted_by_width():
                                   (256, True, "d256_pipelined_launches"),
                                   (512, False, "d512_launches"),
                                   (64, True, "pipelined_launches")):
-        q, k = (torch.empty((1, n, 1, d), device="meta") for n in (64, 4096))
+        # bf16: the kernels these counters count (fp32 inputs count in the
+        # fp32 kernels' own: tests/test_torch_port_flash_fp32.py)
+        q, k = (torch.empty((1, n, 1, d), device="meta", dtype=torch.bfloat16)
+                for n in (64, 4096))
         before = {n: getattr(tfa.flash_attention, n) for n in names}
         tfa._count_forward(q, k, pipelined)
         assert {n: getattr(tfa.flash_attention, n) - before[n]
