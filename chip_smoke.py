@@ -75,6 +75,18 @@ Phases, one line each (any failure raises and exits non-zero):
      each timed beside its plain one-pass version, SDPA on fp32 with TF32
      off (its backend recorded) and the bound at 164.9 TFLOP/s (the TF32
      rate over three products); what ptxas says of the source;
+  3g. the fp32 entries of GroupNorm+SiLU and its statistics
+     (csrc/groupnorm.cu) and the int8 matmul on fp32 x
+     (csrc/quant_fp32.cu, two TF32 products) against their plain fp32
+     versions, TF32 off: GN+SiLU within relative L2 1e-5, the statistics as
+     3b holds the bf16 ones and within 1e-6 of their tiled plain version at
+     the fp32 plan, the int8 matmul within relative L2 1e-5 (and its
+     distance from fp64), each the same bits twice, the fused bias bit for
+     bit; GroupNorm at 3b's shapes, the int8 matmul at 3b's and a ragged
+     one; mutants (the GN output rounded through bf16, the one-pass
+     variance at mean 100, a dropped cluster rank, x rounded to TF32 alone,
+     the scale applied to one feature twice) must FAIL; each timed beside
+     its bound, its plain version and its library call;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -146,6 +158,16 @@ Phases, one line each (any failure raises and exits non-zero):
      within 1e-5); small_config's VAE: an encode and a decode at 256^2 flag
      on (switch off and on) against off, three fp32 stage-1 steps at batch
      16 (2/2/2 at 256);
+  8d. the fp32 paths through GN+SiLU and the int8 matmul on fp32, full
+     width, both flash flags: a 20-step 512^2 edit with use_fused_groupnorm
+     and use_int8_weights (900 GN+SiLU, 3,232 int8, 200 + 2 fp32 flash
+     launches) within 1 LSB of the same edit with the GroupNorm flag off
+     and of one whose transformer layers hold the dequantised int8 weights
+     as float weights; one UNetTrainer step at batch 4 with gradient
+     checkpointing and use_fused_groupnorm (89 GN+SiLU launches: 45, then
+     44 recomputed) against the flag off (the loss within 1e-5, four
+     probes' gradients within 1e-4); seconds and peak memory beside 8c's
+     flash-only edit and step;
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -182,8 +204,8 @@ Exits non-zero, with no result, when no CUDA device is available.
 
     python3 chip_smoke.py --fp32-only
 
-builds the kernels and runs phases 3f and 8c (the fp32 flash kernels and
-the fp32 paths) alone and prints their kernels line.
+builds the kernels and runs phases 3f, 3g, 8c and 8d (the fp32 kernels
+and the fp32 paths) alone and prints their kernels line.
 
     python3 chip_smoke.py --workflow-only
 
@@ -3146,6 +3168,8 @@ def check_fp32_paths(dev) -> dict:
     def keep(r, **more):
         return dict(seconds=r["seconds"],
                     max_memory_allocated=r["max_memory_allocated"],
+                    peak_above_resident=(r["max_memory_allocated"]
+                                         - r["memory_allocated_before"]),
                     launches=fp32_launches(r), **more)
 
     # ---- serving: a 20-step 512^2 edit, flash, dense, switch on
@@ -3376,6 +3400,443 @@ def fp32_entries(results: dict, launches: dict) -> list:
                          results[fp32_entry(kind, d)],
                          by_path(fp32_entry(kind, d)))
             for d in (64, 256, 512) for kind in FP32_KINDS]
+
+
+# ---- phase 3g: GroupNorm+SiLU, its statistics and the int8 matmul on fp32
+# inputs (csrc/groupnorm.cu's fp32 entries, csrc/quant_fp32.cu), held to the
+# fp32 contract (TOL_FP32_REL_L2) of phase 3f
+# the int8 matmul's shapes: every one of a flagged 512^2 pass, the hoisted
+# K/V, the 1024^2 edit's widest and a ragged one (M not a multiple of the
+# 64-row tile, N not a multiple of 128)
+W8_FP32_SHAPES = ([s + (c,) for s, c in W8_SHAPES]
+                  + [s + (None,) for s, _ in W8_EDIT_SHAPES]
+                  + [(16384, 320, 2560, None), (1000, 640, 200, None)])
+# the H100 SXM's dense TF32 rate over the two products the int8 matmul on
+# fp32 x takes (x = hi + lo, the int8 values exact in TF32), and its fp32
+# rate outside the tensor cores (GroupNorm's few operations an element)
+PEAK_W8_FP32_FLOPS, PEAK_FP32_SIMT_FLOPS = 494.7e12 / 2, 67e12
+# the fp32 statistics against their tiled plain version (the same fold of
+# the same pieces): the mean within this of max(1, |mean|), rstd relative
+TOL_FP32_STATS = 1e-6
+
+
+def check_fp32_fused(dev) -> dict:
+    """Phase 3g: the fp32 entries gn_silu_fp32, gn_stats_fp32 and
+    w8_matmul_fp32 against their plain fp32 versions on the card, TF32 off,
+    to the fp32 contract: GN+SiLU within relative L2 TOL_FP32_REL_L2 of
+    group_norm_silu_reference; the statistics held as phase 3b holds the
+    bf16 ones and within TOL_FP32_STATS of group_norm_stats_tiled_reference
+    at the fp32 plan; the int8 matmul within TOL_FP32_REL_L2 of
+    quant_matmul_reference (and its distance, and the plain version's, from
+    fp64); each the same bits twice, the fused bias bit for bit as the
+    two-step.  GroupNorm at every shape of phase 3b, the int8 matmul at
+    W8_FP32_SHAPES.  Mutants that must fail: the GN output rounded through
+    bf16, the one-pass variance E[x^2] - mean^2 at the mean-100 input, one
+    cluster rank dropped from the merge; the int8 product with x rounded to
+    TF32 alone, the scale applied to one feature twice.  Each timed beside
+    its bound, its plain version and its library call (F.silu(F.group_norm),
+    torch.batch_norm_stats, (x @ q.float().T) * scale).  Returns {entry
+    name: [result per shape]}."""
+    import torch.nn.functional as F
+
+    from diffute_tpu_torch.ops.groupnorm import (
+        gn_plan, group_norm_silu, group_norm_silu_from_stats,
+        group_norm_silu_reference, group_norm_stats,
+        group_norm_stats_reference, group_norm_stats_tiled_reference)
+    from diffute_tpu_torch.ops.quant import (quant_matmul,
+                                             quant_matmul_reference,
+                                             quant_matmul_tf32_reference,
+                                             quantize_per_channel,
+                                             w8_fp32_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for source in ("groupnorm.cu", "quant_fp32.cu"):
+        show_ptxas(source)
+    f32 = torch.float32
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, mean=0.0, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    def must_fail(name, err):
+        if err <= TOL_FP32_REL_L2:
+            raise RuntimeError(f"the fp32 criterion passes the mutant {name}: "
+                               f"{err}")
+        return err
+
+    def gn_silu_fp64(x, gamma, beta):
+        xd = x.double().reshape(x.shape[0], 32, -1)
+        mu = xd.mean(dim=2, keepdim=True)
+        var = (xd - mu).square().mean(dim=2, keepdim=True)
+        y = ((xd - mu) * torch.rsqrt(var + 1e-5)).reshape(x.shape)
+        y = (y * gamma.double().view(1, -1, 1, 1)
+             + beta.double().view(1, -1, 1, 1))
+        return y * torch.sigmoid(y)
+
+    def stats_close(m, r, rm, rr, mean, tol):
+        return ((m - rm).abs().max().item() <= tol * max(1.0, abs(mean))
+                and ((r - rr).abs() / rr).max().item() <= tol)
+
+    out = {"gn_silu_fp32": [], "gn_stats_fp32": [], "w8_matmul_fp32": []}
+    for shape, mean, n_stats, n_gn in (
+            [((1, c, hw, hw), 0.0, ns, ng) for c, hw, ns, ng in GN_SHAPES]
+            + [((2, 640, 32, 32), 0.0, None, None),
+               ((1, 320, 96, 96), 0.0, None, None),
+               ((1, 320, 128, 128), 0.0, None, None),
+               ((1, 960, 128, 128), 0.0, None, None),
+               ((1, 320, 64, 64), 100.0, None, None),
+               ((1, 128, 512, 512), 0.0, None, None)]):
+        b, c, h, w = shape
+        x = randn(*shape, mean=mean)
+        gamma, beta = randn(c, mean=1.0, std=0.3), randn(c, std=0.5)
+        y = group_norm_silu(x, gamma, beta, 32, 1e-5)
+        y2 = group_norm_silu(x, gamma, beta, 32, 1e-5)
+        m, r = group_norm_stats(x, 32, 1e-5)
+        m2, r2 = group_norm_stats(x, 32, 1e-5)
+        torch.cuda.synchronize()
+        ref = group_norm_silu_reference(x, gamma, beta, 32, 1e-5)
+        rm, rr = group_norm_stats_reference(x, 32, 1e-5)
+        tm, tr = group_norm_stats_tiled_reference(x, 32, 1e-5)
+        plan = {k: v for k, v in gn_plan(b, c, h, w, 32, 4).items()
+                if k in ("cluster", "threads", "silu_threads", "one_read")}
+        nbytes = 4 * x.numel()
+        ref64 = gn_silu_fp64(x, gamma, beta)
+        res = dict(shape=list(shape), input_mean=mean,
+                   launches_per_pass=n_gn, plan=plan,
+                   **fp32_errors(y, ref),
+                   rel_l2_from_fp64=rel(y, ref64),
+                   plain_rel_l2_from_fp64=rel(ref, ref64),
+                   same_bits_twice=torch.equal(y, y2),
+                   ms=time_ms(lambda: group_norm_silu(x, gamma, beta, 32,
+                                                      1e-5)),
+                   plain_ms=time_ms(lambda: group_norm_silu_reference(
+                       x, gamma, beta, 32, 1e-5)),
+                   library_ms=time_ms(lambda: F.silu(F.group_norm(
+                       x, 32, gamma, beta, 1e-5))),
+                   **bound(10 * x.numel(), 2 * nbytes + 8 * c,
+                           PEAK_FP32_SIMT_FLOPS))
+        stats_err = {"mean_max_abs_err": (m - rm).abs().max().item(),
+                     "rstd_max_rel_err": ((r - rr).abs() / rr).max().item(),
+                     "tiled_mean_max_abs_err": (m - tm).abs().max().item(),
+                     "tiled_rstd_max_rel_err": ((r - tr).abs()
+                                                / tr).max().item()}
+        sres = dict(shape=list(shape), input_mean=mean,
+                    launches_per_pass=n_stats, plan=plan,
+                    max_abs_err=stats_err["mean_max_abs_err"], **stats_err,
+                    same_bits_twice=torch.equal(m, m2) and torch.equal(r, r2),
+                    ms=time_ms(lambda: group_norm_stats(x, 32, 1e-5)),
+                    plain_ms=time_ms(lambda: group_norm_stats_reference(
+                        x, 32, 1e-5)),
+                    library_ms=time_ms(lambda: torch.batch_norm_stats(
+                        x.view(1, b * 32, -1), 1e-5)),
+                    **bound(3 * x.numel(), nbytes + 8 * b * 32,
+                            PEAK_FP32_SIMT_FLOPS))
+        for r_ in (res, sres):
+            r_["share_of_bound"] = r_["bound_ms"] / r_["ms"]
+        mutants = {}
+        if shape == (1, 320, 64, 64) and mean == 0.0:
+            mutants["output_via_bf16_rel_l2"] = must_fail(
+                "GN+SiLU rounded through bf16", rel(ref.bfloat16(), ref))
+        if shape == (2, 640, 32, 32):
+            dm, dr = group_norm_stats_tiled_reference(
+                x, 32, 1e-5, ranks=range(plan["cluster"] - 1))
+            if stats_close(dm, dr, tm, tr, mean, TOL_FP32_STATS):
+                raise RuntimeError("the statistics criterion passes a "
+                                   "dropped cluster rank")
+            mutants["dropped_rank_rel_l2"] = must_fail(
+                "a dropped cluster rank",
+                rel(group_norm_silu_from_stats(x, gamma, beta, dm, dr), ref))
+        if mean == 100.0:
+            xg = x.reshape(b, 32, -1)
+            om = xg.mean(dim=2)
+            orstd = torch.rsqrt((xg * xg).mean(dim=2) - om * om + 1e-5)
+            if stats_close(om, orstd, tm, tr, mean, TOL_FP32_STATS):
+                raise RuntimeError("the statistics criterion passes the "
+                                   "one-pass variance")
+            mutants["one_pass_variance_rel_l2"] = must_fail(
+                "the one-pass variance",
+                rel(group_norm_silu_from_stats(x, gamma, beta, om, orstd),
+                    ref))
+        if mutants:
+            res["mutants"] = mutants
+        phase("kernel_gn_silu_fp32", **res)
+        phase("kernel_gn_stats_fp32", **sres)
+        if not (fp32_held(res) and res["same_bits_twice"]
+                and stats_close(m, r, rm, rr, mean, 1e-5)
+                and ((r - rr).abs() / rr).max().item() <= 1e-4
+                and stats_close(m, r, tm, tr, mean, TOL_FP32_STATS)
+                and sres["same_bits_twice"]):
+            raise RuntimeError(f"the fp32 GroupNorm disagrees at {shape}: "
+                               f"{res} {stats_err}")
+        out["gn_silu_fp32"].append(res)
+        out["gn_stats_fp32"].append(sres)
+        del x, y, y2, ref, ref64
+    mutated = [r["shape"] for r in out["gn_silu_fp32"] if "mutants" in r]
+    if mutated != [[1, 320, 64, 64], [2, 640, 32, 32], [1, 320, 64, 64]]:
+        raise RuntimeError(f"fp32 GroupNorm mutants checked at {mutated}")
+
+    for m_, k, n, per_pass in W8_FP32_SHAPES:
+        x = randn(m_, k)
+        q, scale = quantize_per_channel(randn(n, k, std=k ** -0.5))
+        bias = randn(n, std=0.1)
+        y = quant_matmul(x, q, scale)
+        again = quant_matmul(x, q, scale)
+        with_bias = quant_matmul(x, q, scale, bias)
+        torch.cuda.synchronize()
+        ref = quant_matmul_reference(x, q, scale)
+        ref64 = (x.double() @ q.double().t()) * scale.double()[None, :]
+        res = dict(shape=[m_, k, n], launches_per_pass=per_pass,
+                   blocks=w8_fp32_plan(m_, n, k)["blocks"],
+                   **fp32_errors(y, ref),
+                   rel_l2_from_fp64=rel(y, ref64),
+                   plain_rel_l2_from_fp64=rel(ref, ref64),
+                   same_bits_twice=torch.equal(y, again),
+                   bias_equals_two_step=torch.equal(with_bias, y + bias),
+                   ms=time_ms(lambda: quant_matmul(x, q, scale)),
+                   ms_with_bias=time_ms(lambda: quant_matmul(x, q, scale,
+                                                             bias)),
+                   plain_ms=time_ms(lambda: quant_matmul_reference(x, q,
+                                                                   scale)),
+                   library_ms=time_ms(lambda: (x @ q.float().t()) * scale),
+                   library_call="(x @ q.float().T) * scale, TF32 off",
+                   **bound(2 * m_ * n * k, 4 * m_ * k + n * k + 4 * m_ * n
+                           + 4 * n, PEAK_W8_FP32_FLOPS))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if not out["w8_matmul_fp32"]:
+            twice = ref.clone()
+            twice[:, 0] *= scale[0]
+            res["mutants"] = {
+                "tf32_only_rel_l2": must_fail(
+                    "x rounded to TF32 alone",
+                    rel(quant_matmul_tf32_reference(x, q, scale, products=1),
+                        ref)),
+                "scale_twice_rel_l2": must_fail(
+                    "the scale applied to one feature twice",
+                    rel(twice, ref))}
+        phase("kernel_w8_matmul_fp32", **res)
+        if not (fp32_held(res) and res["same_bits_twice"]
+                and res["bias_equals_two_step"]):
+            raise RuntimeError(f"the fp32 int8 matmul disagrees at "
+                               f"{(m_, k, n)}: {res}")
+        out["w8_matmul_fp32"].append(res)
+        del x, y, again, with_bias, ref, ref64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 8d: the fp32 paths with GN+SiLU and the int8 matmul on fp32
+# a 20-step fp32 edit with use_fused_groupnorm and use_int8_weights (and
+# flash): per pass 45 GN+SiLU launches and 160 int8, once per edit the 32
+# hoisted cross-attention K/V
+GN_PER_PASS, W8_PER_PASS, W8_PER_EDIT = 45, 160, 32
+# an fp32 stage-2 step with use_fused_groupnorm under gradient
+# checkpointing: the 45 norms of the forward, then the 44 resnet norms
+# again when their resnets are recomputed (conv_norm_out is not); the
+# backward differentiates the plain version (no launch)
+GN_PER_REMAT_STEP = 45 + 44
+
+
+def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
+    """Phase 8d: the fp32 paths through gn_silu_fp32 and w8_matmul_fp32 at
+    full width, weights from seed 0, UNet, VAE and TrOCR in fp32, both flash
+    flags on as in phase 8c.  (a) A 20-step 512^2 edit through
+    DiffUTEPipeline.edit with use_fused_groupnorm and use_int8_weights
+    (bench.py --dtype fp32 --fused-gn --int8's configuration with flash):
+    900 GN+SiLU, 3,232 int8 and 200 + 2 fp32 flash launches, only the box
+    changed, within FP32_EDIT_LSB of the same edit with use_fused_groupnorm
+    off (nn.GroupNorm and SiLU in fp32) and of the same edit whose
+    transformer layers hold the dequantised int8 weights (q * s) as float
+    weights with use_int8_weights off.  (b) One UNetTrainer step at batch 4
+    with gradient checkpointing and use_fused_groupnorm against the same
+    step with the flag off, the same weights, batch and draws: the loss
+    within TOL_FP32_LOSS_REL, the four probes' gradients within
+    TOL_FP32_GRAD_REL, GN_PER_REMAT_STEP GN+SiLU launches.  Seconds and peak
+    memory of each, beside ``flash_only`` (phase 8c's flash-only fp32 edit
+    and stage-2 step, the same run).  Returns the numbers and the launches
+    by path."""
+    from diffute_tpu_torch.config import DiffUTEConfig, TrainConfig
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch)
+    from diffute_tpu_torch.models import UNet2DCondition
+    from diffute_tpu_torch.models.layers import QuantLinear
+    from diffute_tpu_torch.ops.quant import dequantize, quantize_per_channel
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.train import UNetTrainer
+    from diffute_tpu_torch.utils import init_pipeline_params
+    from diffute_tpu_torch.utils.params import build_meta
+
+    base = DiffUTEConfig()
+    out = {"launches": {}}
+
+    def flags(cfg, **unet):
+        return dataclasses.replace(
+            cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=True,
+                                          **unet),
+            vae=dataclasses.replace(cfg.vae, use_flash_attention=True))
+
+    def keep(r, **more):
+        return dict(dict(
+            seconds=r["seconds"],
+            max_memory_allocated=r["max_memory_allocated"],
+            peak_above_resident=(r["max_memory_allocated"]
+                                 - r["memory_allocated_before"]),
+            launches={k: r["launches"][k] for k in (
+                "gn_silu", "gn_stats", "conv", "w8", fp32_entry("fwd", 64),
+                fp32_entry("fwd", 512))}), **more)
+
+    # ---- (a) the 20-step fp32 edit, all on, and its two references: the
+    # three pipelines side by side, each warmed, the edits in turns (a, b,
+    # c, c, b, a)
+    params = init_pipeline_params(base, seed=0, device=dev)
+    serving = dataclasses.replace(base, edit=dataclasses.replace(
+        base.edit, resolution=RES, num_inference_steps=VAE_FLASH_STEPS))
+    int8_cfg = flags(serving, use_int8_weights=True).unet
+    dequantised = dict(params["unet"])
+    for name, m in build_meta(UNet2DCondition, int8_cfg).named_modules():
+        if isinstance(m, QuantLinear):
+            dequantised[f"{name}.weight"] = dequantize(*quantize_per_channel(
+                params["unet"][f"{name}.weight"]))
+    image, box = scene()
+    variants = {"fused_gn_int8": (dict(use_fused_groupnorm=True,
+                                       use_int8_weights=True), params["unet"]),
+                "int8": (dict(use_int8_weights=True), params["unet"]),
+                "fused_gn_dequantised": (dict(use_fused_groupnorm=True),
+                                         dequantised)}
+    pipes = {name: DiffUTEPipeline(flags(serving, **unet_flags),
+                                   dict(params, unet=unet_params), dev)
+             for name, (unet_flags, unet_params) in variants.items()}
+    for pipe in pipes.values():
+        pipe.edit(image, box, "warm", seed=0, num_inference_steps=2)
+    edits = {name: dict(seconds=[], unet_bytes=sum(
+        t.numel() * t.element_size() for t in (*pipe.unet.parameters(),
+                                               *pipe.unet.buffers())))
+             for name, pipe in pipes.items()}
+    outs = {}
+    order = list(pipes)
+    for name in order + order[::-1]:
+        unet_flags = variants[name][0]
+        r = measured(dev, lambda: pipes[name].edit(image, box, "FP32 FUSED",
+                                                   seed=5)[0])
+        only_boxes_changed(r["out"], image, [box])
+        steps = VAE_FLASH_STEPS
+        expect_launches(r, gn_stats=0, conv=0,
+                        gn_silu=(GN_PER_PASS * steps
+                                 if unet_flags.get("use_fused_groupnorm")
+                                 else 0),
+                        w8=(W8_PER_PASS * steps + W8_PER_EDIT
+                            if unet_flags.get("use_int8_weights") else 0))
+        expect_flash(r, **{fp32_entry("fwd", 64): 10 * steps,
+                           fp32_entry("fwd", 512): 2})
+        outs.setdefault(name, r["out"])
+        edits[name]["seconds"].append(r["seconds"])
+        edits[name].update(keep(r, seconds=edits[name]["seconds"]))
+        out["launches"][f"fp32_edit_{name}"] = r["launches"]
+    for name in ("int8", "fused_gn_dequantised"):
+        edits[name]["max_lsb_vs_fused_gn_int8"] = int(np.abs(
+            outs[name].astype(np.int16) - outs["fused_gn_int8"]).max())
+    edits["flash_only_8c"] = {k: flash_only["edit"]["flash"][k] for k in (
+        "seconds", "max_memory_allocated", "peak_above_resident")}
+    phase("fp32_fused_edit", steps=VAE_FLASH_STEPS,
+          tolerance_lsb=FP32_EDIT_LSB, **edits)
+    if any(edits[n]["max_lsb_vs_fused_gn_int8"] > FP32_EDIT_LSB
+           for n in ("int8", "fused_gn_dequantised")):
+        raise RuntimeError(f"the fp32 fused-GN / int8 edit differs from its "
+                           f"references: {edits}")
+    out["edit"] = edits
+    del pipes, pipe, dequantised, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one stage-2 step with use_fused_groupnorm, against the flag
+    # off: one trainer after the other on the same weights, batch and draws,
+    # each warmed by one step, then two timed (peaks of one trainer alone)
+    probes = ["conv_in.weight",
+              "down_blocks.0.resnets.0.norm1.weight",
+              "up_blocks.3.resnets.2.conv1.weight",
+              "conv_out.weight"]
+    steps, losses, grads = {}, {}, {}
+    batch = draws = None
+    for name, fused in (("fused_gn", True), ("plain_gn", False)):
+        s2cfg = dataclasses.replace(
+            flags(base, remat=True, use_fused_groupnorm=fused),
+            train=TrainConfig(train_batch_size=TRAIN_BATCH,
+                              mixed_precision="no",
+                              gradient_checkpointing=True, max_train_steps=1))
+        trainer = UNetTrainer(s2cfg, params["unet"],
+                              {"vae": params["vae"], "trocr": params["trocr"]},
+                              device=dev, total_steps=1)
+        if batch is None:
+            data = SyntheticSceneDataset(s2cfg, seed=0)
+            batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)],
+                                    s2cfg)
+            draws = trainer.draw(TRAIN_BATCH)
+        trainer.accumulate_grads(batch, draws)
+        steps[name] = dict(seconds=[])
+        for _ in range(2):
+            r = measured(dev, lambda: trainer.accumulate_grads(batch,
+                                                               draws).item())
+            expect_launches(r, gn_silu=GN_PER_REMAT_STEP if fused else 0,
+                            gn_stats=0, conv=0, w8=0)
+            expect_flash(r, **{fp32_entry("fwd", 64): 20,
+                               fp32_entry("bwd_dq", 64): 10,
+                               fp32_entry("bwd_dkv", 64): 10,
+                               fp32_entry("fwd", 512): 2})
+            losses[name] = r.pop("out")
+            steps[name]["seconds"].append(r["seconds"])
+            steps[name].update(keep(r, seconds=steps[name]["seconds"]))
+        masters = trainer.state.params_dict()
+        grads[name] = {n: masters[n].grad.clone() for n in probes}
+        out["launches"][f"fp32_stage2_{name}"] = r["launches"]
+        del trainer, masters
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = {n: rel_l2(grads["fused_gn"][n], grads["plain_gn"][n])
+           for n in probes}
+    step = dict(batch=TRAIN_BATCH, loss_fused_gn=losses["fused_gn"],
+                loss_plain_gn=losses["plain_gn"],
+                loss_rel_diff=(abs(losses["fused_gn"] - losses["plain_gn"])
+                               / abs(losses["plain_gn"])),
+                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
+                grad_tolerance=TOL_FP32_GRAD_REL,
+                gn_silu_per_step=GN_PER_REMAT_STEP, **steps,
+                flash_only_8c={k: flash_only["stage2"]["flash"][k] for k in (
+                    "seconds", "max_memory_allocated", "peak_above_resident")})
+    phase("fp32_fused_stage2_step", **step)
+    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
+            and max(rel.values()) <= TOL_FP32_GRAD_REL):
+        raise RuntimeError(f"the fp32 stage-2 step with use_fused_groupnorm "
+                           f"differs: {step}")
+    out["stage2"] = step
+    del params, batch, draws, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_fused_entries(results: dict, launches: dict) -> list:
+    """The three fp32 entries of groupnorm.cu and quant_fp32.cu (phase 3g)
+    with phase 8d's launches by path.  gn_stats_fp32 lies on no path until
+    the fp32 fused conv (ROADMAP.md queue 2 item 6) launches it: 0."""
+    def by_path(key):
+        return {path: rec[key] for path, rec in launches.items() if rec[key]}
+
+    entries = [kernel_entry(name, source, replaces, results[name],
+                            by_path(key))
+               for name, source, replaces, key in (
+                   ("gn_stats_fp32", "groupnorm.cu", "groupnorm.py:31",
+                    "gn_stats"),
+                   ("gn_silu_fp32", "groupnorm.cu", "groupnorm.py:31",
+                    "gn_silu"),
+                   ("w8_matmul_fp32", "quant_fp32.cu", "quant.py:51", "w8"))]
+    entries[0]["path"] = ("none yet: the fp32 GN+SiLU+conv3x3 (ROADMAP.md "
+                          "queue 2 item 6) will launch it")
+    return entries
+
 
 OCR_BATCH, OCR_STEPS, OCR_MAX_LEN = 64, 50, 16
 EVAL_EXAMPLES, EVAL_STEPS = 4, 20
@@ -3726,8 +4187,8 @@ def main(argv=None) -> None:
                    "head_dim-256 kernels and the small VAE's flash paths) "
                    "alone")
     p.add_argument("--fp32-only", action="store_true",
-                   help="build the kernels and run phases 3f and 8c (the "
-                   "fp32 flash kernels and the fp32 paths with flash) alone")
+                   help="build the kernels and run phases 3f, 3g, 8c and 8d "
+                   "(the fp32 kernels and the fp32 paths) alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -3785,18 +4246,27 @@ def main(argv=None) -> None:
         _build.load()
         dev = torch.device("cuda", 0)
         seconds = {}
-        for name, fn in (("phase_3f", lambda: check_fp32(dev)),
-                         ("phase_8c", lambda: check_fp32_paths(dev))):
+        for name, fn in (
+                ("phase_3f", lambda: check_fp32(dev)),
+                ("phase_3g", lambda: check_fp32_fused(dev)),
+                ("phase_8c", lambda: check_fp32_paths(dev)),
+                ("phase_8d", lambda: check_fp32_fused_paths(
+                    dev, seconds["phase_8c"][0]))):
             t0 = time.perf_counter()
             seconds[name] = (fn(), time.perf_counter() - t0)
         phase("seconds", **{k: v[1] for k, v in seconds.items()},
               run=time.perf_counter() - t_run)
         fp32, fp32_paths = seconds["phase_3f"][0], seconds["phase_8c"][0]
+        fused32, fused32_paths = (seconds["phase_3g"][0],
+                                  seconds["phase_8d"][0])
         print(gpu_line(), flush=True)
-        print(json.dumps({"kernels": fp32_entries(fp32,
-                                                  fp32_paths["launches"]),
-                          "fp32_paths": vae_flash_summary(fp32_paths)}),
-              flush=True)
+        print(json.dumps({
+            "kernels": (fp32_entries(fp32, fp32_paths["launches"])
+                        + fp32_fused_entries(fused32,
+                                             fused32_paths["launches"])),
+            "fp32_paths": vae_flash_summary(fp32_paths),
+            "fp32_fused_paths": vae_flash_summary(fused32_paths)}),
+            flush=True)
         return
     if args.workflow_only or args.eval_only:
         from diffute_tpu_torch.ops import _build
@@ -3910,6 +4380,12 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     fp32 = check_fp32(dev)
     phase("phase_3f", seconds=time.perf_counter() - t0)
+
+    # ---- 3g. GN+SiLU, its statistics and the int8 matmul on fp32 inputs
+    # against their plain fp32 versions
+    t0 = time.perf_counter()
+    fused32 = check_fp32_fused(dev)
+    phase("phase_3g", seconds=time.perf_counter() - t0)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -4161,6 +4637,11 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         fp32_paths = check_fp32_paths(dev)
         phase("phase_8c", seconds=time.perf_counter() - t0)
+        # ---- 8d. the fp32 edit with GN+SiLU and int8 weights, and an fp32
+        # stage-2 step with GN+SiLU
+        t0 = time.perf_counter()
+        fused32_paths = check_fp32_fused_paths(dev, fp32_paths)
+        phase("phase_8d", seconds=time.perf_counter() - t0)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4222,10 +4703,13 @@ def main(argv=None) -> None:
         *wide_entries(d512, vae_flash["launches"], 512),
         *wide_entries(d256, small_vae_flash["launches"], 256),
         *fp32_entries(fp32, fp32_paths["launches"]),
+        *fp32_fused_entries(fused32, fused32_paths["launches"]),
     ]
     # every kernel ran on some path (the comparison launches of phase 3
-    # are not counted there)
-    idle = [e["name"] for e in kernels if not e["launches"]]
+    # are not counted there), but the fp32 statistics, which no path takes
+    # until the fp32 fused conv does
+    idle = [e["name"] for e in kernels
+            if not e["launches"] and e["name"] != "gn_stats_fp32"]
     if idle:
         raise RuntimeError(f"no path launched {idle}")
     phase("run", seconds=time.perf_counter() - t_run)
@@ -4262,6 +4746,7 @@ def main(argv=None) -> None:
         "vae_flash": vae_flash_summary(vae_flash),
         "small_vae_flash": vae_flash_summary(small_vae_flash),
         "fp32_paths": vae_flash_summary(fp32_paths),
+        "fp32_fused_paths": vae_flash_summary(fused32_paths),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -106,7 +106,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_sm90.cuh"
+
 namespace {
+
+using namespace tf32_sm90;
 
 constexpr int kSlice = 64;  // head_dim columns a warp owns
 constexpr float kLn2 = 0.6931471805599453f;
@@ -145,58 +149,10 @@ using F64 = Fp32<64, 64>;
 using F256 = Fp32<256, 32>;
 using F512 = Fp32<512, 16>;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // float offset of element (row, col) in a swizzled [rows][D] fp32 tile
 template <class W>
 __device__ __forceinline__ int sw(int row, int col) {
   return row * W::kD + (col ^ ((row & 7) << 2));
-}
-
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            int src_bytes) {
-  // src_bytes == 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, each a TF32 value (lo the TF32 rounding of the rest)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// D = A(16x8 tf32, row) * B(8x8 tf32, col) + D, fp32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // An A fragment split into its TF32 halves.

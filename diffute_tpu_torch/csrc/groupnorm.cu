@@ -1,4 +1,5 @@
-// GroupNorm statistics and GroupNorm + SiLU for Hopper (sm_90a), NCHW bf16.
+// GroupNorm statistics and GroupNorm + SiLU for Hopper (sm_90a), NCHW bf16
+// or fp32.
 //
 // Replaces the Pallas TPU kernel `_gn_silu_kernel` of
 // diffute_tpu/ops/groupnorm.py (`_pallas_gn_silu_fwd_impl`'s pl.pallas_call).
@@ -11,8 +12,16 @@
 //   gn_stats_bf16  x (B, C, H, W) -> mean, rstd (B, G) fp32
 //   gn_silu_bf16   y = silu(x * a_c + d_c),  a_c = gamma_c * rstd_g,
 //                  d_c = beta_c - mean_g * a_c, rounded to bf16; one launch
+//   gn_stats_fp32, gn_silu_fp32: the same on fp32 x and y
 //
-// The statistics are shared with the fused conv kernel (conv_fused.cu).
+// Both kernels are templates on the element type: a 16-byte vector holds 8
+// bf16 or 4 fp32 values (`Vec<T>`), and the apply stores bf16 pairs or fp32
+// quads; the rest, the moments and every merge, is one code path with the
+// same arithmetic, so the bf16 entries keep their bits.  The fp32 entries
+// keep the fast intrinsics of the merge (__fdividef) and of the SiLU
+// (__expf, __fdividef): 2 ulp each, about 1e-7 relative, where the fp32
+// contract is relative L2 1e-5 (chip_smoke.py phase 3g).  The statistics
+// are shared with the fused conv kernel (conv_fused.cu), which takes bf16.
 //
 // What bounds them on the H100: not bytes but latency.  Both do a few fp32
 // operations per element, far below the card's 295 FLOP/byte line, and the
@@ -73,39 +82,81 @@ __device__ __forceinline__ Moments merge(const Moments& a, const Moments& b) {
   return {n, fmaf(d, f, a.mean), a.m2 + b.m2 + d * d * a.n * f};
 }
 
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// One 16-byte vector of x's element type T: kPer values, unpacked to fp32,
+// and kPer fp32 results packed back (rounded to T).  kCentered: the apply
+// takes u = (x - mean) * a_c + beta_c, where the bf16 kernel folds the mean
+// into d_c = beta_c - mean * a_c.  At |mean| >> std d_c carries an ulp of
+// mean * a_c (8e-6 at mean 100): hidden by a bf16 output, not by an fp32 one
+// held to relative L2 1e-5.  x - mean is then exact (Sterbenz).
+template <class T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kPer = 8;
+  static constexpr bool kCentered = false;
+  static __device__ __forceinline__ void unpack(const uint4& v,
+                                                float (&f)[kPer]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
   }
-}
+  static __device__ __forceinline__ uint4 pack(const float (&f)[kPer]) {
+    uint4 out;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    return out;
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int kPer = 4;
+  static constexpr bool kCentered = true;
+  static __device__ __forceinline__ void unpack(const uint4& v,
+                                                float (&f)[kPer]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[kPer]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
 
 // The moments of the first `valid` vectors of v: two passes over registers.
+template <class T>
 __device__ __forceinline__ Moments moments(const uint4 (&v)[kUnroll],
                                            int valid) {
+  constexpr int kPer = Vec<T>::kPer;
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < kUnroll; ++j) {
     if (j < valid) {
-      float f[8];
-      unpack8(v[j], f);
+      float f[kPer];
+      Vec<T>::unpack(v[j], f);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) s += f[k];
+      for (int k = 0; k < kPer; ++k) s += f[k];
     }
   }
-  const float n = 8.f * (float)valid;
+  const float n = (float)kPer * (float)valid;
   const float mu = valid > 0 ? __fdividef(s, n) : 0.f;
   float q = 0.f;
 #pragma unroll
   for (int j = 0; j < kUnroll; ++j) {
     if (j < valid) {
-      float f[8];
-      unpack8(v[j], f);
+      float f[kPer];
+      Vec<T>::unpack(v[j], f);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) q = fmaf(f[k] - mu, f[k] - mu, q);
+      for (int k = 0; k < kPer; ++k) q = fmaf(f[k] - mu, f[k] - mu, q);
     }
   }
   return {n, mu, q};
@@ -114,7 +165,7 @@ __device__ __forceinline__ Moments moments(const uint4 (&v)[kUnroll],
 // This thread's moments over vectors threadIdx.x, + blockDim.x, ... of the
 // piece xv[0, len).  With kStage, vectors below `staged` are also stored to
 // stage[i].
-template <bool kStage>
+template <class T, bool kStage>
 __device__ __forceinline__ Moments piece_moments(const uint4* __restrict__ xv,
                                                  int len, uint4* stage,
                                                  int staged) {
@@ -133,7 +184,7 @@ __device__ __forceinline__ Moments piece_moments(const uint4* __restrict__ xv,
         v[j] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    acc = merge(acc, moments(v, valid));
+    acc = merge(acc, moments<T>(v, valid));
     if (kStage) {
 #pragma unroll
       for (int j = 0; j < kUnroll; ++j) {
@@ -208,8 +259,9 @@ __device__ __forceinline__ float ld_affine(const void* p, int i, int is_bf16) {
 
 // grid (cluster, B*G), cluster dims (cluster, 1, 1).  Block r of cluster bg
 // takes vectors [r*per, min((r+1)*per, n_vec)) of the group's n_vec.
+template <class T>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ mean,
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
                 float* __restrict__ rstd, int n_vec, int per, float eps) {
   __shared__ Moments warps[32];
   __shared__ Moments part;
@@ -218,7 +270,7 @@ gn_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ mean,
   const int rank = blockIdx.x, bg = blockIdx.y;
   const int v0 = rank * per, len = min(per, n_vec - v0);
   const uint4* xv = reinterpret_cast<const uint4*>(x) + (size_t)bg * n_vec + v0;
-  block_merge(piece_moments<false>(xv, len, nullptr, 0), warps, &part);
+  block_merge(piece_moments<T, false>(xv, len, nullptr, 0), warps, &part);
   cluster_arrive();
   cluster_wait();
   if (rank == 0 && threadIdx.x == 0) {
@@ -235,10 +287,11 @@ gn_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ mean,
 // As gn_stats_kernel, then y = silu(x * a_c + d_c) over the block's piece.
 // Dynamic shared memory: `staged` vectors of the piece, then (a, d) of each
 // channel it touches (at most cpg).
+template <class T>
 __global__ void __launch_bounds__(kMaxThreads)
-gn_silu_kernel(const __nv_bfloat16* __restrict__ x,
+gn_silu_kernel(const T* __restrict__ x,
                const void* __restrict__ gamma, const void* __restrict__ beta,
-               int affine_bf16, __nv_bfloat16* __restrict__ y, int n_vec,
+               int affine_bf16, T* __restrict__ y, int n_vec,
                int per, int staged, int hw_vec, int cpg, int groups,
                float eps) {
   extern __shared__ uint4 stage[];
@@ -249,7 +302,7 @@ gn_silu_kernel(const __nv_bfloat16* __restrict__ x,
   const int v0 = rank * per, len = min(per, n_vec - v0);
   const size_t off = (size_t)bg * n_vec + v0;
   const uint4* xv = reinterpret_cast<const uint4*>(x) + off;
-  block_merge(piece_moments<true>(xv, len, stage, staged), warps, &part);
+  block_merge(piece_moments<T, true>(xv, len, stage, staged), warps, &part);
   cluster_arrive();
   cluster_wait();
   if (threadIdx.x == 0) {
@@ -260,15 +313,18 @@ gn_silu_kernel(const __nv_bfloat16* __restrict__ x,
   cluster_arrive();  // this block is done with the others' shared memory
   __syncthreads();
 
-  // (a, d) of the piece's channels c0 .. c0 + nc - 1 of the group
+  // (a, d) of the piece's channels c0 .. c0 + nc - 1 of the group ((a,
+  // beta) where kCentered)
   const int c0 = v0 / hw_vec, nc = (v0 + len - 1) / hw_vec - c0 + 1;
   float2* ad = reinterpret_cast<float2*>(stage + staged);
   const int cbase = (bg % groups) * cpg + c0;
   for (int t = threadIdx.x; t < nc; t += blockDim.x) {
     const float a = ld_affine(gamma, cbase + t, affine_bf16) * stat[1];
-    ad[t] = make_float2(a, ld_affine(beta, cbase + t, affine_bf16) - stat[0] * a);
+    const float b = ld_affine(beta, cbase + t, affine_bf16);
+    ad[t] = make_float2(a, Vec<T>::kCentered ? b : b - stat[0] * a);
   }
   __syncthreads();
+  const float mu = stat[0];
 
   uint4* yv = reinterpret_cast<uint4*>(y) + off;
   const float inv_hw = 1.f / (float)hw_vec;
@@ -282,17 +338,15 @@ gn_silu_kernel(const __nv_bfloat16* __restrict__ x,
     q += (q + 1) * hw_vec <= at;
     q -= q * hw_vec > at;
     const float2 c = ad[q - c0];
-    float f[8];
-    unpack8(v, f);
-    uint4 out;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+    float f[Vec<T>::kPer];
+    Vec<T>::unpack(v, f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float u = fmaf(f[2 * j], c.x, c.y), w = fmaf(f[2 * j + 1], c.x, c.y);
-      o[j] = __floats2bfloat162_rn(__fdividef(u, 1.f + __expf(-u)),
-                                   __fdividef(w, 1.f + __expf(-w)));
+    for (int j = 0; j < Vec<T>::kPer; ++j) {
+      const float u =
+          Vec<T>::kCentered ? fmaf(f[j] - mu, c.x, c.y) : fmaf(f[j], c.x, c.y);
+      f[j] = __fdividef(u, 1.f + __expf(-u));
     }
-    yv[i] = out;
+    yv[i] = Vec<T>::pack(f);
   }
   cluster_wait();  // no block leaves while another may read its `part`
 }
@@ -332,42 +386,40 @@ int launched(cudaError_t err) {
   return (int)(err != cudaSuccess ? err : last);
 }
 
-}  // namespace
-
-// Plain C entry points for ctypes.  Each launches on `stream`, allocates
-// nothing, and returns the launch's CUDA error (0 = launched).  `cluster` and
-// `threads` come from gn_plan (ops/groupnorm.py).
-
-// x (n_groups runs of n_elem contiguous bf16, n_elem % 8 == 0, 16-byte
-// aligned) -> mean, rstd (n_groups) fp32.
-extern "C" int gn_stats_bf16(const void* x, void* mean, void* rstd,
-                             int n_groups, int n_elem, int cluster,
-                             int threads, float eps, void* stream) {
-  if (n_elem <= 0 || n_elem % 8 ||
-      !valid_split(n_groups, n_elem / 8, cluster, threads))
+// x (n_groups runs of n_elem contiguous T, n_elem a whole number of 16-byte
+// vectors, 16-byte aligned) -> mean, rstd (n_groups) fp32.
+template <class T>
+int launch_stats(const void* x, void* mean, void* rstd, int n_groups,
+                 int n_elem, int cluster, int threads, float eps,
+                 void* stream) {
+  constexpr int kPer = Vec<T>::kPer;
+  if (n_elem <= 0 || n_elem % kPer ||
+      !valid_split(n_groups, n_elem / kPer, cluster, threads))
     return (int)cudaErrorInvalidValue;
-  const int n_vec = n_elem / 8, per = (n_vec + cluster - 1) / cluster;
+  const int n_vec = n_elem / kPer, per = (n_vec + cluster - 1) / cluster;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config(cluster, n_groups, threads, 0, stream, &attr);
   return launched(cudaLaunchKernelEx(
-      &cfg, gn_stats_kernel, static_cast<const __nv_bfloat16*>(x),
+      &cfg, gn_stats_kernel<T>, static_cast<const T*>(x),
       static_cast<float*>(mean), static_cast<float*>(rstd), n_vec, per, eps));
 }
 
-// x, y (B, C, HW) bf16 with HW % 8 == 0, 16-byte aligned; gamma, beta (C)
-// bf16 or fp32.  `staged` of each block's ceil(n_vec / cluster) vectors go
-// through shared memory (all of them unless the piece exceeds it).
-extern "C" int gn_silu_bf16(const void* x, const void* gamma,
-                            const void* beta, int affine_bf16, void* y,
-                            int batch, int channels, int hw, int groups,
-                            int cluster, int threads, int staged, float eps,
-                            void* stream) {
-  if (batch <= 0 || channels <= 0 || hw <= 0 || hw % 8 || groups <= 0 ||
+// x, y (B, C, HW) T with HW a whole number of 16-byte vectors, 16-byte
+// aligned; gamma, beta (C) bf16 or fp32.  `staged` of each block's
+// ceil(n_vec / cluster) vectors go through shared memory (all of them unless
+// the piece exceeds it).
+template <class T>
+int launch_silu(const void* x, const void* gamma, const void* beta,
+                int affine_bf16, void* y, int batch, int channels, int hw,
+                int groups, int cluster, int threads, int staged, float eps,
+                void* stream) {
+  constexpr int kPer = Vec<T>::kPer;
+  if (batch <= 0 || channels <= 0 || hw <= 0 || hw % kPer || groups <= 0 ||
       channels % groups)
     return (int)cudaErrorInvalidValue;
   const int cpg = channels / groups;
-  const long long n_vec_ll = (long long)cpg * (hw / 8);
+  const long long n_vec_ll = (long long)cpg * (hw / kPer);
   if (n_vec_ll >= (1 << 24) ||
       !valid_split(batch * groups, (int)n_vec_ll, cluster, threads))
     return (int)cudaErrorInvalidValue;
@@ -376,13 +428,59 @@ extern "C" int gn_silu_bf16(const void* x, const void* gamma,
   if (staged < 0 || staged > per || smem > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   static const cudaError_t attr_set = cudaFuncSetAttribute(
-      gn_silu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      gn_silu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
   if (attr_set != cudaSuccess) return (int)attr_set;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
       cluster, batch * groups, threads, (size_t)smem, stream, &attr);
   return launched(cudaLaunchKernelEx(
-      &cfg, gn_silu_kernel, static_cast<const __nv_bfloat16*>(x), gamma, beta,
-      affine_bf16, static_cast<__nv_bfloat16*>(y), n_vec, per, staged,
-      hw / 8, cpg, groups, eps));
+      &cfg, gn_silu_kernel<T>, static_cast<const T*>(x), gamma, beta,
+      affine_bf16, static_cast<T*>(y), n_vec, per, staged, hw / kPer, cpg,
+      groups, eps));
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  Each launches on `stream`, allocates
+// nothing, and returns the launch's CUDA error (0 = launched).  `cluster` and
+// `threads` come from gn_plan (ops/groupnorm.py), at x's element size.
+
+// x (n_groups runs of n_elem contiguous bf16, n_elem % 8 == 0, 16-byte
+// aligned) -> mean, rstd (n_groups) fp32.
+extern "C" int gn_stats_bf16(const void* x, void* mean, void* rstd,
+                             int n_groups, int n_elem, int cluster,
+                             int threads, float eps, void* stream) {
+  return launch_stats<__nv_bfloat16>(x, mean, rstd, n_groups, n_elem, cluster,
+                                     threads, eps, stream);
+}
+
+// The same on fp32 x (n_elem % 4 == 0).
+extern "C" int gn_stats_fp32(const void* x, void* mean, void* rstd,
+                             int n_groups, int n_elem, int cluster,
+                             int threads, float eps, void* stream) {
+  return launch_stats<float>(x, mean, rstd, n_groups, n_elem, cluster,
+                             threads, eps, stream);
+}
+
+// x, y (B, C, HW) bf16 with HW % 8 == 0, 16-byte aligned; gamma, beta (C)
+// bf16 or fp32.
+extern "C" int gn_silu_bf16(const void* x, const void* gamma,
+                            const void* beta, int affine_bf16, void* y,
+                            int batch, int channels, int hw, int groups,
+                            int cluster, int threads, int staged, float eps,
+                            void* stream) {
+  return launch_silu<__nv_bfloat16>(x, gamma, beta, affine_bf16, y, batch,
+                                    channels, hw, groups, cluster, threads,
+                                    staged, eps, stream);
+}
+
+// The same on fp32 x and y (HW % 4 == 0).
+extern "C" int gn_silu_fp32(const void* x, const void* gamma,
+                            const void* beta, int affine_bf16, void* y,
+                            int batch, int channels, int hw, int groups,
+                            int cluster, int threads, int staged, float eps,
+                            void* stream) {
+  return launch_silu<float>(x, gamma, beta, affine_bf16, y, batch, channels,
+                            hw, groups, cluster, threads, staged, eps, stream);
 }

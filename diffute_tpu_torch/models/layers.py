@@ -36,8 +36,10 @@ class QuantLinear(nn.Module):
     the JAX pipeline's cast of ``kernel_scale`` does).  ``bias``
     (out_features,) is an ordinary parameter.  The product is rounded to x's
     dtype before the bias is added, as in the JAX layer; on the card both
-    happen in the kernel's epilogue, one launch.  The kernel's repacked copy
-    of ``weight_q`` is made once and kept (not in the state_dict)."""
+    happen in the kernel's epilogue, one launch.  The bf16 kernel's repacked
+    copy of ``weight_q`` is made once and kept (not in the state_dict); the
+    fp32 kernel reads ``weight_q`` as it is, so an fp32 model keeps no
+    copy."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -48,11 +50,12 @@ class QuantLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         self._packed = None  # (weight identity, pack_w8_weight(weight_q))
 
-    def _packed_weight(self) -> Optional[torch.Tensor]:
-        """``weight_q`` in the kernel's layout, repacked when the buffer was
-        replaced or written since (not per call)."""
+    def _packed_weight(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
+        """``weight_q`` in the bf16 kernel's layout for x of ``dtype``,
+        repacked when the buffer was replaced or written since (not per
+        call); None off the card and for the fp32 kernel."""
         q = self.weight_q
-        if q.device.type != "cuda":
+        if q.device.type != "cuda" or dtype != torch.bfloat16:
             return None
         key = (q.data_ptr(), q._version)
         if self._packed is None or self._packed[0] != key:
@@ -61,7 +64,7 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return quant_matmul(x, self.weight_q, self.weight_scale, self.bias,
-                            packed=self._packed_weight())
+                            packed=self._packed_weight(x.dtype))
 
 
 def linear(in_features: int, out_features: int, bias: bool = True,

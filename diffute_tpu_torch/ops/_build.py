@@ -96,17 +96,23 @@ def _signatures() -> dict:
         **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd
            for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
            for width in ("", "_d256", "_d512")},
-        # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream)
-        "gn_stats_bf16": [p] * 3 + [i] * 4 + [f, p],
+        # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream), bf16
+        # and fp32 x
+        **{f"gn_stats_{t}": [p] * 3 + [i] * 4 + [f, p]
+           for t in ("bf16", "fp32")},
         # (x, gamma, beta, affine_bf16, y, B, C, HW, groups, cluster, threads,
-        #  staged, eps, stream)
-        "gn_silu_bf16": [p, p, p, i, p] + [i] * 7 + [f, p],
+        #  staged, eps, stream), bf16 and fp32 x and y
+        **{f"gn_silu_{t}": [p, p, p, i, p] + [i] * 7 + [f, p]
+           for t in ("bf16", "fp32")},
         # (x, mean, rstd, gamma, beta, gn_bf16, wp, bias, bias_bf16, out,
         #  partial, B, Cin, Cout, H, W, groups, tiles, splits, stream)
         "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 8 + [p],
         # (x, packed q, scale, scale_bf16, bias, y, workspace, tickets, M, N,
         #  K, tokens per block, splits, stream)
         "w8_matmul_bf16": [p, p, p, i, p, p, p, p] + [i] * 5 + [p],
+        # (x, q, scale, scale_bf16, bias, y, M, N, K, stream), fp32 x and y
+        # (csrc/quant_fp32.cu)
+        "w8_matmul_fp32": [p, p, p, i, p, p] + [i] * 3 + [p],
     }
 
 

@@ -116,7 +116,8 @@ def _forward(x, gn_weight, gn_bias, w, b, packed, groups, eps):
     if x.device.type == "cpu":
         return gn_silu_conv3x3_reference(x, gn_weight, gn_bias, w, b, groups,
                                          eps)
-    _check_x(x, groups, "GN+SiLU+conv3x3")
+    # fp32 x is still to port (the statistics kernel takes it, the conv not)
+    _check_x(x, groups, "GN+SiLU+conv3x3", (torch.bfloat16,))
     bsz, cin, h_, w_ = x.shape
     cout = w.shape[0]
     if w.shape != (cout, cin, 3, 3):

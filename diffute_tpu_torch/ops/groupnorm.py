@@ -11,7 +11,9 @@ cluster whose blocks merge their pieces through distributed shared memory.
 :func:`gn_plan` is their grid in plain Python, and
 :func:`group_norm_stats_tiled_reference` their merge in plain torch.  None of
 the TPU kernel's VMEM gates exists here: every bf16 NCHW tensor with
-``C % groups == 0`` and ``H*W % 8 == 0`` launches.
+``C % groups == 0`` and ``H*W % 8 == 0`` launches, and every fp32 one with
+``H*W % 4 == 0`` (the same kernels at 4 fp32 values a 16-byte vector, the
+``_fp32`` entries).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version (fp32 inside, the mean
@@ -31,8 +33,9 @@ import torch
 from diffute_tpu_torch.ops.flash_attention import _launch
 
 # the card's SMs and its shared memory per SM.  A (sample, group) of up to
-# SINGLE_BLOCK 16-byte vectors is one block (measured on the H100: a cluster
-# launch and its barriers cost more than the split saves there); a larger one
+# SINGLE_BLOCK 16-byte vectors (8 bf16 or 4 fp32 values) is one block
+# (measured on the H100: a cluster launch and its barriers cost more than the
+# split saves there); a larger one
 # is split over up to MAX_CLUSTER blocks (the portable cluster size) until the
 # blocks cover the SMs and a piece fits MAX_SMEM.  A piece then holds at least
 # SINGLE_BLOCK / MAX_CLUSTER vectors, so none is empty.
@@ -50,20 +53,26 @@ def _width(vectors: int, per_thread: int, cap: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def gn_plan(b: int, c: int, h: int, w: int, groups: int) -> dict:
-    """The kernels' grid for x (b, c, h, w): ``cluster`` blocks a (sample,
-    group), block r owning vectors [r*per, (r+1)*per) of the group's
-    ``n_vec`` 16-byte vectors (the last block the rest, never none), with
+def gn_plan(b: int, c: int, h: int, w: int, groups: int,
+            itemsize: int = 2) -> dict:
+    """The kernels' grid for x (b, c, h, w) of ``itemsize``-byte elements
+    (2: bf16, 4: fp32): ``cluster`` blocks a (sample, group), block r owning
+    vectors [r*per, (r+1)*per) of the group's ``n_vec`` 16-byte vectors of
+    ``per_vec`` elements (the last block the rest, never none), with
     ``threads`` threads for the statistics.  For GN+SiLU, ``staged`` of a
     block's vectors go through ``smem`` bytes of shared memory: the whole
     piece (``one_read``) unless it exceeds MAX_SMEM, when the rest is read
     twice; ``silu_threads`` threads, more where ``smem`` leaves the block
     alone on its SM."""
-    if c % groups or (c // groups) * h * w % 8:
+    if itemsize not in (2, 4):
+        raise ValueError(f"the kernels take 2- or 4-byte elements; got "
+                         f"{itemsize}")
+    per_vec = 16 // itemsize
+    if c % groups or (c // groups) * h * w % per_vec:
         raise ValueError(f"(C/groups)*H*W of {(b, c, h, w)} over {groups} "
-                         "groups must be a whole multiple of 8")
+                         f"groups must be a whole multiple of {per_vec}")
     cpg, n_groups = c // groups, b * groups
-    n_vec = cpg * h * w // 8
+    n_vec = cpg * h * w // per_vec
     stage_cap = (MAX_SMEM - 8 * cpg) // 16
     cluster = 1
     while n_vec > SINGLE_BLOCK and cluster < MAX_CLUSTER and (
@@ -75,9 +84,10 @@ def gn_plan(b: int, c: int, h: int, w: int, groups: int) -> dict:
     smem = 16 * staged + 8 * cpg
     alone = _SMEM_PER_SM // (smem + 2048) < 2
     silu_threads = (max(threads, _width(per, 8, 1024)) if alone else threads)
-    return dict(n_vec=n_vec, cluster=cluster, per=per, threads=threads,
-                silu_threads=silu_threads, blocks=n_groups * cluster,
-                staged=staged, smem=smem, one_read=staged == per)
+    return dict(n_vec=n_vec, per_vec=per_vec, cluster=cluster, per=per,
+                threads=threads, silu_threads=silu_threads,
+                blocks=n_groups * cluster, staged=staged, smem=smem,
+                one_read=staged == per)
 
 
 def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float
@@ -97,14 +107,16 @@ def group_norm_stats_tiled_reference(
     """The kernels' merge in plain fp32 torch: each of :func:`gn_plan`'s
     pieces of a group reduced to (count, mean, M2), its mean subtracted
     before squaring, then the pieces folded in rank order with Chan's
-    formula.  ``ranks`` folds only those pieces (all by default)."""
+    formula.  ``ranks`` folds only those pieces (all by default).  The
+    plan is x's: bf16 and fp32 tensors split into other pieces."""
     b, c, h, w = x.shape
-    plan = gn_plan(b, c, h, w, groups)
+    plan = gn_plan(b, c, h, w, groups, x.element_size())
     xf = x.float().reshape(b * groups, -1)
     n = mean = m2 = torch.zeros(b * groups, dtype=torch.float32,
                                 device=x.device)
+    run = plan["per_vec"] * plan["per"]  # elements of a piece
     for r in (range(plan["cluster"]) if ranks is None else ranks):
-        piece = xf[:, 8 * r * plan["per"]:8 * (r + 1) * plan["per"]]
+        piece = xf[:, r * run:(r + 1) * run]
         n_b = float(piece.shape[1])
         mean_b = piece.mean(dim=1)
         m2_b = (piece - mean_b[:, None]).square().sum(dim=1)
@@ -139,11 +151,18 @@ def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor,
     return group_norm_silu_from_stats(x, weight, bias, mean, rstd)
 
 
-def _check_x(x: torch.Tensor, groups: int, what: str) -> None:
+# the kernels' entry suffix by x's dtype
+_ENTRY = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
+def _check_x(x: torch.Tensor, groups: int, what: str,
+             dtypes: Sequence[torch.dtype] = tuple(_ENTRY)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the {what} kernel takes bf16; x is {x.dtype}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"the {what} kernel takes "
+                         f"{' or '.join(_ENTRY[d] for d in dtypes)}; x is "
+                         f"{x.dtype}")
     if x.dim() != 4 or x.shape[1] % groups or 0 in x.shape:
         raise ValueError(f"{what} takes (B, C, H, W) with C % {groups} == 0; "
                          f"x is {tuple(x.shape)}")
@@ -170,17 +189,19 @@ def group_norm_stats(x: torch.Tensor, groups: int = 32, eps: float = 1e-5
     """fp32 (mean, rstd), each (B, groups), of x (B, C, H, W).
 
     CUDA: checks and launches the statistics kernel on the current stream
-    (bf16, ``(C/groups)*H*W % 8 == 0``).  CPU: the plain version."""
+    (bf16 with ``(C/groups)*H*W % 8 == 0``, or fp32 with ``% 4``).  CPU: the
+    plain version."""
     if x.device.type == "cpu":
         return group_norm_stats_reference(x, groups, eps)
     _check_x(x, groups, "GroupNorm statistics")
     b, c, h, w = x.shape
-    plan = gn_plan(b, c, h, w, groups)
+    plan = gn_plan(b, c, h, w, groups, x.element_size())
     mean, rstd = torch.empty((2, b, groups), dtype=torch.float32,
                              device=x.device)
-    _launch("gn_stats_bf16", x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            b * groups, 8 * plan["n_vec"], plan["cluster"], plan["threads"],
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _launch(f"gn_stats_{_ENTRY[x.dtype]}", x.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), b * groups, plan["per_vec"] * plan["n_vec"],
+            plan["cluster"], plan["threads"], float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
     group_norm_stats.launches += 1
     return mean, rstd
 
@@ -193,15 +214,16 @@ def _forward(x, weight, bias, groups, eps):
         return group_norm_silu_reference(x, weight, bias, groups, eps)
     _check_x(x, groups, "GroupNorm+SiLU")
     b, c, h, w = x.shape
-    if (h * w) % 8:
-        raise ValueError(f"H*W = {h * w} must be a multiple of 8")
+    plan = gn_plan(b, c, h, w, groups, x.element_size())
+    if (h * w) % plan["per_vec"]:
+        raise ValueError(f"H*W = {h * w} must be a multiple of "
+                         f"{plan['per_vec']}")
     affine_bf16 = check_affine(x, c, weight=weight, bias=bias)
-    plan = gn_plan(b, c, h, w, groups)
     y = torch.empty_like(x)
-    _launch("gn_silu_bf16", x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            int(affine_bf16), y.data_ptr(), b, c, h * w, groups,
-            plan["cluster"], plan["silu_threads"], plan["staged"], float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    _launch(f"gn_silu_{_ENTRY[x.dtype]}", x.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), int(affine_bf16), y.data_ptr(), b, c, h * w,
+            groups, plan["cluster"], plan["silu_threads"], plan["staged"],
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     group_norm_silu.launches += 1
     return y
 

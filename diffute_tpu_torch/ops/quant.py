@@ -15,12 +15,14 @@ one per row: ``w[n, :] ~ q[n, :] * scale[n]``, ``scale[n] = max|w[n, :]| /
 the numbers are the JAX package's bit for bit.
 
 ``quant_matmul`` computes ``y = (x @ q^T) * scale``, and with ``bias`` the
-JAX layer's ``bf16(y) + bias``, without a dequantised matrix.  On a CUDA
-tensor it launches the kernel or raises (bf16 x, ``K % 16 == 0``; the TPU
-kernel's ``N % 128`` gate is gone); on a CPU tensor it computes the plain
-version.  The kernel reads ``q`` repacked once (:func:`pack_w8_weight`; a
-layer caches it beside ``weight_q``, which stays as it is).  Inference only:
-no gradient is defined, as in the JAX package.
+JAX layer's ``y + bias`` in x's dtype, without a dequantised matrix.  On a
+CUDA tensor it launches a kernel or raises (bf16 or fp32 x, ``K % 16 == 0``;
+the TPU kernel's ``N % 128`` gate is gone); on a CPU tensor it computes the
+plain version.  The bf16 kernel reads ``q`` repacked once
+(:func:`pack_w8_weight`; a layer caches it beside ``weight_q``, which stays
+as it is); the fp32 kernel (``csrc/quant_fp32.cu``, two TF32 products: x
+split as hi + lo, every int8 value exact in TF32) reads ``q`` as it is.
+Inference only: no gradient is defined, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from diffute_tpu_torch.ops.flash_attention import _launch
+from diffute_tpu_torch.ops.flash_attention import _launch, round_tf32
 
 # the card's SMs: one block of the kernel fills one.  K is split only where
 # the output tiles leave them empty and K has at least _MIN_K_STEPS_TO_SPLIT
@@ -123,6 +125,39 @@ def quant_matmul_reference(x2d: torch.Tensor, q: torch.Tensor,
     return y if bias is None else y + bias.to(x2d.dtype)
 
 
+def quant_matmul_tf32_reference(x2d: torch.Tensor, q: torch.Tensor,
+                                scale: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                products: int = 2) -> torch.Tensor:
+    """The fp32 kernel's split in plain fp32 torch: x = hi + lo, hi =
+    tf32(x), lo = tf32(x - hi) (``round_tf32``, cvt.rna), and ``x q^T`` as
+    ``lo q^T + hi q^T`` (the int8 values are exact in TF32); then the scale
+    and the bias as :func:`quant_matmul_reference`.  ``products=1`` drops
+    the lo product: what TF32 alone would compute (a mutant)."""
+    hi = round_tf32(x2d)
+    qf = q.float().t()
+    acc = hi @ qf
+    if products == 2:
+        acc = (round_tf32(x2d.float() - hi) @ qf) + acc
+    y = acc * scale.float()[None, :]
+    return y if bias is None else y + bias.float()
+
+
+# the fp32 kernel's tile of y (csrc/quant_fp32.cu: 64 x 64 a block, K in
+# tiles of 32, no split)
+FP32_BLOCK_M, FP32_BLOCK_N, FP32_BLOCK_K = 64, 64, 32
+
+
+def w8_fp32_plan(m: int, n: int, k: int) -> dict:
+    """The fp32 kernel's grid for (M, K) x (N, K)^T: a 64 x 64 tile of y
+    a block (``FP32_BLOCK_M`` x ``FP32_BLOCK_N``), K walked in tiles of 32
+    inside the block, never split."""
+    tiles = -(-m // FP32_BLOCK_M) * -(-n // FP32_BLOCK_N)
+    return dict(block_m=FP32_BLOCK_M, block_n=FP32_BLOCK_N,
+                k_tiles=-(-k // FP32_BLOCK_K), tiles=tiles, splits=1,
+                blocks=tiles)
+
+
 def pack_w8_weight(q: torch.Tensor) -> torch.Tensor:
     """(N, K) int8 -> contiguous (ceil(K/64), 2*ceil(N/128), 4096) uint8, the
     kernel's A fragments: ``q + 128`` (0 past N and K reads as 128), and for
@@ -179,12 +214,13 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """x (..., K) @ dequant(q (N, K), scale (N,))^T -> (..., N) in x's dtype,
     rounded, then ``+ bias`` (N,) in x's dtype and rounded again.
 
-    CUDA: checks and launches the int8-read kernel on the current stream
-    (raises on anything it does not take); ``packed`` is
-    ``pack_w8_weight(q)``, made once by the caller (packed here without it);
-    ``splits`` and ``tokens_per_block`` override :func:`w8_plan` (for
-    tuning).  CPU: the plain version.  Kernel launches are counted in
-    ``quant_matmul.launches``."""
+    CUDA: checks and launches the int8-read kernel for x's dtype on the
+    current stream (raises on anything it does not take).  bf16 x: ``packed``
+    is ``pack_w8_weight(q)``, made once by the caller (packed here without
+    it); ``splits`` and ``tokens_per_block`` override :func:`w8_plan` (for
+    tuning).  fp32 x: the kernel reads ``q`` as it is, so ``packed``,
+    ``splits`` and ``tokens_per_block`` must be None.  CPU: the plain
+    version.  Kernel launches are counted in ``quant_matmul.launches``."""
     n, k = q.shape
     if (x.shape[-1] != k or scale.shape != (n,) or q.dtype != torch.int8
             or (bias is not None and bias.shape != (n,))):
@@ -197,8 +233,9 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             *x.shape[:-1], n)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the int8 matmul kernel takes bf16 x; got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the int8 matmul kernels take bf16 or fp32 x; got "
+                         f"{x.dtype}")
     if scale.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"scale must be bf16 or fp32; got {scale.dtype}")
     if k % 16 or x2d.shape[0] == 0:
@@ -206,7 +243,10 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"least one row; got M {x2d.shape[0]}, K {k}")
     x2d = x2d.contiguous()
     if bias is not None:
-        bias = bias.to(torch.bfloat16)  # the layer adds it in x's dtype
+        bias = bias.to(x.dtype)  # the layer adds it in x's dtype
+    if x.dtype == torch.float32:
+        return _quant_matmul_fp32(x, x2d, q, scale, bias, packed, splits,
+                                  tokens_per_block)
     if packed is None:
         packed = pack_w8_weight(q)
     m = x2d.shape[0]
@@ -235,6 +275,29 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             None if bias is None else bias.data_ptr(), y.data_ptr(),
             workspace.data_ptr() if splits > 1 else None,
             tickets.data_ptr() if splits > 1 else None, m, n, k, bt, splits,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    quant_matmul.launches += 1
+    quant_matmul.flops += 2 * m * n * k
+    return y.reshape(*x.shape[:-1], n)
+
+
+def _quant_matmul_fp32(x, x2d, q, scale, bias, packed, splits,
+                       tokens_per_block):
+    if any(a is not None for a in (packed, splits, tokens_per_block)):
+        raise ValueError("the fp32 int8 kernel reads q as it is and has one "
+                         "grid: packed, splits and tokens_per_block are for "
+                         "bf16 x")
+    m, n, k = x2d.shape[0], q.shape[0], q.shape[1]
+    for name, t, align in (("x", x2d, 16), ("q", q, 16), ("scale", scale, 4),
+                           ("bias", bias, 4)):
+        if t is not None and (t.device != x.device or not t.is_contiguous()
+                              or t.data_ptr() % align):
+            raise ValueError(f"{name} must be contiguous and {align}-byte "
+                             f"aligned on {x.device}")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    _launch("w8_matmul_fp32", x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            int(scale.dtype == torch.bfloat16),
+            None if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
             torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
     quant_matmul.flops += 2 * m * n * k

@@ -24,6 +24,7 @@ from diffute_tpu_torch.ops.groupnorm import (
     group_norm_silu_reference,
     group_norm_stats,
     group_norm_stats_reference,
+    group_norm_stats_tiled_reference,
 )
 
 
@@ -159,41 +160,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,mean", [((1, 320, 64, 64), 0.0),
                                         ((1, 2560, 8, 8), 0.0),
                                         ((2, 640, 32, 32), 0.0),
                                         ((1, 320, 64, 64), 100.0),
                                         # beyond a cluster's shared memory
                                         ((1, 128, 512, 512), 0.0)])
-def test_cuda_kernels_match_plain(shape, mean):
+def test_cuda_kernels_match_plain(shape, mean, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
                     "CPU mode)")
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = (torch.randn(shape, generator=g, device="cuda") + mean).bfloat16()
-    gamma = (1 + 0.3 * torch.randn(shape[1], generator=g, device="cuda")).bfloat16()
-    beta = (0.5 * torch.randn(shape[1], generator=g, device="cuda")).bfloat16()
+    x = (torch.randn(shape, generator=g, device="cuda") + mean).to(dtype)
+    gamma = 1 + 0.3 * torch.randn(shape[1], generator=g, device="cuda")
+    beta = 0.5 * torch.randn(shape[1], generator=g, device="cuda")
+    gamma, beta = gamma.to(dtype), beta.to(dtype)
     # GN+SiLU is one launch at every shape, the statistics one more
     before = group_norm_silu.launches, group_norm_stats.launches
     y = group_norm_silu(x, gamma, beta, 32, 1e-5)
     torch.cuda.synchronize()
+    assert y.dtype == dtype
     assert (group_norm_silu.launches, group_norm_stats.launches) == (
         before[0] + 1, before[1])
-    assert gn_plan(*shape, 32)["one_read"] == (shape[1:] != (128, 512, 512))
+    assert gn_plan(*shape, 32, x.element_size())["one_read"] == (
+        shape[1:] != (128, 512, 512))
     ref = group_norm_silu_reference(x, gamma, beta, 32, 1e-5).float()
-    # one fp32 result rounded to bf16 on both sides: 3 half-ulps of max |ref|
-    # and a relative L2 error of 2e-3
     diff = y.float() - ref
-    assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
-    assert (diff.norm() / ref.norm()).item() <= 2e-3
+    if dtype == torch.bfloat16:
+        # one fp32 result rounded to bf16 on both sides: 3 half-ulps of
+        # max |ref| and a relative L2 error of 2e-3
+        assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
+        assert (diff.norm() / ref.norm()).item() <= 2e-3
+    else:
+        # the fp32 contract: relative L2 1e-5; the output rounded through
+        # bf16 must fail it
+        assert (diff.norm() / ref.norm()).item() <= 1e-5
+        rounded = ref.bfloat16().float() - ref
+        assert (rounded.norm() / ref.norm()).item() > 1e-5
     mean_k, rstd_k = group_norm_stats(x, 32, 1e-5)
     assert group_norm_stats.launches == before[1] + 1
     mean_r, rstd_r = group_norm_stats_reference(x, 32, 1e-5)
     assert (mean_k - mean_r).abs().max().item() <= 1e-5 * max(1.0, abs(mean))
     assert ((rstd_k - rstd_r).abs() / rstd_r).max().item() <= 1e-4
+    if dtype == torch.float32:
+        # the same merge as the tiled plain version at the fp32 plan: 1e-6
+        mean_t, rstd_t = group_norm_stats_tiled_reference(x, 32, 1e-5)
+        assert ((mean_k - mean_t).abs().max().item()
+                <= 1e-6 * max(1.0, abs(mean)))
+        assert ((rstd_k - rstd_t).abs() / rstd_t).max().item() <= 1e-6
     # the merge has a fixed order: the same bits on every run
     assert torch.equal(group_norm_silu(x, gamma, beta, 32, 1e-5), y)
     again = group_norm_stats(x, 32, 1e-5)
     assert torch.equal(again[0], mean_k) and torch.equal(again[1], rstd_k)
-    with pytest.raises(ValueError):
-        group_norm_silu(x.float(), gamma, beta, 32, 1e-5)  # no fallback
+    for other in (torch.float16, torch.float64):  # no fallback
+        with pytest.raises(ValueError):
+            group_norm_silu(x.to(other), gamma, beta, 32, 1e-5)
+        with pytest.raises(ValueError):
+            group_norm_stats(x.to(other), 32, 1e-5)

@@ -22,6 +22,7 @@ from diffute_tpu_torch.ops.quant import (
     pack_w8_weight,
     quant_matmul,
     quant_matmul_reference,
+    quant_matmul_tf32_reference,
     quantize_blockwise,
     quantize_per_channel,
     w8_plan,
@@ -213,44 +214,60 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(4096, 320, 320), (4096, 320, 2560),
                                    (4096, 1280, 320),
                                    (1024, 640, 5120), (256, 5120, 1280),
                                    (64, 5120, 1280), (64, 1280, 10240),
                                    (577, 1024, 640), (3, 48, 10)])
-def test_cuda_kernel_matches_plain(m, k, n):
+def test_cuda_kernel_matches_plain(m, k, n, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
                     "CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # a TF32 plain version
+    # would hide a TF32 kernel
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
     q, s = quantize_per_channel(
         torch.randn((n, k), generator=g, device="cuda") * k ** -0.5)
-    bias = torch.randn(n, generator=g, device="cuda").bfloat16()
-    packed = pack_w8_weight(q)
+    bias = torch.randn(n, generator=g, device="cuda").to(dtype)
+    fp32 = dtype == torch.float32
+    packed = None if fp32 else pack_w8_weight(q)
     for scale in (s, s.bfloat16()):
         before = quant_matmul.launches
         y = quant_matmul(x, q, scale, packed=packed)
         again = quant_matmul(x, q, scale, packed=packed)
         y_bias = quant_matmul(x, q, scale, bias, packed=packed)
         torch.cuda.synchronize()
-        assert quant_matmul.launches == before + 3
+        assert quant_matmul.launches == before + 3 and y.dtype == dtype
         assert torch.equal(y, again)  # deterministic, split or not
         # the bias in the epilogue equals the two-step, bit for bit
         assert torch.equal(y_bias, y + bias)
         ref = quant_matmul_reference(x, q, scale).float()
+        diff = y.float() - ref
+        if fp32:
+            # the fp32 contract: relative L2 1e-5; x rounded to TF32 alone
+            # (the lo product dropped) and the output x 0.99 must fail it
+            assert (diff.norm() / ref.norm()).item() <= 1e-5
+            tf32 = quant_matmul_tf32_reference(x, q, scale, products=1)
+            assert ((tf32 - ref).norm() / ref.norm()).item() > 1e-5
+            assert ((y * 0.99 - ref).norm() / ref.norm()).item() > 1e-5
+            continue
         # one fp32 result rounded to bf16 on both sides: 3 half-ulps of
         # max |ref| and a relative L2 error of 2e-3 (no scale gives O(1), the
         # output scaled by 0.99 1e-2)
-        diff = y.float() - ref
         assert diff.abs().max().item() <= 3 * ref.abs().max().item() * 2 ** -8
         assert (diff.norm() / ref.norm()).item() <= 2e-3
         assert ((y.float() * 0.99 - ref).norm() / ref.norm()).item() > 2e-3
-    # packed in the call when not given
-    assert torch.equal(quant_matmul(x, q, s), quant_matmul(x, q, s,
-                                                           packed=packed))
+    if not fp32:
+        # packed in the call when not given
+        assert torch.equal(quant_matmul(x, q, s),
+                           quant_matmul(x, q, s, packed=pack_w8_weight(q)))
+    else:  # the fp32 kernel takes no packed copy
+        with pytest.raises(ValueError):
+            quant_matmul(x, q, s, packed=pack_w8_weight(q))
     with pytest.raises(ValueError):
-        quant_matmul(x.float(), q, s)  # no fallback
+        quant_matmul(x.half(), q, s)  # no fallback
 
 
 @pytest.mark.cuda
