@@ -87,6 +87,15 @@ Phases, one line each (any failure raises and exits non-zero):
      variance at mean 100, a dropped cluster rank, x rounded to TF32 alone,
      the scale applied to one feature twice) must FAIL; each timed beside
      its bound, its plain version and its library call;
+  3h. GN+SiLU+conv3x3 on fp32 inputs (csrc/conv_fused_fp32.cu, 3xTF32
+     products, the OIHW weight read as the layer keeps it) against its
+     plain fp32 version, TF32 off, at every shape of 3b's conv table, a
+     ragged one (Cout 96, 24^2) too: within relative L2 1e-5, the same bits
+     twice, the kernel's and the plain version's distance from fp64;
+     mutants (the normalised operand rounded through bf16, TF32 alone, the
+     border padded with silu(d), a dropped 16-channel chunk) must FAIL;
+     each timed beside its bound at the 3xTF32 rate, its plain version and
+     F.conv2d(F.silu(F.group_norm)) in fp32; the pass's sums;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -168,6 +177,15 @@ Phases, one line each (any failure raises and exits non-zero):
      44 recomputed) against the flag off (the loss within 1e-5, four
      probes' gradients within 1e-4); seconds and peak memory beside 8c's
      flash-only edit and step;
+  8e. the fp32 paths through the fp32 GN+SiLU+conv3x3, full width, both
+     flash flags: a 20-step 512^2 edit with use_fused_conv (880 conv, 880
+     statistics, 200 + 2 fp32 flash launches) within 1 LSB of 8c's
+     flash-only edit, and one with all three flags (880 / 880 / 20 GN+SiLU
+     / 3,232 int8 / 202) within 1 LSB of 8d's --fused-gn --int8 edit, the
+     four edits in turns; one UNetTrainer step at batch 4 with gradient
+     checkpointing and use_fused_conv (88 conv and 88 statistics
+     launches: 44, then 44 recomputed) against the flag off (the loss
+     within 1e-5, four probes' gradients within 1e-4); seconds and peaks;
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -204,8 +222,8 @@ Exits non-zero, with no result, when no CUDA device is available.
 
     python3 chip_smoke.py --fp32-only
 
-builds the kernels and runs phases 3f, 3g, 8c and 8d (the fp32 kernels
-and the fp32 paths) alone and prints their kernels line.
+builds the kernels and runs phases 3f, 3g, 3h, 8c, 8d and 8e (the fp32
+kernels and the fp32 paths) alone and prints their kernels line.
 
     python3 chip_smoke.py --workflow-only
 
@@ -3629,6 +3647,247 @@ def check_fp32_fused(dev) -> dict:
     return out
 
 
+# ---- phase 3h: GN+SiLU+conv3x3 on fp32 inputs (csrc/conv_fused_fp32.cu,
+# 3xTF32), held to the fp32 contract (TOL_FP32_REL_L2) of phase 3f: every
+# shape of a flagged 512^2 pass (CONV_SHAPES), then batch 2, the 768^2 and
+# 1024^2 edits' top levels and a ragged one (Cout 96: not a multiple of the
+# 64-channel tile; 24^2: not of the 8 x 8 pixel tile)
+CONV_FP32_SHAPES = ([(1, cin, cout, hw, n) for hw, cin, cout, n in CONV_SHAPES]
+                    + [(2, 640, 640, 32, None), (1, 320, 320, 96, None),
+                       (1, 320, 320, 128, None), (1, 960, 320, 128, None),
+                       (1, 64, 96, 24, None)])
+
+
+def check_fp32_conv(dev) -> list:
+    """Phase 3h: gn_silu_conv3x3_fp32 against gn_silu_conv3x3_reference in
+    fp32 with TF32 off, at CONV_FP32_SHAPES: within relative L2
+    TOL_FP32_REL_L2, the same bits twice, the distance of the kernel and of
+    the plain version from fp64.  Mutants that must fail, at (1, 320, 320,
+    64^2): the normalised operand rounded through bf16, TF32 alone (one
+    product, gn_silu_conv3x3_tf32_reference), the border padded with
+    silu(d_c) in place of 0, one 16-channel chunk of Cin dropped.  Each
+    shape timed beside its bound (18 B H W Cin Cout FLOPs at the 3xTF32
+    rate, or the fp32 bytes of x, w and out, the larger), its plain version
+    and its library call (F.conv2d(F.silu(F.group_norm(x))) in fp32, TF32
+    off), with its grid (conv_fp32_plan).  Returns the result per shape."""
+    import torch.nn.functional as F
+
+    from diffute_tpu_torch.ops.conv_fused import (
+        conv_fp32_plan, gn_silu_conv3x3, gn_silu_conv3x3_reference,
+        gn_silu_conv3x3_tf32_reference)
+    from diffute_tpu_torch.ops.groupnorm import (group_norm_silu_reference,
+                                                 group_norm_stats_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    show_ptxas("conv_fused_fp32.cu")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, mean=0.0, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std + mean
+
+    def must_fail(name, err):
+        if err <= TOL_FP32_REL_L2:
+            raise RuntimeError(f"the fp32 criterion passes the mutant {name}: "
+                               f"{err}")
+        return err
+
+    out = []
+    for b, cin, cout, hw, per_pass in CONV_FP32_SHAPES:
+        x = randn(b, cin, hw, hw)
+        gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
+        w = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+        bias = randn(cout, std=0.1)
+        args = (x, gamma, beta, w, bias, 32, 1e-5)
+        y = gn_silu_conv3x3(*args)
+        again = gn_silu_conv3x3(*args)
+        torch.cuda.synchronize()
+        ref = gn_silu_conv3x3_reference(*args)
+        ref64 = gn_silu_conv3x3_fp64(x, gamma, beta, w, bias)
+        plan = conv_fp32_plan(b, cin, cout, hw, hw)
+        res = dict(shape=[b, cin, cout, hw, hw], launches_per_pass=per_pass,
+                   plan={k: plan[k] for k in ("blocks", "splits",
+                                              "chunks_per_split")},
+                   **fp32_errors(y, ref),
+                   rel_l2_from_fp64=rel_l2_64(y, ref64),
+                   plain_rel_l2_from_fp64=rel_l2_64(ref, ref64),
+                   same_bits_twice=torch.equal(y, again),
+                   ms=time_ms(lambda: gn_silu_conv3x3(*args)),
+                   plain_ms=time_ms(lambda: gn_silu_conv3x3_reference(*args)),
+                   library_ms=time_ms(lambda: F.conv2d(F.silu(F.group_norm(
+                       x, 32, gamma, beta, 1e-5)), w, bias, padding=1)),
+                   library_call="F.conv2d(F.silu(F.group_norm(x))), fp32, "
+                                "TF32 off",
+                   **bound(18 * b * hw * hw * cin * cout,
+                           4 * (x.numel() + w.numel() + b * cout * hw * hw
+                                + 2 * cin + cout), PEAK_FP32_FLOPS))
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if (b, cin, cout, hw) == (1, 320, 320, 64):
+            mean, rstd = group_norm_stats_reference(x, 32, 1e-5)
+            a = gamma * rstd.repeat_interleave(cin // 32, 1)[0]
+            d = beta - mean.repeat_interleave(cin // 32, 1)[0] * a
+            xp = F.pad(x, (1, 1, 1, 1))
+            n32 = group_norm_silu_reference(x, gamma, beta, 32, 1e-5)
+            w_cut = w.clone()
+            w_cut[:, 16:32] = 0
+            res["mutants"] = {
+                "normalised_via_bf16_rel_l2": must_fail(
+                    "the normalised operand rounded through bf16",
+                    rel_l2_64(F.conv2d(n32.bfloat16().float(), w, bias,
+                                       padding=1), ref)),
+                "tf32_only_rel_l2": must_fail(
+                    "TF32 alone", rel_l2_64(gn_silu_conv3x3_tf32_reference(
+                        *args, products=1), ref)),
+                "border_silu_d_rel_l2": must_fail(
+                    "the border padded with silu(d)",
+                    rel_l2_64(F.conv2d(F.silu(xp * a[None, :, None, None]
+                                              + d[None, :, None, None]),
+                                       w, bias), ref)),
+                "dropped_chunk_rel_l2": must_fail(
+                    "a dropped 16-channel chunk",
+                    rel_l2_64(gn_silu_conv3x3_reference(
+                        x, gamma, beta, w_cut, bias, 32, 1e-5), ref))}
+        phase("kernel_conv_fp32", **res)
+        if not (fp32_held(res) and res["same_bits_twice"]):
+            raise RuntimeError(f"the fp32 GN+SiLU+conv3x3 disagrees at "
+                               f"{(b, cin, cout, hw)}: {res}")
+        out.append(res)
+        del x, y, again, ref, ref64
+    if [r["shape"] for r in out if "mutants" in r] != [[1, 320, 320, 64, 64]]:
+        raise RuntimeError("the fp32 conv's mutants were not checked")
+    per_pass = [r for r in out if r["launches_per_pass"]]
+    phase("conv_fp32_pass", launches=sum(r["launches_per_pass"]
+                                         for r in per_pass),
+          gflop=sum(r["launches_per_pass"] * 18 * r["shape"][1]
+                    * r["shape"][2] * r["shape"][3] ** 2
+                    for r in per_pass) / 1e9,
+          ms=sum(r["launches_per_pass"] * r["ms"] for r in per_pass),
+          bound_ms=sum(r["launches_per_pass"] * r["bound_ms"]
+                       for r in per_pass),
+          plain_ms=sum(r["launches_per_pass"] * r["plain_ms"]
+                       for r in per_pass),
+          library_ms=sum(r["launches_per_pass"] * r["library_ms"]
+                         for r in per_pass))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gn_silu_conv3x3_fp64(x, gamma, beta, w, bias, groups=32, eps=1e-5):
+    """GroupNorm, SiLU, the zero-padded 3x3 convolution and the bias, all in
+    fp64."""
+    xd = x.double().reshape(x.shape[0], groups, -1)
+    mu = xd.mean(dim=2, keepdim=True)
+    var = (xd - mu).square().mean(dim=2, keepdim=True)
+    y = ((xd - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * gamma.double().view(1, -1, 1, 1) + beta.double().view(1, -1, 1, 1)
+    return torch.nn.functional.conv2d(y * torch.sigmoid(y), w.double(),
+                                      bias.double(), padding=1)
+
+
+def rel_l2_64(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative L2 distance of ``a`` from ``b``, summed in fp64."""
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def fp32_flags(cfg, **unet):
+    """``cfg`` with both flash flags on and the UNet's ``unet`` flags."""
+    return dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=True,
+                                      **unet),
+        vae=dataclasses.replace(cfg.vae, use_flash_attention=True))
+
+
+def fp32_keep(r, **more):
+    """A measured fp32 run's seconds, peaks and the flagged kernels'
+    launches."""
+    return dict(dict(
+        seconds=r["seconds"],
+        max_memory_allocated=r["max_memory_allocated"],
+        peak_above_resident=(r["max_memory_allocated"]
+                             - r["memory_allocated_before"]),
+        launches={k: r["launches"][k] for k in (
+            "gn_silu", "gn_stats", "conv", "w8", fp32_entry("fwd", 64),
+            fp32_entry("fwd", 512))}), **more)
+
+
+# the weights whose loss gradients fp32_flag_step holds: the first conv, a
+# resnet's norm and conv (the flagged kernels' inputs) and the last conv
+FP32_STEP_PROBES = ["conv_in.weight", "down_blocks.0.resnets.0.norm1.weight",
+                    "up_blocks.3.resnets.2.conv1.weight", "conv_out.weight"]
+
+
+def fp32_flag_step(dev, params, flag: str, names: tuple, launches_on: dict,
+                   phase_name: str, **more) -> tuple:
+    """One fp32 UNetTrainer step at batch TRAIN_BATCH with gradient
+    checkpointing, both flash flags and the UNet's ``flag`` on (``names[0]``)
+    against off (``names[1]``): one trainer after the other on the same
+    weights, batch and draws, each warmed by one step, then two timed (the
+    peaks of one trainer alone).  The flagged kernels' launches asserted
+    (``launches_on`` with the flag, none without).  Returns the step's
+    numbers (losses, the four probes' gradients' relative L2 gap, seconds,
+    peaks) and the flagged run's launches, after printing them with
+    ``more`` as phase ``phase_name``; raises unless the loss is within
+    TOL_FP32_LOSS_REL and every probe within TOL_FP32_GRAD_REL."""
+    from diffute_tpu_torch.config import DiffUTEConfig, TrainConfig
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch)
+    from diffute_tpu_torch.train import UNetTrainer
+
+    base = DiffUTEConfig()
+    probes = FP32_STEP_PROBES
+    steps, losses, grads = {}, {}, {}
+    batch = draws = None
+    for name, on in zip(names, (True, False)):
+        s2cfg = dataclasses.replace(
+            fp32_flags(base, remat=True, **{flag: on}),
+            train=TrainConfig(train_batch_size=TRAIN_BATCH,
+                              mixed_precision="no",
+                              gradient_checkpointing=True, max_train_steps=1))
+        trainer = UNetTrainer(s2cfg, params["unet"],
+                              {"vae": params["vae"], "trocr": params["trocr"]},
+                              device=dev, total_steps=1)
+        if batch is None:
+            data = SyntheticSceneDataset(s2cfg, seed=0)
+            batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)],
+                                    s2cfg)
+            draws = trainer.draw(TRAIN_BATCH)
+        trainer.accumulate_grads(batch, draws)
+        steps[name] = dict(seconds=[])
+        for _ in range(2):
+            r = measured(dev, lambda: trainer.accumulate_grads(batch,
+                                                               draws).item())
+            expect_launches(r, **{k: launches_on.get(k, 0) if on else 0
+                                  for k in ("gn_silu", "gn_stats", "conv",
+                                            "w8")})
+            expect_flash(r, **{fp32_entry("fwd", 64): 20,
+                               fp32_entry("bwd_dq", 64): 10,
+                               fp32_entry("bwd_dkv", 64): 10,
+                               fp32_entry("fwd", 512): 2})
+            losses[name] = r.pop("out")
+            steps[name]["seconds"].append(r["seconds"])
+            steps[name].update(fp32_keep(r, seconds=steps[name]["seconds"]))
+        masters = trainer.state.params_dict()
+        grads[name] = {n: masters[n].grad.clone() for n in probes}
+        if on:
+            launches = r["launches"]
+        del trainer, masters
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = names
+    rel = {n: rel_l2(grads[on][n], grads[off][n]) for n in probes}
+    step = dict(batch=TRAIN_BATCH, **{f"loss_{n}": losses[n] for n in names},
+                loss_rel_diff=abs(losses[on] - losses[off]) / abs(losses[off]),
+                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
+                grad_tolerance=TOL_FP32_GRAD_REL, **steps, **more)
+    phase(phase_name, **step)
+    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
+            and max(rel.values()) <= TOL_FP32_GRAD_REL):
+        raise RuntimeError(f"the fp32 stage-2 step with {flag} differs: "
+                           f"{step}")
+    return step, launches
+
+
 # ---- phase 8d: the fp32 paths with GN+SiLU and the int8 matmul on fp32
 # a 20-step fp32 edit with use_fused_groupnorm and use_int8_weights (and
 # flash): per pass 45 GN+SiLU launches and 160 int8, once per edit the 32
@@ -3659,35 +3918,16 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
     memory of each, beside ``flash_only`` (phase 8c's flash-only fp32 edit
     and stage-2 step, the same run).  Returns the numbers and the launches
     by path."""
-    from diffute_tpu_torch.config import DiffUTEConfig, TrainConfig
-    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
-                                              make_unet_batch)
+    from diffute_tpu_torch.config import DiffUTEConfig
     from diffute_tpu_torch.models import UNet2DCondition
     from diffute_tpu_torch.models.layers import QuantLinear
     from diffute_tpu_torch.ops.quant import dequantize, quantize_per_channel
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
-    from diffute_tpu_torch.train import UNetTrainer
     from diffute_tpu_torch.utils import init_pipeline_params
     from diffute_tpu_torch.utils.params import build_meta
 
     base = DiffUTEConfig()
     out = {"launches": {}}
-
-    def flags(cfg, **unet):
-        return dataclasses.replace(
-            cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=True,
-                                          **unet),
-            vae=dataclasses.replace(cfg.vae, use_flash_attention=True))
-
-    def keep(r, **more):
-        return dict(dict(
-            seconds=r["seconds"],
-            max_memory_allocated=r["max_memory_allocated"],
-            peak_above_resident=(r["max_memory_allocated"]
-                                 - r["memory_allocated_before"]),
-            launches={k: r["launches"][k] for k in (
-                "gn_silu", "gn_stats", "conv", "w8", fp32_entry("fwd", 64),
-                fp32_entry("fwd", 512))}), **more)
 
     # ---- (a) the 20-step fp32 edit, all on, and its two references: the
     # three pipelines side by side, each warmed, the edits in turns (a, b,
@@ -3695,7 +3935,7 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
     params = init_pipeline_params(base, seed=0, device=dev)
     serving = dataclasses.replace(base, edit=dataclasses.replace(
         base.edit, resolution=RES, num_inference_steps=VAE_FLASH_STEPS))
-    int8_cfg = flags(serving, use_int8_weights=True).unet
+    int8_cfg = fp32_flags(serving, use_int8_weights=True).unet
     dequantised = dict(params["unet"])
     for name, m in build_meta(UNet2DCondition, int8_cfg).named_modules():
         if isinstance(m, QuantLinear):
@@ -3707,7 +3947,7 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
                 "int8": (dict(use_int8_weights=True), params["unet"]),
                 "fused_gn_dequantised": (dict(use_fused_groupnorm=True),
                                          dequantised)}
-    pipes = {name: DiffUTEPipeline(flags(serving, **unet_flags),
+    pipes = {name: DiffUTEPipeline(fp32_flags(serving, **unet_flags),
                                    dict(params, unet=unet_params), dev)
              for name, (unet_flags, unet_params) in variants.items()}
     for pipe in pipes.values():
@@ -3734,7 +3974,7 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
                            fp32_entry("fwd", 512): 2})
         outs.setdefault(name, r["out"])
         edits[name]["seconds"].append(r["seconds"])
-        edits[name].update(keep(r, seconds=edits[name]["seconds"]))
+        edits[name].update(fp32_keep(r, seconds=edits[name]["seconds"]))
         out["launches"][f"fp32_edit_{name}"] = r["launches"]
     for name in ("int8", "fused_gn_dequantised"):
         edits[name]["max_lsb_vs_fused_gn_int8"] = int(np.abs(
@@ -3753,89 +3993,140 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (b) one stage-2 step with use_fused_groupnorm, against the flag
-    # off: one trainer after the other on the same weights, batch and draws,
-    # each warmed by one step, then two timed (peaks of one trainer alone)
-    probes = ["conv_in.weight",
-              "down_blocks.0.resnets.0.norm1.weight",
-              "up_blocks.3.resnets.2.conv1.weight",
-              "conv_out.weight"]
-    steps, losses, grads = {}, {}, {}
-    batch = draws = None
-    for name, fused in (("fused_gn", True), ("plain_gn", False)):
-        s2cfg = dataclasses.replace(
-            flags(base, remat=True, use_fused_groupnorm=fused),
-            train=TrainConfig(train_batch_size=TRAIN_BATCH,
-                              mixed_precision="no",
-                              gradient_checkpointing=True, max_train_steps=1))
-        trainer = UNetTrainer(s2cfg, params["unet"],
-                              {"vae": params["vae"], "trocr": params["trocr"]},
-                              device=dev, total_steps=1)
-        if batch is None:
-            data = SyntheticSceneDataset(s2cfg, seed=0)
-            batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)],
-                                    s2cfg)
-            draws = trainer.draw(TRAIN_BATCH)
-        trainer.accumulate_grads(batch, draws)
-        steps[name] = dict(seconds=[])
-        for _ in range(2):
-            r = measured(dev, lambda: trainer.accumulate_grads(batch,
-                                                               draws).item())
-            expect_launches(r, gn_silu=GN_PER_REMAT_STEP if fused else 0,
-                            gn_stats=0, conv=0, w8=0)
-            expect_flash(r, **{fp32_entry("fwd", 64): 20,
-                               fp32_entry("bwd_dq", 64): 10,
-                               fp32_entry("bwd_dkv", 64): 10,
-                               fp32_entry("fwd", 512): 2})
-            losses[name] = r.pop("out")
-            steps[name]["seconds"].append(r["seconds"])
-            steps[name].update(keep(r, seconds=steps[name]["seconds"]))
-        masters = trainer.state.params_dict()
-        grads[name] = {n: masters[n].grad.clone() for n in probes}
-        out["launches"][f"fp32_stage2_{name}"] = r["launches"]
-        del trainer, masters
-        gc.collect()
-        torch.cuda.empty_cache()
-    rel = {n: rel_l2(grads["fused_gn"][n], grads["plain_gn"][n])
-           for n in probes}
-    step = dict(batch=TRAIN_BATCH, loss_fused_gn=losses["fused_gn"],
-                loss_plain_gn=losses["plain_gn"],
-                loss_rel_diff=(abs(losses["fused_gn"] - losses["plain_gn"])
-                               / abs(losses["plain_gn"])),
-                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
-                grad_tolerance=TOL_FP32_GRAD_REL,
-                gn_silu_per_step=GN_PER_REMAT_STEP, **steps,
-                flash_only_8c={k: flash_only["stage2"]["flash"][k] for k in (
-                    "seconds", "max_memory_allocated", "peak_above_resident")})
-    phase("fp32_fused_stage2_step", **step)
-    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
-            and max(rel.values()) <= TOL_FP32_GRAD_REL):
-        raise RuntimeError(f"the fp32 stage-2 step with use_fused_groupnorm "
-                           f"differs: {step}")
-    out["stage2"] = step
-    del params, batch, draws, grads
+    # off
+    out["stage2"], out["launches"]["fp32_stage2_fused_gn"] = fp32_flag_step(
+        dev, params, "use_fused_groupnorm", ("fused_gn", "plain_gn"),
+        {"gn_silu": GN_PER_REMAT_STEP}, "fp32_fused_stage2_step",
+        gn_silu_per_step=GN_PER_REMAT_STEP,
+        flash_only_8c={k: flash_only["stage2"]["flash"][k] for k in (
+            "seconds", "max_memory_allocated", "peak_above_resident")})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 8e: the fp32 paths through the fp32 GN+SiLU+conv3x3
+# a 20-step fp32 edit with use_fused_conv: per pass 44 conv launches, each
+# behind its statistics launch; with all three flags conv_norm_out's
+# GN+SiLU too (1 a pass) and the int8 matmul
+CONV_PER_PASS = 44
+# an fp32 stage-2 step with use_fused_conv under gradient checkpointing:
+# the 44 resnet halves of the forward, then again when their resnets are
+# recomputed; the backward differentiates the plain version (no launch)
+CONV_PER_REMAT_STEP = 44 + 44
+
+
+def check_fp32_conv_paths(dev) -> dict:
+    """Phase 8e: the fp32 paths through gn_silu_conv3x3_fp32 (and
+    gn_stats_fp32 before each launch) at full width, weights from seed 0,
+    UNet, VAE and TrOCR in fp32, both flash flags on as in 8c and 8d.  (a)
+    A 20-step 512^2 edit through DiffUTEPipeline.edit with use_fused_conv
+    (bench.py --dtype fp32 --fused-conv's configuration with flash): 880
+    conv, 880 statistics and 200 + 2 fp32 flash launches, only the box
+    changed, within FP32_EDIT_LSB of 8c's flash-only edit (the same
+    weights, scene and seed).  (b) The same edit with all three flags
+    (--fused-gn --fused-conv --int8): 880 conv, 880 statistics, 20
+    GN+SiLU, 3,232 int8 and 202 flash launches, within FP32_EDIT_LSB of
+    8d's --fused-gn --int8 edit.  The four pipelines side by side, each
+    warmed, the edits in turns (a, 8c, b, 8d, then back); seconds and the
+    peak above the resident weights.  (c) One UNetTrainer step at batch 4
+    with gradient checkpointing and use_fused_conv against the same step
+    with the flag off, the same weights, batch and draws (one trainer after
+    the other, each warmed, two steps timed): the loss within
+    TOL_FP32_LOSS_REL, the four probes' gradients within TOL_FP32_GRAD_REL,
+    CONV_PER_REMAT_STEP conv and statistics launches.  Returns the numbers
+    and the launches by path."""
+    from diffute_tpu_torch.config import DiffUTEConfig
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    base = DiffUTEConfig()
+    out = {"launches": {}}
+
+    # ---- (a) and (b): the two flagged edits and their references, in turns
+    params = init_pipeline_params(base, seed=0, device=dev)
+    serving = dataclasses.replace(base, edit=dataclasses.replace(
+        base.edit, resolution=RES, num_inference_steps=VAE_FLASH_STEPS))
+    variants = {"fused_conv": dict(use_fused_conv=True),
+                "flash_only_8c": {},
+                "all_flags": ALL_FLAGS,
+                "fused_gn_int8_8d": dict(use_fused_groupnorm=True,
+                                         use_int8_weights=True)}
+    references = {"fused_conv": "flash_only_8c",
+                  "all_flags": "fused_gn_int8_8d"}
+    pipes = {name: DiffUTEPipeline(fp32_flags(serving, **unet_flags), params,
+                                   dev)
+             for name, unet_flags in variants.items()}
+    del params
+    image, box = scene()
+    for pipe in pipes.values():
+        pipe.edit(image, box, "warm", seed=0, num_inference_steps=2)
+    edits = {name: dict(seconds=[]) for name in pipes}
+    outs = {}
+    steps = VAE_FLASH_STEPS
+    order = list(pipes)
+    for name in order + order[::-1]:
+        unet_flags = variants[name]
+        r = measured(dev, lambda: pipes[name].edit(image, box, "FP32 FUSED",
+                                                   seed=5)[0])
+        only_boxes_changed(r["out"], image, [box])
+        conv = CONV_PER_PASS * steps if unet_flags.get("use_fused_conv") else 0
+        gn = unet_flags.get("use_fused_groupnorm")
+        expect_launches(r, conv=conv, gn_stats=conv,
+                        gn_silu=(0 if not gn else steps if conv
+                                 else GN_PER_PASS * steps),
+                        w8=(W8_PER_PASS * steps + W8_PER_EDIT
+                            if unet_flags.get("use_int8_weights") else 0))
+        expect_flash(r, **{fp32_entry("fwd", 64): 10 * steps,
+                           fp32_entry("fwd", 512): 2})
+        outs.setdefault(name, r["out"])
+        edits[name]["seconds"].append(r["seconds"])
+        edits[name].update(fp32_keep(r, seconds=edits[name]["seconds"]))
+        if name in references:
+            out["launches"][f"fp32_edit_{name}"] = r["launches"]
+    for name, ref in references.items():
+        edits[name][f"max_lsb_vs_{ref}"] = int(np.abs(
+            outs[name].astype(np.int16) - outs[ref]).max())
+    phase("fp32_conv_edit", steps=steps, tolerance_lsb=FP32_EDIT_LSB, **edits)
+    if any(edits[n][f"max_lsb_vs_{ref}"] > FP32_EDIT_LSB
+           for n, ref in references.items()):
+        raise RuntimeError(f"the fp32 fused-conv edits differ from their "
+                           f"references: {edits}")
+    out["edit"] = edits
+    del pipes, pipe, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) one stage-2 step with use_fused_conv, against the flag off
+    params = init_pipeline_params(base, seed=0, device=dev)
+    out["stage2"], out["launches"]["fp32_stage2_fused_conv"] = fp32_flag_step(
+        dev, params, "use_fused_conv", ("fused_conv", "plain_conv"),
+        {"conv": CONV_PER_REMAT_STEP, "gn_stats": CONV_PER_REMAT_STEP},
+        "fp32_conv_stage2_step", conv_per_step=CONV_PER_REMAT_STEP)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def fp32_fused_entries(results: dict, launches: dict) -> list:
-    """The three fp32 entries of groupnorm.cu and quant_fp32.cu (phase 3g)
-    with phase 8d's launches by path.  gn_stats_fp32 lies on no path until
-    the fp32 fused conv (ROADMAP.md queue 2 item 6) launches it: 0."""
+    """The four fp32 entries of groupnorm.cu, quant_fp32.cu and
+    conv_fused_fp32.cu (phases 3g and 3h: entry name -> result per shape)
+    with phases 8d's and 8e's launches by path (path -> counters read right
+    after it ran)."""
     def by_path(key):
         return {path: rec[key] for path, rec in launches.items() if rec[key]}
 
-    entries = [kernel_entry(name, source, replaces, results[name],
-                            by_path(key))
-               for name, source, replaces, key in (
-                   ("gn_stats_fp32", "groupnorm.cu", "groupnorm.py:31",
-                    "gn_stats"),
-                   ("gn_silu_fp32", "groupnorm.cu", "groupnorm.py:31",
-                    "gn_silu"),
-                   ("w8_matmul_fp32", "quant_fp32.cu", "quant.py:51", "w8"))]
-    entries[0]["path"] = ("none yet: the fp32 GN+SiLU+conv3x3 (ROADMAP.md "
-                          "queue 2 item 6) will launch it")
-    return entries
+    return [kernel_entry(name, source, replaces, results[name], by_path(key))
+            for name, source, replaces, key in (
+                ("gn_stats_fp32", "groupnorm.cu", "groupnorm.py:31",
+                 "gn_stats"),
+                ("gn_silu_fp32", "groupnorm.cu", "groupnorm.py:31",
+                 "gn_silu"),
+                ("w8_matmul_fp32", "quant_fp32.cu", "quant.py:51", "w8"),
+                ("gn_silu_conv3x3_fp32", "conv_fused_fp32.cu",
+                 "conv_fused.py:40", "conv"))]
 
 
 OCR_BATCH, OCR_STEPS, OCR_MAX_LEN = 64, 50, 16
@@ -4187,8 +4478,8 @@ def main(argv=None) -> None:
                    "head_dim-256 kernels and the small VAE's flash paths) "
                    "alone")
     p.add_argument("--fp32-only", action="store_true",
-                   help="build the kernels and run phases 3f, 3g, 8c and 8d "
-                   "(the fp32 kernels and the fp32 paths) alone")
+                   help="build the kernels and run phases 3f, 3g, 3h, 8c, "
+                   "8d and 8e (the fp32 kernels and the fp32 paths) alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -4249,23 +4540,29 @@ def main(argv=None) -> None:
         for name, fn in (
                 ("phase_3f", lambda: check_fp32(dev)),
                 ("phase_3g", lambda: check_fp32_fused(dev)),
+                ("phase_3h", lambda: check_fp32_conv(dev)),
                 ("phase_8c", lambda: check_fp32_paths(dev)),
                 ("phase_8d", lambda: check_fp32_fused_paths(
-                    dev, seconds["phase_8c"][0]))):
+                    dev, seconds["phase_8c"][0])),
+                ("phase_8e", lambda: check_fp32_conv_paths(dev))):
             t0 = time.perf_counter()
             seconds[name] = (fn(), time.perf_counter() - t0)
         phase("seconds", **{k: v[1] for k, v in seconds.items()},
               run=time.perf_counter() - t_run)
         fp32, fp32_paths = seconds["phase_3f"][0], seconds["phase_8c"][0]
-        fused32, fused32_paths = (seconds["phase_3g"][0],
-                                  seconds["phase_8d"][0])
+        fused32 = dict(seconds["phase_3g"][0],
+                       gn_silu_conv3x3_fp32=seconds["phase_3h"][0])
+        fused32_paths, conv32_paths = (seconds["phase_8d"][0],
+                                       seconds["phase_8e"][0])
         print(gpu_line(), flush=True)
         print(json.dumps({
             "kernels": (fp32_entries(fp32, fp32_paths["launches"])
-                        + fp32_fused_entries(fused32,
-                                             fused32_paths["launches"])),
+                        + fp32_fused_entries(
+                            fused32, {**fused32_paths["launches"],
+                                      **conv32_paths["launches"]})),
             "fp32_paths": vae_flash_summary(fp32_paths),
-            "fp32_fused_paths": vae_flash_summary(fused32_paths)}),
+            "fp32_fused_paths": vae_flash_summary(fused32_paths),
+            "fp32_conv_paths": vae_flash_summary(conv32_paths)}),
             flush=True)
         return
     if args.workflow_only or args.eval_only:
@@ -4386,6 +4683,12 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     fused32 = check_fp32_fused(dev)
     phase("phase_3g", seconds=time.perf_counter() - t0)
+
+    # ---- 3h. GN+SiLU+conv3x3 on fp32 inputs against its plain fp32
+    # version
+    t0 = time.perf_counter()
+    fused32["gn_silu_conv3x3_fp32"] = check_fp32_conv(dev)
+    phase("phase_3h", seconds=time.perf_counter() - t0)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -4642,6 +4945,11 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         fused32_paths = check_fp32_fused_paths(dev, fp32_paths)
         phase("phase_8d", seconds=time.perf_counter() - t0)
+        # ---- 8e. the fp32 edits with the fused conv (alone and with all
+        # three flags), and an fp32 stage-2 step with it
+        t0 = time.perf_counter()
+        conv32_paths = check_fp32_conv_paths(dev)
+        phase("phase_8e", seconds=time.perf_counter() - t0)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4703,13 +5011,12 @@ def main(argv=None) -> None:
         *wide_entries(d512, vae_flash["launches"], 512),
         *wide_entries(d256, small_vae_flash["launches"], 256),
         *fp32_entries(fp32, fp32_paths["launches"]),
-        *fp32_fused_entries(fused32, fused32_paths["launches"]),
+        *fp32_fused_entries(fused32, {**fused32_paths["launches"],
+                                      **conv32_paths["launches"]}),
     ]
     # every kernel ran on some path (the comparison launches of phase 3
-    # are not counted there), but the fp32 statistics, which no path takes
-    # until the fp32 fused conv does
-    idle = [e["name"] for e in kernels
-            if not e["launches"] and e["name"] != "gn_stats_fp32"]
+    # are not counted there)
+    idle = [e["name"] for e in kernels if not e["launches"]]
     if idle:
         raise RuntimeError(f"no path launched {idle}")
     phase("run", seconds=time.perf_counter() - t_run)
@@ -4747,6 +5054,7 @@ def main(argv=None) -> None:
         "small_vae_flash": vae_flash_summary(small_vae_flash),
         "fp32_paths": vae_flash_summary(fp32_paths),
         "fp32_fused_paths": vae_flash_summary(fused32_paths),
+        "fp32_conv_paths": vae_flash_summary(conv32_paths),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

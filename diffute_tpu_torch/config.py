@@ -71,7 +71,8 @@ class UNetConfig:
     # (csrc/quant.cu); a float state_dict is quantised at load.
     use_int8_weights: bool = False
     # Every resnet half as one GroupNorm+SiLU+conv3x3 kernel
-    # (csrc/conv_fused.cu): the normalised tensor never reaches device memory.
+    # (csrc/conv_fused.cu on bf16, csrc/conv_fused_fp32.cu on fp32): the
+    # normalised tensor never reaches device memory.
     use_fused_conv: bool = False
     # Recompute each resnet and transformer block in the backward instead of
     # keeping its activations (gradient checkpointing).

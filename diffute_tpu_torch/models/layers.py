@@ -154,12 +154,14 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
         self._packed = {}  # conv name -> (weight identity, repacked weight)
 
-    def _packed_weight(self, name: str, conv: nn.Conv2d
+    def _packed_weight(self, name: str, conv: nn.Conv2d, dtype: torch.dtype
                        ) -> Optional[torch.Tensor]:
-        """The conv's weight in the fused kernel's layout, repacked when the
-        weight was replaced or written since (not per call)."""
+        """The conv's weight in the bf16 kernel's layout for x of ``dtype``,
+        repacked when the weight was replaced or written since (not per
+        call); None off the card and for the fp32 kernel, which reads the
+        weight as it is (an fp32 model keeps no packed copy)."""
         w = conv.weight
-        if w.device.type != "cuda":
+        if w.device.type != "cuda" or dtype != torch.bfloat16:
             return None
         key = (w.data_ptr(), w._version, w.dtype)
         cached = self._packed.get(name)
@@ -173,7 +175,8 @@ class ResnetBlock2D(nn.Module):
         if self.fused_conv:
             return gn_silu_conv3x3(x, norm.weight, norm.bias, conv.weight,
                                    conv.bias, norm.num_groups, norm.eps,
-                                   packed=self._packed_weight(name, conv))
+                                   packed=self._packed_weight(name, conv,
+                                                              x.dtype))
         h = norm(x)  # GroupNormSiLU applies the SiLU itself
         return conv(h if self.fused_gn else F.silu(h))
 

@@ -107,6 +107,10 @@ def _signatures() -> dict:
         # (x, mean, rstd, gamma, beta, gn_bf16, wp, bias, bias_bf16, out,
         #  partial, B, Cin, Cout, H, W, groups, tiles, splits, stream)
         "gn_silu_conv3x3_bf16": [p] * 5 + [i, p, p, i, p, p] + [i] * 8 + [p],
+        # (x, mean, rstd, gamma, beta, gn_bf16, w, bias, bias_bf16, out,
+        #  partial, B, Cin, Cout, H, W, groups, splits, stream), fp32 x, w
+        #  and out (csrc/conv_fused_fp32.cu)
+        "gn_silu_conv3x3_fp32": [p] * 5 + [i, p, p, i, p, p] + [i] * 7 + [p],
         # (x, packed q, scale, scale_bf16, bias, y, workspace, tickets, M, N,
         #  K, tokens per block, splits, stream)
         "w8_matmul_bf16": [p, p, p, i, p, p, p, p] + [i] * 5 + [p],

@@ -22,6 +22,7 @@ from diffute_tpu_torch.ops.conv_fused import (
     conv_plan,
     gn_silu_conv3x3,
     gn_silu_conv3x3_reference,
+    gn_silu_conv3x3_tf32_reference,
     pack_conv3x3_weight,
 )
 
@@ -241,3 +242,49 @@ def test_cuda_kernel_matches_plain(b, cin, cout, hw):
     assert ((y.float() * 0.99 - ref).norm() / ref.norm()).item() > 2e-3
     with pytest.raises(ValueError):
         gn_silu_conv3x3(x.float(), gamma, beta, w, bias, 32, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,hw", [(1, 320, 320, 64), (1, 1920, 640, 32),
+                                           (1, 2560, 1280, 16),
+                                           (1, 1280, 1280, 8),
+                                           (2, 640, 640, 32), (1, 64, 96, 24)])
+def test_cuda_fp32_kernel_matches_plain(b, cin, cout, hw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, mean=0.0, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std + mean
+
+    x = randn(b, cin, hw, hw)
+    gamma, beta = randn(cin, mean=1.0, std=0.3), randn(cin, std=0.5)
+    w, bias = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5), randn(cout, std=0.1)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the plain version in fp32
+    try:
+        before = gn_silu_conv3x3.launches
+        y = gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5)
+        again = gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5)
+        torch.cuda.synchronize()
+        assert gn_silu_conv3x3.launches == before + 2
+        assert y.dtype == torch.float32 and torch.equal(y, again)
+        ref = gn_silu_conv3x3_reference(x, gamma, beta, w, bias, 32, 1e-5)
+        one = gn_silu_conv3x3_tf32_reference(x, gamma, beta, w, bias, 32,
+                                             1e-5, products=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def rel(a):
+        return ((a.double() - ref.double()).norm() / ref.double().norm()).item()
+
+    # 3xTF32 products, fp32 sums: relative L2 1e-5 of the plain fp32
+    # version; TF32 alone (one product) fails it
+    assert rel(y) <= 1e-5
+    assert rel(one) > 1e-5
+    with pytest.raises(ValueError):  # the fp32 kernel takes no packed weight
+        gn_silu_conv3x3(x, gamma, beta, w, bias, 32, 1e-5,
+                        packed=pack_conv3x3_weight(w))
+    with pytest.raises(ValueError):  # nor fp16 x
+        gn_silu_conv3x3(x.half(), gamma, beta, w, bias, 32, 1e-5)

@@ -39,6 +39,7 @@ from diffute_tpu.utils import init_pipeline_params as j_init
 
 from diffute_tpu_torch.compat import pipeline_state_dicts
 from diffute_tpu_torch.config import tiny_test_config
+from diffute_tpu_torch.ops.conv_fused import KERNEL_DTYPES
 from diffute_tpu_torch.ops.flash_attention import round_tf32
 from diffute_tpu_torch.ops.groupnorm import (
     MAX_SMEM,
@@ -186,9 +187,13 @@ def test_gn_kernels_take_bf16_and_fp32_and_refuse_fp16_and_fp64():
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="takes bf16 or fp32"):
             _check_x(_on_card(x.to(dtype)), 32, "GroupNorm+SiLU")
-    # the fused conv still takes bf16 alone (fp32 is still to port)
-    with pytest.raises(ValueError, match="takes bf16;"):
-        _check_x(_on_card(x), 32, "GN+SiLU+conv3x3", (torch.bfloat16,))
+    # the fused conv's wrapper takes fp32 too (csrc/conv_fused_fp32.cu)
+    for dtype in KERNEL_DTYPES:
+        _check_x(_on_card(x.to(dtype)), 32, "GN+SiLU+conv3x3", KERNEL_DTYPES)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="takes bf16 or fp32"):
+            _check_x(_on_card(x.to(dtype)), 32, "GN+SiLU+conv3x3",
+                     KERNEL_DTYPES)
 
 
 def test_a_cpu_tensor_gets_the_plain_version_in_fp32():
@@ -271,14 +276,18 @@ def jparams():
     return j_init(j_tiny(), seed=3)
 
 
-def _fp32_flags(cfg, **more):
-    return dataclasses.replace(
-        cfg, unet=dataclasses.replace(cfg.unet, **FLAGS, **more))
-
-
 def test_fp32_fused_gn_int8_edit_matches_jax(jparams):
+    fp32_edit_against_jax(jparams, FLAGS)
+
+
+def fp32_edit_against_jax(jparams, flags):
+    """A 3-step fp32 edit with the UNet ``flags`` on, the port on the CPU
+    against the JAX pipeline with the same weights and draws."""
     steps, seed = 3, 0
-    jcfg, tcfg = _fp32_flags(j_tiny()), _fp32_flags(tiny_test_config())
+    jcfg = dataclasses.replace(j_tiny(), unet=dataclasses.replace(
+        j_tiny().unet, **flags))
+    tcfg = dataclasses.replace(tiny_test_config(), unet=dataclasses.replace(
+        tiny_test_config().unet, **flags))
     assert jcfg.unet.dtype == jnp.float32 and tcfg.unet.dtype == torch.float32
     jpipe = JPipeline(jcfg, jparams)
     # both sides quantise the same float weights at load: the same int8
@@ -330,12 +339,17 @@ def test_fp32_fused_gn_int8_edit_matches_jax(jparams):
 
 
 def test_fp32_fused_gn_stage2_step_matches_jax(jparams):
+    fp32_stage2_against_jax(jparams, use_fused_groupnorm=True)
+
+
+def fp32_stage2_against_jax(jparams, **unet_flags):
+    """One fp32 stage-2 step with the UNet ``unet_flags`` on, the port on the
+    CPU against JAX's train step with the same weights, batch and draws."""
     def cfg(base):
         opt = dataclasses.replace(base.train.optimizer,
                                   lr_scheduler="constant")
         return dataclasses.replace(
-            base, unet=dataclasses.replace(base.unet,
-                                           use_fused_groupnorm=True),
+            base, unet=dataclasses.replace(base.unet, **unet_flags),
             edit=dataclasses.replace(base.edit, resolution=TRAIN_RES),
             train=dataclasses.replace(base.train, train_batch_size=2,
                                       mixed_precision="no", optimizer=opt))
