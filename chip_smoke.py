@@ -96,6 +96,20 @@ Phases, one line each (any failure raises and exits non-zero):
      border padded with silu(d), a dropped 16-channel chunk) must FAIL;
      each timed beside its bound at the 3xTF32 rate, its plain version and
      F.conv2d(F.silu(F.group_norm)) in fp32; the pass's sums;
+  3i. the narrow head_dims (csrc/flash_narrow.cu: every multiple of 8 up
+     to 128 but 64, at tile widths 16, 32, 64 and 128, bf16 and fp32): the
+     four kernels at D = 8, 16, 32, 40, 80 and 128 against their plain
+     tiled versions at the kernels' kv tile and their dtype's criteria
+     (bf16 as phase 3's, fp32 as 3f's and within 1e-5 of fp64), at the tiny
+     model's shapes (B*H, S, T) = (2, 65536, 65536) and (4, 16384, 16384)
+     at D = 8 and (1, 65536, 65536) at 16, 4,096-token shapes elsewhere and
+     a ragged one each; the plain versions never hold (B*H, S, T) scores;
+     the same bits twice, the bf16 deferred forward the standard one's
+     bits; mutants (the tile width's scale, pad columns of 1.0, a dropped
+     kv tile, TF32 alone) must FAIL; strided views the contiguous bits,
+     the switch on too; each timed beside its plain one-pass version, SDPA
+     (its backend recorded) and a bound whose third term is the
+     exponentials over the special-function units' rate;
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -186,6 +200,16 @@ Phases, one line each (any failure raises and exits non-zero):
      checkpointing and use_fused_conv (88 conv and 88 statistics
      launches: 44, then 44 recomputed) against the flag off (the loss
      within 1e-5, four probes' gradients within 1e-4); seconds and peaks;
+  8f. the tiny model (tiny_test_config, head_dim 8 in the UNet, 16 in the
+     VAE's mid-block) at 512^2 through csrc/flash_narrow.cu's width-16
+     kernels: serve.cli --tiny --res 512 as a subprocess, switch off and on
+     (200 launches, only the box changed); a 50-step bf16 edit with the
+     VAE's flag (202), switch on (0 LSB) and on the dense route (within 2
+     LSB), a UNet forward and the codec against dense; a 20-step fp32 edit
+     (82) against the switch and dense within 1 LSB; a stage-2 step (10 /
+     4 / 4) and a stage-1 step (2 / 2 / 2) in bf16 and fp32 against the
+     dense route and, past its tolerance, against a step with fp64
+     attention;
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -225,6 +249,12 @@ Exits non-zero, with no result, when no CUDA device is available.
 builds the kernels and runs phases 3f, 3g, 3h, 8c, 8d and 8e (the fp32
 kernels and the fp32 paths) alone and prints their kernels line.
 
+    python3 chip_smoke.py --narrow-only
+
+builds the kernels and runs phases 3i and 8f (the narrow head_dims' kernels
+and the tiny model's paths) alone (about 4 minutes) and prints their
+kernels line.
+
     python3 chip_smoke.py --workflow-only
 
 builds the kernels and runs phases 8-10 alone (about 2 minutes).
@@ -257,8 +287,9 @@ pipelines over one set of weights in one process, taking turns.
     python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 builds the kernels and runs phase 3's kernel rows (forward and backward),
-3a, 3b and 3c-3e alone; with --package-root another checkout's kernels, so two
-commits' kernels can be timed in turns on one card.
+3a, 3b, 3c-3e, 3f-3h and 3i alone (those the package has); with
+--package-root another checkout's kernels, so two commits' kernels can be
+compared and timed in turns on one card.
 
     python3 chip_smoke.py --fused-only [--package-root DIR]
 
@@ -1719,6 +1750,497 @@ def check_fp32(dev) -> dict:
     return out
 
 
+# ---- phase 3i: the narrow head_dims (csrc/flash_narrow.cu): every
+# multiple of 8 up to 128 but 64, bf16 and fp32, at tile widths 16 to 128
+NARROW_WIDTHS = (16, 32, 64, 128)
+NARROW_DIMS = (8, 16, 32, 40, 80, 128)
+# (B*H, S, T) by head_dim, the main paths' first: at 8 the tiny UNet's
+# self-attentions of a 512^2 pass (3 at 65,536 tokens and 2 heads, 1 at
+# 16,384 and 4), at 16 its VAE mid-block's single head at 512^2 (one a
+# codec with VAEConfig.use_flash_attention); then a ragged one.  No
+# configuration reaches 32 to 128: a 4,096-token shape there.
+NARROW_SHAPES = {8: [(2, 65536, 65536), (4, 16384, 16384), (2, 1000, 1500)],
+                 16: [(1, 65536, 65536), (2, 1000, 1500)],
+                 **{d: [(2, 4096, 4096), (2, 1000, 1500)]
+                    for d in (32, 40, 80, 128)}}
+# the special-function unit's exponentials a clock an SM on sm_90 (the CUDA
+# C++ Programming Guide's arithmetic-instruction throughput table: ex2 on
+# compute capability 9.0); with the SM count and the card's maximum SM
+# clock (nvidia-smi clocks.max.sm) the exp term of a flash kernel's bound
+EXP_PER_CLOCK_SM = 16
+
+
+def narrow_entry(kind: str, w: int, fp32: bool) -> str:
+    """The C entry (and counters() key) of a csrc/flash_narrow.cu kernel."""
+    return f"flash_{kind}_w{w}_" + ("fp32" if fp32 else "bf16")
+
+
+def narrow_counter(kind: str, w: int, fp32: bool) -> str:
+    """The flash_attention attribute that counts narrow_entry's launches."""
+    return (("fp32_" if fp32 else "") + f"w{w}_"
+            + {"fwd": "", "fwd_pipelined": "pipelined_"}.get(kind, kind + "_")
+            + "launches")
+
+
+def narrow_keys() -> list:
+    return [(narrow_entry(kind, w, fp32), narrow_counter(kind, w, fp32))
+            for kind in FP32_KINDS for w in NARROW_WIDTHS
+            for fp32 in (False, True)]
+
+
+_EXP_RATE = []
+
+
+def exp_rate() -> float:
+    """Exponentials a second the card's special-function units give:
+    EXP_PER_CLOCK_SM x SMs x the maximum SM clock."""
+    if not _EXP_RATE:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _EXP_RATE.append(EXP_PER_CLOCK_SM * sms * mhz * 1e6)
+    return _EXP_RATE[0]
+
+
+def flash_bound(flops: float, nbytes: float, n_exp: float,
+                peak: float = PEAK_BF16_FLOPS) -> dict:
+    """bound() with a third term, the exponentials over exp_rate(): at
+    narrow head_dims they, not the products or the bytes, set the least
+    time.  ``bound_term`` says which of products, exp and bytes it is."""
+    b = bound(flops, nbytes, peak)
+    t_exp = n_exp / exp_rate() * 1e3
+    terms = {"products": b["bound_ops_ms"], "exp": t_exp,
+             "bytes": b["bound_bytes_ms"]}
+    term = max(terms, key=terms.get)
+    return dict(b, bound_exp_ms=t_exp, bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term)
+
+
+def by_rows(fn, rowed, shared, rows: int):
+    """``fn(*row blocks of rowed, *shared)`` over blocks of ``rows`` query
+    rows (dim 1 of each of ``rowed``), the blocks' outputs joined on dim 1:
+    a plain version whose (B*H, S, T) scores would not fit, one block of
+    them at a time (query rows are independent in o, the LSE and dq)."""
+    outs = [fn(*(x[:, i:i + rows] for x in rowed), *shared)
+            for i in range(0, rowed[0].shape[1], rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+    return torch.cat(outs, 1)
+
+
+def score_rows(bh: int, t: int) -> int:
+    """Query rows a block of by_rows so that one fp32 score block is 1 GiB
+    at most."""
+    return max(1, (1 << 28) // (bh * t))
+
+
+def plain_dkv_by_rows(fa, q, k, v, do, lse, delta, sc, rows):
+    """The plain dk/dv, summed over blocks of query rows in fp32."""
+    dk = torch.zeros(k.shape, device=k.device)
+    dv = torch.zeros(v.shape, device=v.device)
+    for i in range(0, q.shape[1], rows):
+        part = fa.flash_bwd_dkv_reference(
+            q[:, i:i + rows].float(), k.float(), v.float(),
+            do[:, i:i + rows].float(), lse[:, i:i + rows],
+            delta[:, i:i + rows], sc)
+        dk += part[0]
+        dv += part[1]
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def fp64_rows(q, k, v, do, sc, rows: int) -> dict:
+    """o, the LSE and dq of query rows [0, rows) in fp64 (autograd through
+    plain attention on those rows), and at S * T <= 2^24 dk and dv over all
+    of them."""
+    full = q.shape[1] * k.shape[1] <= 1 << 24
+    rows = q.shape[1] if full else rows
+    leaves = [x[:, :rows].double().requires_grad_() if i == 0
+              else x.double().requires_grad_()
+              for i, x in enumerate((q, k, v))]
+    s = torch.einsum("bsd,btd->bst", leaves[0], leaves[1]) * sc
+    o = torch.einsum("bst,btd->bsd", torch.softmax(s, -1), leaves[2])
+    grads = torch.autograd.grad(o, leaves, do[:, :rows].double())
+    out = {"rows": rows, "o": o.detach(),
+           "lse": torch.logsumexp(s.detach(), -1), "dq": grads[0]}
+    if full:
+        out.update(dk=grads[1], dv=grads[2])
+    return out
+
+
+def check_narrow(dev) -> dict:
+    """Phase 3i: the four kernels of csrc/flash_narrow.cu at head_dims
+    NARROW_DIMS, bf16 and fp32, at NARROW_SHAPES, against their plain tiled
+    versions at the kernels' kv tile (kernel_block_kv) and their dtype's
+    domain: bf16 at the other bf16 entries' criteria (forwards 3 half-ulps,
+    relative L2 2e-3, LSE 1e-4; dq, dk, dv 3 half-ulps and 1e-3, delta
+    1e-5), fp32 at flash_fp32.cu's (relative L2 1e-5, the LSE and delta
+    within 1e-5), and fp32 also within 1e-5 of fp64 (o and dq on a block of
+    rows, dk and dv at the small shapes; the plain fp32 version's distance
+    beside it).  The plain versions at 65,536 keys never hold the
+    (B*H, S, T) scores: the tiled ones walk kv tiles, the one-pass ones
+    timed here take blocks of query rows.  Each kernel the same bits twice;
+    the bf16 deferred forward the standard one's bits.  Mutants of the
+    plain versions on the ragged shape must fail: the scale of the tile
+    width (W^-0.5 instead of D^-0.5, where they differ), the pad columns
+    filled with 1.0 instead of 0 (where D < W), the last kv tile dropped,
+    and on fp32 every product's operands rounded to TF32.  Strided
+    (B, S, 2, D) views of a packed projection give the contiguous route's
+    bits, PIPELINE_FWD on too.  Each timed (CUDA-event medians) beside its
+    plain one-pass version, SDPA (and autograd.grad through it; its backend
+    recorded) and flash_bound (products, exponentials, bytes).  Returns
+    {entry name: [result per shape]}."""
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    show_ptxas("flash_narrow.cu")
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {key: [] for key, _ in narrow_keys()}
+
+    for fp32 in (False, True):
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        esize, peak = (4, PEAK_FP32_FLOPS) if fp32 else (2, PEAK_BF16_FLOPS)
+        for d in NARROW_DIMS:
+            w, sc = fa.narrow_width(d), d ** -0.5
+            bkv = fa.kernel_block_kv(d, dtype)
+            names = {kind: narrow_entry(kind, w, fp32) for kind in FP32_KINDS}
+            for bh, s, t in NARROW_SHAPES[d]:
+                out_shape = check_narrow_shape(fa, g, dev, dtype, d, bh, s, t,
+                                               bkv, esize, peak, names)
+                for kind, res in out_shape.items():
+                    out[names[kind]].append(res)
+            strided = check_narrow_strided(fa, g, dev, dtype, d, bkv)
+            for kind in FP32_KINDS:
+                out[names[kind]].append(strided)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def narrow_errors(fp32: bool, got: torch.Tensor, ref: torch.Tensor,
+                  half_ulps: int = BWD_HALF_ULPS) -> dict:
+    """fp32_errors on fp32 outputs, bwd_errors (with its half-ulp bound)
+    on bf16 ones."""
+    return (fp32_errors(got, ref) if fp32
+            else bwd_errors(got, ref, half_ulps))
+
+
+def narrow_held(fp32: bool, err: dict, lse_err: float = 0.0,
+                fwd: bool = True) -> bool:
+    """The criterion of a narrow kernel's output against its plain version:
+    bf16 as the other bf16 entries (fwd_ok / bwd_ok), fp32 as
+    flash_fp32.cu's."""
+    if fp32:
+        return fp32_held(err) and lse_err <= TOL_FP32_ABS
+    return fwd_ok(err, lse_err) if fwd else bwd_ok(err)
+
+
+def check_narrow_shape(fa, g, dev, dtype, d, bh, s, t, bkv, esize, peak,
+                       names) -> dict:
+    """Phase 3i at one (dtype, head_dim, shape); see check_narrow."""
+    fp32 = dtype == torch.float32
+    sc = d ** -0.5
+    big = bh * s * t >= 2 ** 30
+    iters, plain_iters = (10, 3) if big else (25, 5)
+    rows = score_rows(bh, t)
+    q, k, v, do = (torch.randn((bh, n, d), generator=g, device=dev,
+                               dtype=dtype) for n in (s, t, t, s))
+
+    def errors(got, ref, half_ulps=BWD_HALF_ULPS):
+        return narrow_errors(fp32, got, ref, half_ulps)
+
+    def lse_abs(a, b):
+        return (a - b).abs().max().item()
+
+    res = {}
+    f64 = fp64_rows(q, k, v, do, sc, 512) if fp32 else None
+    library = dict(library_ms=time_ms(lambda: sdpa_wide(q, k, v),
+                                      iters=iters),
+                   library_call="scaled_dot_product_attention" + (
+                       ", fp32, TF32 off" if fp32 else ""),
+                   sdpa=sdpa_backends(q, k, v))
+    fwd_plain_ms = time_ms(lambda: by_rows(fa.flash_attention_reference,
+                                           (q,), (k, v, sc), rows),
+                           iters=plain_iters)
+    fwd_bound = flash_bound(4 * bh * s * t * d,
+                            esize * d * bh * (2 * s + 2 * t) + 4 * bh * s,
+                            bh * s * t, peak)
+    std = None
+    for kind in ("fwd", "fwd_pipelined"):
+        pipelined = kind == "fwd_pipelined"
+        if pipelined and not fa._pipelined_takes(t, d):
+            continue
+
+        def run():
+            if pipelined:
+                return fa.flash_fwd_3d_pipelined(q, k, v, sc)
+            return fa.flash_fwd_3d(q, k, v, sc)
+        reset_counters()
+        o, lse = run()
+        o2, lse2 = run()
+        torch.cuda.synchronize()
+        launches = counters()
+        domain = ("prescaled" if pipelined else "natural") if fp32 else "base2"
+        ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv, domain)
+        err, lse_err = errors(o, ro, FUSED_HALF_ULPS), lse_abs(lse, rlse)
+        r = dict(shape=[bh, s, t, d], **err, max_abs_err_lse=lse_err,
+                 same_bits_twice=torch.equal(o, o2) and torch.equal(lse, lse2),
+                 ms=time_ms(run, iters=iters), plain_ms=fwd_plain_ms,
+                 domain=domain, kv_tile=bkv, **library, **fwd_bound)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if f64 is not None:
+            n = f64["rows"]
+            r["vs_fp64"] = {"kernel": rel_l2_64(o[:, :n], f64["o"]),
+                            "plain": rel_l2_64(ro[:, :n], f64["o"]),
+                            "kernel_lse_abs": lse_abs(lse[:, :n].double(),
+                                                      f64["lse"]),
+                            "rows": n}
+        if pipelined and not fp32:
+            r["standard_bits"] = (torch.equal(o, std[0])
+                                  and torch.equal(lse, std[1]))
+        if t % bkv and not pipelined:
+            r["mutants"] = narrow_mutants(fa, q, k, v, do, sc, bkv, fp32, ro,
+                                          rlse)
+        del ro, rlse, o2, lse2
+        phase(f"kernel_{names[kind]}", **r)
+        expect_flash({"launches": launches}, **{names[kind]: 2})
+        ok = (narrow_held(fp32, err, lse_err) and r["same_bits_twice"]
+              and r.get("standard_bits", True)
+              and (f64 is None or r["vs_fp64"]["kernel"] <= TOL_FP32_REL_L2))
+        if not ok:
+            raise RuntimeError(f"{names[kind]} disagrees at {(bh, s, t, d)}: "
+                               f"{r}")
+        res[kind] = r
+        if not pipelined:
+            std = (o, lse)
+
+    o, lse = std
+
+    def run_dq():
+        return fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
+
+    reset_counters()
+    dq, delta = run_dq()
+
+    def run_dkv():
+        return fa.flash_bwd_dkv_3d(q, k, v, do, lse, delta, sc)
+
+    dk, dv = run_dkv()
+    again = (*run_dq(), *run_dkv())
+    torch.cuda.synchronize()
+    launches = counters()
+    same = all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), again))
+    del again
+    ref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc, bkv)
+    err = {n: errors(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                              (dq, dk, dv), ref)}
+    delta_err = lse_abs(delta, fa._delta(o, do))
+    try:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa_wide(*leaves)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, do, retain_graph=True), iters=plain_iters)
+        del lib_out, leaves
+    except RuntimeError as exc:  # the library may refuse the width
+        library_ms = None
+        phase(f"sdpa_backward_{names['bwd_dq']}", error=str(exc)[:200])
+    io, st = esize * d * bh, 4 * bh
+    common = dict(shape=[bh, s, t, d], library_ms=library_ms,
+                  library_call="autograd.grad through "
+                  "scaled_dot_product_attention" + (
+                      ", fp32, TF32 off" if fp32 else "")
+                  + ": dq, dk and dv together", same_bits_twice=same,
+                  kv_tile=bkv)
+    res_dq = dict(common, **err["dq"], max_abs_err_delta=delta_err,
+                  ms=time_ms(run_dq, iters=iters),
+                  plain_ms=time_ms(lambda: by_rows(
+                      lambda qb, dob, lb, db: fa.flash_bwd_dq_reference(
+                          qb, k, v, dob, lb, db, sc),
+                      (q, do, lse, delta), (), rows), iters=plain_iters),
+                  **flash_bound(6 * bh * s * t * d,
+                                io * (4 * s + 2 * t) + st * 2 * s,
+                                bh * s * t, peak))
+    res_dkv = dict(common, max_abs_err=max(err["dk"]["max_abs_err"],
+                                           err["dv"]["max_abs_err"]),
+                   dk=err["dk"], dv=err["dv"],
+                   ms=time_ms(run_dkv, iters=iters),
+                   plain_ms=time_ms(lambda: plain_dkv_by_rows(
+                       fa, q, k, v, do, lse, delta, sc, rows),
+                       iters=plain_iters),
+                   **flash_bound(8 * bh * s * t * d,
+                                 io * (2 * s + 4 * t) + st * 2 * s,
+                                 bh * s * t, peak))
+    for r in (res_dq, res_dkv):
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    if f64 is not None:
+        n = f64["rows"]
+        res_dq["vs_fp64"] = {"kernel": rel_l2_64(dq[:, :n], f64["dq"]),
+                             "plain": rel_l2_64(ref[0][:, :n], f64["dq"]),
+                             "rows": n}
+        if "dk" in f64:
+            res_dkv["vs_fp64"] = {
+                n: {"kernel": rel_l2_64(a, f64[n]),
+                    "plain": rel_l2_64(b, f64[n])}
+                for n, a, b in (("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+    if t % bkv:
+        # the scale of the tile width, where it differs, and TF32 alone
+        mutants = {}
+        if fa.narrow_width(d) != d:
+            wrong = fa.flash_bwd_tiled_reference(
+                q, k, v, o, lse, do, fa.narrow_width(d) ** -0.5, bkv)
+            mutants["scale_of_w_dq_rel_l2"] = errors(wrong[0],
+                                                     ref[0])["rel_l2_err"]
+            if narrow_held(fp32, errors(wrong[0], ref[0]), fwd=False):
+                raise RuntimeError(f"the criterion passes dq at the tile "
+                                   f"width's scale: {mutants}")
+        if fp32:
+            wrong = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc, bkv,
+                                                 tf32=True)
+            for i, n in enumerate(("dq", "dk", "dv")):
+                e = errors(wrong[i], ref[i])
+                mutants[f"tf32_{n}_rel_l2"] = e["rel_l2_err"]
+                if narrow_held(fp32, e, fwd=False):
+                    raise RuntimeError(f"the criterion passes TF32 alone "
+                                       f"({n}): {mutants}")
+        res_dq["mutants"] = mutants
+    del ref
+    phase(f"kernel_{names['bwd_dq']}", **res_dq)
+    phase(f"kernel_{names['bwd_dkv']}", **res_dkv)
+    expect_flash({"launches": launches},
+                 **{names["bwd_dq"]: 2, names["bwd_dkv"]: 2})
+    fp64_ok = f64 is None or (
+        res_dq["vs_fp64"]["kernel"] <= TOL_FP32_REL_L2
+        and all(v["kernel"] <= TOL_FP32_REL_L2
+                for v in res_dkv.get("vs_fp64", {}).values()))
+    if not (all(narrow_held(fp32, e, fwd=False) for e in err.values())
+            and delta_err <= (TOL_FP32_ABS if fp32 else TOL_DELTA) and same
+            and fp64_ok):
+        raise RuntimeError(f"the head_dim-{d} {dtype} backward disagrees at "
+                           f"{(bh, s, t)}: {err}, delta {delta_err}, same "
+                           f"bits twice {same}, {res_dq.get('vs_fp64')}, "
+                           f"{res_dkv.get('vs_fp64')}")
+    res["bwd_dq"], res["bwd_dkv"] = res_dq, res_dkv
+    return res
+
+
+def narrow_mutants(fa, q, k, v, do, sc, bkv, fp32, ro, rlse) -> dict:
+    """Mutants of the narrow forward's plain version, each of which must
+    fail the criterion: the scale of the tile width W (where W != D), the
+    pad columns up to W filled with 1.0 (where D < W: every score of a row
+    moves by (W - D) * scale, which the LSE shows), the last kv tile
+    dropped, and (fp32) every product's operands rounded to TF32."""
+    d = q.shape[-1]
+    w = fa.narrow_width(d)
+    domain = "natural" if fp32 else "base2"
+
+    def held(mo, mlse):
+        err = narrow_errors(fp32, mo, ro, FUSED_HALF_ULPS)
+        lse_err = (mlse - rlse).abs().max().item()
+        return narrow_held(fp32, err, lse_err), err["rel_l2_err"], lse_err
+
+    cases = {"last_tile_dropped": lambda: fa.flash_fwd_tiled_reference(
+        q, k[:, :-bkv], v[:, :-bkv], sc, bkv, domain)}
+    if w != d:
+        cases["scale_of_w"] = lambda: fa.flash_fwd_tiled_reference(
+            q, k, v, w ** -0.5, bkv, domain)
+
+        def padded():
+            pad = [torch.cat([x, torch.ones(x.shape[:-1] + (w - d,),
+                                            device=x.device, dtype=x.dtype)],
+                             -1) for x in (q, k, v)]
+            mo, mlse = fa.flash_fwd_tiled_reference(*pad, sc, bkv, domain)
+            return mo[..., :d], mlse
+        cases["pad_filled_1.0"] = padded
+    if fp32:
+        cases["tf32"] = lambda: fa.flash_fwd_tiled_reference(
+            q, k, v, sc, bkv, domain, tf32=True)
+    out = {}
+    for name, make in cases.items():
+        passed, rel, lse_err = held(*make())
+        out[name] = {"rel_l2": rel, "lse_abs": lse_err}
+        if passed:
+            raise RuntimeError(f"the criterion passes the mutant {name}: "
+                               f"{out[name]}")
+    return out
+
+
+def check_narrow_strided(fa, g, dev, dtype, d, bkv) -> dict:
+    """q, k, v, dO as (B, S, 2, D) views of one packed (B, S, 4, 2, D)
+    projection (the tiny UNet's heads): the forward, the backward and the
+    forward with PIPELINE_FWD on read them without a copy and give the
+    contiguous route's bits; held to the tiled plain versions too."""
+    fp32 = dtype == torch.float32
+    sc = d ** -0.5
+    x = torch.randn((2, 4096, 4, 2, d), generator=g, device=dev, dtype=dtype)
+    q4, k4, v4, do4 = (x[:, :, i] for i in range(4))
+    flat = [y.contiguous() for y in (q4, k4, v4, do4)]
+    o4, lse4 = fa.flash_fwd(q4, k4, v4, sc)
+    grads = fa.flash_bwd(q4, k4, v4, o4, lse4, do4, sc)
+    fo, flse = fa.flash_fwd(*flat[:3], sc)
+    fgrads = fa.flash_bwd(*flat[:3], fo, flse, flat[3], sc)
+    with pipeline_fwd(True):
+        reset_counters()
+        po, plse = fa.flash_fwd(q4, k4, v4, sc)
+        pfo, pflse = fa.flash_fwd(*flat[:3], sc)
+        torch.cuda.synchronize()
+        switch_launches = counters()
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_fwd_tiled_reference(
+        *(fa._to3d(y) for y in (q4, k4, v4)), sc, bkv)
+    rgrads = fa.flash_bwd_tiled_reference(
+        *(fa._to3d(y) for y in (q4, k4, v4, o4)), lse4, fa._to3d(do4), sc,
+        bkv)
+
+    def errors(got, ref, half_ulps=BWD_HALF_ULPS):
+        return narrow_errors(fp32, got, ref, half_ulps)
+
+    err = {n: errors(fa._to3d(a), b)
+           for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
+    res = dict(shape=list(q4.shape), strides=list(q4.stride()),
+               **errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
+               max_abs_err_lse=(lse4 - rlse).abs().max().item(), grads=err,
+               out_contiguous=all(y.is_contiguous()
+                                  for y in (o4, po, *grads)),
+               contiguous_route_bits=(
+                   torch.equal(o4, fo) and torch.equal(lse4, flse)
+                   and all(torch.equal(a, b) for a, b in zip(grads, fgrads))),
+               pipelined_contiguous_route_bits=(
+                   torch.equal(po, pfo) and torch.equal(plse, pflse)))
+    name = narrow_entry("fwd", fa.narrow_width(d), fp32)
+    phase(f"kernel_{name}_d{d}_strided", **res)
+    expect_flash({"launches": switch_launches},
+                 **{narrow_entry("fwd_pipelined", fa.narrow_width(d),
+                                 fp32): 2})
+    if not (narrow_held(fp32, res, res["max_abs_err_lse"])
+            and all(narrow_held(fp32, e, fwd=False) for e in err.values())
+            and res["out_contiguous"] and res["contiguous_route_bits"]
+            and res["pipelined_contiguous_route_bits"]):
+        raise RuntimeError(f"the head_dim-{d} {dtype} kernels on strided "
+                           f"views disagree: {res}")
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             *(e["max_abs_err"] for e in err.values()))
+    return res
+
+
+def narrow_entries(results: dict, launches: dict) -> list:
+    """The 32 narrow entries' kernel lines (phase 3i) with the tiny paths'
+    launches by path (phase 8f: path -> counters read right after it ran);
+    an entry no configuration reaches (tile widths 32 to 128) has none."""
+    def by_path(key):
+        return {path: rec[key] for path, rec in launches.items()
+                if rec.get(key)}
+
+    return [dict(kernel_entry(key, "flash_narrow.cu",
+                              f"flash_attention.py:{FP32_REPLACES[kind]}",
+                              results[key], by_path(key)),
+                 on_a_path=w == 16)
+            for kind in FP32_KINDS for w in NARROW_WIDTHS
+            for fp32 in (False, True)
+            for key in (narrow_entry(kind, w, fp32),)]
+
+
 def serving_pipeline(dev, params=None, **unet_flags):
     """Phase 4's pipeline: full width, bf16, flash on, weights from seed 0;
     ``unet_flags`` turn the UNet's opt-in kernels on, ``params`` shares one
@@ -1768,7 +2290,9 @@ def counters() -> dict:
                 ("flash_fwd_pipelined_d256", "d256_pipelined_launches"),
                 # the fp32 kernels (a checkout from before them has none)
                 *((fp32_entry(kind, d), fp32_counter(kind, d))
-                  for kind in FP32_KINDS for d in (64, 256, 512)))},
+                  for kind in FP32_KINDS for d in (64, 256, 512)),
+                # the narrow kernels, bf16 and fp32 (nor these)
+                *narrow_keys())},
             "gn_stats": group_norm_stats.launches,
             "gn_silu": group_norm_silu.launches,
             "conv": gn_silu_conv3x3.launches,
@@ -1825,6 +2349,9 @@ def reset_counters() -> None:
         for d in (64, 256, 512):
             if hasattr(flash_attention, fp32_counter(kind, d)):
                 setattr(flash_attention, fp32_counter(kind, d), 0)
+    for _, name in narrow_keys():
+        if hasattr(flash_attention, name):
+            setattr(flash_attention, name, 0)
     for fn in (group_norm_stats, group_norm_silu, gn_silu_conv3x3,
                quant_matmul):
         fn.launches = 0
@@ -3406,6 +3933,469 @@ def check_fp32_paths(dev) -> dict:
     return out
 
 
+# ---- phase 8f: the tiny model's paths at 512^2 through the narrow kernels
+# the tiny model (tiny_test_config: UNet channels (16, 32), heads (2, 4):
+# head_dim 8; VAE channels (8, 16), one down step: a 256^2 latent at 512^2
+# and a mid-block of one 16-wide head) at the card's serving resolution
+TINY_RES = 512
+# the tiny UNet's flash self-attentions a pass at 512^2: 3 at 65,536 tokens
+# (2 heads), 1 at 16,384 (4 heads); the cross-attention's 5 glyph tokens
+# and the deep block's are dense
+TINY_FLASH_PER_PASS = 4
+TINY_BATCH = 2  # tiny_test_config's train batch
+# a stage-2 step with gradient checkpointing: the pass's forwards, run again
+# by the checkpoint, and one dq and one dk/dv each; the frozen VAE's two
+# encodes with its flag (pixels and masked image, no gradient); a stage-1
+# step with the flag: the encoder's and the decoder's mid-block, each one
+# forward, one dq and one dk/dv (as phase 8a counts them)
+TINY_STAGE2 = {"fwd": 2 * TINY_FLASH_PER_PASS + 2, "bwd_dq": 4, "bwd_dkv": 4}
+TINY_STAGE1 = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+# the tiny UNet's gradient probes (stage 2) and the VAE's (stage 1)
+TINY_UNET_PROBES = [
+    "conv_in.weight",
+    "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+    "up_blocks.1.attentions.1.transformer_blocks.0.attn1.to_v.weight",
+    "conv_out.weight"]
+# serve.cli run as ``python -m`` does, then the launch counters of the
+# process that ran it (chip_smoke.counters()), one line
+CLI_WITH_LAUNCHES = (
+    "import json, runpy\n"
+    "runpy.run_module('diffute_tpu_torch.serve.cli', run_name='__main__', "
+    "alter_sys=True)\n"
+    "import chip_smoke\n"
+    "print('LAUNCHES ' + json.dumps(chip_smoke.counters()), flush=True)\n")
+
+
+class _RowBlockedDense(torch.autograd.Function):
+    """ops.attention.dense_attention, forward and backward, over blocks of
+    query rows: each block's fp32 logits, softmax and products as the dense
+    route computes them (its backward autograd's through that block), so
+    that a 65,536-token self-attention never holds its (B, H, S, T)
+    logits.  Rows are independent; dk and dv sum the blocks' parts in
+    fp32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, rows, dense):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.rows, ctx.dense = scale, rows, dense
+        return torch.cat([dense(q[:, i:i + rows], k, v, scale)
+                          for i in range(0, q.shape[1], rows)], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = [], torch.zeros(k.shape, device=k.device), torch.zeros(
+            v.shape, device=v.device)
+        for i in range(0, q.shape[1], ctx.rows):
+            with torch.enable_grad():
+                leaves = [q[:, i:i + ctx.rows].detach().requires_grad_(),
+                          k.detach().requires_grad_(),
+                          v.detach().requires_grad_()]
+                parts = torch.autograd.grad(
+                    ctx.dense(*leaves, ctx.scale), leaves,
+                    g[:, i:i + ctx.rows])
+            dq.append(parts[0])
+            dk += parts[1].float()
+            dv += parts[2].float()
+        return torch.cat(dq, 1), dk.to(k.dtype), dv.to(v.dtype), None, None, \
+            None
+
+
+def attention_fp64(q, k, v, scale, mask=None):
+    """The dense route's function in fp64 (logits, softmax and product),
+    returned in q's dtype: the higher-precision reference an fp32 route's
+    rounding is read against."""
+    logits = torch.einsum("bshd,bthd->bhst", q.double(), k.double()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    out = torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1),
+                       v.double())
+    return out.to(q.dtype)
+
+
+@contextlib.contextmanager
+def row_blocked_dense(fp64: bool = False):
+    """While the block runs, the dense route (ops.attention.dense_attention)
+    of a self-attention over 4,096 keys or more is _RowBlockedDense, in
+    blocks whose logits take 1 GiB at most (fp32; half the rows in fp64);
+    with ``fp64`` its arithmetic is attention_fp64's."""
+    att = importlib.import_module("diffute_tpu_torch.ops.attention")
+    real = att.dense_attention
+    dense = attention_fp64 if fp64 else real
+
+    def blocked(q, k, v, scale, mask=None):
+        if mask is not None or k.shape[1] < 4096:
+            return dense(q, k, v, scale, mask)
+        rows = max(1, (1 << 28) // (q.shape[0] * q.shape[2] * k.shape[1]))
+        return _RowBlockedDense.apply(q, k, v, scale,
+                                      rows // 2 if fp64 else rows, dense)
+
+    att.dense_attention = blocked
+    try:
+        yield
+    finally:
+        att.dense_attention = real
+
+
+def set_flash(modules, on: bool) -> None:
+    """use_flash of every Attention module of ``modules``."""
+    from diffute_tpu_torch.models.attention import Attention
+
+    for model in modules:
+        for m in model.modules():
+            if isinstance(m, Attention):
+                m.use_flash = on
+
+
+def narrow_launches(rec: dict) -> dict:
+    """The tile-width-16 counters of a measured run, by entry."""
+    return {narrow_entry(kind, 16, fp32): rec["launches"][
+        narrow_entry(kind, 16, fp32)]
+        for kind in FP32_KINDS for fp32 in (False, True)}
+
+
+def cast_draws(draws, dtype):
+    """A UNet trainer's draws (TrainDraws) with its normals in ``dtype``."""
+    return dataclasses.replace(draws, **{
+        f.name: getattr(draws, f.name).to(dtype)
+        for f in dataclasses.fields(draws)
+        if getattr(draws, f.name) is not None
+        and getattr(draws, f.name).is_floating_point()})
+
+
+def check_tiny_paths(dev) -> dict:
+    """Phase 8f: the tiny model (tiny_test_config, weights from seed 0) on
+    its card paths at TINY_RES (512^2: head_dim-8 self-attentions of 65,536
+    and 16,384 tokens, a head_dim-16 VAE mid-block of 65,536), through
+    csrc/flash_narrow.cu's tile-width-16 kernels, every flash counter
+    asserted on each path:
+      (a) ``python -m diffute_tpu_torch.serve.cli --tiny --res 512`` as a
+          subprocess, and again with --pipeline-fwd: exit 0, only the box's
+          pixels changed, TINY_FLASH_PER_PASS forwards a step;
+      (b) the bf16 STEPS-step edit in process with the VAE's flag too
+          (2 head_dim-16 forwards more), with PIPELINE_FWD on (within
+          PIPELINE_EDIT_LSB of it, as phase 8a holds the switch) and the
+          same edit on the dense route (its gap in LSB, and at most
+          PIPELINE_EDIT_LSB); one UNet forward flash against dense within
+          TOL_UNET_REL (phase 5's criterion), an encode and a decode flag
+          on against off within TOL_VAE_FLASH_REL (8a's);
+      (c) the same edit in fp32 (VAE_FLASH_STEPS steps, as 8c), flash,
+          switch on and dense, each within FP32_EDIT_LSB;
+      (d) one stage-2 step (UNetTrainer, batch TINY_BATCH, gradient
+          checkpointing, both flash flags) in bf16 and in fp32, against
+          the same step on the dense route, as 8c holds it: fp32, the loss
+          within TOL_FP32_LOSS_REL and TINY_UNET_PROBES within
+          TOL_FP32_GRAD_REL, bf16 TOL_LOSS_REL and TOL_GRAD_REL; a
+          quantity outside passes when the flash step is no further than
+          GRAD_VS_FP32_RATIO times the dense step from a step of higher
+          precision (bf16: the fp32 dense step, as stage1_grad_check
+          reads it; fp32: the fp32 step with its attention in fp64).  At
+          65,536 keys the fp32 dense route's VAE mid-block moves the
+          probes about 2e-4 from the fp64 attention, the flash route far
+          less (read on an H100), so the flash route passes that way;
+      (e) one stage-1 step (VAETrainer, the VAE's flag, remat) the same
+          way, STAGE1_PROBES.
+    The dense route of a 65,536-token attention runs in blocks of query
+    rows (row_blocked_dense): whole, its fp32 logits would not fit.
+    Returns the numbers and the launches by path."""
+    from PIL import Image
+
+    import diffute_tpu_torch
+    from diffute_tpu_torch.config import card_serving_config, tiny_test_config
+    from diffute_tpu_torch.pipeline import DiffUTEPipeline
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    res, steps = TINY_RES, STEPS
+    base = tiny_test_config()
+    base = dataclasses.replace(base, edit=dataclasses.replace(
+        base.edit, resolution=res, num_inference_steps=steps))
+    out = {"launches": {}}
+    image, box = scene(res)
+
+    def w16(kind, fp32=False):
+        return narrow_entry(kind, 16, fp32)
+
+    def keep(r, **more):
+        return dict(seconds=r["seconds"],
+                    max_memory_allocated=r["max_memory_allocated"],
+                    launches=narrow_launches(r), **more)
+
+    def lsb(a, b):
+        return int(np.abs(a.astype(np.int16) - b).max())
+
+    # ---- (a) serve.cli --tiny --res 512, switch off and on
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="diffute_tiny_cli_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.dirname(diffute_tpu_torch.__file__)),
+         os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    cli = {}
+    try:
+        src = os.path.join(tmp, "in.png")
+        Image.fromarray(image).save(src)
+        for name, extra in (("cli", []),
+                            ("cli_pipelined", ["--pipeline-fwd"])):
+            dst = os.path.join(tmp, f"{name}.png")
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-c", CLI_WITH_LAUNCHES, "--tiny", "--res",
+                 str(res), "--image", src, "--box", ",".join(map(str, box)),
+                 "--text", "TINY", "--steps", str(steps), "--out", dst,
+                 *extra],
+                capture_output=True, text=True, env=env, timeout=900)
+            seconds = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise RuntimeError(f"serve.cli --tiny --res {res} {extra} "
+                                   f"exited {run.returncode}: "
+                                   f"{run.stderr[-3000:]}")
+            launches = json.loads(next(
+                line for line in run.stdout.splitlines()[::-1]
+                if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+            changed = only_boxes_changed(
+                np.asarray(Image.open(dst).convert("RGB")), image, [box])
+            rec = {"launches": launches}
+            expect_flash(rec, **{w16("fwd_pipelined" if extra else "fwd"):
+                                 TINY_FLASH_PER_PASS * steps})
+            cli[name] = dict(seconds=seconds, changed_pixels=changed,
+                             launches=narrow_launches(rec))
+            out["launches"][f"tiny_{name}"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("tiny_cli", resolution=res, steps=steps, **cli)
+    out["cli"] = cli
+
+    # ---- (b), (c) the edit in process: bf16 (the card's serving config)
+    # and fp32, flash (both flags), the switch on, and dense
+    params = init_pipeline_params(base, seed=0, device=dev)
+
+    def config(dtype, on):
+        cfg = card_serving_config(base) if dtype == bf16 else base
+        return dataclasses.replace(
+            cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=on),
+            vae=dataclasses.replace(cfg.vae, use_flash_attention=on))
+
+    edits = {}
+    for dtype, n_steps, tol in ((bf16, steps, PIPELINE_EDIT_LSB),
+                                (f32, VAE_FLASH_STEPS, FP32_EDIT_LSB)):
+        fp32, tag = dtype == f32, "fp32" if dtype == f32 else "bf16"
+        runs, outs = {}, {}
+        for name, on, switch in (("flash", True, False),
+                                 ("flash_pipelined", True, True),
+                                 ("dense", False, False)):
+            pipe = DiffUTEPipeline(config(dtype, on), params, dev)
+            with pipeline_fwd(switch), row_blocked_dense():
+                pipe.edit(image, box, "warm", seed=0, num_inference_steps=2)
+                r = measured(dev, lambda: pipe.edit(
+                    image, box, "TINY FLASH", seed=5,
+                    num_inference_steps=n_steps)[0])
+            only_boxes_changed(r["out"], image, [box])
+            kind = "fwd_pipelined" if switch else "fwd"
+            expect_flash(r, **({w16(kind, fp32):
+                                TINY_FLASH_PER_PASS * n_steps + 2}
+                               if on else {}))
+            outs[name] = r.pop("out")
+            runs[name] = keep(r)
+            if on:
+                out["launches"][f"tiny_edit_{tag}_{name}"] = r["launches"]
+            if dtype == bf16 and name == "flash":
+                checks = tiny_model_checks(dev, pipe, res)
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        for name in ("flash_pipelined", "dense"):
+            runs[name]["max_lsb_vs_flash"] = lsb(outs[name], outs["flash"])
+        edits[tag] = dict(steps=n_steps, tolerance_lsb=tol, **runs)
+        if dtype == bf16:
+            edits[tag]["model_checks"] = checks
+        phase(f"tiny_edit_{tag}", resolution=res, **edits[tag])
+        del outs
+    out["edits"] = edits
+
+    # ---- (d), (e) one stage-2 and one stage-1 step, bf16 and fp32, flash
+    # against the dense route
+    steps_out = {}
+    for stage in ("stage2", "stage1"):
+        steps_out[stage] = tiny_step_check(dev, base, params, stage, out)
+        phase(f"tiny_{stage}_step", batch=TINY_BATCH, resolution=res,
+              **steps_out[stage])
+    out["steps"] = steps_out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the edit-level bounds last, so that every number above is printed
+    bad = [f"{tag} {name}: {edits[tag][name]['max_lsb_vs_flash']} LSB"
+           for tag in edits for name in ("flash_pipelined", "dense")
+           if edits[tag][name]["max_lsb_vs_flash"]
+           > edits[tag]["tolerance_lsb"]]
+    if bad:
+        raise RuntimeError(f"the tiny edits differ beyond their bounds: {bad}")
+    return out
+
+
+def tiny_model_checks(dev, pipe, res: int) -> dict:
+    """Phase 8f (b)'s model-level checks on the flagged bf16 pipeline: one
+    UNet forward at the ``res`` latent, flash against the dense route (the
+    same weights and inputs; relative max error within TOL_UNET_REL, phase
+    5's), and an encode and a decode with the VAE's flag against it off
+    (within TOL_VAE_FLASH_REL, phase 8a's)."""
+    cfg = pipe.config
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = res // cfg.vae.scale_factor
+    bf16 = torch.bfloat16
+    x_in = torch.randn((1, cfg.unet.in_channels, r, r), generator=g,
+                       device=dev).to(bf16)
+    t_in = torch.tensor(981, device=dev)
+    ctx = torch.randn((1, 5, cfg.unet.cross_attention_dim), generator=g,
+                      device=dev).to(bf16)
+    image = (torch.rand((1, 3, res, res), generator=g, device=dev) * 2
+             - 1).to(bf16)
+    out = {}
+    with torch.inference_mode(), row_blocked_dense():
+        z = pipe.vae.encode(image)[0]
+        got = {}
+        for on in (True, False):
+            set_flash([pipe.unet, pipe.vae], on)
+            reset_counters()
+            got[on] = (pipe.unet(x_in, t_in, ctx).float(),
+                       pipe.vae.encode(image)[0].float(),
+                       pipe.vae.decode(z).float())
+            torch.cuda.synchronize()
+            if on:
+                expect_flash({"launches": counters()},
+                             **{narrow_entry("fwd", 16, False):
+                                TINY_FLASH_PER_PASS + 2})
+        set_flash([pipe.unet, pipe.vae], True)
+    for i, name in enumerate(("unet", "encode", "decode")):
+        ref = got[False][i]
+        out[f"{name}_rel_max_err"] = ((got[True][i] - ref).abs().max()
+                                      / ref.abs().max()).item()
+    out.update(tolerance_unet=TOL_UNET_REL,
+               tolerance_codec=TOL_VAE_FLASH_REL)
+    if not (out["unet_rel_max_err"] <= TOL_UNET_REL
+            and out["encode_rel_max_err"] <= TOL_VAE_FLASH_REL
+            and out["decode_rel_max_err"] <= TOL_VAE_FLASH_REL):
+        raise RuntimeError(f"the tiny model with flash differs from dense: "
+                           f"{out}")
+    return out
+
+
+def tiny_step_check(dev, base, params, stage: str, out: dict) -> dict:
+    """Phase 8f (d) (``stage`` "stage2") or (e) ("stage1"): one loss and
+    gradient evaluation with flash on (both flags; stage 1 the VAE's), then
+    with every Attention module on the dense route, in fp32 (and once more
+    with the dense route's attention in fp64) and in bf16, the same
+    weights, batch and draws; see check_tiny_paths for the bounds.  The
+    flash steps' launches go into ``out["launches"]``."""
+    from diffute_tpu_torch.config import TrainConfig
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch, make_vae_batch)
+    from diffute_tpu_torch.train import UNetTrainer, VAETrainer
+
+    stage2 = stage == "stage2"
+    expected = TINY_STAGE2 if stage2 else TINY_STAGE1
+    probes = TINY_UNET_PROBES if stage2 else STAGE1_PROBES
+    cfg = dataclasses.replace(
+        base,
+        unet=dataclasses.replace(base.unet, use_flash_attention=stage2,
+                                 remat=True),
+        vae=dataclasses.replace(base.vae, use_flash_attention=True,
+                                remat=not stage2),
+        train=TrainConfig(train_batch_size=TINY_BATCH, mixed_precision="no",
+                          gradient_checkpointing=True, max_train_steps=1))
+    data = SyntheticSceneDataset(cfg, seed=0)
+    items = [data[i] for i in range(TINY_BATCH)]
+    batch = make_unet_batch(items, cfg) if stage2 else make_vae_batch(items)
+    runs, draws = {}, None
+    for precision in ("no", "bf16"):
+        pcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, mixed_precision=precision))
+        trainer = (UNetTrainer(pcfg, params["unet"],
+                               {"vae": params["vae"],
+                                "trocr": params["trocr"]},
+                               device=dev, total_steps=1)
+                   if stage2 else
+                   VAETrainer(pcfg, params["vae"], device=dev, total_steps=1))
+        if draws is None:
+            draws = trainer.draw(TINY_BATCH)
+        d = (cast_draws(draws, trainer.dtype) if stage2
+             else draws.to(trainer.dtype))
+        models = [trainer.unet, trainer.vae] if stage2 else [trainer.vae]
+        masters = trainer.state.params_dict()
+        fp32 = precision == "no"
+        tag = "fp32" if fp32 else "bf16"
+        for route in ("flash", "dense", "dense_fp64")[:3 if fp32 else 2]:
+            set_flash(models, route == "flash")
+            with row_blocked_dense(fp64=route == "dense_fp64"):
+                r = measured(dev, lambda: trainer.accumulate_grads(
+                    batch, d).item())
+            expect_flash(r, **({narrow_entry(kind, 16, fp32): n
+                                for kind, n in expected.items()}
+                               if route == "flash" else {}))
+            key = f"{tag}_{route}"
+            runs[key] = (r.pop("out"),
+                         {n: masters[n].grad.double().clone()
+                          for n in probes},
+                         dict(seconds=r["seconds"],
+                              max_memory_allocated=r["max_memory_allocated"],
+                              launches=narrow_launches(r)))
+            if route == "flash":
+                out["launches"][f"tiny_{stage}_{key}"] = r["launches"]
+        del trainer, masters, models
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return {n: rel_l2_64(runs[a][1][n], runs[b][1][n]) for n in probes}
+
+    def loss_rel(a, b):
+        return abs(runs[a][0] - runs[b][0]) / abs(runs[b][0])
+
+    res = {k: dict(v[2], loss=v[0]) for k, v in runs.items()}
+    res.update(
+        fp32_loss_rel_diff=loss_rel("fp32_flash", "fp32_dense"),
+        fp32_grad_rel_l2_err=rel("fp32_flash", "fp32_dense"),
+        fp32_flash_vs_fp64_attention=dict(
+            rel("fp32_flash", "fp32_dense_fp64"),
+            loss=loss_rel("fp32_flash", "fp32_dense_fp64")),
+        fp32_dense_vs_fp64_attention=dict(
+            rel("fp32_dense", "fp32_dense_fp64"),
+            loss=loss_rel("fp32_dense", "fp32_dense_fp64")),
+        bf16_loss_rel_diff=loss_rel("bf16_flash", "bf16_dense"),
+        bf16_grad_rel_l2_err=rel("bf16_flash", "bf16_dense"),
+        bf16_flash_vs_fp32=rel("bf16_flash", "fp32_dense"),
+        bf16_dense_vs_fp32=rel("bf16_dense", "fp32_dense"),
+        tolerances=dict(fp32_loss=TOL_FP32_LOSS_REL,
+                        fp32_grad=TOL_FP32_GRAD_REL, bf16_loss=TOL_LOSS_REL,
+                        bf16_grad=TOL_GRAD_REL,
+                        ratio_to_dense=GRAD_VS_FP32_RATIO))
+    # a quantity passes within its tolerance of the dense route, or when the
+    # flash route is no further from the reference of higher precision (bf16:
+    # the fp32 dense step; fp32: the step with fp64 attention) than
+    # GRAD_VS_FP32_RATIO times the dense route is
+    near64 = {n: res["fp32_flash_vs_fp64_attention"][n]
+              <= GRAD_VS_FP32_RATIO * res["fp32_dense_vs_fp64_attention"][n]
+              for n in (*probes, "loss")}
+    bad = ([f"bf16 {n}" for n in probes
+            if not (res["bf16_grad_rel_l2_err"][n] <= TOL_GRAD_REL
+                    or res["bf16_flash_vs_fp32"][n]
+                    <= GRAD_VS_FP32_RATIO * res["bf16_dense_vs_fp32"][n])]
+           + [f"fp32 {n}" for n in probes
+              if not (res["fp32_grad_rel_l2_err"][n] <= TOL_FP32_GRAD_REL
+                      or near64[n])])
+    if (res["bf16_loss_rel_diff"] > TOL_LOSS_REL
+            or not (res["fp32_loss_rel_diff"] <= TOL_FP32_LOSS_REL
+                    or near64["loss"])):
+        bad.append("loss")
+    if bad or not all(np.isfinite(v[0]) for v in runs.values()):
+        raise RuntimeError(f"the tiny {stage} step with flash differs from "
+                           f"the dense route ({bad}): {res}")
+    return res
+
+
 def fp32_entries(results: dict, launches: dict) -> list:
     """The twelve fp32 kernels' entries (phase 3f) with the fp32 paths'
     launches by path (phase 8c: path -> counters read right after it
@@ -4455,8 +5445,8 @@ def main(argv=None) -> None:
                    help="time N rounds of edits with the UNet's flags off, "
                    "fused conv, int8 and all on, in turns, and nothing else")
     p.add_argument("--kernels-only", action="store_true",
-                   help="build and check the flash kernels (phases 3 and "
-                   "3a) and those of phase 3b, then stop")
+                   help="build and check the kernels of phases 3 to 3i "
+                   "(those the package has), then stop")
     p.add_argument("--flash-host", type=int, default=0, metavar="ROUNDS",
                    help="time the host's side of the serving attention call "
                    "and nothing else")
@@ -4480,6 +5470,10 @@ def main(argv=None) -> None:
     p.add_argument("--fp32-only", action="store_true",
                    help="build the kernels and run phases 3f, 3g, 3h, 8c, "
                    "8d and 8e (the fp32 kernels and the fp32 paths) alone")
+    p.add_argument("--narrow-only", action="store_true",
+                   help="build the kernels and run phases 3i and 8f (the "
+                   "narrow head_dims' kernels and the tiny model's paths) "
+                   "alone")
     p.add_argument("--eval-only", action="store_true",
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
@@ -4565,6 +5559,26 @@ def main(argv=None) -> None:
             "fp32_conv_paths": vae_flash_summary(conv32_paths)}),
             flush=True)
         return
+    if args.narrow_only:
+        from diffute_tpu_torch.ops import _build
+
+        print(gpu_line(), flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds = {}
+        for name, fn in (("phase_3i", lambda: check_narrow(dev)),
+                         ("phase_8f", lambda: check_tiny_paths(dev))):
+            t0 = time.perf_counter()
+            seconds[name] = (fn(), time.perf_counter() - t0)
+        phase("seconds", **{k: v[1] for k, v in seconds.items()},
+              run=time.perf_counter() - t_run)
+        tiny = seconds["phase_8f"][0]
+        print(gpu_line(), flush=True)
+        print(json.dumps({"kernels": narrow_entries(seconds["phase_3i"][0],
+                                                    tiny["launches"]),
+                          "tiny_paths": vae_flash_summary(tiny)}),
+              flush=True)
+        return
     if args.workflow_only or args.eval_only:
         from diffute_tpu_torch.ops import _build
 
@@ -4599,6 +5613,12 @@ def main(argv=None) -> None:
         if hasattr(fa, "pipelined_block_kv"):
             for d in (512, 256):
                 check_wide_pipelined(torch.device("cuda", 0), d)
+        if hasattr(fa, "FP32_BLOCK_KV"):
+            check_fp32(torch.device("cuda", 0))
+            check_fp32_fused(torch.device("cuda", 0))
+            check_fp32_conv(torch.device("cuda", 0))
+        if hasattr(fa, "narrow_width"):
+            check_narrow(torch.device("cuda", 0))
         return
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           UNetConfig)
@@ -4689,6 +5709,12 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     fused32["gn_silu_conv3x3_fp32"] = check_fp32_conv(dev)
     phase("phase_3h", seconds=time.perf_counter() - t0)
+
+    # ---- 3i. the narrow head_dims' kernels, bf16 and fp32, against their
+    # plain versions
+    t0 = time.perf_counter()
+    narrow = check_narrow(dev)
+    phase("phase_3i", seconds=time.perf_counter() - t0)
 
     # ---- 4. serving path: full width, bf16, flash on, two edits
     bf16 = torch.bfloat16
@@ -4950,6 +5976,10 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         conv32_paths = check_fp32_conv_paths(dev)
         phase("phase_8e", seconds=time.perf_counter() - t0)
+        # ---- 8f. the tiny model's 512^2 paths through the narrow kernels
+        t0 = time.perf_counter()
+        tiny_paths = check_tiny_paths(dev)
+        phase("phase_8f", seconds=time.perf_counter() - t0)
         verifier_paths = check_verifier_paths(dev, root, stage2_export)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5013,10 +6043,13 @@ def main(argv=None) -> None:
         *fp32_entries(fp32, fp32_paths["launches"]),
         *fp32_fused_entries(fused32, {**fused32_paths["launches"],
                                       **conv32_paths["launches"]}),
+        *narrow_entries(narrow, tiny_paths["launches"]),
     ]
-    # every kernel ran on some path (the comparison launches of phase 3
-    # are not counted there)
-    idle = [e["name"] for e in kernels if not e["launches"]]
+    # every kernel of a path ran on it (the comparison launches of phase 3
+    # are not counted there); no configuration reaches the narrow tile
+    # widths above 16 (phase 3i holds those kernels)
+    idle = [e["name"] for e in kernels
+            if not e["launches"] and e.get("on_a_path", True)]
     if idle:
         raise RuntimeError(f"no path launched {idle}")
     phase("run", seconds=time.perf_counter() - t_run)
@@ -5055,6 +6088,7 @@ def main(argv=None) -> None:
         "fp32_paths": vae_flash_summary(fp32_paths),
         "fp32_fused_paths": vae_flash_summary(fused32_paths),
         "fp32_conv_paths": vae_flash_summary(conv32_paths),
+        "tiny_paths": vae_flash_summary(tiny_paths),
         "verifier_paths": verifier_summary(verifier_paths)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

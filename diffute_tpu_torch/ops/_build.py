@@ -96,6 +96,13 @@ def _signatures() -> dict:
         **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd
            for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
            for width in ("", "_d256", "_d512")},
+        # the same four at the narrow tile widths, bf16 and fp32, with the
+        # head_dim after T (csrc/flash_narrow.cu)
+        **{f"flash_{kind}_w{width}_{t}": (
+            [p] * 8 + [i] * 5 if kind.startswith("bwd") else [p] * 5 + [i] * 5)
+           + [ctypes.POINTER(ctypes.c_longlong), f, p]
+           for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+           for width in (16, 32, 64, 128) for t in ("bf16", "fp32")},
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream), bf16
         # and fp32 x
         **{f"gn_stats_{t}": [p] * 3 + [i] * 4 + [f, p]

@@ -3,9 +3,12 @@
 Counterpart of ``diffute_tpu/ops/attention.py``.  Layout
 ``(batch, seq, heads, head_dim)`` at the public functions, as in the JAX
 package.  Self-attention with at least 1024 keys goes to the CUDA flash
-kernels when ``use_flash`` is set: the UNet's (head_dim 64) and, with
-``VAEConfig.use_flash_attention``, the VAE mid-block's (head_dim 512, or
-256 at ``small_config``).
+kernels when ``use_flash`` is set: the UNet's (head_dim 64; 8 at
+``tiny_test_config``) and, with ``VAEConfig.use_flash_attention``, the VAE
+mid-block's (head_dim 512, 256 at ``small_config``, 16 at
+``tiny_test_config``).  The kernels take head_dims 64, 256, 512 and every
+multiple of 8 up to 128 (``ops.flash_attention.kernel_takes``); another
+width raises on the card.
 Everything else (the 577-token cross-attention, the deep blocks'
 256/64-token self-attention, the TrOCR ViT, an unflagged VAE mid-block)
 goes to :func:`dense_attention`, the port of what XLA compiled for

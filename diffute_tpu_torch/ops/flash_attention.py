@@ -15,16 +15,22 @@ Those take bf16.  On fp32 inputs the four kernels at the three widths are
 ``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32), which computes
 the JAX package's fp32 arithmetic: the standard forward and the backward in
 the natural domain with the exact scale after the product, the deferred
-forward on q prescaled by ``scale * log2 e`` in base 2.  Every kernel reads
-its (batch, seq, heads, D) inputs, all bf16 or all fp32, D in
-:data:`HEAD_DIMS`, through their strides (TMA at bf16 head_dim 64,
+forward on q prescaled by ``scale * log2 e`` in base 2.  Every other
+head_dim that is a multiple of 8 up to 128 (the tiny model's 8 and 16,
+SD1.x's 40 and 80, 128) takes ``csrc/flash_narrow.cu``'s four kernels, bf16
+or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS` that
+holds it, with the arithmetic of the other entries of its dtype.  Every
+kernel reads its (batch, seq, heads, D) inputs, all bf16 or all fp32, D as
+:func:`kernel_takes` says, through their strides (TMA at bf16 head_dim 64,
 cp.async elsewhere), so the callers hand them the views they have, and
 writes its outputs contiguous in that layout: no copy is made in either
-direction.  Every LSE is natural-log fp32 (batch*heads, seq).
+direction, and no padded one at the narrow widths (the kernels zero-fill
+the columns past D on chip).  Every LSE is natural-log fp32 (batch*heads,
+seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
-back.  On a CPU tensor it computes the plain version, which is what the CPU
-tests compare against the JAX package.
+back.  On a CPU tensor it computes the plain version, at any head_dim,
+which is what the CPU tests compare against the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
-# the head_dims the kernels take, and the rows of every tile of
+# the head_dims with kernels of their own, and the rows of every tile of
 # csrc/flash_wide.cu (kRows there), which serves 256 and 512
 HEAD_DIMS = (64, 256, 512)
 WIDE_BLOCK_KV = 32
@@ -49,6 +55,12 @@ WIDE_HEAD_DIMS = (256, 512)
 D512_BLOCK_KV = WIDE_BLOCK_KV  # the name before head_dim 256 was ported
 # the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there)
 FP32_BLOCK_KV = {64: 64, 256: 32, 512: 16}
+# the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
+# that is a multiple of 8 up to 128 at the smallest width that holds it,
+# and the rows of every tile there by width (kRows), both dtypes
+NARROW_WIDTHS = (16, 32, 64, 128)
+NARROW_BLOCK_KV = {16: 64, 32: 64, 64: 32, 128: 32}
+HEAD_DIM_RULE = "D = 64, 256, 512 or a multiple of 8 up to 128"
 # the input dtypes the kernels take
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _LOG2E = 1.4426950408889634
@@ -62,6 +74,34 @@ def set_pipeline_fwd(on: bool) -> bool:
     global PIPELINE_FWD
     was, PIPELINE_FWD = PIPELINE_FWD, bool(on)
     return was
+
+
+def kernel_takes(head_dim: int) -> bool:
+    """The head_dims a kernel takes (:data:`HEAD_DIM_RULE`): 64, 256 and 512,
+    each with kernels of its own, and every multiple of 8 up to 128
+    (``csrc/flash_narrow.cu``)."""
+    return head_dim in HEAD_DIMS or (0 < head_dim <= NARROW_WIDTHS[-1]
+                                     and head_dim % 8 == 0)
+
+
+def narrow_width(head_dim: int) -> Optional[int]:
+    """The tile width of ``csrc/flash_narrow.cu`` that runs ``head_dim``,
+    the smallest of :data:`NARROW_WIDTHS` that holds it; None at 64, 256
+    and 512 (their own kernels) and where no kernel takes it."""
+    if head_dim in HEAD_DIMS or not kernel_takes(head_dim):
+        return None
+    return next(w for w in NARROW_WIDTHS if w >= head_dim)
+
+
+def kernel_block_kv(head_dim: int, dtype: torch.dtype) -> int:
+    """The rows of the kv tile the kernels at ``head_dim`` on ``dtype``
+    inputs walk in (what the tiled plain versions take to match them)."""
+    width = narrow_width(head_dim)
+    if width is not None:
+        return NARROW_BLOCK_KV[width]
+    if dtype == torch.float32:
+        return FP32_BLOCK_KV[head_dim]
+    return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
 
 
 def _to3d(x: torch.Tensor) -> torch.Tensor:
@@ -172,9 +212,10 @@ def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
 def pipelined_block_kv(head_dim: int) -> int:
     """The kv tile of the deferred-softmax kernel at ``head_dim`` that the
     dispatch rule counts in: 32 at 256 and 512 (``csrc/flash_wide.cu``), 64
-    at any other (``csrc/flash_fwd_pipelined.cu`` at 64; the plain version
-    elsewhere).  The fp32 kernels' tiles (:data:`FP32_BLOCK_KV`: 64, 32, 16)
-    divide it, so they take every T the rule takes."""
+    at any other (``csrc/flash_fwd_pipelined.cu`` at 64, and every narrow
+    width).  The fp32 kernels' tiles (:data:`FP32_BLOCK_KV`: 64, 32, 16)
+    and the narrow ones (:data:`NARROW_BLOCK_KV`: 64 or 32) divide it, so
+    they take every T the rule takes, at every width."""
     return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
 
 
@@ -222,11 +263,12 @@ def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
 def _check_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               **more: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: (B, seq, H, D) tensors
-    of one dtype, bf16 or fp32 (:data:`KERNEL_DTYPES`), D in
-    :data:`HEAD_DIMS`, in a layout they read (:func:`check_tma_layout`); k
-    and v of one shape, and of q's batch, heads and head_dim; ``more`` (o,
-    dO) of q's shape; every tensor on q's CUDA device.  The device is
-    checked last, so that on a ``meta`` tensor each other refusal shows."""
+    of one dtype, bf16 or fp32 (:data:`KERNEL_DTYPES`), D as
+    :func:`kernel_takes` says, in a layout they read
+    (:func:`check_tma_layout`); k and v of one shape, and of q's batch,
+    heads and head_dim; ``more`` (o, dO) of q's shape; every tensor on q's
+    CUDA device.  The device is checked last, so that on a ``meta`` tensor
+    each other refusal shows."""
     for name, x in (("q", q), ("k", k), ("v", v), *more.items()):
         if x.dtype not in KERNEL_DTYPES:
             raise ValueError(f"the flash kernels take bf16 or fp32; {name} "
@@ -234,9 +276,9 @@ def _check_4d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.dtype != q.dtype:
             raise ValueError(f"the flash kernels take one dtype; q is "
                              f"{q.dtype}, {name} is {x.dtype}")
-        if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS:
-            raise ValueError(f"the flash kernels take (B, seq, H, D) with D "
-                             f"in {HEAD_DIMS}; {name} is {tuple(x.shape)}")
+        if x.dim() != 4 or not kernel_takes(x.shape[-1]):
+            raise ValueError(f"the flash kernels take (B, seq, H, D) with "
+                             f"{HEAD_DIM_RULE}; {name} is {tuple(x.shape)}")
         check_tma_layout(x, name)
     b, s_len, h, d = q.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[2] != h
@@ -272,23 +314,54 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+KINDS = ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+
+
+def _width_tag(head_dim: int) -> str:
+    # "" at 64, "d256" / "d512", "w16" ... "w128" at the narrow widths
+    width = narrow_width(head_dim)
+    if width is not None:
+        return f"w{width}"
+    return "" if head_dim == 64 else f"d{head_dim}"
+
+
 def kernel_name(kind: str, head_dim: int, dtype: torch.dtype) -> str:
-    """The C entry of ``kind`` ("fwd", "fwd_pipelined", "bwd_dq" or
-    "bwd_dkv") at ``head_dim`` on ``dtype`` inputs, e.g.
-    ``flash_fwd_pipelined_d512_fp32``."""
-    return (f"flash_{kind}" + ("" if head_dim == 64 else f"_d{head_dim}")
+    """The C entry of ``kind`` (:data:`KINDS`: "fwd", "fwd_pipelined",
+    "bwd_dq" or "bwd_dkv") at ``head_dim`` on ``dtype`` inputs, e.g.
+    ``flash_fwd_pipelined_d512_fp32``, or at a narrow head_dim its tile
+    width's, e.g. ``flash_fwd_w16_bf16`` at 8 or 16."""
+    tag = _width_tag(head_dim)
+    return (f"flash_{kind}" + (f"_{tag}" if tag else "")
             + ("_fp32" if dtype == torch.float32 else "_bf16"))
 
 
 def counter_name(kind: str, head_dim: int, dtype: torch.dtype) -> str:
     """The attribute of :func:`flash_attention` that counts the launches of
-    :func:`kernel_name`'s entry, e.g. ``fp32_d512_pipelined_launches``
-    (bf16 at head_dim 64: ``launches``, ``pipelined_launches``,
-    ``bwd_dq_launches``, ``bwd_dkv_launches``)."""
+    :func:`kernel_name`'s entry, e.g. ``fp32_d512_pipelined_launches`` or
+    ``w16_bwd_dq_launches`` (bf16 at head_dim 64: ``launches``,
+    ``pipelined_launches``, ``bwd_dq_launches``, ``bwd_dkv_launches``)."""
+    tag = _width_tag(head_dim)
     return (("fp32_" if dtype == torch.float32 else "")
-            + ("" if head_dim == 64 else f"d{head_dim}_")
+            + (f"{tag}_" if tag else "")
             + {"fwd": "", "fwd_pipelined": "pipelined_"}.get(kind, kind + "_")
             + "launches")
+
+
+# one head_dim for each set of entries: 64, 256, 512 and a head_dim of each
+# narrow width (8, 24, 56, 120)
+ENTRY_HEAD_DIMS = HEAD_DIMS + tuple(w - 8 for w in NARROW_WIDTHS)
+
+
+def counter_names() -> list:
+    """Every entry's launch counter (:func:`counter_name`), each once."""
+    return [counter_name(kind, d, dtype) for kind in KINDS
+            for d in ENTRY_HEAD_DIMS for dtype in KERNEL_DTYPES]
+
+
+def _lengths(s_len: int, t_len: int, head_dim: int) -> tuple:
+    """The entry's length arguments: S and T, and after them the head_dim
+    for ``csrc/flash_narrow.cu``'s entries (the others know theirs)."""
+    return (s_len, t_len) + ((head_dim,) if narrow_width(head_dim) else ())
 
 
 def _count(kind: str, head_dim: int, dtype: torch.dtype) -> None:
@@ -300,8 +373,8 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, pipelined: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch a forward kernel on (B, S, H, D) q and (B, T, H, D) k, v as
-    they lie, D in :data:`HEAD_DIMS`, bf16 or fp32: o comes back contiguous
-    (B, S, H, D) in q's dtype, lse (B*H, S).  ``pipelined``: the
+    they lie, D as :func:`kernel_takes` says, bf16 or fp32: o comes back
+    contiguous (B, S, H, D) in q's dtype, lse (B*H, S).  ``pipelined``: the
     deferred-softmax kernel of that head_dim and dtype.  Raises on anything
     the kernels do not take."""
     _check_4d(q, k, v)
@@ -315,8 +388,8 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
     name = kernel_name("fwd_pipelined" if pipelined else "fwd", d, q.dtype)
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, s_len, t_len, _strides(q, k, v, o),
-            float(scale), _stream(q))
+            lse.data_ptr(), b, h, *_lengths(s_len, t_len, d),
+            _strides(q, k, v, o), float(scale), _stream(q))
     _count_forward(q, k, pipelined)
     return o, lse
 
@@ -332,15 +405,16 @@ def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, S, H, D), k/v (B, T, H, D), D in :data:`HEAD_DIMS`, in any
-    layout the kernels read (:func:`check_tma_layout`) -> (o (B, S, H, D)
-    contiguous, lse (B*H, S)).  No copy of q, k or v is made.
+    """q (B, S, H, D), k/v (B, T, H, D), D as :func:`kernel_takes` says,
+    in any layout the kernels read (:func:`check_tma_layout`) ->
+    (o (B, S, H, D) contiguous, lse (B*H, S)).  No copy of q, k or v is
+    made.
 
-    CUDA: the kernel of q's dtype (bf16 or fp32) on the current stream:
-    with ``PIPELINE_FWD`` set and T a whole number (>= 2) of the
-    deferred-softmax kernel's kv tiles (:func:`pipelined_block_kv`: 64 at
-    head_dim 64, 32 at 256 and 512), that kernel; otherwise the standard
-    one.  CPU: the matching plain version, at any head_dim."""
+    CUDA: the kernel of q's dtype (bf16 or fp32) and head_dim on the
+    current stream: with ``PIPELINE_FWD`` set and T a whole number (>= 2)
+    of the deferred-softmax kernel's kv tiles (:func:`pipelined_block_kv`:
+    32 at 256 and 512, 64 at every other head_dim), that kernel; otherwise
+    the standard one.  CPU: the matching plain version, at any head_dim."""
     d = q.shape[-1]
     pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1], d)
     if q.device.type != "cpu":
@@ -505,8 +579,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dq (B, S, H, D) contiguous and delta = rowsum(dO * O) (B*H, S) fp32,
     from (B, L, H, D) q, k, v, the forward's o and lse, and the incoming
-    dO, in any layout the kernels read; D in :data:`HEAD_DIMS`, bf16 or
-    fp32.  No copy is made.
+    dO, in any layout the kernels read; D as :func:`kernel_takes` says,
+    bf16 or fp32.  No copy is made.
 
     CUDA: the dq kernel of that head_dim and dtype on the current stream
     (it computes delta too); raises on anything it does not take.  CPU: the
@@ -524,7 +598,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(kernel_name("bwd_dq", d, q.dtype),
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), b, h, s_len, k.shape[1],
+            dq.data_ptr(), b, h, *_lengths(s_len, k.shape[1], d),
             _strides(q, k, v, o, do, dq), float(scale), _stream(q))
     _count("bwd_dq", d, q.dtype)
     return dq, delta
@@ -534,8 +608,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv (B, T, H, D) contiguous from (B, L, H, D) q, k, v, dO in any
-    layout the kernels read (D in :data:`HEAD_DIMS`, bf16 or fp32), the
-    forward's lse and :func:`flash_bwd_dq`'s delta.
+    layout the kernels read (D as :func:`kernel_takes` says, bf16 or fp32),
+    the forward's lse and :func:`flash_bwd_dq`'s delta.
 
     CUDA: the dk/dv kernel of that head_dim and dtype on the current
     stream; raises on anything it does not take.  CPU: the plain
@@ -553,7 +627,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(kernel_name("bwd_dkv", d, q.dtype),
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, s_len, k.shape[1],
+            dv.data_ptr(), b, h, *_lengths(s_len, k.shape[1], d),
             _strides(q, k, v, do, dk, dv), float(scale), _stream(q))
     _count("bwd_dkv", d, q.dtype)
     return dk, dv
@@ -564,9 +638,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of :func:`flash_fwd`'s o w.r.t. q, k, v: (B, L, H, D)
-    inputs (D in :data:`HEAD_DIMS`, bf16 or fp32) in any layout the kernels
-    read, the forward's o and lse, the incoming dO -> dq, dk, dv contiguous
-    (B, L, H, D).  No copy is made.
+    inputs (D as :func:`kernel_takes` says, bf16 or fp32) in any layout the
+    kernels read, the forward's o and lse, the incoming dO -> dq, dk, dv
+    contiguous (B, L, H, D).  No copy is made.
 
     CUDA: the dq kernel (with delta), then the dk/dv kernel, on the current
     stream; raises on anything they do not take.  CPU: the plain
@@ -601,8 +675,8 @@ def flash_bwd_3d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """(B, S, H, D) attention, D in :data:`HEAD_DIMS`, bf16 or fp32, whose
-    forward and backward are the kernels.
+    """(B, S, H, D) attention, D as :func:`kernel_takes` says, bf16 or fp32,
+    whose forward and backward are the kernels.
 
     Both read the (B, L, H, D) views they are given through their strides
     and return contiguous tensors of that layout: the forward saves q, k, v
@@ -635,9 +709,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels, all bf16 at head_dim 64; ``.d512_launches``,
     ``.d512_pipelined_launches``, ``.d512_bwd_dq_launches`` and
     ``.d512_bwd_dkv_launches`` the four bf16 kernels at head_dim 512, and
-    ``.d256_*`` the same four at head_dim 256; ``.fp32_*`` the same twelve
-    on fp32 inputs (``.fp32_launches``, ``.fp32_d512_pipelined_launches``,
-    ...: :func:`counter_name`)."""
+    ``.d256_*`` the same four at head_dim 256; ``.w16_*``, ``.w32_*``,
+    ``.w64_*`` and ``.w128_*`` the same four of ``csrc/flash_narrow.cu`` by
+    tile width (``.w16_launches`` counts the forwards at head_dim 8 and 16);
+    ``.fp32_*`` every one of them on fp32 inputs (``.fp32_launches``,
+    ``.fp32_d512_pipelined_launches``, ``.fp32_w16_bwd_dq_launches``, ...:
+    :func:`counter_name`, all of them :func:`counter_names`).  The scale
+    defaults to head_dim ** -0.5."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not (torch.is_grad_enabled()
@@ -649,11 +727,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttentionFn.apply(q, k, v, scale)
 
 
-# every kernel's launch counter (counter_name), and the matrix-product FLOPs
-# of the forward launches (edit_profiled reads it)
-for _kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv"):
-    for _d in HEAD_DIMS:
-        for _dtype in KERNEL_DTYPES:
-            setattr(flash_attention, counter_name(_kind, _d, _dtype), 0)
-del _kind, _d, _dtype
+# every kernel's launch counter (counter_names), and the matrix-product
+# FLOPs of the forward launches at the real head_dim (edit_profiled reads
+# it)
+for _name in counter_names():
+    setattr(flash_attention, _name, 0)
+del _name
 flash_attention.flops = 0

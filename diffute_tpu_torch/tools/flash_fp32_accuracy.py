@@ -3,13 +3,15 @@ from attention computed in fp64.
 
   python -m diffute_tpu_torch.tools.flash_fp32_accuracy [--out FILE]
 
-For each head_dim (64, 256, 512) at a square and a ragged shape, random
-inputs from a seed: the relative L2 distance of o, dq, dk and dv (and the
-max abs distance of the LSE) from fp64 autograd through plain attention,
-for the kernel (``csrc/flash_fp32.cu``), its tiled plain fp32 version at
-the same domain, and that plain version with its operands rounded to TF32
-(what TF32 alone would give).  Prints one JSON object with the card's name
-and power limit, and writes it to ``--out`` if given.  Needs a CUDA device.
+For each head_dim (64, 256, 512 and the narrow widths 8, 16, 40, 80, 128)
+at a square and a ragged shape, random inputs from a seed: the relative L2
+distance of o, dq, dk and dv (and the max abs distance of the LSE) from
+fp64 autograd through plain attention, for the kernel
+(``csrc/flash_fp32.cu``, or ``csrc/flash_narrow.cu`` at the narrow widths),
+its tiled plain fp32 version at the same domain and kv tile, and that
+plain version with its operands rounded to TF32 (what TF32 alone would
+give).  Prints one JSON object with the card's name and power limit, and
+writes it to ``--out`` if given.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 # (B*H, S, T) by head_dim
 SHAPES = {64: [(4, 4096, 4096), (4, 1000, 577)],
           256: [(2, 4096, 4096), (2, 1000, 1500)],
-          512: [(2, 4096, 4096), (2, 1000, 1500)]}
+          512: [(2, 4096, 4096), (2, 1000, 1500)],
+          **{d: [(4, 4096, 4096), (4, 1000, 577)]
+             for d in (8, 16, 40, 80, 128)}}
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -46,7 +50,7 @@ def measure(seed: int = 0) -> list:
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for d, shapes in SHAPES.items():
-        sc, bkv = d ** -0.5, fa.FP32_BLOCK_KV[d]
+        sc, bkv = d ** -0.5, fa.kernel_block_kv(d, torch.float32)
         for bh, s, t in shapes:
             q, k, v, do = (torch.randn((bh, n, d), generator=g, device="cuda")
                            for n in (s, t, t, s))

@@ -28,6 +28,7 @@ from diffute_tpu_torch.ops import (
     nearest_resize_2d,
 )
 from diffute_tpu_torch.ops.flash_attention import _to3d, flash_fwd_3d
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 

@@ -49,6 +49,7 @@ from diffute_tpu_torch.serve.loading import (layout_scale,
 from diffute_tpu_torch.train import UNetTrainer, run_unet, run_vae
 from diffute_tpu_torch.train import checkpoint as ckpt
 from diffute_tpu_torch.utils import init_pipeline_params
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 FILES = {"unet": "diffusion_pytorch_model.safetensors",
          "unet_ema": "diffusion_pytorch_model.safetensors",

@@ -25,6 +25,7 @@ from diffute_tpu_torch.ops.conv_fused import (
     gn_silu_conv3x3_tf32_reference,
     pack_conv3x3_weight,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # every GN+SiLU+conv3x3 of a flagged 512^2 UNet pass (B, Cin, Cout, H = W),
 # then a 768^2 and a 1024^2 edit's top levels and one at batch 2

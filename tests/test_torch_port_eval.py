@@ -48,6 +48,7 @@ from diffute_tpu_torch.text import CharTokenizer
 
 # pytest puts tests/ itself on sys.path (conftest.py, prepend import mode)
 from test_torch_port_acceptance import export_jax_layout, feed_jax_draws, rbg
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # the decoder of eval --tiny
 DEC = dict(vocab_size=64, hidden_size=16, decoder_layers=1,

@@ -32,6 +32,7 @@ from diffute_tpu_torch.ops.flash_attention import (
     flash_fwd,
     flash_fwd_3d,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 

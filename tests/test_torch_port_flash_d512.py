@@ -38,6 +38,7 @@ from diffute_tpu_torch.ops.flash_attention import (
     flash_fwd_3d,
     flash_fwd_tiled_reference,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 
@@ -159,7 +160,8 @@ def _meta(*shape, dtype=torch.bfloat16):
 # csrc/flash_fp32.cu; the message reads "take bf16 or fp32")
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float16, 512, "take bf16"),
-    (torch.bfloat16, 128, r"D in \(64, 256, 512\)"),
+    # a head_dim no kernel takes (every multiple of 8 up to 128 has one)
+    (torch.bfloat16, 136, "64, 256, 512 or a multiple of 8 up to 128"),
     # head_dim 512 passes every check but the device's
     (torch.bfloat16, 512, "runs on cuda or cpu, not meta"),
     (torch.float16, 256, "take bf16"),
@@ -328,7 +330,8 @@ def test_cuda_refusals_launch_nothing(monkeypatch, switch):
         with pytest.raises(ValueError, match="take bf16"):
             flash_fwd_3d(q[..., :d].half(), k[..., :d].half(),
                          v[..., :d].half(), d ** -0.5)
-    for d in (128, 384):
-        with pytest.raises(ValueError, match=r"D in \(64, 256, 512\)"):
+    for d in (136, 384):
+        with pytest.raises(ValueError,
+                           match="64, 256, 512 or a multiple of 8 up to 128"):
             flash_fwd_3d(q[..., :d], k[..., :d], v[..., :d], d ** -0.5)
     assert before == [getattr(flash_attention, n) for n in counts]

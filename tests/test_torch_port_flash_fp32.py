@@ -27,6 +27,7 @@ import diffute_tpu.ops.flash_attention as jfa
 from diffute_tpu_torch.config import UNetConfig, VAEConfig
 from diffute_tpu_torch.ops import _build
 from diffute_tpu_torch.utils.device import configure_cuda_numerics
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 
@@ -166,8 +167,9 @@ def test_wrappers_refuse_fp16_and_mixed_dtypes(dtypes, match):
                for dt in dtypes)
     with pytest.raises(ValueError, match=match):
         tfa.flash_fwd(q, k, v, 0.125)
-    with pytest.raises(ValueError, match=r"D in \(64, 256, 512\)"):
-        tfa.flash_fwd(*(torch.empty((1, 256, 1, 128), device="meta")
+    with pytest.raises(ValueError,
+                       match="64, 256, 512 or a multiple of 8 up to 128"):
+        tfa.flash_fwd(*(torch.empty((1, 256, 1, 136), device="meta")
                         for _ in range(3)), 0.125)
 
 

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from diffute_tpu.ops import flash_attention as jfa
 from diffute_tpu.ops.attention import _xla_attention
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 

@@ -25,6 +25,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from diffute_tpu.ops import flash_attention as jfa
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 

@@ -35,6 +35,7 @@ from diffute_tpu_torch.ops.conv_fused import (
 from test_torch_port_conv_fused import FLAGGED_SHAPES
 from test_torch_port_fp32_gn_w8 import (_on_card, fp32_edit_against_jax,
                                         fp32_stage2_against_jax)
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _case(b, cin, cout, hw, seed):

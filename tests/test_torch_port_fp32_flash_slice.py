@@ -41,6 +41,7 @@ from diffute_tpu_torch.train import run_unet
 # pytest puts tests/ itself on sys.path (conftest.py, prepend import mode)
 from test_composed_parity import _pipeline_noise
 from test_torch_port_train import _batch, _draws, _frozen, _port_trainer
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 RES, STEPS, SEED = 64, 6, 0
 # the tiny models' head_dims: the UNet's top level (16 channels, 2 heads)

@@ -66,6 +66,7 @@ from test_composed_parity import _pipeline_noise
 from test_torch_port_groupnorm_plan import NORM_SHAPES
 from test_torch_port_train import RES as TRAIN_RES
 from test_torch_port_train import _batch, _draws, _frozen, _port_trainer
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 FLAGS = dict(use_fused_groupnorm=True, use_int8_weights=True)
 

@@ -26,6 +26,7 @@ from diffute_tpu_torch.ops.groupnorm import (
     group_norm_stats_reference,
     group_norm_stats_tiled_reference,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _case(shape_nhwc, seed=0, mean=0.0):

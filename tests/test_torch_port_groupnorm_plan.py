@@ -26,6 +26,7 @@ from diffute_tpu_torch.ops.groupnorm import (
     group_norm_stats_reference,
     group_norm_stats_tiled_reference,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # every GroupNorm of a flagged UNet pass at 512^2 (SD2: 320/640/1280/1280
 # channels, two resnets a level): (C, H = W).  The fused conv launches the

@@ -30,6 +30,7 @@ from diffute_tpu_torch.pipeline import crop as tcrop
 from diffute_tpu_torch.pipeline import regions as tregions
 from diffute_tpu_torch.text import glyph as tglyph
 from diffute_tpu_torch.text import preprocess as tpre
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 TEXTS = ["Hi", "", "DiffUTE 2026", "déjà vu", "x" * 17]
 

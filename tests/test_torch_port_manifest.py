@@ -39,6 +39,7 @@ from diffute_tpu_torch.config import DiffUTEConfig
 from diffute_tpu_torch.io import dataset, storage
 from diffute_tpu_torch.io.oss import OSSClient, read_through_cache, register_oss
 from diffute_tpu_torch.train import run_unet, run_vae
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 PAGES = [(300, 400), (600, 700), (520, 380)]  # (H, W): two short sides < 512
 WORDS = ["INVOICE", "Total 42.00", "hello"]

@@ -40,6 +40,7 @@ from diffute_tpu_torch.models import (
     count_params,
 )
 from diffute_tpu_torch.utils import build_meta, init_pipeline_params
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 KEY = dict(impl="threefry2x32")

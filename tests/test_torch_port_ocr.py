@@ -45,6 +45,7 @@ from diffute_tpu_torch.text.char_tokenizer import VOCAB_SIZE
 from diffute_tpu_torch.train import OCRTrainer, run_ocr
 from diffute_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from diffute_tpu_torch.train.ocr_train import split_params
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # run_ocr --smoke's decoder
 DEC = dict(vocab_size=VOCAB_SIZE, hidden_size=16, decoder_layers=1,

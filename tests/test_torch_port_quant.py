@@ -27,6 +27,7 @@ from diffute_tpu_torch.ops.quant import (
     quantize_per_channel,
     w8_plan,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # (M, K, N) of every int8 matmul of a flagged 512^2 UNet pass, the hoisted
 # cross-attention K/V of the 577 glyph tokens, and a 1024^2 edit's widest

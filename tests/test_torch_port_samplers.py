@@ -31,6 +31,7 @@ from diffute_tpu_torch.pipeline import DiffUTEPipeline
 
 # pytest puts tests/ itself on sys.path (conftest.py, prepend import mode)
 from test_composed_parity import _pipeline_noise
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 SEED = 0
 ALL_FLAGS = dict(use_fused_groupnorm=True, use_fused_conv=True,

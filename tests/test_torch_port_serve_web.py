@@ -25,6 +25,7 @@ from PIL import Image
 from diffute_tpu.serve import ui as j_ui
 
 from diffute_tpu_torch.serve import ui, web
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from diffute_tpu_torch.pipeline import DiffUTEPipeline
 
 # pytest puts tests/ itself on sys.path (conftest.py, prepend import mode)
 from test_composed_parity import _pipeline_noise
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 tfa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
 

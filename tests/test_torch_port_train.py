@@ -29,6 +29,7 @@ from diffute_tpu_torch.compat import pipeline_state_dicts, unet_state_dict
 from diffute_tpu_torch.config import tiny_test_config
 from diffute_tpu_torch.ops import flash_attention
 from diffute_tpu_torch.train import TrainDraws, UNetTrainer
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 RES, BATCH, TOTAL_STEPS = 64, 2, 10
 

@@ -25,6 +25,7 @@ from test_torch_port_train import (
     _param_errs,
     _port_trainer,
 )
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

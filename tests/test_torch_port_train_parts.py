@@ -43,6 +43,7 @@ from diffute_tpu_torch.train import (UNetTrainer, build_optimizer, run_unet,
                                      run_vae)
 from diffute_tpu_torch.utils import init_pipeline_params
 from diffute_tpu_torch.utils.images import device_to_unit_range
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 BETAS = ["linear", "scaled_linear", "squaredcos_cap_v2"]

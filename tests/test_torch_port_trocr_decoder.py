@@ -35,6 +35,7 @@ from diffute_tpu_torch.models.trocr_decoder import (
     greedy_decode_cached,
 )
 from diffute_tpu_torch.utils.params import load_module
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 DIMS = dict(vocab_size=50, hidden_size=32, decoder_layers=2,
             decoder_attention_heads=2, decoder_ffn_dim=64,

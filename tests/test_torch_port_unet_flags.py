@@ -32,6 +32,7 @@ from diffute_tpu_torch.models.layers import (
 )
 from diffute_tpu_torch.ops import conv_fused, groupnorm, quant
 from diffute_tpu_torch.utils.params import build_meta, load_module
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 FLAG_SETS = {
     "fused_gn": dict(use_fused_groupnorm=True),

@@ -41,6 +41,7 @@ from diffute_tpu_torch.pipeline import DiffUTEPipeline
 from diffute_tpu_torch.train import UNetTrainer, VAETrainer, run_vae
 from diffute_tpu_torch.train import checkpoint as ckpt
 from diffute_tpu_torch.utils import init_pipeline_params
+from port_threads import torch_threads_per_worker  # noqa: F401
 
 # the modules (each package's ops exports a function of the module's name)
 jfa = importlib.import_module("diffute_tpu.ops.flash_attention")
