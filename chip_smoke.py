@@ -48,13 +48,18 @@ Phases, one line each (any failure raises and exits non-zero):
      packed projection read bit for bit as the contiguous route; each timed
      beside its plain one-pass version, its bound and SDPA (whose backend is
      recorded); what ptxas says of the source's six kernels;
-  3d. the same at head_dim 256 (small_config's VAE mid-block, the same
-     source's other instantiation): the forward at (1, 4096, 4096),
-     (16, 4096, 4096) and (2, 1000, 1500), the backward at the last two;
-  3e. the deferred-softmax forward at both wide head_dims (the same
-     source's fwd_deferred_kernel, behind PIPELINE_FWD) at 3c's and 3d's
-     forward shapes that its dispatch rule takes (T a multiple of 32, two
-     tiles or more), against its plain version at the head_dim-64
+  3d. the same at head_dim 256 (small_config's VAE mid-block: the
+     backward the same source's other instantiation, the forward
+     csrc/flash_d256_sm90.cu on TMA and wgmma at its own 64-row kv tile,
+     also in each block layout, one and two consumer warpgroups, each the
+     launcher's bits): the forward at (1, 4096, 4096), (16, 4096, 4096)
+     and (2, 1000, 1500), the backward at the last two;
+  3e. the deferred-softmax forward at both wide head_dims (behind
+     PIPELINE_FWD: the same source's fwd_deferred_kernel at 512,
+     csrc/flash_d256_sm90.cu's deferred schedule at 256, in both block
+     layouts) at 3c's and 3d's forward shapes that its dispatch rule
+     takes (T a multiple of its kv tile, two tiles or more), against its
+     plain version at the head_dim-64
      criteria and against the standard wide forward (the same bits), the
      same bits twice, mutants of the plain version (the LSE left in base
      2, the last kv tile never consumed, tile j's softmax on tile j - 1's
@@ -259,11 +264,15 @@ kernels line.
 
 builds the kernels and runs phases 8-10 alone (about 2 minutes).
 
-    python3 chip_smoke.py --d512-only
-    python3 chip_smoke.py --d256-only
+    python3 chip_smoke.py --d512-only [--package-root DIR]
+    python3 chip_smoke.py --d256-only [--package-root DIR]
 
 build the kernels and run phases 3c, 3e and 8a, or 3d, 3e and 8b, alone
-(a few minutes) and print their kernels line.
+(a few minutes) and print their kernels line; with --package-root from
+another checkout's package, so change, parent, parent, change in one call
+times two commits' wide kernels in turns on one card (a checkout from
+before the head_dim-256 forwards took their own tile is held at its one
+32-row tile, in its one block layout).
 
     python3 chip_smoke.py --eval-only
 
@@ -304,10 +313,10 @@ of one GroupNorm statistics call and one GN+SiLU call at (1, 320, 64^2).
     python3 chip_smoke.py --flash-host 20 [--package-root DIR]
 
 times the host's side of the serving path's attention call (no-grad
-dot_product_attention on (1, S, H, 64) projections, then the caller's
-reshape to (1, S, H*64)) at a 512^2 edit's two flash shapes: 20 rounds of
-100 calls, the host's seconds to queue them and the seconds until the card
-is done, per call.
+dot_product_attention on (1, S, H, D) projections, then the caller's
+reshape to (1, S, H*D)) at a 512^2 edit's two flash shapes and the small
+VAE mid-block's at 256^2 (D = 256): 20 rounds of 100 calls, the host's
+seconds to queue them and the seconds until the card is done, per call.
 """
 
 from __future__ import annotations
@@ -1120,6 +1129,68 @@ def sdpa_backends(q, k, v) -> dict:
     return {"picked": picked, "takes": takes}
 
 
+def wide_block_kv(fa, d: int, kind: str) -> int:
+    """The kv tile the head_dim-``d`` ``kind`` kernel walks (what its tiled
+    plain version takes); a checkout from before the head_dim-256 forwards
+    took a tile of their own has one tile, D512_BLOCK_KV (a name every
+    checkout with the wide kernels has)."""
+    try:
+        return fa.kernel_block_kv(d, torch.bfloat16, kind)
+    except TypeError:
+        return fa.D512_BLOCK_KV
+
+
+def wide_fwd_source(d: int) -> str:
+    """The source of the head_dim-``d`` forwards in the checkout run."""
+    from diffute_tpu_torch.ops import _build
+
+    source = "flash_d256_sm90.cu" if d == 256 else "flash_wide.cu"
+    if not os.path.exists(os.path.join(_build.CSRC, source)):
+        source = "flash_wide.cu"  # a checkout from before the d256 source
+    return source
+
+
+def fwd_layouts(fa, d: int) -> tuple:
+    """The block layouts (consumer warpgroups a block) in which phases 3d
+    and 3e hold the head_dim-``d`` forwards besides the launcher's route:
+    1 and 2 at 256 (csrc/flash_d256_sm90.cu), none where the checkout has
+    one layout."""
+    return (1, 2) if d == 256 and hasattr(fa, "flash_fwd_layout") else ()
+
+
+def check_layouts(fa, layouts, q, k, v, sc, pipelined, ro, rlse, o, lse,
+                  time_it=True) -> dict:
+    """Each block layout of the head_dim-256 forward (the deferred one with
+    ``pipelined``) on (B, L, H, 256) q, k, v: within the kernel criteria of
+    the plain version (``ro``, ``rlse``, (BH, S, 256)), the same bits twice,
+    and the bits of the launcher's route (``o``, ``lse``); timed.  Raises
+    on a layout that fails."""
+    out = {}
+    for c in layouts:
+        def run(c=c):
+            return fa.flash_fwd_layout(q, k, v, sc, c, pipelined)
+        lo, llse = run()
+        lo2, llse2 = run()
+        torch.cuda.synchronize()
+        lse_err = (llse - rlse).abs().max().item()
+        rec = dict(**bwd_errors(fa._to3d(lo), ro, FUSED_HALF_ULPS),
+                   max_abs_err_lse=lse_err,
+                   same_bits_twice=(torch.equal(lo, lo2)
+                                    and torch.equal(llse, llse2)),
+                   route_bits=torch.equal(lo, o) and torch.equal(llse, lse))
+        if time_it:
+            rec["ms"] = time_ms(run)
+        del lo, lo2, llse, llse2
+        if not (fwd_ok(rec, lse_err) and rec["same_bits_twice"]
+                and rec["route_bits"]):
+            kind = "deferred" if pipelined else "standard"
+            raise RuntimeError(f"the head_dim-256 {kind} forward with {c} "
+                               f"consumer warpgroup(s) a block disagrees: "
+                               f"{rec}")
+        out[str(c)] = rec
+    return out
+
+
 _PTXAS_SHOWN = set()
 
 
@@ -1135,24 +1206,27 @@ def show_ptxas(source: str) -> None:
 
 def check_wide(dev, d: int) -> dict:
     """Phase 3c (d = 512) or 3d (d = 256): the wide head_dim kernels
-    (csrc/flash_wide.cu) against their tiled plain versions at the kernels'
-    kv tile (WIDE_BLOCK_KV), at the head_dim-64 criteria: the forward at
+    (csrc/flash_wide.cu; the forwards at 256 csrc/flash_d256_sm90.cu)
+    against their tiled plain versions at each kernel's kv tile
+    (wide_block_kv), at the head_dim-64 criteria: the forward at
     WIDE_FORWARD_SHAPES (3 half-ulps, relative L2 2e-3, LSE 1e-4), dq (with
     delta), dk/dv and the pair at WIDE_BACKWARD_SHAPES (3 half-ulps,
-    relative L2 1e-3, delta 1e-5); the same bits twice; mutants of the plain
+    relative L2 1e-3, delta 1e-5; fed the tiled plain forward's o and
+    LSE); the same bits twice; mutants of the plain
     versions (the LSE left in base 2, the last kv tile never consumed, dk x
     1.02) must fail; strided (B, S, 1, d) views of a packed projection read
-    without a copy, bit for bit the contiguous route.  Each timed beside its
-    plain one-pass version, its bound and SDPA (whose backend is recorded).
-    Returns {"fwd" | "dq" | "dkv": [result per shape]}."""
-    from diffute_tpu_torch.ops import _build
-
+    without a copy, bit for bit the contiguous route.  At 256 the forward
+    is also held in both block layouts (check_layouts: one and two consumer
+    warpgroups a block), each the launcher's bits, the strided views too.
+    Each timed beside its plain one-pass version, its bound and SDPA (whose
+    backend is recorded).  Returns {"fwd" | "dq" | "dkv": [result per
+    shape]}."""
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    # D512_BLOCK_KV: the name a checkout from before head_dim 256 also has
-    bkv = fa.D512_BLOCK_KV
+    bkv, fwd_bkv = (wide_block_kv(fa, d, kind) for kind in ("bwd_dq", "fwd"))
+    layouts = fwd_layouts(fa, d)
     sc = d ** -0.5
-    show_ptxas("flash_wide.cu" if os.path.exists(
-        os.path.join(_build.CSRC, "flash_wide.cu")) else "flash_d512.cu")
+    for source in dict.fromkeys((wide_fwd_source(d), wide_fwd_source(512))):
+        show_ptxas(source)
     g = torch.Generator(device=dev).manual_seed(5)
     out = {"fwd": [], "dq": [], "dkv": []}
 
@@ -1165,10 +1239,11 @@ def check_wide(dev, d: int) -> dict:
         o, lse = fa.flash_fwd_3d(q, k, v, sc)
         o2, lse2 = fa.flash_fwd_3d(q, k, v, sc)
         torch.cuda.synchronize()
-        ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
+        ro, rlse = fa.flash_fwd_tiled_reference(q, k, v, sc, fwd_bkv)
         lse_err = (lse - rlse).abs().max().item()
         big = bh * s * t >= 2 ** 28
-        res = dict(shape=[bh, s, t, d], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+        res = dict(shape=[bh, s, t, d], block_kv=fwd_bkv,
+                   **bwd_errors(o, ro, FUSED_HALF_ULPS),
                    max_abs_err_lse=lse_err,
                    same_bits_twice=(torch.equal(o, o2)
                                     and torch.equal(lse, lse2)),
@@ -1183,10 +1258,15 @@ def check_wide(dev, d: int) -> dict:
                    **bound(4 * s * t * d * bh,
                            2 * d * bh * (2 * s + 2 * t) + 4 * bh * s))
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if layouts:
+            res["consumers"] = fa.d256_consumers(bh, s)
+            res["layouts"] = check_layouts(
+                fa, layouts, *(x[:, :, None] for x in (q, k, v)), sc, False,
+                ro, rlse, o[:, :, None], lse)
         if not out["fwd"]:
             base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
-            mo, mlse = fa.flash_fwd_tiled_reference(q, k[:, :-bkv],
-                                                    v[:, :-bkv], sc, bkv)
+            mo, mlse = fa.flash_fwd_tiled_reference(
+                q, k[:, :-fwd_bkv], v[:, :-fwd_bkv], sc, fwd_bkv)
             dropped = bwd_errors(mo, ro, FUSED_HALF_ULPS)
             m_lse = (mlse - rlse).abs().max().item()
             if base2 <= TOL_FWD_LSE or fwd_ok(dropped, m_lse):
@@ -1204,7 +1284,10 @@ def check_wide(dev, d: int) -> dict:
 
     for bh, s, t in WIDE_BACKWARD_SHAPES[d]:
         q, k, v, do = (randn(bh, n, d) for n in (s, t, t, s))
-        o, lse = fa.flash_fwd_3d(q, k, v, sc)
+        # o and the LSE of the tiled plain forward: the backward kernels'
+        # inputs whatever forward kernel the checkout has, so two
+        # checkouts' backward rows compare on the same inputs
+        o, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
 
         def run_dq():
             return fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
@@ -1285,17 +1368,21 @@ def check_wide(dev, d: int) -> dict:
     fgrads = fa.flash_bwd(*flat[:3], fo, flse, flat[3], sc)
     torch.cuda.synchronize()
     ro, rlse = fa.flash_fwd_tiled_reference(
-        *(fa._to3d(x) for x in (q4, k4, v4)), sc, bkv)
+        *(fa._to3d(x) for x in (q4, k4, v4)), sc, fwd_bkv)
     ref = fa.flash_bwd_tiled_reference(
         *(fa._to3d(x) for x in (q4, k4, v4, o4)), lse4, fa._to3d(do4), sc, bkv)
     err = {n: bwd_errors(fa._to3d(a), b)
            for n, a, b in zip(("dq", "dk", "dv"), grads, ref)}
+    # each block layout on the strided views: the contiguous route's bits
+    layout_res = check_layouts(fa, layouts, q4, k4, v4, sc, False, ro, rlse,
+                               fo, flse, time_it=False)
     res = dict(shape=list(q4.shape), strides=list(q4.stride()),
                **bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
                max_abs_err_lse=(lse4 - rlse).abs().max().item(), grads=err,
                out_contiguous=all(x.is_contiguous() for x in (o4, *grads)),
                contiguous_route_bits=torch.equal(o4, fo) and all(
-                   torch.equal(a, b) for a, b in zip(grads, fgrads)))
+                   torch.equal(a, b) for a, b in zip(grads, fgrads)),
+               **({"layouts": layout_res} if layouts else {}))
     phase(f"kernel_d{d}_strided", **res)
     if not (fwd_ok(res, res["max_abs_err_lse"])
             and all(bwd_ok(e) for e in err.values())
@@ -1319,21 +1406,25 @@ def wrong_parity(fa, q, k, v, sc, bkv):
 
 def check_wide_pipelined(dev, d: int) -> list:
     """Phase 3e: the deferred-softmax forward at head_dim ``d``
-    (csrc/flash_wide.cu's fwd_deferred_kernel) at the WIDE_FORWARD_SHAPES
-    the dispatch rule takes, against its plain version at the kernels' kv
-    tile (WIDE_BLOCK_KV) at the kernel criteria (3 half-ulps, relative L2
-    2e-3, LSE 1e-4) and against the standard wide forward on the same
-    inputs: the same arithmetic in another order, so the same bits; the
-    same bits twice; mutants of the plain version (the LSE left in base 2,
-    the last kv tile never consumed, tile j's softmax on tile j - 1's
-    scores) must fail.  Strided (B, S, 1, d) views read through the
-    PIPELINE_FWD dispatch bit for bit as the contiguous call, and the ragged
-    (2, 1000, 1500), which the rule refuses, goes to the standard kernel and
-    is counted there.  Each shape timed beside the standard forward, the
-    plain one-pass version, the bound and SDPA."""
+    (csrc/flash_wide.cu's fwd_deferred_kernel at 512,
+    csrc/flash_d256_sm90.cu's deferred schedule at 256) at the
+    WIDE_FORWARD_SHAPES the dispatch rule takes, against its plain version
+    at the kernel's kv tile (pipelined_block_kv) at the kernel criteria (3
+    half-ulps, relative L2 2e-3, LSE 1e-4) and against the standard wide
+    forward on the same inputs: the same arithmetic in another order, so
+    the same bits; the same bits twice; mutants of the plain version (the
+    LSE left in base 2, the last kv tile never consumed, tile j's softmax
+    on tile j - 1's scores) must fail.  Strided (B, S, 1, d) views read
+    through the PIPELINE_FWD dispatch bit for bit as the contiguous call,
+    and the ragged (2, 1000, 1500), which the rule refuses, goes to the
+    standard kernel and is counted there.  At 256 all of it holds in both
+    block layouts too (check_layouts), each the standard forward's bits.
+    Each shape timed beside the standard forward, the plain one-pass
+    version, the bound and SDPA."""
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    bkv, sc = fa.WIDE_BLOCK_KV, d ** -0.5
-    show_ptxas("flash_wide.cu")
+    bkv, sc = fa.pipelined_block_kv(d), d ** -0.5
+    layouts = fwd_layouts(fa, d)
+    show_ptxas(wide_fwd_source(d))
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
 
@@ -1357,7 +1448,8 @@ def check_wide_pipelined(dev, d: int) -> list:
         ro, rlse = fa.flash_fwd_pipelined_reference(q, k, v, sc, bkv)
         lse_err = (lse - rlse).abs().max().item()
         big = bh * s * t >= 2 ** 28
-        res = dict(shape=[bh, s, t, d], **bwd_errors(o, ro, FUSED_HALF_ULPS),
+        res = dict(shape=[bh, s, t, d], block_kv=bkv,
+                   **bwd_errors(o, ro, FUSED_HALF_ULPS),
                    max_abs_err_lse=lse_err,
                    same_bits_twice=(torch.equal(o, o2)
                                     and torch.equal(lse, lse2)),
@@ -1378,6 +1470,11 @@ def check_wide_pipelined(dev, d: int) -> list:
                    **bound(4 * s * t * d * bh,
                            2 * d * bh * (2 * s + 2 * t) + 4 * bh * s))
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if layouts:
+            res["consumers"] = fa.d256_consumers(bh, s)
+            res["layouts"] = check_layouts(
+                fa, layouts, *(x[:, :, None] for x in (q, k, v)), sc, True,
+                ro, rlse, so[:, :, None], slse)
         if not out:
             base2 = (rlse / 0.6931471805599453 - rlse).abs().max().item()
             mo, mlse = fa.flash_fwd_tiled_reference(q, k[:, :-bkv],
@@ -1427,6 +1524,9 @@ def check_wide_pipelined(dev, d: int) -> list:
     ragged_std = fa.flash_fwd_3d(qr, kr, vr, sc)
     ro, rlse = fa.flash_fwd_pipelined_reference(
         *(fa._to3d(x) for x in (q4, k4, v4)), sc, bkv)
+    # each block layout on the strided views: the contiguous call's bits
+    layout_res = check_layouts(fa, layouts, q4, k4, v4, sc, True, ro, rlse,
+                               fo, flse, time_it=False)
     res = dict(shape=list(q4.shape), strides=list(q4.stride()),
                **bwd_errors(fa._to3d(o4), ro, FUSED_HALF_ULPS),
                max_abs_err_lse=(lse4 - rlse).abs().max().item(),
@@ -1435,7 +1535,8 @@ def check_wide_pipelined(dev, d: int) -> list:
                                       and torch.equal(lse4, flse)),
                ragged_shape=[2, 1000, 1500, d],
                ragged_equals_standard=all(
-                   torch.equal(a, b) for a, b in zip(ragged, ragged_std)))
+                   torch.equal(a, b) for a, b in zip(ragged, ragged_std)),
+               **({"layouts": layout_res} if layouts else {}))
     phase(f"kernel_fwd_pipelined_d{d}_strided", **res)
     expect_flash({"launches": strided_launches},
                  **{f"flash_fwd_pipelined_d{d}": 2})
@@ -2715,22 +2816,23 @@ def flash_host_timing(rounds: int, calls: int = 100) -> None:
     """Microseconds per serving attention call: the host's time to queue
     ``calls`` calls (CUDA's launch queue holds them all, so nothing waits on
     the card) and the time until the card has run them, median of
-    ``rounds`` rounds, at a 512^2 edit's (S, H) = (1024, 10) and
-    (4096, 5)."""
+    ``rounds`` rounds, at a 512^2 edit's (S, H, D) = (1024, 10, 64) and
+    (4096, 5, 64), and at the small VAE mid-block's in a 256^2 encode or
+    decode, (4096, 1, 256)."""
     import diffute_tpu_torch
     from diffute_tpu_torch.ops import dot_product_attention
 
     dev = torch.device("cuda", 0)
     out = []
-    for s, h in [(1024, 10), (4096, 5)]:
+    for s, h, d in [(1024, 10, 64), (4096, 5, 64), (4096, 1, 256)]:
         # three projections viewed as heads, as Attention.forward has them
-        q, k, v = (torch.randn((1, s, h * 64), device=dev,
-                               dtype=torch.bfloat16).view(1, s, h, 64)
+        q, k, v = (torch.randn((1, s, h * d), device=dev,
+                               dtype=torch.bfloat16).view(1, s, h, d)
                    for _ in range(3))
 
         def call():
             return dot_product_attention(q, k, v, use_flash=True).reshape(
-                1, s, h * 64)
+                1, s, h * d)
 
         queue_us, wall_us = [], []
         with torch.no_grad():
@@ -2744,7 +2846,7 @@ def flash_host_timing(rounds: int, calls: int = 100) -> None:
                 t2 = time.perf_counter()
                 queue_us.append((t1 - t0) / calls * 1e6)
                 wall_us.append((t2 - t0) / calls * 1e6)
-        out.append({"s": s, "h": h, "calls": calls, "rounds": rounds,
+        out.append({"s": s, "h": h, "d": d, "calls": calls, "rounds": rounds,
                     # the first round builds and warms up
                     "queue_us_median": statistics.median(queue_us[1:]),
                     "wall_us_median": statistics.median(wall_us[1:]),
@@ -3161,7 +3263,8 @@ def flash_route_check(records: list, d: int) -> list:
     from diffute_tpu_torch.ops.attention import dense_attention
 
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    sc, bkv = d ** -0.5, fa.WIDE_BLOCK_KV
+    sc = d ** -0.5
+    bkv, fwd_bkv = (wide_block_kv(fa, d, kind) for kind in ("bwd_dq", "fwd"))
     if len(records) != 2 or any(n not in r for r in records
                                 for n in ("dq", "dk", "dv", "do")):
         raise RuntimeError(f"the flagged step did not take two mid-block "
@@ -3171,7 +3274,7 @@ def flash_route_check(records: list, d: int) -> list:
     for rec in records:
         q, k, v, o, do = (fa._heads_first(rec[n])
                           for n in ("q", "k", "v", "o", "do"))
-        ro, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
+        ro, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, fwd_bkv)
         ref = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_tiled_reference(
             q, k, v, o, lse, do, sc, bkv)))
         got = {n: fa._heads_first(rec[n]) for n in ref}
@@ -3635,7 +3738,10 @@ def wide_entries(results: dict, launches: dict, d: int) -> list:
     def by_path(key):
         return {path: rec[key] for path, rec in launches.items() if rec[key]}
 
-    return [kernel_entry(f"{name}_d{d}_bf16", "flash_wide.cu",
+    fwd_source = wide_fwd_source(d)
+    return [kernel_entry(f"{name}_d{d}_bf16",
+                         fwd_source if part.startswith("fwd")
+                         else "flash_wide.cu",
                          f"flash_attention.py:{line}", results[part],
                          by_path(f"{name}_d{d}"))
             for name, part, line in (("flash_fwd", "fwd", 275),

@@ -4,7 +4,10 @@
 // strides, mbarriers, the two wgmma shapes every flash kernel issues, the
 // forwards' producer warp, online-softmax step and epilogue.  Each forward
 // adds only its consumer schedule; the backward keeps the block layout below
-// and adds its own loads and schedules.
+// and adds its own loads and schedules.  The head_dim-256 forwards
+// (flash_d256_sm90.cu) take the barriers, the TMA loads by column
+// (tma_load_at), the maps of a wider row (encode_map's `width`), the wgmma
+// brackets, the softmax step and P's packing, with their own tiles.
 //
 // Block layout.  Warpgroup 0 is the producer: after `setmaxnreg.dec` one
 // thread of it issues every TMA load (the q tile of each consumer, then K and
@@ -130,6 +133,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same load at column `col` of the row: a 256-wide row is four boxes of
+// 64 columns, each its own 128-byte-swizzled block.
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int h,
+                                            int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(h),
+      "r"(row), "r"(b)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -195,6 +211,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
 }
 
 #define SM90_F8(a, i)                                                   \
@@ -543,16 +565,18 @@ inline cudaError_t bind_context() {
   return err;
 }
 
-// A (B, L, H, 64) bf16 tensor with element strides (sb, sl, sh, 1) as a 4-D
-// map of dims (64, H, L, B) and box (64, 1, rows, 1), 128-byte swizzle;
-// rows past L read as zeros.  Returns false if the encoder refuses it.
+// A (B, L, H, width) bf16 tensor with element strides (sb, sl, sh, 1) as a
+// 4-D map of dims (width, H, L, B) and box (64, 1, rows, 1), 128-byte
+// swizzle (a box is one 128-byte span of a row: the whole row at head_dim
+// 64, a quarter of it at 256); rows past L read as zeros.  Returns false if
+// the encoder refuses it.
 inline bool encode_map(CUtensorMap* map, const void* base, int b, int len,
                        int h, long long sb, long long sl, long long sh,
-                       int rows) {
+                       int rows, int width = kHeadDim) {
   EncodeTiledFn fn = encode_fn();
   if (!fn) return false;
-  const cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)h, (cuuint64_t)len,
-                              (cuuint64_t)b};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)h,
+                              (cuuint64_t)len, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sl * 2,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {kHeadDim, 1, (cuuint32_t)rows, 1};

@@ -2,8 +2,11 @@
 // the forward, the deferred-softmax forward, the dq kernel (which also
 // writes delta) and the dk/dv kernel, bf16 in and out, fp32 LSE and delta.
 // One source, templated on the width (`Wide<D>`), instantiated at head_dim
-// 512 (the SD2 VAE mid-block's single head) and 256 (the small VAE's,
-// `small_config`).
+// 512 (the SD2 VAE mid-block's single head: all four kernels) and 256 (the
+// small VAE's, `small_config`: dq and dk/dv).  Head_dim 256's two forwards
+// live in flash_d256_sm90.cu (TMA, wgmma, 64 q rows by all 256 columns a
+// consumer warpgroup; no producer: the last warp to release a stage refills
+// it); the forwards below are instantiated at 512 only.
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py at
 // those widths: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
@@ -53,8 +56,8 @@
 //
 //   D = 512: 8 warps (2 groups x 4 slices); 176 KB forward (192 KB the
 //     deferred one), 224 KB each backward kernel, so one block an SM;
-//   D = 256: 4 warps (2 groups x 2 slices); 88 KB forward (96 KB), 112 KB
-//     each backward kernel, so two blocks an SM.
+//   D = 256: 4 warps (2 groups x 2 slices); 112 KB each backward kernel,
+//     so two blocks an SM.
 //
 // At 256 a 64-row resident tile (8 warps, one block an SM) would halve the
 // L2 traffic of the streamed axis; timed on an H100 it was slower at every
@@ -534,8 +537,7 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
 // deep, and each refill has the rest of its body to land.  The last body
 // produces nothing: it is written out after the loop, so that no branch
 // sits between a product and the softmax it overlaps.  Shared memory:
-// fwd_kernel's plus one partial buffer (192 KB at 512, 96 KB at 256: still
-// two blocks an SM there).
+// fwd_kernel's plus one partial buffer (192 KB at 512).
 
 template <class W>
 __global__ void __launch_bounds__(W::kThreads, 1)
@@ -950,12 +952,14 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Plain C entry points for ctypes, with the head_dim-64 entries' argument
-// lists (flash_fwd_pipelined_* refuses a t_len the dispatch rule refuses).  Tensors (B, len, H, D) bf16, D = 512 or 256 as the name says, with
+// lists (flash_fwd_pipelined_* refuses a t_len the dispatch rule refuses):
+// the four at 512, dq and dk/dv at 256.  Tensors (B, len, H, D) bf16, D =
+// 512 or 256 as the name says, with
 // the element strides in `strides` (sb, sl, sh each; head_dim stride 1), lse
 // and delta (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates
 // nothing, and returns a CUDA error code (0 = launched).
 
-#define FLASH_WIDE_ENTRIES(W, d)                                              \
+#define FLASH_WIDE_FWD_ENTRIES(W, d)                                          \
   extern "C" int flash_fwd_##d##_bf16(                                        \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, const long long* strides, float scale,     \
@@ -969,7 +973,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       void* stream) {                                                         \
     return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
                            scale, stream);                                    \
-  }                                                                           \
+  }
+
+#define FLASH_WIDE_BWD_ENTRIES(W, d)                                          \
   extern "C" int flash_bwd_dq_##d##_bf16(                                     \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -987,5 +993,6 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       strides, scale, stream);                                \
   }
 
-FLASH_WIDE_ENTRIES(D512, d512)
-FLASH_WIDE_ENTRIES(D256, d256)
+FLASH_WIDE_FWD_ENTRIES(D512, d512)
+FLASH_WIDE_BWD_ENTRIES(D512, d512)
+FLASH_WIDE_BWD_ENTRIES(D256, d256)

@@ -82,15 +82,20 @@ def _signatures() -> dict:
         #  B, H, S, T, 18 element strides, scale, stream)
         "flash_bwd_dq_bf16": bwd,
         "flash_bwd_dkv_bf16": bwd,
-        # the same four at head_dim 512 and 256 (csrc/flash_wide.cu)
+        # the same four at head_dim 512, and the backward pair at 256
+        # (csrc/flash_wide.cu)
         "flash_fwd_d512_bf16": fwd,
         "flash_fwd_pipelined_d512_bf16": fwd,
         "flash_bwd_dq_d512_bf16": bwd,
         "flash_bwd_dkv_d512_bf16": bwd,
-        "flash_fwd_d256_bf16": fwd,
-        "flash_fwd_pipelined_d256_bf16": fwd,
         "flash_bwd_dq_d256_bf16": bwd,
         "flash_bwd_dkv_d256_bf16": bwd,
+        # the two forwards at head_dim 256 (csrc/flash_d256_sm90.cu), with
+        # the consumer warpgroups a block after the stream (0: the
+        # launcher's choice), and that choice for (B*H, S)
+        "flash_fwd_d256_bf16": fwd + [i],
+        "flash_fwd_pipelined_d256_bf16": fwd + [i],
+        "flash_fwd_d256_consumers": [i, i],
         # the same four on fp32 inputs at head_dim 64, 256 and 512
         # (csrc/flash_fp32.cu)
         **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd

@@ -9,24 +9,26 @@ backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
 package joins them with ``jax.custom_vjp``.  Those take head_dim 64 (the
 UNet's heads); at head_dim 512 and 256 (the VAE mid-block's single head at
-SD2 width and at ``small_config``'s) both forwards and the two backward
-kernels are ``csrc/flash_wide.cu``, one source templated on the width.
-Those take bf16.  On fp32 inputs the four kernels at the three widths are
-``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32), which computes
-the JAX package's fp32 arithmetic: the standard forward and the backward in
-the natural domain with the exact scale after the product, the deferred
-forward on q prescaled by ``scale * log2 e`` in base 2.  Every other
+SD2 width and at ``small_config``'s) the two backward kernels, and both
+forwards at 512, are ``csrc/flash_wide.cu``, one source templated on the
+width; both forwards at 256 are ``csrc/flash_d256_sm90.cu`` (TMA and
+``wgmma``, as at 64).  Those take bf16.  On fp32 inputs the four kernels at
+the three widths are ``csrc/flash_fp32.cu`` (3xTF32 products, accurate to
+fp32), which computes the JAX package's fp32 arithmetic: the standard
+forward and the backward in the natural domain with the exact scale after
+the product, the deferred forward on q prescaled by ``scale * log2 e`` in
+base 2.  Every other
 head_dim that is a multiple of 8 up to 128 (the tiny model's 8 and 16,
 SD1.x's 40 and 80, 128) takes ``csrc/flash_narrow.cu``'s four kernels, bf16
 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS` that
 holds it, with the arithmetic of the other entries of its dtype.  Every
 kernel reads its (batch, seq, heads, D) inputs, all bf16 or all fp32, D as
-:func:`kernel_takes` says, through their strides (TMA at bf16 head_dim 64,
-cp.async elsewhere), so the callers hand them the views they have, and
-writes its outputs contiguous in that layout: no copy is made in either
-direction, and no padded one at the narrow widths (the kernels zero-fill
-the columns past D on chip).  Every LSE is natural-log fp32 (batch*heads,
-seq).
+:func:`kernel_takes` says, through their strides (TMA at bf16 head_dim 64
+and in the bf16 forwards at 256, cp.async elsewhere), so the callers hand
+them the views they have, and writes its outputs contiguous in that
+layout: no copy is made in either direction, and no padded one at the
+narrow widths (the kernels zero-fill the columns past D on chip).  Every
+LSE is natural-log fp32 (batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version, at any head_dim,
@@ -48,11 +50,14 @@ PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
 # the head_dims with kernels of their own, and the rows of every tile of
-# csrc/flash_wide.cu (kRows there), which serves 256 and 512
+# csrc/flash_wide.cu (kRows there), which serves 512 and the backward at 256
 HEAD_DIMS = (64, 256, 512)
 WIDE_BLOCK_KV = 32
 WIDE_HEAD_DIMS = (256, 512)
 D512_BLOCK_KV = WIDE_BLOCK_KV  # the name before head_dim 256 was ported
+# the kv tile both bf16 forwards at head_dim 256 walk (csrc/flash_d256_sm90.cu:
+# kBlockKV there)
+D256_FWD_BLOCK_KV = 64
 # the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there)
 FP32_BLOCK_KV = {64: 64, 256: 32, 512: 16}
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
@@ -93,14 +98,32 @@ def narrow_width(head_dim: int) -> Optional[int]:
     return next(w for w in NARROW_WIDTHS if w >= head_dim)
 
 
-def kernel_block_kv(head_dim: int, dtype: torch.dtype) -> int:
-    """The rows of the kv tile the kernels at ``head_dim`` on ``dtype``
-    inputs walk in (what the tiled plain versions take to match them)."""
+# the four kernels of each head_dim and dtype
+KINDS = ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+
+
+def kernel_block_kv(head_dim: int, dtype: torch.dtype,
+                    kind: Optional[str] = None) -> int:
+    """The rows of the kv tile the ``kind`` kernel (:data:`KINDS`) at
+    ``head_dim`` on ``dtype`` inputs walks in (what the tiled plain versions
+    take to match it).  Without ``kind``, the tile all four walk; raises
+    where they differ: the bf16 forwards at 256 walk
+    :data:`D256_FWD_BLOCK_KV`, its backward :data:`WIDE_BLOCK_KV`."""
+    if kind is None:
+        tiles = {kernel_block_kv(head_dim, dtype, k) for k in KINDS}
+        if len(tiles) > 1:
+            raise ValueError(f"the kernels at head_dim {head_dim} on {dtype} "
+                             f"walk kv tiles {sorted(tiles)}: name the kind")
+        return tiles.pop()
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}; got {kind!r}")
     width = narrow_width(head_dim)
     if width is not None:
         return NARROW_BLOCK_KV[width]
     if dtype == torch.float32:
         return FP32_BLOCK_KV[head_dim]
+    if head_dim == 256 and kind.startswith("fwd"):
+        return D256_FWD_BLOCK_KV
     return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
 
 
@@ -211,11 +234,14 @@ def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
 
 def pipelined_block_kv(head_dim: int) -> int:
     """The kv tile of the deferred-softmax kernel at ``head_dim`` that the
-    dispatch rule counts in: 32 at 256 and 512 (``csrc/flash_wide.cu``), 64
+    dispatch rule counts in: :data:`D256_FWD_BLOCK_KV` at 256
+    (``csrc/flash_d256_sm90.cu``), 32 at 512 (``csrc/flash_wide.cu``), 64
     at any other (``csrc/flash_fwd_pipelined.cu`` at 64, and every narrow
     width).  The fp32 kernels' tiles (:data:`FP32_BLOCK_KV`: 64, 32, 16)
     and the narrow ones (:data:`NARROW_BLOCK_KV`: 64 or 32) divide it, so
     they take every T the rule takes, at every width."""
+    if head_dim == 256:
+        return D256_FWD_BLOCK_KV
     return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
 
 
@@ -244,11 +270,11 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
-    """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64,
-    16-byte cp.async elsewhere) cannot read: a last (head_dim) stride other
-    than 1, another stride not a whole number of 16 bytes (8 bf16 or 4 fp32
-    elements), or a base not 16-byte aligned.  Nothing is copied to make a
-    layout fit."""
+    """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64 and in
+    the bf16 forwards at 256, 16-byte cp.async elsewhere) cannot read: a
+    last (head_dim) stride other than 1, another stride not a whole number
+    of 16 bytes (8 bf16 or 4 fp32 elements), or a base not 16-byte aligned.
+    Nothing is copied to make a layout fit."""
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the last stride must be 1, got "
                          f"{x.stride()}")
@@ -314,9 +340,6 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-KINDS = ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
-
-
 def _width_tag(head_dim: int) -> str:
     # "" at 64, "d256" / "d512", "w16" ... "w128" at the narrow widths
     width = narrow_width(head_dim)
@@ -377,6 +400,15 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous (B, S, H, D) in q's dtype, lse (B*H, S).  ``pipelined``: the
     deferred-softmax kernel of that head_dim and dtype.  Raises on anything
     the kernels do not take."""
+    return _launch_fwd(q, k, v, scale, pipelined, 0)
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, pipelined: bool, consumers: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_fwd_kernel`; the bf16 head_dim-256 entries also take
+    ``consumers``, the consumer warpgroups a block (0: their launcher's
+    choice, :func:`d256_consumers`)."""
     _check_4d(q, k, v)
     b, s_len, h, d = q.shape
     t_len = k.shape[1]
@@ -387,11 +419,44 @@ def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, s_len), dtype=torch.float32, device=q.device)
     name = kernel_name("fwd_pipelined" if pipelined else "fwd", d, q.dtype)
+    layout = (consumers,) if d == 256 and q.dtype == torch.bfloat16 else ()
     _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, *_lengths(s_len, t_len, d),
-            _strides(q, k, v, o), float(scale), _stream(q))
+            _strides(q, k, v, o), float(scale), _stream(q), *layout)
     _count_forward(q, k, pipelined)
     return o, lse
+
+
+def d256_consumers(bh: int, s_len: int) -> int:
+    """The consumer warpgroups a block (1: 64 q rows, 2: 128) that the
+    launcher of the bf16 head_dim-256 forwards takes for B*H = ``bh`` and
+    S = ``s_len`` on the current card: two where that gives every SM a
+    block.  Needs the card (the rule reads its SM count)."""
+    from diffute_tpu_torch.ops import _build
+
+    return _build.load().flash_fwd_d256_consumers(bh, s_len)
+
+
+def flash_fwd_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, consumers: int, pipelined: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_fwd`'s contract on bf16 (B, L, H, 256) CUDA tensors
+    through the standard (or, ``pipelined``, the deferred) head_dim-256
+    forward with ``consumers`` (1 or 2) consumer warpgroups a block,
+    whichever the launcher would take by itself (:func:`d256_consumers`):
+    each warpgroup computes its rows by the same instructions in either, so
+    both give the same bits.  For the checks that hold the two layouts to
+    each other; counted as the entry's launches.  Raises on anything
+    else."""
+    if (consumers not in (1, 2) or q.shape[-1] != 256
+            or q.dtype != torch.bfloat16):
+        raise ValueError(f"a block layout of 1 or 2 consumer warpgroups is "
+                         f"the bf16 head_dim-256 forwards'; got {consumers} "
+                         f"at head_dim {q.shape[-1]}, {q.dtype}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the block layouts are the card's; q is on "
+                         f"{q.device}")
+    return _launch_fwd(q, k, v, scale, pipelined, consumers)
 
 
 def _count_forward(q: torch.Tensor, k: torch.Tensor, pipelined: bool) -> None:
@@ -413,7 +478,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA: the kernel of q's dtype (bf16 or fp32) and head_dim on the
     current stream: with ``PIPELINE_FWD`` set and T a whole number (>= 2)
     of the deferred-softmax kernel's kv tiles (:func:`pipelined_block_kv`:
-    32 at 256 and 512, 64 at every other head_dim), that kernel; otherwise
+    64 at 256 (:data:`D256_FWD_BLOCK_KV`), 32 at 512, 64 at every other
+    head_dim), that kernel; otherwise
     the standard one.  CPU: the matching plain version, at any head_dim."""
     d = q.shape[-1]
     pipelined = PIPELINE_FWD and _pipelined_takes(k.shape[1], d)

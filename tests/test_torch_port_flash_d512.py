@@ -7,7 +7,9 @@ tests/test_flash_attention.py runs them), the tiled plain versions at
 refusals, and the forward's FLOP count (the deferred-softmax forward at
 these widths: tests/test_torch_port_flash_wide_pipelined.py).  Each case
 runs at both widths; a head_dim-512 case keeps the test id it had before
-head_dim 256 was added.
+head_dim 256 was added.  The forwards at 256 (``csrc/flash_d256_sm90.cu``)
+walk kv tiles of their own, ``kernel_block_kv(256, bf16, "fwd")``; the
+backward at 256 and every kernel at 512, 32 rows.
 
 The CUDA kernels run only on a card: their tests are marked ``cuda`` and
 skip elsewhere.  This file imports only ``diffute_tpu.ops`` of the JAX
@@ -16,6 +18,8 @@ package, so the card's image (jax without flax) runs its ``cuda`` tests.
 
 import functools
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +31,6 @@ import diffute_tpu.ops.flash_attention as jfa
 
 from diffute_tpu_torch.ops import flash_attention
 from diffute_tpu_torch.ops.flash_attention import (
-    WIDE_BLOCK_KV,
     _to3d,
     flash_attention_reference,
     flash_bwd,
@@ -37,6 +40,7 @@ from diffute_tpu_torch.ops.flash_attention import (
     flash_fwd,
     flash_fwd_3d,
     flash_fwd_tiled_reference,
+    kernel_block_kv,
 )
 from port_threads import torch_threads_per_worker  # noqa: F401
 
@@ -92,6 +96,38 @@ def _counts():
     return [getattr(flash_attention, n) for n in WIDE_COUNTERS]
 
 
+def _tiles(d):
+    """The kv tiles of the bf16 forward and backward kernels at ``d``."""
+    return (kernel_block_kv(d, torch.bfloat16, "fwd"),
+            kernel_block_kv(d, torch.bfloat16, "bwd_dq"))
+
+
+def test_the_forwards_at_256_walk_a_tile_of_their_own():
+    # the forwards at 256 walk csrc/flash_d256_sm90.cu's tile, both the
+    # same (the deferred one gives the standard one's bits); its backward
+    # and every kernel at 512 walk csrc/flash_wide.cu's 32 rows
+    assert _tiles(256) == (tfa.D256_FWD_BLOCK_KV, 32)
+    assert kernel_block_kv(256, torch.bfloat16, "fwd_pipelined") == \
+        tfa.D256_FWD_BLOCK_KV == tfa.pipelined_block_kv(256)
+    assert _tiles(512) == (32, 32) == (kernel_block_kv(512, torch.bfloat16),
+                                       tfa.pipelined_block_kv(512))
+    assert kernel_block_kv(256, torch.bfloat16, "bwd_dkv") == 32
+    with pytest.raises(ValueError, match="name the kind"):
+        kernel_block_kv(256, torch.bfloat16)
+    with pytest.raises(ValueError, match="kind must be one of"):
+        kernel_block_kv(256, torch.bfloat16, "bwd")
+
+
+def test_the_d256_source_walks_the_tile_the_wrappers_count_in():
+    # the dispatch rule and the plain versions count in D256_FWD_BLOCK_KV;
+    # csrc/flash_d256_sm90.cu fixes its kv tile at build time
+    source = os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc",
+                          "flash_d256_sm90.cu")
+    with open(source) as f:
+        tiles = re.findall(r"constexpr int kBlockKV = (\d+);", f.read())
+    assert tiles == [str(tfa.D256_FWD_BLOCK_KV)]
+
+
 @pytest.mark.parametrize("b,s,t,h,d", _wide(JAX_SHAPES))
 def test_plain_forward_matches_jax_flash(b, s, t, h, d):
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(0, b, s, t, h, d))
@@ -103,6 +139,22 @@ def test_plain_forward_matches_jax_flash(b, s, t, h, d):
     np.testing.assert_allclose(lse.numpy(), j_lse, atol=ATOL_LSE, rtol=0)
     np.testing.assert_allclose(flash_attention(q, k, v).numpy(), j_out,
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,s,t,h,d", _wide(JAX_SHAPES))
+def test_tiled_plain_forward_at_the_kernels_tile_matches_jax_flash(b, s, t,
+                                                                   h, d):
+    # fp32 at the forward kernels' own kv tile (64 rows at 256, 32 at 512):
+    # the JAX forward (Pallas in interpret mode) sums per block with an
+    # online rescale too, in other blocks, so the bounds are ATOL and
+    # ATOL_LSE as for the one-pass plain version
+    q, k, v, _ = (_to3d(torch.from_numpy(x))
+                  for x in _inputs(0, b, s, t, h, d))
+    j_out, j_lse, _ = _jax_results(b, s, t, h, d)
+    o, lse = flash_fwd_tiled_reference(q, k, v, d ** -0.5, _tiles(d)[0])
+    j_out = _to3d(torch.from_numpy(np.array(j_out)))
+    np.testing.assert_allclose(o.numpy(), j_out, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), j_lse, atol=ATOL_LSE, rtol=0)
 
 
 @pytest.mark.parametrize("b,s,t,h,d", _wide(JAX_SHAPES))
@@ -133,12 +185,14 @@ def _rel_l2(got, ref):
 @pytest.mark.parametrize("bh,s,t,d", _wide([(2, 96, 96), (1, 70, 130)]))
 def test_tiled_plain_versions_at_the_kernels_tile_match_one_pass(dtype, bh, s,
                                                                  t, d):
-    # 96 and 130 keys: three tiles and a short last one (130 = 4 * 32 + 2)
+    # 96 and 130 keys: three 32-row tiles and a short last one (130 = 4 *
+    # 32 + 2), or 64-row ones at the forwards at 256 (130 = 2 * 64 + 2); the
+    # forward at its kernel's tile, the backward at its own
     q, k, v, g = (torch.from_numpy(x[0].transpose(1, 0, 2)).to(dtype)
                   for x in _inputs(5, 1, s, t, bh, d))
-    scale, bkv = d ** -0.5, WIDE_BLOCK_KV
+    scale, (fwd_bkv, bkv) = d ** -0.5, _tiles(d)
     o, lse = flash_attention_reference(q, k, v, scale)
-    to, tlse = flash_fwd_tiled_reference(q, k, v, scale, bkv)
+    to, tlse = flash_fwd_tiled_reference(q, k, v, scale, fwd_bkv)
     got = flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
     ref = flash_bwd_reference(q, k, v, o, lse, g, scale)
     np.testing.assert_allclose(tlse.numpy(), lse.numpy(), atol=ATOL_LSE,
@@ -245,7 +299,7 @@ CUDA_SHAPES = {512: [(4, 4096, 4096), (2, 1000, 1500)],
 def test_cuda_kernels_match_tiled_plain(bh, s, t, d):
     _skip_without_card()
     q, k, v, g = _cuda_inputs(0, bh, s, t, d)
-    scale, bkv = d ** -0.5, WIDE_BLOCK_KV
+    scale, (fwd_bkv, bkv) = d ** -0.5, _tiles(d)
     counters = (f"d{d}_launches", f"d{d}_bwd_dq_launches",
                 f"d{d}_bwd_dkv_launches")
     before = _counts(), flash_attention.launches
@@ -257,7 +311,7 @@ def test_cuda_kernels_match_tiled_plain(bh, s, t, d):
     assert (_counts(), flash_attention.launches) == (
         [n + (name in counters) for n, name in zip(before[0], WIDE_COUNTERS)],
         before[1])
-    ro, rlse = flash_fwd_tiled_reference(q, k, v, scale, bkv)
+    ro, rlse = flash_fwd_tiled_reference(q, k, v, scale, fwd_bkv)
     assert _fwd_held(o, lse, ro, rlse)
     assert (delta - tfa._delta(o, g)).abs().max().item() <= TOL_DELTA
     ref = flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
@@ -275,14 +329,14 @@ def test_cuda_kernels_match_tiled_plain(bh, s, t, d):
 def test_cuda_mutants_fail_the_criteria(d):
     _skip_without_card()
     q, k, v, g = _cuda_inputs(1, 4, 4096, 4096, d)
-    scale, bkv = d ** -0.5, WIDE_BLOCK_KV
-    o, lse = flash_fwd_tiled_reference(q, k, v, scale, bkv)
+    scale, (fwd_bkv, bkv) = d ** -0.5, _tiles(d)
+    o, lse = flash_fwd_tiled_reference(q, k, v, scale, fwd_bkv)
     assert _fwd_held(*flash_fwd_3d(q, k, v, scale), o, lse)
     # the LSE left in base 2; the last kv tile never consumed
     assert not _fwd_held(o, lse / 0.6931471805599453, o, lse)
-    cut = k.shape[1] - bkv
+    cut = k.shape[1] - fwd_bkv
     assert not _fwd_held(*flash_fwd_tiled_reference(
-        q, k[:, :cut], v[:, :cut], scale, bkv), o, lse)
+        q, k[:, :cut], v[:, :cut], scale, fwd_bkv), o, lse)
     dq, dk, dv = flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
     assert _held(dk, dk, TOL_BWD_REL_L2)
     assert not _held(dk.float() * 1.02, dk, TOL_BWD_REL_L2)
@@ -308,7 +362,7 @@ def test_cuda_kernels_read_strided_views_without_a_copy(d):
     for a, b in zip(grads, flash_bwd(*flat[:3], o2, lse2, flat[3], scale)):
         assert a.is_contiguous() and a.shape == q.shape and torch.equal(a, b)
     ro, rlse = flash_fwd_tiled_reference(*(_to3d(y) for y in (q, k, v)),
-                                         scale, WIDE_BLOCK_KV)
+                                         scale, _tiles(d)[0])
     assert _fwd_held(_to3d(o), lse, ro, rlse)
 
 
@@ -335,3 +389,68 @@ def test_cuda_refusals_launch_nothing(monkeypatch, switch):
                            match="64, 256, 512 or a multiple of 8 up to 128"):
             flash_fwd_3d(q[..., :d], k[..., :d], v[..., :d], d ** -0.5)
     assert before == [getattr(flash_attention, n) for n in counts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("consumers", [1, 2])
+@pytest.mark.parametrize("bh,s,t", [(16, 4096, 4096), (1, 4096, 4096),
+                                    (2, 1000, 1500), (1, 33, 128)])
+def test_cuda_d256_forwards_in_both_block_layouts(bh, s, t, consumers,
+                                                  pipelined):
+    # csrc/flash_d256_sm90.cu with one or two consumer warpgroups a block,
+    # whichever the launcher takes by itself (d256_consumers): each
+    # warpgroup computes its rows by the same instructions, so each layout
+    # gives the launcher's bits, and the deferred forward the standard
+    # one's; held to the tiled plain version at the forwards' tile
+    _skip_without_card()
+    fwd_bkv = _tiles(256)[0]
+    if pipelined and not tfa._pipelined_takes(t, 256):
+        with pytest.raises(ValueError, match=f"multiple of {fwd_bkv}"):
+            tfa.flash_fwd_layout(*(x[:, :, None] for x in _cuda_inputs(
+                4, bh, s, t, 256)[:3]), 0.0625, consumers, pipelined)
+        return
+    q, k, v, _ = (x[:, :, None] for x in _cuda_inputs(4, bh, s, t, 256))
+    counter = "d256_pipelined_launches" if pipelined else "d256_launches"
+    before = getattr(flash_attention, counter)
+    o, lse = tfa.flash_fwd_layout(q, k, v, 0.0625, consumers, pipelined)
+    o2, lse2 = tfa.flash_fwd_layout(q, k, v, 0.0625, consumers, pipelined)
+    ao, alse = flash_fwd(q, k, v, 0.0625)  # the launcher's layout, standard
+    torch.cuda.synchronize()
+    assert getattr(flash_attention, counter) == before + 2 + (not pipelined)
+    assert tfa.d256_consumers(bh, s) in (1, 2)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(o, ao) and torch.equal(lse, alse)
+    ro, rlse = flash_fwd_tiled_reference(*(_to3d(y) for y in (q, k, v)),
+                                         0.0625, fwd_bkv)
+    assert _fwd_held(_to3d(o), lse, ro, rlse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("consumers", [1, 2])
+def test_cuda_d256_layouts_read_strided_views(monkeypatch, consumers):
+    # (B, S, 1, 256) views of one packed (B, S, 3, 1, 256) projection in
+    # each block layout, both forwards: the contiguous route's bits
+    _skip_without_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((2, 4096, 3, 1, 256), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    q, k, v = (x[:, :, i] for i in range(3))
+    o2, lse2 = flash_fwd(*(y.contiguous() for y in (q, k, v)), 0.0625)
+    for pipelined in (False, True):
+        o, lse = tfa.flash_fwd_layout(q, k, v, 0.0625, consumers, pipelined)
+        assert o.is_contiguous()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+def test_cuda_d256_layouts_refuse_what_they_do_not_take():
+    _skip_without_card()
+    q, k, v, _ = (x[:, :, None] for x in _cuda_inputs(5, 1, 256, 256, 256))
+    before = _counts()
+    for consumers in (0, 3):
+        with pytest.raises(ValueError, match="1 or 2 consumer warpgroups"):
+            tfa.flash_fwd_layout(q, k, v, 0.0625, consumers)
+    with pytest.raises(ValueError, match="1 or 2 consumer warpgroups"):
+        tfa.flash_fwd_layout(q[..., :64], k[..., :64], v[..., :64], 0.125, 1)
+    assert _counts() == before

@@ -1,13 +1,15 @@
 """PyTorch port, the deferred-softmax flash forward at the wide head_dims,
 512 and 256 (the VAE mid-block's single head at SD2 width and at
-``small_config``): ``csrc/flash_wide.cu``'s ``fwd_deferred_kernel``.
+``small_config``): ``csrc/flash_wide.cu``'s ``fwd_deferred_kernel`` at 512,
+``csrc/flash_d256_sm90.cu``'s deferred schedule at 256.
 
 On the CPU the same numpy-seeded inputs go through the JAX package's
 ``_flash_fwd_3d_pipelined`` (the Pallas kernel in interpret mode, as
 tests/test_torch_port_flash_pipelined.py runs it at head_dim 64) and through
-the port's plain version at the wide kernels' kv tile
-(``pipelined_block_kv``: 32); gradients go through ``FlashAttentionFn`` with
-both packages' switches on, so the backward consumes the pipelined
+the port's plain version at the deferred kernels' kv tile
+(``pipelined_block_kv``: 32 at 512, ``D256_FWD_BLOCK_KV`` at 256);
+gradients go through ``FlashAttentionFn`` with both packages' switches
+on, so the backward consumes the pipelined
 forward's LSE; and the dispatch rule by width.  The CUDA kernel is held to
 its plain version and to the standard wide kernel on a card (``cuda``
 marker; skipped elsewhere).  This file imports only ``diffute_tpu.ops`` of
@@ -48,7 +50,13 @@ def _jax_pipelined(q, k, v, scale, block_q, block_kv, dtype=jnp.float32):
 
 
 def test_the_kv_tile_follows_the_head_dim():
-    assert [tfa.pipelined_block_kv(d) for d in (64, 256, 512)] == [64, 32, 32]
+    # at 256 the deferred kernel walks the standard forward's tile
+    # (csrc/flash_d256_sm90.cu), at 512 csrc/flash_wide.cu's 32 rows
+    assert [tfa.pipelined_block_kv(d) for d in (64, 256, 512)] == [
+        64, tfa.D256_FWD_BLOCK_KV, 32]
+    assert all(tfa.pipelined_block_kv(d) == tfa.kernel_block_kv(
+        d, torch.bfloat16, kind) for d in WIDTHS
+        for kind in ("fwd", "fwd_pipelined"))
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -88,7 +96,7 @@ def test_plain_version_matches_jax_kernel_bf16(d):
 @pytest.mark.parametrize("d", WIDTHS)
 def test_gradients_through_the_pipelined_lse_match_jax(monkeypatch, d):
     # T = 2048 in two 1024-wide kv blocks: JAX's dispatcher takes its
-    # pipelined kernel; the port's, 64 tiles of 32
+    # pipelined kernel; the port's, tiles of pipelined_block_kv(d)
     rng = np.random.RandomState(5)
     q, k, v, g = (rng.standard_normal((1, n, 1, d)).astype(np.float32)
                   for n in (128, 2048, 2048, 128))
@@ -114,7 +122,8 @@ def test_gradients_through_the_pipelined_lse_match_jax(monkeypatch, d):
                         lambda *a: calls.append(a[-1]) or real(*a))
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
     tfa.flash_attention(*leaves).backward(torch.from_numpy(g))
-    assert calls == [tfa.WIDE_BLOCK_KV]  # the forward took the switch
+    # the forward took the switch
+    assert calls == [tfa.pipelined_block_kv(d)]
     for name, leaf, ref in zip("qkv", leaves, g_jax):
         # fp32 on both sides: tests/test_torch_port_flash_d512.py's bound
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
@@ -124,11 +133,13 @@ def test_gradients_through_the_pipelined_lse_match_jax(monkeypatch, d):
 @pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("switch,t,pipelined", [
     (False, 4096, False),   # switch off
-    (True, 4096, True),     # 128 tiles of 32
-    (True, 1500, False),    # not a multiple of 32: the standard kernel
-    (True, 32, False),      # one tile
-    (True, 64, True)])      # two tiles
+    (True, 4096, True),     # whole tiles (of 32 at 512, 64 at 256)
+    (True, 1500, False),    # not a multiple of the tile: the standard kernel
+    (True, "one tile", False),
+    (True, "two tiles", True)])
 def test_dispatch_rule(monkeypatch, switch, t, pipelined, d):
+    bkv = tfa.pipelined_block_kv(d)
+    t = {"one tile": bkv, "two tiles": 2 * bkv}.get(t, t)
     monkeypatch.setattr(tfa, "PIPELINE_FWD", switch)
     taken = []
     for name in ("flash_fwd_pipelined_reference", "flash_attention_reference"):
@@ -140,16 +151,18 @@ def test_dispatch_rule(monkeypatch, switch, t, pipelined, d):
     assert o.shape == q.shape and lse.shape == (1, 4)
     assert taken == ["flash_fwd_pipelined_reference" if pipelined
                      else "flash_attention_reference"]
-    assert tfa._pipelined_takes(t, d) == (t in (4096, 64))
+    assert tfa._pipelined_takes(t, d) == (t in (4096, 2 * bkv))
 
 
 @pytest.mark.parametrize("d", WIDTHS)
 def test_wrapper_raises_on_what_the_kernel_does_not_take(d):
+    # 1500 keys, and one tile
+    bkv = tfa.pipelined_block_kv(d)
     q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 8, 1500, d))
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match=f"multiple of {bkv}"):
         tfa.flash_fwd_3d_pipelined(q, k, v, d ** -0.5)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        tfa.flash_fwd_3d_pipelined(q, k[:, :32], v[:, :32], d ** -0.5)
+    with pytest.raises(ValueError, match=f"multiple of {bkv}"):
+        tfa.flash_fwd_3d_pipelined(q, k[:, :bkv], v[:, :bkv], d ** -0.5)
 
 
 def test_pipelined_launches_are_counted_by_width():
@@ -181,7 +194,7 @@ def test_mutants_fail_the_bounds():
     # an LSE left in base 2, a last tile never consumed and the scores of
     # the wrong parity are far outside the bounds the kernel is held to
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 2, 64, 256, 256))
-    bkv = tfa.WIDE_BLOCK_KV
+    bkv = tfa.pipelined_block_kv(256)
     o, lse = tfa.flash_fwd_pipelined_reference(q, k, v, 0.0625, bkv)
     assert float((lse / LN2 - lse).abs().max()) > 1.0
     mo, mlse = tfa.flash_fwd_tiled_reference(q, k[:, :-bkv], v[:, :-bkv],
@@ -226,7 +239,7 @@ def _cuda_qkv(seed, bh, s, t, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,t,d", [
     (4, 4096, 4096, 512), (1, 1000, 2048, 512), (2, 64, 64, 512),
-    (16, 4096, 4096, 256), (3, 1000, 1024, 256), (1, 33, 96, 256)])
+    (16, 4096, 4096, 256), (3, 1000, 1024, 256), (1, 33, 128, 256)])
 def test_cuda_kernel_matches_plain_and_standard(bh, s, t, d):
     _skip_without_card()
     q, k, v = _cuda_qkv(0, bh, s, t, d)
@@ -243,7 +256,7 @@ def test_cuda_kernel_matches_plain_and_standard(bh, s, t, d):
         before[0], before[1] + (d == 512), before[2] + (d == 256),
         before[3] + 2 * (d == 512), before[4] + 2 * (d == 256))
     ro, rlse = tfa.flash_fwd_pipelined_reference(q, k, v, scale,
-                                                 tfa.WIDE_BLOCK_KV)
+                                                 tfa.pipelined_block_kv(d))
     assert _fwd_held(o, lse, ro, rlse)
     # no atomics: the same bits twice; and the standard kernel's bits
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -270,7 +283,8 @@ def test_cuda_kernel_reads_strided_views_through_the_switch(monkeypatch, d):
     assert getattr(tfa.flash_attention, counter) == before + 2
     assert o.is_contiguous() and torch.equal(o, o2) and torch.equal(lse, lse2)
     ro, rlse = tfa.flash_fwd_pipelined_reference(
-        *(tfa._to3d(y) for y in (q, k, v)), d ** -0.5, tfa.WIDE_BLOCK_KV)
+        *(tfa._to3d(y) for y in (q, k, v)), d ** -0.5,
+        tfa.pipelined_block_kv(d))
     assert _fwd_held(tfa._to3d(o), lse, ro, rlse)
 
 
@@ -279,7 +293,7 @@ def test_cuda_kernel_reads_strided_views_through_the_switch(monkeypatch, d):
 def test_cuda_mutants_fail_the_criteria(d):
     _skip_without_card()
     q, k, v = _cuda_qkv(1, 4, 4096, 4096, d)
-    scale, bkv = d ** -0.5, tfa.WIDE_BLOCK_KV
+    scale, bkv = d ** -0.5, tfa.pipelined_block_kv(d)
     o, lse = tfa.flash_fwd_pipelined_reference(q, k, v, scale, bkv)
     assert _fwd_held(*tfa.flash_fwd_3d_pipelined(q, k, v, scale), o, lse)
     # the LSE left in base 2; the last kv tile never consumed; tile j's

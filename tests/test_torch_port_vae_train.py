@@ -136,12 +136,13 @@ def test_vae_flash_step_pipelined_matches_jax(jparams, monkeypatch):
 
 
 def test_vae_flash_256_step_pipelined_matches_jax(jparams_wide, monkeypatch):
-    """The same at head_dim 256: 32 kv tiles of 32, the tile of
-    csrc/flash_wide.cu's deferred kernel."""
+    """The same at head_dim 256: the 1024 keys in tiles of
+    pipelined_block_kv(256), the tile of csrc/flash_d256_sm90.cu's deferred
+    kernel."""
     calls = _switch_pipelined_on(monkeypatch, 256)
     _check_step_matches_jax(jparams_wide, flash=True,
                             channels=WIDE_CHANNELS, every_update=False)
-    assert calls == [tfa.WIDE_BLOCK_KV] * 2
+    assert calls == [tfa.pipelined_block_kv(256)] * 2
 
 
 def _switch_pipelined_on(monkeypatch, width):
@@ -346,7 +347,7 @@ def test_vae_flash_256_encode_decode_pipelined_matches_jax(jparams_wide,
     calls = _switch_pipelined_on(monkeypatch, 256)
     _check_encode_decode_matches_jax(jparams_wide, monkeypatch, width=256,
                                      channels=WIDE_CHANNELS)
-    assert calls == [tfa.WIDE_BLOCK_KV] * 2
+    assert calls == [tfa.pipelined_block_kv(256)] * 2
 
 
 def _check_encode_decode_matches_jax(jparams, monkeypatch, width,
