@@ -49,11 +49,12 @@ Phases, one line each (any failure raises and exits non-zero):
      beside its plain one-pass version, its bound and SDPA (whose backend is
      recorded); what ptxas says of the source's six kernels;
   3d. the same at head_dim 256 (small_config's VAE mid-block: the
-     backward the same source's other instantiation, the forward
-     csrc/flash_d256_sm90.cu on TMA and wgmma at its own 64-row kv tile,
-     also in each block layout, one and two consumer warpgroups, each the
-     launcher's bits): the forward at (1, 4096, 4096), (16, 4096, 4096)
-     and (2, 1000, 1500), the backward at the last two;
+     forward csrc/flash_d256_sm90.cu on TMA and wgmma at its own 64-row kv
+     tile, also in each block layout, one and two consumer warpgroups,
+     each the launcher's bits; dq and dk/dv csrc/flash_d256_bwd_sm90.cu,
+     TMA and wgmma on 64-row tiles, held at that tile; what ptxas says of
+     both sources): the forward at (1, 4096, 4096), (16, 4096, 4096) and
+     (2, 1000, 1500), the backward at the last two;
   3e. the deferred-softmax forward at both wide head_dims (behind
      PIPELINE_FWD: the same source's fwd_deferred_kernel at 512,
      csrc/flash_d256_sm90.cu's deferred schedule at 256, in both block
@@ -1129,33 +1130,26 @@ def sdpa_backends(q, k, v) -> dict:
     return {"picked": picked, "takes": takes}
 
 
-def wide_block_kv(fa, d: int, kind: str) -> int:
-    """The kv tile the head_dim-``d`` ``kind`` kernel walks (what its tiled
-    plain version takes); a checkout from before the head_dim-256 forwards
-    took a tile of their own has one tile, D512_BLOCK_KV (a name every
-    checkout with the wide kernels has)."""
-    try:
-        return fa.kernel_block_kv(d, torch.bfloat16, kind)
-    except TypeError:
-        return fa.D512_BLOCK_KV
-
-
-def wide_fwd_source(d: int) -> str:
-    """The source of the head_dim-``d`` forwards in the checkout run."""
+def wide_source(d: int, backward: bool = False) -> str:
+    """The source of the head_dim-``d`` forwards (or, ``backward``, of dq
+    and dk/dv) in the checkout run: at 256 csrc/flash_d256_sm90.cu and
+    csrc/flash_d256_bwd_sm90.cu, where the checkout has them (a checkout
+    from before the backward's own source runs it from flash_wide.cu)."""
     from diffute_tpu_torch.ops import _build
 
-    source = "flash_d256_sm90.cu" if d == 256 else "flash_wide.cu"
+    source = "flash_wide.cu"
+    if d == 256:
+        source = "flash_d256_bwd_sm90.cu" if backward else "flash_d256_sm90.cu"
     if not os.path.exists(os.path.join(_build.CSRC, source)):
-        source = "flash_wide.cu"  # a checkout from before the d256 source
+        source = "flash_wide.cu"
     return source
 
 
-def fwd_layouts(fa, d: int) -> tuple:
+def fwd_layouts(d: int) -> tuple:
     """The block layouts (consumer warpgroups a block) in which phases 3d
     and 3e hold the head_dim-``d`` forwards besides the launcher's route:
-    1 and 2 at 256 (csrc/flash_d256_sm90.cu), none where the checkout has
-    one layout."""
-    return (1, 2) if d == 256 and hasattr(fa, "flash_fwd_layout") else ()
+    1 and 2 at 256 (csrc/flash_d256_sm90.cu), none at 512."""
+    return (1, 2) if d == 256 else ()
 
 
 def check_layouts(fa, layouts, q, k, v, sc, pipelined, ro, rlse, o, lse,
@@ -1206,9 +1200,10 @@ def show_ptxas(source: str) -> None:
 
 def check_wide(dev, d: int) -> dict:
     """Phase 3c (d = 512) or 3d (d = 256): the wide head_dim kernels
-    (csrc/flash_wide.cu; the forwards at 256 csrc/flash_d256_sm90.cu)
-    against their tiled plain versions at each kernel's kv tile
-    (wide_block_kv), at the head_dim-64 criteria: the forward at
+    (csrc/flash_wide.cu; at 256 the forwards csrc/flash_d256_sm90.cu, dq
+    and dk/dv csrc/flash_d256_bwd_sm90.cu) against their tiled plain
+    versions at each kernel's kv tile (kernel_block_kv), at the head_dim-64
+    criteria: the forward at
     WIDE_FORWARD_SHAPES (3 half-ulps, relative L2 2e-3, LSE 1e-4), dq (with
     delta), dk/dv and the pair at WIDE_BACKWARD_SHAPES (3 half-ulps,
     relative L2 1e-3, delta 1e-5; fed the tiled plain forward's o and
@@ -1222,10 +1217,12 @@ def check_wide(dev, d: int) -> dict:
     backend is recorded).  Returns {"fwd" | "dq" | "dkv": [result per
     shape]}."""
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    bkv, fwd_bkv = (wide_block_kv(fa, d, kind) for kind in ("bwd_dq", "fwd"))
-    layouts = fwd_layouts(fa, d)
+    bkv, fwd_bkv = (fa.kernel_block_kv(d, torch.bfloat16, kind)
+                    for kind in ("bwd_dq", "fwd"))
+    layouts = fwd_layouts(d)
     sc = d ** -0.5
-    for source in dict.fromkeys((wide_fwd_source(d), wide_fwd_source(512))):
+    for source in dict.fromkeys((wide_source(d), wide_source(d, True),
+                                 wide_source(512))):
         show_ptxas(source)
     g = torch.Generator(device=dev).manual_seed(5)
     out = {"fwd": [], "dq": [], "dkv": []}
@@ -1284,10 +1281,10 @@ def check_wide(dev, d: int) -> dict:
 
     for bh, s, t in WIDE_BACKWARD_SHAPES[d]:
         q, k, v, do = (randn(bh, n, d) for n in (s, t, t, s))
-        # o and the LSE of the tiled plain forward: the backward kernels'
-        # inputs whatever forward kernel the checkout has, so two
-        # checkouts' backward rows compare on the same inputs
-        o, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv)
+        # o and the LSE of the tiled plain forward at the forwards' tile:
+        # the backward kernels' inputs whatever forward kernel the checkout
+        # has, so two checkouts' backward rows compare on the same inputs
+        o, lse = fa.flash_fwd_tiled_reference(q, k, v, sc, fwd_bkv)
 
         def run_dq():
             return fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
@@ -1423,8 +1420,8 @@ def check_wide_pipelined(dev, d: int) -> list:
     version, the bound and SDPA."""
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     bkv, sc = fa.pipelined_block_kv(d), d ** -0.5
-    layouts = fwd_layouts(fa, d)
-    show_ptxas(wide_fwd_source(d))
+    layouts = fwd_layouts(d)
+    show_ptxas(wide_source(d))
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
 
@@ -3264,7 +3261,8 @@ def flash_route_check(records: list, d: int) -> list:
 
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     sc = d ** -0.5
-    bkv, fwd_bkv = (wide_block_kv(fa, d, kind) for kind in ("bwd_dq", "fwd"))
+    bkv, fwd_bkv = (fa.kernel_block_kv(d, torch.bfloat16, kind)
+                    for kind in ("bwd_dq", "fwd"))
     if len(records) != 2 or any(n not in r for r in records
                                 for n in ("dq", "dk", "dv", "do")):
         raise RuntimeError(f"the flagged step did not take two mid-block "
@@ -3738,10 +3736,8 @@ def wide_entries(results: dict, launches: dict, d: int) -> list:
     def by_path(key):
         return {path: rec[key] for path, rec in launches.items() if rec[key]}
 
-    fwd_source = wide_fwd_source(d)
     return [kernel_entry(f"{name}_d{d}_bf16",
-                         fwd_source if part.startswith("fwd")
-                         else "flash_wide.cu",
+                         wide_source(d, not part.startswith("fwd")),
                          f"flash_attention.py:{line}", results[part],
                          by_path(f"{name}_d{d}"))
             for name, part, line in (("flash_fwd", "fwd", 275),

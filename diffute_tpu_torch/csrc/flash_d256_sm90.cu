@@ -53,6 +53,8 @@
 //
 // Both forwards walk the same kv tile and run the same softmax step, so
 // they round p against the same running maxima and give the same bits.
+// The backward at this width (dq and dk/dv) is flash_d256_bwd_sm90.cu, on
+// the same boxes and the same N = 256 product (flash_sm90.cuh).
 //
 // Ragged edges.  TMA reads rows past S or T as zeros; the last kv tile
 // masks its columns at or past T to -inf; rows past S are not stored.
@@ -206,30 +208,6 @@ __device__ __forceinline__ void prologue(const FwdParams& p, const Ring& ring,
 }
 
 // ----------------------------------------------------------------- wgmma
-
-// d (64 x 256, fp32; d[c] columns 64c .. 64c + 63 in the accumulator
-// layout) += A (64 x 16 bf16, registers) * B (16 x 256, smem, MN-major:
-// trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[kAtoms][32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
-      "%122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : SM90_F32(d[0]), SM90_F32(d[1]), SM90_F32(d[2]), SM90_F32(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // S (64 x BN) = Q (64 x 256) K^T: 16 k-steps of 16 columns, four in each
 // 64-column block, 32 bytes apart in its swizzled rows.

@@ -1,15 +1,15 @@
-// Flash attention at the wide head_dims, 256 and 512, for Hopper (sm_90a):
-// the forward, the deferred-softmax forward, the dq kernel (which also
-// writes delta) and the dk/dv kernel, bf16 in and out, fp32 LSE and delta.
-// One source, templated on the width (`Wide<D>`), instantiated at head_dim
-// 512 (the SD2 VAE mid-block's single head: all four kernels) and 256 (the
-// small VAE's, `small_config`: dq and dk/dv).  Head_dim 256's two forwards
-// live in flash_d256_sm90.cu (TMA, wgmma, 64 q rows by all 256 columns a
-// consumer warpgroup; no producer: the last warp to release a stage refills
-// it); the forwards below are instantiated at 512 only.
+// Flash attention at head_dim 512 for Hopper (sm_90a): the forward, the
+// deferred-softmax forward, the dq kernel (which also writes delta) and the
+// dk/dv kernel, bf16 in and out, fp32 LSE and delta.  One source, templated
+// on the width (`Wide<D>`), instantiated at head_dim 512 (the SD2 VAE
+// mid-block's single head).  Head_dim 256 (the small VAE's, `small_config`)
+// has kernels of its own: the two forwards in flash_d256_sm90.cu, dq and
+// dk/dv in flash_d256_bwd_sm90.cu (TMA, wgmma, 64 rows by all 256 columns a
+// consumer warpgroup, no partial scores exchanged; no producer: the last
+// warp to release a stage refills it).
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py at
-// those widths: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
+// that width: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
 // `_fwd_kernel_pipelined` (in `_flash_fwd_3d_pipelined`), `_bwd_dq_kernel`
 // and `_bwd_dkv_kernel` (both in `_flash_bwd_3d`).  The
 // Pallas kernels take any head_dim; their BlockSpecs put whole rows in VMEM
@@ -31,43 +31,36 @@
 //             ds = p * (dO v^T - delta), dq = bf16(ds) k * scale
 //   dk/dv:    dv = bf16(p)^T dO, dk = bf16(ds)^T q * scale
 //
-// What bounds them on the H100: operations.  At these widths a score costs
-// 2*D FLOPs in each product against one exp2, so the exp2 that competes
-// with the products at head_dim 64 is a quarter (256) or an eighth (512) as
-// heavy here; the inputs are a few MB to tens of MB, read once per tile of
-// the other axis (from L2).  What is scarce is on-chip room.  One 512-wide
-// bf16 row is 1 KB, and a 32 x 512 fp32 accumulator is 64 KB: an o (or dq)
-// tile of 32 rows takes a quarter of an SM's registers, dk plus dv half.
+// What bounds them on the H100: operations.  At this width a score costs 2*D
+// FLOPs in each product against one exp2, so the exp2 that competes with the
+// products at head_dim 64 is an eighth as heavy here; the inputs are tens of
+// MB, read once per tile of the other axis (from L2).  What is scarce is
+// on-chip room.  One 512-wide bf16 row is 1 KB, and a 32 x 512 fp32
+// accumulator is 64 KB: an o (or dq) tile of 32 rows takes a quarter of an
+// SM's registers, dk plus dv half.
 //
-// Layout: every tile is 32 rows.  head_dim is cut into D / 128 slices of
-// 128 columns and the resident tile (q; q and dO; k and v) into two groups
-// of 16 rows; a block is one warp per (group, slice).  A warp keeps its
-// 16 x 128 slice of each accumulator in registers (64 fp32 a thread; 128
-// for dk and dv), so the columns are split between warps.  The contraction over head_dim in
-// s = q k^T (and dp = dO v^T) is then split too: each warp multiplies its
-// 128 columns and writes its 16 x 32 fp32 partial scores to shared memory,
-// and after a barrier every warp of a row group sums the D / 128 partials in
-// the same (slice) order, so the slices see bit-identical scores and p.
-// That costs a barrier and the partials' shared-memory traffic a product and
-// tile, against no redundant product (splitting head_dim across blocks
-// instead would recompute s in every block).  The streamed operands (k, v;
-// or q, dO) come in 32-row tiles, two stages deep.  Shared memory, 227 KB a
-// block, holds the resident tiles, the two stages and the partials:
-//
-//   D = 512: 8 warps (2 groups x 4 slices); 176 KB forward (192 KB the
-//     deferred one), 224 KB each backward kernel, so one block an SM;
-//   D = 256: 4 warps (2 groups x 2 slices); 112 KB each backward kernel,
-//     so two blocks an SM.
-//
-// At 256 a 64-row resident tile (8 warps, one block an SM) would halve the
-// L2 traffic of the streamed axis; timed on an H100 it was slower at every
-// shape of the small VAE's paths (PERF.md, section 6), so the 32-row tile
-// stays.  At 512 a 64-row tile does not fit (16 warps of 166 to 253
-// registers, and 320 KB of shared memory for the backward).
+// Layout: every tile is 32 rows. head_dim is cut into D / 128 slices of 128
+// columns and the resident tile (q; q and dO; k and v) into two groups of 16
+// rows; a block is one warp per (group, slice), 8 at 512.  A warp keeps its
+// 16 x 128 slice of each accumulator in registers (64 fp32 a thread; 128 for
+// dk and dv), so the columns are split between warps.  The contraction over
+// head_dim in s = q k^T (and dp = dO v^T) is then split too: each warp
+// multiplies its 128 columns and writes its 16 x 32 fp32 partial scores to
+// shared memory, and after a barrier every warp of a row group sums the D /
+// 128 partials in the same (slice) order, so the slices see bit-identical
+// scores and p.  That costs a barrier and the partials' shared-memory
+// traffic a product and tile, against no redundant product (splitting
+// head_dim across blocks instead would recompute s in every block).  The
+// streamed operands (k, v; or q, dO) come in 32-row tiles, two stages deep.
+// Shared memory, 227 KB a block, holds the resident tiles, the two stages
+// and the partials: 176 KB the forward (192 KB the deferred one), 224 KB
+// each backward kernel, so one block an SM.  A 64-row tile does not fit (16
+// warps of 166 to 253 registers, and 320 KB of shared memory for the
+// backward).
 //
 // Tiles are XOR-swizzled by 16-byte chunk (chunk ^ (row & 7)) so that
 // ldmatrix reads 8 rows of one column chunk without bank conflicts (a row is
-// 512 or 1,024 bytes, a multiple of the 128 bytes the XOR spans).
+// 1,024 bytes, a multiple of the 128 bytes the XOR spans).
 //
 // This first cut uses mma.sync m16n8k16 and a double-buffered cp.async ring;
 // TMA (a 512-wide row is 8 boxes of 64 columns under a 128-byte swizzle),
@@ -110,7 +103,7 @@ struct Wide {
   static constexpr int kDqSmem = 6 * kTile + 2 * kPart + 2 * kRows * 4;
   // k | v | q[2] | dO[2] | partials of s^T | of dp^T | lse[2] | delta[2]
   static constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * kRows * 4;
-  static_assert(D % 256 == 0, "whole slices, and delta's rows");
+  static_assert(D % 256 == 0, "whole slices, and delta's 16-byte vectors");
   static_assert(kChunks == 1 << kChunkLog, "rows of a power of two chunks");
   static_assert((kRows * kChunks) % kThreads == 0, "whole chunks a thread");
   static_assert(kRows % (kThreads / 32) == 0, "delta's rows");
@@ -121,7 +114,6 @@ struct Wide {
 };
 
 using D512 = Wide<512>;
-using D256 = Wide<256>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -952,12 +944,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // Plain C entry points for ctypes, with the head_dim-64 entries' argument
-// lists (flash_fwd_pipelined_* refuses a t_len the dispatch rule refuses):
-// the four at 512, dq and dk/dv at 256.  Tensors (B, len, H, D) bf16, D =
-// 512 or 256 as the name says, with
-// the element strides in `strides` (sb, sl, sh each; head_dim stride 1), lse
-// and delta (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates
-// nothing, and returns a CUDA error code (0 = launched).
+// lists (flash_fwd_pipelined_* refuses a t_len the dispatch rule refuses).
+// Tensors (B, len, H, 512) bf16 with the element strides in `strides` (sb,
+// sl, sh each; head_dim stride 1), lse and delta (B*H, S) fp32 contiguous.
+// Each launches on `stream`, allocates nothing, and returns a CUDA error
+// code (0 = launched).
 
 #define FLASH_WIDE_FWD_ENTRIES(W, d)                                          \
   extern "C" int flash_fwd_##d##_bf16(                                        \
@@ -995,4 +986,3 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 FLASH_WIDE_FWD_ENTRIES(D512, d512)
 FLASH_WIDE_BWD_ENTRIES(D512, d512)
-FLASH_WIDE_BWD_ENTRIES(D256, d256)

@@ -82,12 +82,12 @@ def _signatures() -> dict:
         #  B, H, S, T, 18 element strides, scale, stream)
         "flash_bwd_dq_bf16": bwd,
         "flash_bwd_dkv_bf16": bwd,
-        # the same four at head_dim 512, and the backward pair at 256
-        # (csrc/flash_wide.cu)
+        # the same four at head_dim 512 (csrc/flash_wide.cu)
         "flash_fwd_d512_bf16": fwd,
         "flash_fwd_pipelined_d512_bf16": fwd,
         "flash_bwd_dq_d512_bf16": bwd,
         "flash_bwd_dkv_d512_bf16": bwd,
+        # the backward pair at head_dim 256 (csrc/flash_d256_bwd_sm90.cu)
         "flash_bwd_dq_d256_bf16": bwd,
         "flash_bwd_dkv_d256_bf16": bwd,
         # the two forwards at head_dim 256 (csrc/flash_d256_sm90.cu), with

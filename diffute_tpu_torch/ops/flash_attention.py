@@ -8,11 +8,11 @@ deferred-softmax forward behind the ``PIPELINE_FWD`` switch
 backward (``_flash_bwd_3d`` + ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` ->
 ``csrc/flash_bwd.cu``), joined by :class:`FlashAttentionFn` as the JAX
 package joins them with ``jax.custom_vjp``.  Those take head_dim 64 (the
-UNet's heads); at head_dim 512 and 256 (the VAE mid-block's single head at
-SD2 width and at ``small_config``'s) the two backward kernels, and both
-forwards at 512, are ``csrc/flash_wide.cu``, one source templated on the
-width; both forwards at 256 are ``csrc/flash_d256_sm90.cu`` (TMA and
-``wgmma``, as at 64).  Those take bf16.  On fp32 inputs the four kernels at
+UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
+width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
+both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
+``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
+bf16.  On fp32 inputs the four kernels at
 the three widths are ``csrc/flash_fp32.cu`` (3xTF32 products, accurate to
 fp32), which computes the JAX package's fp32 arithmetic: the standard
 forward and the backward in the natural domain with the exact scale after
@@ -24,7 +24,7 @@ or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS` that
 holds it, with the arithmetic of the other entries of its dtype.  Every
 kernel reads its (batch, seq, heads, D) inputs, all bf16 or all fp32, D as
 :func:`kernel_takes` says, through their strides (TMA at bf16 head_dim 64
-and in the bf16 forwards at 256, cp.async elsewhere), so the callers hand
+and 256, cp.async elsewhere), so the callers hand
 them the views they have, and writes its outputs contiguous in that
 layout: no copy is made in either direction, and no padded one at the
 narrow widths (the kernels zero-fill the columns past D on chip).  Every
@@ -50,14 +50,17 @@ PIPELINE_FWD = False
 # the kv tile of csrc/flash_fwd_pipelined.cu
 PIPELINED_BLOCK_KV = 64
 # the head_dims with kernels of their own, and the rows of every tile of
-# csrc/flash_wide.cu (kRows there), which serves 512 and the backward at 256
+# csrc/flash_wide.cu (kRows there), which serves 512
 HEAD_DIMS = (64, 256, 512)
 WIDE_BLOCK_KV = 32
-WIDE_HEAD_DIMS = (256, 512)
 D512_BLOCK_KV = WIDE_BLOCK_KV  # the name before head_dim 256 was ported
 # the kv tile both bf16 forwards at head_dim 256 walk (csrc/flash_d256_sm90.cu:
 # kBlockKV there)
 D256_FWD_BLOCK_KV = 64
+# the bf16 backward at head_dim 256 (csrc/flash_d256_bwd_sm90.cu): the kv
+# tile the dq kernel walks (kBlockKV there) and the kv rows a dk/dv block
+# owns (kRows)
+D256_BWD_BLOCK_KV = 64
 # the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there)
 FP32_BLOCK_KV = {64: 64, 256: 32, 512: 16}
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
@@ -107,8 +110,9 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     """The rows of the kv tile the ``kind`` kernel (:data:`KINDS`) at
     ``head_dim`` on ``dtype`` inputs walks in (what the tiled plain versions
     take to match it).  Without ``kind``, the tile all four walk; raises
-    where they differ: the bf16 forwards at 256 walk
-    :data:`D256_FWD_BLOCK_KV`, its backward :data:`WIDE_BLOCK_KV`."""
+    where they differ (the bf16 kernels at 256 walk
+    :data:`D256_FWD_BLOCK_KV` forward and :data:`D256_BWD_BLOCK_KV`
+    backward)."""
     if kind is None:
         tiles = {kernel_block_kv(head_dim, dtype, k) for k in KINDS}
         if len(tiles) > 1:
@@ -122,9 +126,10 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
         return NARROW_BLOCK_KV[width]
     if dtype == torch.float32:
         return FP32_BLOCK_KV[head_dim]
-    if head_dim == 256 and kind.startswith("fwd"):
-        return D256_FWD_BLOCK_KV
-    return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
+    if head_dim == 256:
+        return (D256_FWD_BLOCK_KV if kind.startswith("fwd")
+                else D256_BWD_BLOCK_KV)
+    return WIDE_BLOCK_KV if head_dim == 512 else PIPELINED_BLOCK_KV
 
 
 def _to3d(x: torch.Tensor) -> torch.Tensor:
@@ -242,7 +247,7 @@ def pipelined_block_kv(head_dim: int) -> int:
     they take every T the rule takes, at every width."""
     if head_dim == 256:
         return D256_FWD_BLOCK_KV
-    return WIDE_BLOCK_KV if head_dim in WIDE_HEAD_DIMS else PIPELINED_BLOCK_KV
+    return WIDE_BLOCK_KV if head_dim == 512 else PIPELINED_BLOCK_KV
 
 
 def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
@@ -270,8 +275,8 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
-    """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64 and in
-    the bf16 forwards at 256, 16-byte cp.async elsewhere) cannot read: a
+    """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64 and
+    256, 16-byte cp.async elsewhere) cannot read: a
     last (head_dim) stride other than 1, another stride not a whole number
     of 16 bytes (8 bf16 or 4 fp32 elements), or a base not 16-byte aligned.
     Nothing is copied to make a layout fit."""

@@ -7,9 +7,10 @@ tests/test_flash_attention.py runs them), the tiled plain versions at
 refusals, and the forward's FLOP count (the deferred-softmax forward at
 these widths: tests/test_torch_port_flash_wide_pipelined.py).  Each case
 runs at both widths; a head_dim-512 case keeps the test id it had before
-head_dim 256 was added.  The forwards at 256 (``csrc/flash_d256_sm90.cu``)
-walk kv tiles of their own, ``kernel_block_kv(256, bf16, "fwd")``; the
-backward at 256 and every kernel at 512, 32 rows.
+head_dim 256 was added.  The kernels at 256 walk kv tiles of their own:
+the forwards (``csrc/flash_d256_sm90.cu``) ``kernel_block_kv(256, bf16,
+"fwd")``, dq and dk/dv (``csrc/flash_d256_bwd_sm90.cu``)
+``kernel_block_kv(256, bf16, "bwd_dq")``; every kernel at 512, 32 rows.
 
 The CUDA kernels run only on a card: their tests are marked ``cuda`` and
 skip elsewhere.  This file imports only ``diffute_tpu.ops`` of the JAX
@@ -102,16 +103,21 @@ def _tiles(d):
             kernel_block_kv(d, torch.bfloat16, "bwd_dq"))
 
 
-def test_the_forwards_at_256_walk_a_tile_of_their_own():
+def test_the_forwards_at_256_walk_a_tile_of_their_own(monkeypatch):
     # the forwards at 256 walk csrc/flash_d256_sm90.cu's tile, both the
-    # same (the deferred one gives the standard one's bits); its backward
-    # and every kernel at 512 walk csrc/flash_wide.cu's 32 rows
-    assert _tiles(256) == (tfa.D256_FWD_BLOCK_KV, 32)
+    # same (the deferred one gives the standard one's bits); dq and dk/dv
+    # at 256 csrc/flash_d256_bwd_sm90.cu's (64 rows, as the forwards'), and
+    # every kernel at 512 csrc/flash_wide.cu's 32 rows
+    assert _tiles(256) == (tfa.D256_FWD_BLOCK_KV, tfa.D256_BWD_BLOCK_KV) == (
+        64, 64)
     assert kernel_block_kv(256, torch.bfloat16, "fwd_pipelined") == \
         tfa.D256_FWD_BLOCK_KV == tfa.pipelined_block_kv(256)
     assert _tiles(512) == (32, 32) == (kernel_block_kv(512, torch.bfloat16),
                                        tfa.pipelined_block_kv(512))
-    assert kernel_block_kv(256, torch.bfloat16, "bwd_dkv") == 32
+    assert kernel_block_kv(256, torch.bfloat16, "bwd_dkv") == \
+        tfa.D256_BWD_BLOCK_KV == kernel_block_kv(256, torch.bfloat16)
+    # where the four kernels walk different tiles, the kind must be named
+    monkeypatch.setattr(tfa, "D256_BWD_BLOCK_KV", 32)
     with pytest.raises(ValueError, match="name the kind"):
         kernel_block_kv(256, torch.bfloat16)
     with pytest.raises(ValueError, match="kind must be one of"):
@@ -126,6 +132,19 @@ def test_the_d256_source_walks_the_tile_the_wrappers_count_in():
     with open(source) as f:
         tiles = re.findall(r"constexpr int kBlockKV = (\d+);", f.read())
     assert tiles == [str(tfa.D256_FWD_BLOCK_KV)]
+
+
+def test_the_d256_backward_source_walks_the_tile_the_wrappers_count_in():
+    # the tiled plain backward and phase 3d count in D256_BWD_BLOCK_KV;
+    # csrc/flash_d256_bwd_sm90.cu fixes the dq kernel's kv tile, the dk/dv
+    # kernel's q tile and both kernels' resident rows at build time
+    source = os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc",
+                          "flash_d256_bwd_sm90.cu")
+    with open(source) as f:
+        text = f.read()
+    for name in ("kBlockKV", "kRows"):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+            str(tfa.D256_BWD_BLOCK_KV)], name
 
 
 @pytest.mark.parametrize("b,s,t,h,d", _wide(JAX_SHAPES))
@@ -170,6 +189,29 @@ def test_plain_backward_matches_jax_grad(b, s, t, h, d):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("b,s,t,h", JAX_SHAPES + [(1, 70, 130, 1)])
+def test_tiled_plain_backward_at_the_kernels_tile_matches_jax_grad(b, s, t,
+                                                                   h):
+    # fp32 at head_dim 256, at the backward kernels' own tile (64 rows; 130
+    # keys are two tiles and a short one, 1100 seventeen and a short one),
+    # fed the JAX forward's o and LSE, against jax.grad through its flash
+    # attention (_flash_bwd_3d's Pallas kernels in interpret mode): the two
+    # differ only in summation order, so the bound is ATOL as for the
+    # one-pass plain version
+    d = 256
+    q, k, v, g = (_to3d(torch.from_numpy(x))
+                  for x in _inputs(0, b, s, t, h, d))
+    j_out, j_lse, j_grads = _jax_results(b, s, t, h, d)
+    o = _to3d(torch.from_numpy(np.array(j_out)))
+    lse = torch.from_numpy(np.array(j_lse))
+    grads = flash_bwd_tiled_reference(q, k, v, o, lse, g, d ** -0.5,
+                                      _tiles(d)[1])
+    for name, mine, ref in zip("qkv", grads, j_grads):
+        np.testing.assert_allclose(
+            mine.numpy(), _to3d(torch.from_numpy(np.array(ref))).numpy(),
+            atol=ATOL, rtol=0, err_msg=f"d{name}")
+
+
 # bf16: the tiled versions round p (and ds) against the running max (the
 # saved LSE) kv tile by kv tile and the one-pass versions round only their
 # outputs; at head_dim 64 the backward pair differed by about 2.6e-3 in
@@ -186,8 +228,8 @@ def _rel_l2(got, ref):
 def test_tiled_plain_versions_at_the_kernels_tile_match_one_pass(dtype, bh, s,
                                                                  t, d):
     # 96 and 130 keys: three 32-row tiles and a short last one (130 = 4 *
-    # 32 + 2), or 64-row ones at the forwards at 256 (130 = 2 * 64 + 2); the
-    # forward at its kernel's tile, the backward at its own
+    # 32 + 2), or 64-row ones at 256 (130 = 2 * 64 + 2); the forward at its
+    # kernel's tile, the backward at its own
     q, k, v, g = (torch.from_numpy(x[0].transpose(1, 0, 2)).to(dtype)
                   for x in _inputs(5, 1, s, t, bh, d))
     scale, (fwd_bkv, bkv) = d ** -0.5, _tiles(d)
