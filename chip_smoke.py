@@ -184,9 +184,12 @@ Phases, one line each (any failure raises and exits non-zero):
      against flash off (the loss within 1e-5, four probes' gradients within
      1e-4 relative L2); three fp32 stage-1 steps on the SD2 VAE at 512^2,
      batch 4, flag on and off (2/2/2 at head_dim 512 a step, the losses
-     within 1e-5); small_config's VAE: an encode and a decode at 256^2 flag
-     on (switch off and on) against off, three fp32 stage-1 steps at batch
-     16 (2/2/2 at 256);
+     within 1e-5), then one more flagged step whose two flash calls are
+     held at their own boundary (dq, dk, dv within relative L2 1e-5 of the
+     tiled plain fp32 backward on the step's q, k, v and dO, or within
+     twice its distance from fp64; mutants fail); small_config's VAE: an
+     encode and a decode at 256^2 flag on (switch off and on) against off,
+     three fp32 stage-1 steps at batch 16 (2/2/2 at 256);
   8d. the fp32 paths through GN+SiLU and the int8 matmul on fp32, full
      width, both flash flags: a 20-step 512^2 edit with use_fused_groupnorm
      and use_int8_weights (900 GN+SiLU, 3,232 int8, 200 + 2 fp32 flash
@@ -254,6 +257,16 @@ Exits non-zero, with no result, when no CUDA device is available.
 
 builds the kernels and runs phases 3f, 3g, 3h, 8c, 8d and 8e (the fp32
 kernels and the fp32 paths) alone and prints their kernels line.
+
+    python3 chip_smoke.py --fp32-d512-only [--package-root DIR]
+
+builds the kernels and runs phase 3f at head_dim 512 (the fp32 forwards of
+csrc/flash_fp32.cu and the backward pair of
+csrc/flash_fp32_d512_bwd_sm90.cu) and 8c's SD2 stage-1 steps (fp32, the
+VAE's flag off and on, and the flash route held inside a flagged step)
+alone and prints their kernels line; with --package-root from another
+checkout's package, so change, parent, parent, change in one call times
+two commits' kernels and steps in turns.
 
     python3 chip_smoke.py --narrow-only
 
@@ -1572,9 +1585,24 @@ TOL_FP32_REL_L2, TOL_FP32_ABS = 1e-5, 1e-5
 # takes (3xTF32): the fp32 kernels' operations bound
 PEAK_FP32_FLOPS = 494.7e12 / 3
 FP32_KINDS = ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
+FP32_WIDTHS = (64, 256, 512)
 # the TPU kernel each kind replaces (diffute_tpu/ops/flash_attention.py)
 FP32_REPLACES = {"fwd": 275, "fwd_pipelined": 149, "bwd_dq": 396,
                  "bwd_dkv": 437}
+# the fp32 backward pair at head_dim 512 (a package from before it has the
+# pair in flash_fp32.cu)
+FP32_D512_BWD_SOURCE = "flash_fp32_d512_bwd_sm90.cu"
+
+
+def fp32_source(kind: str, d: int) -> str:
+    """The source under csrc/ of the imported package that holds an fp32
+    kernel."""
+    from diffute_tpu_torch.ops import _build
+
+    if d == 512 and kind.startswith("bwd") and os.path.exists(
+            os.path.join(_build.CSRC, FP32_D512_BWD_SOURCE)):
+        return FP32_D512_BWD_SOURCE
+    return "flash_fp32.cu"
 
 
 def fp32_errors(got: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -1599,12 +1627,13 @@ def fp32_counter(kind: str, d: int) -> str:
             + "launches")
 
 
-def check_fp32(dev) -> dict:
-    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32) at
-    head_dims 64, 256 and 512 against their plain fp32 versions at the
-    kernels' kv tile (FP32_BLOCK_KV) and at the same domain (the standard
-    forward and the backward natural, the deferred forward base 2 on
-    prescaled q), to the precision contract (TOL_FP32_REL_L2, TOL_FP32_ABS
+def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
+    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32; the
+    backward pair at 512 csrc/flash_fp32_d512_bwd_sm90.cu) at head_dims
+    ``widths`` (64, 256 and 512) against their plain fp32 versions at each
+    kernel's kv tile (kernel_block_kv by kind) and at the same domain (the
+    standard forward and the backward natural, the deferred forward base 2
+    on prescaled q), to the precision contract (TOL_FP32_REL_L2, TOL_FP32_ABS
     on the LSE and delta), the same bits twice, at FP32_FORWARD_SHAPES and
     FP32_BACKWARD_SHAPES; the mutants (every product's operands rounded to
     TF32, the LSE left in base 2, the last kv tile never consumed, dk x
@@ -1613,15 +1642,23 @@ def check_fp32(dev) -> dict:
     contiguous route's bits, the switch on too.  Each timed (CUDA-event
     medians of 25; 5 for the largest) beside its plain one-pass version,
     SDPA on the same fp32 inputs with TF32 off (its backend recorded) and
-    the bound at PEAK_FP32_FLOPS.  Returns {entry name: [result per
-    shape]}."""
+    the bound at PEAK_FP32_FLOPS; at 512 the backward pair's clusters the
+    card runs at once (cudaOccupancyMaxActiveClusters).  Returns {entry
+    name: [result per shape]}."""
+    from diffute_tpu_torch.ops import _build
+
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    show_ptxas("flash_fp32.cu")
+    for source in sorted({fp32_source(kind, d) for d in widths
+                          for kind in FP32_KINDS}):
+        show_ptxas(source)
+    lib = _build.load()
+    clusters = ({"dq": lib.flash_bwd_d512_fp32_max_clusters(0),
+                 "dkv": lib.flash_bwd_d512_fp32_max_clusters(1)}
+                if hasattr(lib, "flash_bwd_d512_fp32_max_clusters") else None)
     g = torch.Generator(device=dev).manual_seed(8)
-    out = {fp32_entry(kind, d): [] for d in (64, 256, 512)
-           for kind in FP32_KINDS}
+    out = {fp32_entry(kind, d): [] for d in widths for kind in FP32_KINDS}
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
@@ -1632,8 +1669,12 @@ def check_fp32(dev) -> dict:
                                f"{name}: {err}, LSE {lse_err}")
         return err["rel_l2_err"]
 
-    for d in (64, 256, 512):
-        sc, bkv = d ** -0.5, fa.FP32_BLOCK_KV[d]
+    for d in widths:
+        # each kernel at its own tile: at 512 the forwards walk 16 rows, the
+        # backward pair 32
+        sc = d ** -0.5
+        bkv, bwd_bkv = (fa.kernel_block_kv(d, torch.float32, kind)
+                        for kind in ("fwd", "bwd_dq"))
         for bh, s, t in FP32_FORWARD_SHAPES[d]:
             q, k, v = randn(bh, s, d), randn(bh, t, d), randn(bh, t, d)
             big = bh * s * t >= 2 ** 28
@@ -1725,7 +1766,8 @@ def check_fp32(dev) -> dict:
             launches = counters()
             same = all(torch.equal(a, b)
                        for a, b in zip((dq, delta, dk, dv), again))
-            ref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc, bkv)
+            ref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc,
+                                               bwd_bkv)
             err = {n: fp32_errors(a, b)
                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
             delta_err = (delta - fa._delta(o, do)).abs().max().item()
@@ -1740,10 +1782,13 @@ def check_fp32(dev) -> dict:
                 library_ms = None
                 phase(f"sdpa_backward_fp32_d{d}", error=str(exc)[:200])
             io, st = 4 * d * bh, 4 * bh
-            common = dict(shape=[bh, s, t, d], library_ms=library_ms,
+            common = dict(shape=[bh, s, t, d], block_kv=bwd_bkv,
+                          library_ms=library_ms,
                           library_call="autograd.grad through "
                           "scaled_dot_product_attention, fp32, TF32 off: dq, "
                           "dk and dv together", same_bits_twice=same)
+            if d == 512 and clusters is not None:
+                common["max_active_clusters"] = clusters
             res_dq = dict(common, **err["dq"], max_abs_err_delta=delta_err,
                           ms=time_ms(run_dq),
                           plain_ms=time_ms(
@@ -1765,7 +1810,7 @@ def check_fp32(dev) -> dict:
                 r["share_of_bound"] = r["bound_ms"] / r["ms"]
             if not out[dq_name]:
                 mref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc,
-                                                    bkv, tf32=True)
+                                                    bwd_bkv, tf32=True)
                 res_dq["mutants"] = {"tf32_rel_l2": must_fail(
                     "tf32 dq", fp32_errors(mref[0], ref[0]))}
                 res_dkv["mutants"] = {
@@ -1813,7 +1858,7 @@ def check_fp32(dev) -> dict:
             *(fa._to3d(y) for y in (q4, k4, v4)), sc, bkv)
         rgrads = fa.flash_bwd_tiled_reference(
             *(fa._to3d(y) for y in (q4, k4, v4, o4)), lse4, fa._to3d(do4), sc,
-            bkv)
+            bwd_bkv)
         err = {n: fp32_errors(fa._to3d(a), b)
                for n, a, b in zip(("dq", "dk", "dv"), grads, rgrads)}
         res = dict(shape=list(q4.shape), strides=list(q4.stride()),
@@ -3256,7 +3301,8 @@ def flash_route_check(records: list, d: int) -> list:
     scale of twice the width) must fail.  For scale, the route's and the
     dense bf16 route's gradients are also read against fp32 dense attention
     on the same inputs.  Unlike the weight probes these see no rounding of
-    the layers around the attention, so they separate at every scale."""
+    the layers around the attention, so they separate at every scale.  An
+    fp32 step's records go to fp32_route_check."""
     from diffute_tpu_torch.ops.attention import dense_attention
 
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
@@ -3268,6 +3314,8 @@ def flash_route_check(records: list, d: int) -> list:
         raise RuntimeError(f"the flagged step did not take two mid-block "
                            f"calls through the flash route, forward and "
                            f"backward: {[sorted(r) for r in records]}")
+    if records[0]["q"].dtype == torch.float32:
+        return fp32_route_check(records, d)
     out = []
     for rec in records:
         q, k, v, o, do = (fa._heads_first(rec[n])
@@ -3309,6 +3357,93 @@ def flash_route_check(records: list, d: int) -> list:
                                f"disagrees with its plain version, or the "
                                f"criterion passes the mutants {passed}: "
                                f"{res}")
+        out.append(res)
+    return out
+
+
+# the fp32 route inside an fp32 stage-1 step (fp32_route_check): a gradient
+# passes within TOL_FP32_REL_L2 of the tiled plain fp32 version or, where
+# that version is itself further from fp64 than the contract's bound, no
+# further from fp64 than FP32_ROUTE_FP64_RATIO times it is
+FP32_ROUTE_FP64_RATIO = 2.0
+
+
+def fp32_route_check(records: list, d: int) -> list:
+    """flash_route_check on an fp32 step's two mid-block calls: the dq, dk
+    and dv the step's backward produced against the tiled plain fp32
+    backward at the backward kernels' own tile (kernel_block_kv(d, fp32,
+    "bwd_dq")), on the step's own q, k, v and dO and the route's o and LSE
+    (the forward launched again on the recorded q, k, v, which must give
+    the step's o to the bit), and against fp64 attention's gradients on the
+    same inputs.  Stage-1 scores reach about 100-150 after the scale, where
+    dP sits close to delta and ds = p (dP - delta) cancels: there the plain
+    fp32 version is itself some 7e-5 (dq) and 1.3e-5 (dk, dv) from fp64 on
+    an H100, so two fp32 computations of it differ by more than the
+    contract's TOL_FP32_REL_L2, which the contract shapes' random inputs do
+    not show.  A gradient passes within TOL_FP32_REL_L2 of the plain
+    version, or no further from fp64 than FP32_ROUTE_FP64_RATIO times the
+    plain version is (a tensor-core chain that truncates shows there, as
+    flash_route_check saw at head_dim 256).  Mutants that must fail: the
+    plain backward with
+    every product's operands rounded to TF32, dk x (1 + 1e-4), dq and dk
+    swapped.  Recorded: each gradient's distance from the plain version and
+    from fp64, the plain version's from fp64, the largest |score| after
+    the scale."""
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    sc = d ** -0.5
+    bkv = fa.kernel_block_kv(d, torch.float32, "bwd_dq")
+    names = ("dq", "dk", "dv")
+    out = []
+    for rec in records:
+        o4, lse = fa.flash_fwd(rec["q"], rec["k"], rec["v"], sc)
+        q, k, v, o, do = (fa._heads_first(x) for x in (
+            rec["q"], rec["k"], rec["v"], o4, rec["do"]))
+        ref = dict(zip(names, fa.flash_bwd_tiled_reference(
+            q, k, v, o, lse, do, sc, bkv)))
+        got = {n: fa._heads_first(rec[n]) for n in names}
+        res = dict(shape=list(rec["q"].shape), block_kv=bkv,
+                   o_same_bits=torch.equal(o4, rec["o"]),
+                   **{n: fp32_errors(got[n], ref[n]) for n in names})
+        mutants = {
+            "tf32": dict(zip(names, fa.flash_bwd_tiled_reference(
+                q, k, v, o, lse, do, sc, bkv, tf32=True))),
+            "dk_x(1+1e-4)": dict(got, dk=got["dk"] * (1 + 1e-4)),
+            "dq_dk_swapped": dict(got, dq=got["dk"], dk=got["dq"])}
+        del o4, lse, o
+        leaves = [rec[n].double().requires_grad_() for n in ("q", "k", "v")]
+        logits = torch.einsum("bshd,bthd->bhst", leaves[0], leaves[1]) * sc
+        res["max_abs_score"] = logits.detach().abs().max().item()
+        o64 = torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1),
+                           leaves[2])
+        grads64 = torch.autograd.grad(o64, leaves, rec["do"].double())
+        exact = {n: fa._heads_first(g) for n, g in zip(names, grads64)}
+        del leaves, logits, o64, grads64
+        plain64 = {n: rel_l2_64(ref[n], exact[n]) for n in names}
+
+        def held(g):
+            return {n: (fp32_held(fp32_errors(g[n], ref[n]))
+                        or rel_l2_64(g[n], exact[n])
+                        <= FP32_ROUTE_FP64_RATIO * plain64[n])
+                    for n in names}
+
+        res["flash_vs_fp64"] = {n: rel_l2_64(got[n], exact[n]) for n in names}
+        res["plain_vs_fp64"] = plain64
+        res["within_tol_of_plain"] = {
+            n: fp32_held(res[n]) for n in names}
+        res["held"] = held(got)
+        res["mutants"] = {m: {"rel_l2": max(rel_l2(g[n], ref[n])
+                                           for n in names),
+                              "vs_fp64": {n: rel_l2_64(g[n], exact[n])
+                                          for n in names}}
+                          for m, g in mutants.items()}
+        passed = [m for m, g in mutants.items() if all(held(g).values())]
+        del ref, got, exact, mutants, q, k, v, do
+        torch.cuda.empty_cache()
+        if not (res["o_same_bits"] and all(res["held"].values())) or passed:
+            raise RuntimeError(f"the fp32 flash route inside the stage-1 step "
+                               f"disagrees with its plain version and with "
+                               f"fp64, or the criterion passes the mutants "
+                               f"{passed}: {res}")
         out.append(res)
     return out
 
@@ -3769,6 +3904,100 @@ def fp32_launches(rec: dict, widths=(64, 256, 512)) -> dict:
             for kind in FP32_KINDS for d in widths}
 
 
+def fp32_run_record(r, **more):
+    """A measured fp32 path's seconds, peaks and fp32 flash launches."""
+    return dict(seconds=r["seconds"],
+                max_memory_allocated=r["max_memory_allocated"],
+                peak_above_resident=(r["max_memory_allocated"]
+                                     - r["memory_allocated_before"]),
+                launches=fp32_launches(r), **more)
+
+
+def fp32_stage1_config(cfg, on, batch_size, res):
+    """``cfg`` for fp32 stage-1 steps: the VAE's flag ``on``, remat,
+    ``batch_size`` at ``res``^2, gradient checkpointing."""
+    from diffute_tpu_torch.config import TrainConfig
+
+    return dataclasses.replace(
+        cfg, vae=dataclasses.replace(cfg.vae, use_flash_attention=on,
+                                     remat=True),
+        edit=dataclasses.replace(cfg.edit, resolution=res),
+        train=TrainConfig(train_batch_size=batch_size, mixed_precision="no",
+                          gradient_checkpointing=True,
+                          max_train_steps=STAGE1_STEPS))
+
+
+def fp32_stage1_steps(dev, cfg_of, vae_params, batch_size, d, runs, prefix,
+                      out, route=None) -> dict:
+    """STAGE1_STEPS fp32 VAETrainer steps for each (name, flag) of
+    ``runs`` on the same synthetic batches: each step's loss, grad norm,
+    seconds, peaks and launches (2 forwards, 2 dq and 2 dk/dv at head_dim
+    ``d`` a flagged step), the flagged steps' launches into
+    ``out["launches"]``.  ``route``: after the timed steps, one more
+    flagged step (untimed) keeps its flash calls there
+    (flash_route_spy)."""
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_vae_batch)
+    from diffute_tpu_torch.train import VAETrainer
+
+    data = SyntheticSceneDataset(cfg_of(False), seed=0)
+    batches = [make_vae_batch([data[batch_size * i + j]
+                               for j in range(batch_size)])
+               for i in range(STAGE1_STEPS)]
+    flagged = {fp32_entry(kind, d): 2 for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    res = {}
+    for name, on in runs:
+        trainer = VAETrainer(cfg_of(on), vae_params, device=dev,
+                             total_steps=STAGE1_STEPS)
+        steps = []
+        for b in batches:
+            r = measured(dev, lambda: {k: v.item() for k, v in
+                                         trainer.step(b).items()})
+            expect_flash(r, **(flagged if on else {}))
+            steps.append(dict(r.pop("out"), **fp32_run_record(
+                r, memory_allocated_before=r["memory_allocated_before"])))
+            if on:
+                out["launches"][f"{prefix}stage1_vae_{name}_step"
+                                f"{len(steps)}"] = r["launches"]
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                   for s in steps):
+            raise RuntimeError(f"fp32 stage-1 steps not finite: {steps}")
+        if on and route is not None:
+            with flash_route_spy(route):
+                r = measured(dev, lambda: trainer.step(batches[0]))
+            expect_flash(r, **flagged)
+        res[name] = steps
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_fp32_sd2_stage1(dev, vae_params, out) -> dict:
+    """8c's SD2 stage 1: VAETrainer on the SD2 VAE at 512^2 in fp32 (the
+    JAX trainer's default precision), batch 4, gradient checkpointing,
+    STAGE1_STEPS steps flag off and on (2 forwards, 2 dq, 2 dk/dv at
+    head_dim 512 a flagged step; the losses within TOL_FP32_LOSS_REL), each
+    step's seconds and peak memory; then the flash route held at its own
+    boundary inside one more flagged step (flash_route_check, fp32)."""
+    from diffute_tpu_torch.config import DiffUTEConfig
+
+    base, route = DiffUTEConfig(), []
+    s1 = fp32_stage1_steps(
+        dev, lambda on: fp32_stage1_config(base, on, WORKFLOW_BATCH, RES),
+        vae_params, WORKFLOW_BATCH, 512, (("dense", False), ("flash", True)),
+        "fp32_", out, route)
+    s1["loss_rel_diff"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                           for a, b in zip(s1["flash"], s1["dense"])]
+    phase("fp32_stage1", batch=WORKFLOW_BATCH, resolution=RES,
+          loss_tolerance=TOL_FP32_LOSS_REL, **s1)
+    if not max(s1["loss_rel_diff"]) <= TOL_FP32_LOSS_REL:
+        raise RuntimeError(f"fp32 stage 1 with flash differs: {s1}")
+    s1["flash_route"] = flash_route_check(route, 512)
+    phase("fp32_stage1_flash_route", routes=s1["flash_route"])
+    return s1
+
+
 def check_fp32_paths(dev) -> dict:
     """Phase 8c: the fp32 paths at full width with the fp32 flash kernels,
     weights from seed 0.  Serving (bench.py --dtype fp32's configuration
@@ -3787,18 +4016,19 @@ def check_fp32_paths(dev) -> dict:
     VAETrainer on the SD2 VAE at 512^2 in fp32 (the JAX trainer's default
     precision), batch 4, gradient checkpointing, 3 steps flag on and 3 off
     (2 forwards, 2 dq, 2 dk/dv at head_dim 512 a step; the losses within
-    TOL_FP32_LOSS_REL).  small_config: an encode and a decode at 256^2 flag
-    on, and with PIPELINE_FWD on too, against off, and 3 stage-1 steps at
+    TOL_FP32_LOSS_REL), and the flash route inside one more flagged step
+    (check_fp32_sd2_stage1).  small_config: an encode and a decode at 256^2
+    flag on, and with PIPELINE_FWD on too, against off, and 3 stage-1 steps at
     batch 16 (2, 2, 2 at head_dim 256 a step).  Seconds and peak memory of each; every flash counter
     asserted on each path.  Returns the numbers and the launches by path."""
     from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
                                           small_config)
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
-                                              make_unet_batch, make_vae_batch)
+                                              make_unet_batch)
     from diffute_tpu_torch.models import AutoencoderKL
     from diffute_tpu_torch.models.attention import Attention
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
-    from diffute_tpu_torch.train import UNetTrainer, VAETrainer, run_unet
+    from diffute_tpu_torch.train import UNetTrainer, run_unet
     from diffute_tpu_torch.utils import init_pipeline_params
     from diffute_tpu_torch.utils.params import load_module
 
@@ -3811,13 +4041,6 @@ def check_fp32_paths(dev) -> dict:
             cfg, unet=dataclasses.replace(cfg.unet, use_flash_attention=on,
                                           **unet),
             vae=dataclasses.replace(cfg.vae, use_flash_attention=on))
-
-    def keep(r, **more):
-        return dict(seconds=r["seconds"],
-                    max_memory_allocated=r["max_memory_allocated"],
-                    peak_above_resident=(r["max_memory_allocated"]
-                                         - r["memory_allocated_before"]),
-                    launches=fp32_launches(r), **more)
 
     # ---- serving: a 20-step 512^2 edit, flash, dense, switch on
     params = init_pipeline_params(base, seed=0, device=dev)
@@ -3838,7 +4061,7 @@ def check_fp32_paths(dev) -> dict:
                 10 * VAE_FLASH_STEPS,
             fp32_entry("fwd_pipelined" if switch else "fwd", 512): 2}))
         outs[name] = r.pop("out")
-        edits[name] = keep(r)
+        edits[name] = fp32_run_record(r)
         if on:
             out["launches"][f"fp32_edit_{name}"] = r["launches"]
         del pipe
@@ -3918,7 +4141,7 @@ def check_fp32_paths(dev) -> dict:
                 loss_rel_diff=abs(loss_on - loss_off) / abs(loss_off),
                 grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
                 grad_tolerance=TOL_FP32_GRAD_REL,
-                flash=keep(r_on), dense=keep(r_off))
+                flash=fp32_run_record(r_on), dense=fp32_run_record(r_off))
     out["launches"]["fp32_stage2_vae_flash"] = r_on["launches"]
     phase("fp32_stage2_step", **step)
     if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
@@ -3932,56 +4155,7 @@ def check_fp32_paths(dev) -> dict:
     torch.cuda.empty_cache()
 
     # ---- stage 1 on the SD2 VAE at 512^2, fp32, flag on and off
-    def stage1(cfg, on, batch_size, res):
-        return dataclasses.replace(
-            cfg, vae=dataclasses.replace(cfg.vae, use_flash_attention=on,
-                                         remat=True),
-            edit=dataclasses.replace(cfg.edit, resolution=res),
-            train=TrainConfig(train_batch_size=batch_size,
-                              mixed_precision="no",
-                              gradient_checkpointing=True,
-                              max_train_steps=STAGE1_STEPS))
-
-    def stage1_steps(cfg_of, vae_params, batch_size, d, runs, prefix):
-        data = SyntheticSceneDataset(cfg_of(False), seed=0)
-        batches = [make_vae_batch([data[batch_size * i + j]
-                                   for j in range(batch_size)])
-                   for i in range(STAGE1_STEPS)]
-        res = {}
-        for name, on in runs:
-            trainer = VAETrainer(cfg_of(on), vae_params, device=dev,
-                                 total_steps=STAGE1_STEPS)
-            steps = []
-            for b in batches:
-                r = measured(dev, lambda: {k: v.item() for k, v in
-                                             trainer.step(b).items()})
-                expect_flash(r, **({fp32_entry(kind, d): 2
-                                    for kind in ("fwd", "bwd_dq", "bwd_dkv")}
-                                   if on else {}))
-                steps.append(dict(r.pop("out"), **keep(
-                    r, memory_allocated_before=r["memory_allocated_before"])))
-                if on:
-                    out["launches"][f"{prefix}stage1_vae_{name}_step"
-                                    f"{len(steps)}"] = r["launches"]
-            if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
-                       for s in steps):
-                raise RuntimeError(f"fp32 stage-1 steps not finite: {steps}")
-            res[name] = steps
-            del trainer
-            gc.collect()
-            torch.cuda.empty_cache()
-        return res
-
-    s1 = stage1_steps(lambda on: stage1(base, on, WORKFLOW_BATCH, RES),
-                      params["vae"], WORKFLOW_BATCH, 512,
-                      (("dense", False), ("flash", True)), "fp32_")
-    s1["loss_rel_diff"] = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                           for a, b in zip(s1["flash"], s1["dense"])]
-    phase("fp32_stage1", batch=WORKFLOW_BATCH, resolution=RES,
-          loss_tolerance=TOL_FP32_LOSS_REL, **s1)
-    if not max(s1["loss_rel_diff"]) <= TOL_FP32_LOSS_REL:
-        raise RuntimeError(f"fp32 stage 1 with flash differs: {s1}")
-    out["stage1"] = s1
+    out["stage1"] = check_fp32_sd2_stage1(dev, params["vae"], out)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4014,19 +4188,20 @@ def check_fp32_paths(dev) -> dict:
             for name in ("flash", "flash_pipelined"):
                 rel = ((runs[name].pop("out") - ref).abs().max()
                        / ref.abs().max()).item()
-                codec[what][name] = keep(runs[name], rel_max_err=rel)
+                codec[what][name] = fp32_run_record(runs[name],
+                                                    rel_max_err=rel)
                 out["launches"][f"fp32_small_vae_{what}_256" + (
                     "_pipelined" if name == "flash_pipelined" else "")] = (
                         runs[name]["launches"])
-            codec[what]["dense"] = keep(runs["dense"])
+            codec[what]["dense"] = fp32_run_record(runs["dense"])
             if not all(codec[what][n]["rel_max_err"] <= TOL_VAE_FLASH_REL
                        for n in ("flash", "flash_pipelined")):
                 raise RuntimeError(f"fp32 small VAE {what} with flash "
                                    f"differs: {codec[what]}")
     del vaes, z, x
-    small_s1 = stage1_steps(lambda on: stage1(small, on, 16, 256),
-                            sparams["vae"], 16, 256, (("flash", True),),
-                            "fp32_small_")
+    small_s1 = fp32_stage1_steps(
+        dev, lambda on: fp32_stage1_config(small, on, 16, 256),
+        sparams["vae"], 16, 256, (("flash", True),), "fp32_small_", out)
     phase("fp32_small", codec=codec, stage1_batch=16, **small_s1)
     out["small"] = dict(codec=codec, stage1=small_s1)
     del sparams
@@ -4498,18 +4673,18 @@ def tiny_step_check(dev, base, params, stage: str, out: dict) -> dict:
     return res
 
 
-def fp32_entries(results: dict, launches: dict) -> list:
-    """The twelve fp32 kernels' entries (phase 3f) with the fp32 paths'
-    launches by path (phase 8c: path -> counters read right after it
-    ran)."""
+def fp32_entries(results: dict, launches: dict, widths=FP32_WIDTHS) -> list:
+    """The fp32 kernels' entries at head_dims ``widths`` (phase 3f; twelve
+    at all three) with the fp32 paths' launches by path (phase 8c: path ->
+    counters read right after it ran)."""
     def by_path(key):
         return {path: rec[key] for path, rec in launches.items() if rec[key]}
 
-    return [kernel_entry(fp32_entry(kind, d), "flash_fp32.cu",
+    return [kernel_entry(fp32_entry(kind, d), fp32_source(kind, d),
                          f"flash_attention.py:{FP32_REPLACES[kind]}",
                          results[fp32_entry(kind, d)],
                          by_path(fp32_entry(kind, d)))
-            for d in (64, 256, 512) for kind in FP32_KINDS]
+            for d in widths for kind in FP32_KINDS]
 
 
 # ---- phase 3g: GroupNorm+SiLU, its statistics and the int8 matmul on fp32
@@ -5572,6 +5747,10 @@ def main(argv=None) -> None:
     p.add_argument("--fp32-only", action="store_true",
                    help="build the kernels and run phases 3f, 3g, 3h, 8c, "
                    "8d and 8e (the fp32 kernels and the fp32 paths) alone")
+    p.add_argument("--fp32-d512-only", action="store_true",
+                   help="build the kernels and run phase 3f at head_dim 512 "
+                   "and 8c's SD2 stage-1 steps (the fp32 head_dim-512 "
+                   "kernels and the step that trains through them) alone")
     p.add_argument("--narrow-only", action="store_true",
                    help="build the kernels and run phases 3i and 8f (the "
                    "narrow head_dims' kernels and the tiny model's paths) "
@@ -5660,6 +5839,30 @@ def main(argv=None) -> None:
             "fp32_fused_paths": vae_flash_summary(fused32_paths),
             "fp32_conv_paths": vae_flash_summary(conv32_paths)}),
             flush=True)
+        return
+    if args.fp32_d512_only:
+        import diffute_tpu_torch
+        from diffute_tpu_torch.config import DiffUTEConfig
+        from diffute_tpu_torch.ops import _build
+        from diffute_tpu_torch.utils import init_pipeline_params
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds, paths = {}, {"launches": {}}
+        t0 = time.perf_counter()
+        fp32 = check_fp32(dev, (512,))
+        seconds["phase_3f_d512"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vae = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev,
+                                   components=("vae",))["vae"]
+        stage1 = check_fp32_sd2_stage1(dev, vae, paths)
+        seconds["phase_8c_sd2_stage1"] = time.perf_counter() - t0
+        phase("seconds", **seconds, run=time.perf_counter() - t_run)
+        print(gpu_line(), flush=True)
+        print(json.dumps({"kernels": fp32_entries(fp32, paths["launches"],
+                                                  (512,)),
+                          "fp32_stage1": stage1}), flush=True)
         return
     if args.narrow_only:
         from diffute_tpu_torch.ops import _build

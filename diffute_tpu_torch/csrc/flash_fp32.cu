@@ -2,9 +2,11 @@
 // deferred-softmax forward, the dq kernel (which also writes delta) and the
 // dk/dv kernel, fp32 in and out, fp32 LSE and delta.  One source, templated
 // on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the UNet's
-// heads), 256 (the small VAE's mid-block, `small_config`) and 512 (the SD2
-// VAE's mid-block).  The bf16 kernels (flash_fwd.cu, flash_fwd_pipelined.cu,
-// flash_bwd.cu, flash_wide.cu) stay as they are.
+// heads) and 256 (the small VAE's mid-block, `small_config`), and its two
+// forwards at 512 (the SD2 VAE's mid-block); the backward pair at 512 is
+// flash_fp32_d512_bwd_sm90.cu (a cluster of four blocks over head_dim, on
+// the same precision contract).  The bf16 kernels (flash_fwd.cu,
+// flash_fwd_pipelined.cu, flash_bwd.cu, flash_wide.cu) stay as they are.
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py on
 // fp32 inputs: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
@@ -74,10 +76,10 @@
 //   D = 256, R = 32: 8 warps, a 32 KB tile, 16 KB of partials; forward
 //     176 KB (deferred 192 KB), dq 224.25 KB, dk/dv 224.5 KB;
 //   D = 512, R = 16: 8 warps, a 32 KB tile, 8 KB of partials; forward
-//     168 KB (deferred 176 KB), dq 208.1 KB, dk/dv 208.25 KB.
+//     168 KB (deferred 176 KB); the backward is not instantiated here.
 //
-// A 32-row tile at 512 would be 64 KB: five of them (the forward) or six
-// (the backward) do not fit, hence 16 rows there.
+// A 32-row tile at 512 would be 64 KB: five of them (the forward) do not
+// fit, hence 16 rows there.
 //
 // Fragments.  ldmatrix moves b16 elements and cannot transpose 32-bit ones,
 // so every fragment is read with 32-bit shared loads.  The tf32 m16n8k8
@@ -138,11 +140,7 @@ struct Fp32 {
   static constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * R * 4;
   static_assert(D % kSlice == 0 && R % 16 == 0, "whole slices and groups");
   static_assert((R * kChunks) % kThreads == 0, "whole chunks a thread");
-  static_assert(R % (kThreads / 32) == 0, "delta's rows");
-  static_assert(kThreads >= 2 * R, "load_row_stats' threads");
-  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448 &&
-                    kFwdDeferredSmem <= 232448,
-                "227 KB a block");
+  static_assert(kFwdDeferredSmem <= 232448, "227 KB a block");
 };
 
 using F64 = Fp32<64, 64>;
@@ -918,6 +916,8 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, int b,
            int h, int s_len, int t_len, const long long* strides, float scale,
            void* stream) {
+  static_assert(W::kRows % (W::kThreads / 32) == 0, "delta's rows");
+  static_assert(W::kDqSmem <= 232448, "227 KB a block");
   static const cudaError_t attr = allow_smem(dq_kernel<W>, W::kDqSmem);
   if (attr != cudaSuccess) return (int)attr;
   Params p{};
@@ -939,6 +939,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv, int b,
             int h, int s_len, int t_len, const long long* strides, float scale,
             void* stream) {
+  static_assert(W::kThreads >= 2 * W::kRows, "load_row_stats' threads");
+  static_assert(W::kDkvSmem <= 232448, "227 KB a block");
   static const cudaError_t attr = allow_smem(dkv_kernel<W>, W::kDkvSmem);
   if (attr != cudaSuccess) return (int)attr;
   Params p{};
@@ -959,12 +961,12 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // Plain C entry points for ctypes, with the bf16 entries' argument lists
 // (flash_fwd_pipelined_*_fp32 refuses a t_len that is not a whole number,
 // at least two, of its tiles).  Tensors (B, len, H, D) fp32, D = 64, 256 or
-// 512 as the name says, with the element strides in `strides` (sb, sl, sh
-// each; head_dim stride 1), lse and delta (B*H, S) fp32 contiguous.  Each
-// launches on `stream`, allocates nothing, and returns a CUDA error code
-// (0 = launched).
+// 512 as the name says (the backward pair at 64 and 256), with the element
+// strides in `strides` (sb, sl, sh each; head_dim stride 1), lse and delta
+// (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates nothing,
+// and returns a CUDA error code (0 = launched).
 
-#define FLASH_FP32_ENTRIES(W, d)                                              \
+#define FLASH_FP32_FWD_ENTRIES(W, d)                                          \
   extern "C" int flash_fwd##d##_fp32(                                         \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, const long long* strides, float scale,     \
@@ -978,7 +980,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       void* stream) {                                                         \
     return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
                            scale, stream);                                    \
-  }                                                                           \
+  }
+
+#define FLASH_FP32_BWD_ENTRIES(W, d)                                          \
   extern "C" int flash_bwd_dq##d##_fp32(                                      \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -996,6 +1000,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       strides, scale, stream);                                \
   }
 
+#define FLASH_FP32_ENTRIES(W, d) \
+  FLASH_FP32_FWD_ENTRIES(W, d)   \
+  FLASH_FP32_BWD_ENTRIES(W, d)
+
 FLASH_FP32_ENTRIES(F64, )
 FLASH_FP32_ENTRIES(F256, _d256)
-FLASH_FP32_ENTRIES(F512, _d512)
+// the backward pair at 512: flash_fp32_d512_bwd_sm90.cu
+FLASH_FP32_FWD_ENTRIES(F512, _d512)

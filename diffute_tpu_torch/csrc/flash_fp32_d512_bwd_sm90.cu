@@ -1,0 +1,1021 @@
+// Flash-attention backward on fp32 inputs at head_dim 512 for Hopper
+// (sm_90a): the dq kernel (which also writes delta) and the dk/dv kernel,
+// fp32 in and out, fp32 LSE and delta.  The SD2 VAE's mid-block (one head
+// of 512) runs them when an fp32 model trains with
+// VAEConfig.use_flash_attention (stage 1 in fp32, the JAX trainers'
+// default precision).  The other fp32 flash kernels stay in flash_fp32.cu.
+//
+// Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
+// (both pl.pallas_call in `_flash_bwd_3d`) of
+// diffute_tpu/ops/flash_attention.py on fp32 inputs at that width, in the
+// natural domain as JAX computes fp32 (`log2_domain=False`):
+//
+//   delta = rowsum(dO * O), p = exp(s * scale - lse), ds = p (dP - delta),
+//   dq = ds k * scale, dv = p^T dO, dk = ds^T q * scale, s = q k^T,
+//   dP = dO v^T; p and ds stay fp32.
+//
+//   q, o, dO (B, S, H, 512), k, v (B, T, H, 512)  fp32, any strides TMA
+//     takes (multiples of 16 bytes, the last one 1)
+//   lse (B*H, S) fp32 natural log, as the forwards write it
+//   delta (B*H, S) fp32: written by the dq kernel, read by the dk/dv kernel
+//   dq (B, S, H, 512), dk, dv (B, T, H, 512)  fp32 through their strides
+//
+// The precision contract of flash_fp32.cu holds unchanged: every product
+// is 3xTF32 on mma.sync.m16n8k8.tf32 (x = hi + lo, hi = cvt.rna(x), lo the
+// TF32 rounding of the rest, both by integer operations that give
+// cvt.rna's bits; lo_a hi_b and hi_a lo_b first, then hi hi);
+// no tensor-core accumulator sums more than 64 columns of head_dim or 32
+// rows of the streamed axis before an fp32 add (their accumulation rounds
+// toward zero); o, dq, dk and dv within relative L2 1e-5 of the tiled
+// plain fp32 version, delta within 1e-5; no float atomics, every sum in a
+// fixed order, each output element written by one block: the same bits
+// every run.
+//
+// What bounds them on the H100: operations.  3xTF32 takes three TF32
+// products for one, so 494.7 TF32 TFLOP/s give 164.9 fp32 TFLOP/s; dq
+// issues 6 S T D FLOPs a head (S, dP, dQ), dk/dv 8 (S, dP, dV, dK).  On-chip
+// room is what shaped the first cut (flash_fp32.cu's Fp32<512, 16>): a
+// 512-wide fp32 row is 2 KB, so one SM held 16-row tiles, each streamed
+// byte served 16 rows (17.2 GB from L2 a launch at (4, 4096^2)), and eight
+// 64-column warp slices exchanged partial scores behind two barriers a
+// tile.  The products stay on mma.sync: wgmma reads a shared fp32 operand
+// as its TF32 truncation, so 3xTF32 there needs each streamed tile's hi and
+// lo planes beside it, which this layout's shared memory does not hold.
+//
+// Layout.  A cluster of four blocks (kRanks) splits head_dim: block r owns
+// columns [128 r, 128 r + 128) of every tile and the cluster's kRows = 64
+// resident rows (q rows for dq, kv rows for dk/dv), so each streamed byte
+// serves 64 rows.  The other axis streams in kBlockKV = 32-row tiles, one
+// tile the length of each dQ, dV or dK chain.  TMA loads every tile as
+// boxes of 32 fp32 columns (128 bytes) with the 128-byte swizzle: column c
+// of row r of a box lies at (c ^ ((r & 7) << 2)), flash_fp32.cu's pattern
+// on a 32-word row, so every fragment read below hits 32 distinct banks.
+// There is no producer warp: thread 0 (and, for dk/dv, warp 0's lanes,
+// which copy lse and delta beside the tiles by cp.async) refill a ring
+// stage once a cluster barrier has shown that every warp is done with it.
+//
+// A tile's scores, across the cluster, in a fixed order.  Eight warps, each
+// a 32 x 32 share of a product (two m16 by four n8 tiles: every split A
+// fragment serves four mma.sync, every B fragment two).  For the scores
+// warp (p, h, c) computes rows [32 h, 32 h + 32) of S (p = 0; dk/dv: S^T)
+// or dP (p = 1; dP^T) over the 64 columns [64 c, 64 c + 64) of the
+// block's 128 as one chain from zero, and stores each m16 tile through
+// distributed shared memory into the receive buffer of the block that
+// reduces its 16 rows, in the accumulator's layout (one float4 a lane and
+// 8 columns).  After a cluster barrier, block r reduce-scatters: warps 0-3
+// add each rank's two chains of rows [16 r, 16 r + 16) and sum the ranks
+// in order, 0 to 3, form p and ds for those rows (a quarter of the
+// exponentials each), and write them into every block's gather buffer,
+// while warps 4-7 go on to the next tile's products.  (Pulling the
+// partials from the other blocks instead put a remote load's round trip
+// on every tile's critical path.)  After a second cluster barrier each
+// warp multiplies the gathered rows [32 h, 32 h + 32) by columns [32 q,
+// 32 q + 32) of the streamed tile: dQ += dS K (dk/dv: dV += p^T dO, dK +=
+// dS^T Q), each 8-column block summed from zero over the tile's 32 rows
+// and added in fp32.
+//
+// Barriers.  The two cluster barriers of tile j overlap work: between the
+// arrival that publishes tile j's partials and the wait for everyone's,
+// each warp runs tile j - 1's output product; between the arrival that
+// publishes tile j's gathered p and ds and its wait, tile j + 1's score
+// products.  The gather buffers alternate by tile parity (a block may
+// still read tile j - 1's while another writes tile j's); one partial
+// buffer serves every tile (tile j + 1's partials are written after the
+// wait that follows every block's reads of tile j's).  Every access of a
+// block's memory by another ends before the last wait of both, so no block
+// exits while another may still reach it.
+//
+// Shared memory (232,448 bytes a block at most): dq, Q and dO slices
+// resident (2 x 32 KB), K and V slices in a ring of kDqRing = 3 stages
+// (3 x 32 KB), the received partials (32 KB), the gather buffer (2 x 8 KB),
+// delta's partials: 209.3 KB.  dk/dv, K and V resident (64 KB), Q and dO in
+// kDkvRing = 3 stages (96 KB) with each stage's 32 lse and 32 delta values,
+// the received partials (32 KB), p^T's and dS^T's gather buffers (2 x 2 x
+// 8 KB): 225.8 KB.  (Two blocks a cluster, 256 columns each, would need
+// 64 KB a resident slice and 32 KB a streamed one: two stages of the dk/dv
+// kernel do not fit.)
+//
+// Ragged edges.  TMA reads rows past S or T as zeros.  dq sets the scores
+// of kv columns at or past T to -inf (p = 0).  dk/dv: q rows past S have
+// dO = 0 and lse = delta = 0, so p = 1 and ds = 1 * (0 - 0) = 0: they add
+// nothing.  Rows past the end of an output are not stored.
+
+#include "flash_sm90.cuh"
+#include "tf32_sm90.cuh"
+
+namespace {
+
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::prefetch_map;
+using sm90::tma_load_at;
+using tf32_sm90::mma_tf32;
+
+constexpr int kD = 512;
+constexpr int kRanks = 4;              // blocks of a cluster
+constexpr int kCols = kD / kRanks;     // 128 head_dim columns a block owns
+constexpr int kBox = 32;               // fp32 columns of a TMA box: 128 bytes
+// resident rows of a cluster (ops/flash_attention.py: FP32_D512_BWD_ROWS)
+constexpr int kRows = 64;
+// the rows of a streamed tile: the kv tile the dq kernel walks and the q
+// tile the dk/dv kernel walks (FP32_D512_BWD_BLOCK_KV)
+constexpr int kBlockKV = 32;
+constexpr int kThreads = 256;  // 8 warps
+// the m16 tiles (16-row groups of the 64) a warp's products span
+constexpr int kM = 2;
+constexpr int kResBytes = kRows * kCols * 4;         // 32 KB
+constexpr int kStreamBytes = kBlockKV * kCols * 4;   // 16 KB
+constexpr int kResBox = kRows * kBox * 4;            // 8 KB
+constexpr int kStreamBox = kBlockKV * kBox * 4;      // 4 KB
+// the partial scores a block receives for its 16 rows, float4
+// [product][source rank][64-column chain][8-column step][lane]
+constexpr int kPartBytes = 2 * 2 * kRows * kBlockKV * 4;  // 32 KB
+// one gathered 64 x 32 fp32 operand, float4 [group][8-column step][lane]
+constexpr int kGathBytes = kRows * kBlockKV * 4;      // 8 KB
+constexpr int kDqRing = 3, kDkvRing = 3;
+static_assert(kRows == 64 && kBlockKV == 32,
+              "four 16-row groups, four 8-column steps a tile");
+static_assert(kCols == 4 * kBox, "four boxes a slice row");
+
+// ----------------------------------------------------------------- cluster
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The shared::cluster address of shared::cta address `addr` in block
+// `rank` of this cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 x) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+
+// Split cluster barrier: the arrival releases this thread's writes (to
+// its own and the other blocks' shared memory), the wait acquires every
+// other thread's of the cluster.  Every thread of every block calls both,
+// in turns.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- products
+
+// float offset of element (row, col) of a slice of R rows x 128 columns,
+// stored as four boxes of [R][32] with the 128-byte swizzle
+template <int R>
+__device__ __forceinline__ int at(int row, int col) {
+  return (col >> 5) * (R * kBox) + row * kBox +
+         ((col & 31) ^ ((row & 7) << 2));
+}
+
+// x rounded to TF32 to nearest, ties away from zero: the bits
+// cvt.rna.tf32.f32 gives (the 13 bits below TF32's mantissa cleared after
+// adding half of their span, the carry running into the exponent), by two
+// integer operations on the ALUs: cvt.rna runs on the conversion unit, 16
+// results a clock an SM (the CUDA C++ guide's table for sm_90), two a split.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, each a TF32 value (lo the TF32 rounding of the rest), as
+// tf32_sm90::split computes it
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// An A fragment split into its TF32 halves.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1, float a2,
+                                        float a3) {
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+}
+
+// A B fragment (b0, b1) split into its TF32 halves.
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
+  split(b0, f.hi[0], f.lo[0]);
+  split(b1, f.hi[1], f.lo[1]);
+}
+
+// d[i] += a[i] b[i] for N independent accumulators in 3xTF32: every
+// accumulator takes lo_a hi_b, then hi_a lo_b, then hi_a hi_b (the small
+// terms first), and the N products of each term are issued together, so
+// that no mma.sync waits on the one just before it.
+template <int N>
+__device__ __forceinline__ void mma3_n(float (&d)[N][4], const FragA (&a)[N],
+                                       const FragB (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].lo, b[i].hi[0], b[i].hi[1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].lo[0], b[i].lo[1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].hi[0], b[i].hi[1]);
+}
+
+// A warp's share of a product: 32 rows (kM m16 tiles) by 32 columns (four
+// n8 tiles), acc[4 m + n].  Every split A fragment serves four products and
+// every B fragment two: a warp splits 16 values a k-step for 24 mma.sync.
+using Acc = float[4 * kM][4];
+
+__device__ __forceinline__ void zero_acc(Acc& x) {
+#pragma unroll
+  for (int n = 0; n < 4 * kM; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
+}
+
+// acc[4 m + n] += a[m] b[n] in 3xTF32
+__device__ __forceinline__ void mma3_mx4(Acc& acc, const FragA (&a)[kM],
+                                         const FragB (&b)[4]) {
+  FragA fa[4 * kM];
+  FragB fb[4 * kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      fa[4 * m + n] = a[m];
+      fb[4 * m + n] = b[n];
+    }
+  mma3_n(acc, fa, fb);
+}
+
+// A warp's partial of a score tile: x (32 x 32) = rows [a0, a0 + 32) of
+// the resident slice `a` times the 32 rows of the streamed slice `b`,
+// transposed, over the 64 columns [c0, c0 + 64) of the block's 128: one
+// chain of 8 k-steps from zero.
+__device__ __forceinline__ void scores_part(Acc& x, const float* a, int a0,
+                                            const float* b, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  zero_acc(x);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const int c = c0 + kk * 8 + t;
+    FragA fa[kM];
+    FragB fb[4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int r = a0 + 16 * m + g;
+      split_a(fa[m], a[at<kRows>(r, c)], a[at<kRows>(r + 8, c)],
+              a[at<kRows>(r, c + 4)], a[at<kRows>(r + 8, c + 4)]);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      split_b(fb[n], b[at<kBlockKV>(n * 8 + g, c)],
+              b[at<kBlockKV>(n * 8 + g, c + 4)]);
+    mma3_mx4(x, fa, fb);
+  }
+}
+
+// Store a warp's partial into the receive buffers of the blocks that
+// reduce its rows, at dst[m] (the slot of its m16 tile m there: part_slot).
+__device__ __forceinline__ void put_part(const uint32_t (&dst)[kM],
+                                         const Acc& x) {
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      st_cluster_f4(dst[m] + n * 32 * 16,
+                    make_float4(x[4 * m + n][0], x[4 * m + n][1],
+                                x[4 * m + n][2], x[4 * m + n][3]));
+}
+
+// acc (32 x 32) += A (32 x 32: row groups 2 rp and 2 rp + 1 of the
+// gathered operand `gath`) times the 32 rows of the streamed slice `b`,
+// columns [c0, c0 + 32).  The contraction runs in the order 2t, 2t + 1 of
+// each 8 rows, so that A is the accumulator layout as gathered (c0, c2,
+// c1, c3) and B's rows 2t + e, columns c0 + 8n + g hit 32 distinct banks.
+// Each 8-column block is summed from zero over the tile's 32 rows (12
+// products, the eight blocks advancing together) and then added to acc in
+// fp32.
+__device__ __forceinline__ void out_part(Acc& acc, const float4* gath, int rp,
+                                         const float* b, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Acc part;
+  zero_acc(part);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int r = kk * 8 + 2 * t;
+    FragA fa[kM];
+    FragB fb[4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const float4 x = gath[((kM * rp + m) * 4 + kk) * 32 + lane];
+      split_a(fa[m], x.x, x.z, x.y, x.w);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = c0 + n * 8 + g;
+      split_b(fb[n], b[at<kBlockKV>(r, col)], b[at<kBlockKV>(r + 1, col)]);
+    }
+    mma3_mx4(part, fa, fb);
+  }
+#pragma unroll
+  for (int j = 0; j < 4 * kM; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
+}
+
+// Write a warp's 32 x 32 accumulator times f as fp32 rows [row0, row0 + 32)
+// (those below n_rows), columns [c0, c0 + 32), of `dst` (row stride
+// `stride`).
+__device__ __forceinline__ void store_rows(float* dst, long long stride,
+                                           const Acc& acc, float f, int row0,
+                                           int n_rows, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const int r_lo = row0 + 16 * m + g, r_hi = r_lo + 8;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float* x = acc[4 * m + n];
+      const int c = c0 + n * 8 + 2 * t;
+      if (r_lo < n_rows)
+        *reinterpret_cast<float2*>(dst + r_lo * stride + c) =
+            make_float2(x[0] * f, x[1] * f);
+      if (r_hi < n_rows)
+        *reinterpret_cast<float2*>(dst + r_hi * stride + c) =
+            make_float2(x[2] * f, x[3] * f);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ loads
+
+// One __grid_constant__ parameter for both kernels (the dk/dv kernel
+// leaves o unset).  out0/out1 are dq/- or dk/dv, with element strides
+// (batch, row, head; head_dim stride 1).
+struct BwdParams {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const float* o;     // dq: delta's O rows
+  const float* dout;  // dq: delta's dO rows
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
+  float* out0;
+  float* out1;
+  long long o0_sb, o0_ss, o0_sh, o1_sb, o1_ss, o1_sh;
+  const float* lse;  // (B*H, S), natural log
+  float* delta;      // (B*H, S)
+  int heads, s_len, t_len;
+  float scale;
+};
+
+// The four box loads of this block's 128 columns from `col0` of rows
+// `row`.. of `map` into the slice at `dst` (boxes `box` bytes apart),
+// completing on `bar`.
+__device__ __forceinline__ void load_slice(const CUtensorMap* map,
+                                           uint32_t dst, uint32_t box,
+                                           uint32_t bar, int col0, int row,
+                                           int h, int b) {
+#pragma unroll
+  for (int c = 0; c < kCols / kBox; ++c)
+    tma_load_at(dst + c * box, map, bar, col0 + c * kBox, h, row, b);
+}
+
+// What a block reads: its rank's first column, its (batch, head), the
+// streamed tiles, and the addresses of its resident slices, ring, partial
+// and gather buffers, mbarriers (`once` for the resident slices, then full
+// per stage) and stage statistics (dk/dv).
+struct Block {
+  int rank, col0, bh, h, bb, n_tiles;
+  uint32_t res0, res1, ring0, ring1, part, gath, bars, stats;
+  __device__ uint32_t once() const { return bars; }
+  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
+};
+
+__device__ __forceinline__ void init_bars(const Block& t, int ring,
+                                          uint32_t full_count) {
+  mbar_init(t.once(), 1);
+  for (int s = 0; s < ring; ++s) mbar_init(t.full(s), full_count);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Where a warp's partial goes: the slots of its two m16 tiles (rows
+// [32 rp, 32 rp + 32)) in the receive buffers of blocks 2 rp and 2 rp + 1
+// (product `prod`, this block's rank, chain `ch`).
+__device__ __forceinline__ void part_slots(uint32_t (&dst)[kM], const Block& t,
+                                           int prod, int rp, int ch) {
+  const uint32_t slot =
+      t.part +
+      (((prod * kRanks + t.rank) * 2 + ch) * 4 * 32 + (threadIdx.x & 31)) * 16;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) dst[m] = map_rank(slot, kM * rp + m);
+}
+
+// The reduce-scatter of a tile is warps 0-3's (kReducers threads): thread
+// (kk, lane) of them takes rows g and g + 8 of rows [16 rank, 16 rank +
+// 16) of the cluster's 64 (the gathered operand's row group `rank`) and the
+// tile's columns 8 kk + 2t, + 1: one float4 of the accumulator layout.
+// Warps 4-7 go on to the next tile's products meanwhile.  `part` is the
+// float offset of its float4 in the receive buffer (product 0, rank 0),
+// `gath_at` the addresses of its float4 in each rank's gather buffer
+// (parity 0; the other kGathBytes on).
+constexpr int kReducers = 128;
+
+struct Reducer {
+  int row, col;  // row g of the cluster's 64, column 2t of the tile
+  int part;
+  uint32_t gath_at[kRanks];
+};
+
+__device__ __forceinline__ Reducer reducer(const Block& t) {
+  const int lane = threadIdx.x & 31, kk = (threadIdx.x >> 5) & 3;
+  Reducer x;
+  x.row = t.rank * 16 + (lane >> 2);
+  x.col = kk * 8 + 2 * (lane & 3);
+  x.part = (kk * 32 + lane) * 4;
+  const uint32_t slot = ((t.rank * 4 + kk) * 32 + lane) * 16;
+#pragma unroll
+  for (int q = 0; q < kRanks; ++q) x.gath_at[q] = map_rank(t.gath + slot, q);
+  return x;
+}
+
+// The cluster's sum of this thread's four scores of a tile (product
+// `prod`) from the receive buffer `part`: each rank's two 64-column chains
+// added, then the ranks in order.
+__device__ __forceinline__ float4 sum_ranks(const float* part,
+                                            const Reducer& x, int prod) {
+  constexpr int kChainF = 4 * 32 * 4;  // floats of one chain's partial
+  const float* src = part + x.part + prod * kRanks * 2 * kChainF;
+  float4 v[kRanks];
+#pragma unroll
+  for (int q = 0; q < kRanks; ++q) {
+    const float4 c0 = *reinterpret_cast<const float4*>(src + 2 * q * kChainF);
+    const float4 c1 =
+        *reinterpret_cast<const float4*>(src + (2 * q + 1) * kChainF);
+    v[q] = make_float4(c0.x + c1.x, c0.y + c1.y, c0.z + c1.z, c0.w + c1.w);
+  }
+  float4 s = v[0];
+#pragma unroll
+  for (int q = 1; q < kRanks; ++q) {
+    s.x += v[q].x;
+    s.y += v[q].y;
+    s.z += v[q].z;
+    s.w += v[q].w;
+  }
+  return s;
+}
+
+// Write a float4 into every rank's gather buffer (`off` bytes past the
+// thread's slot).
+__device__ __forceinline__ void scatter(const Reducer& x, uint32_t off,
+                                        float4 v) {
+#pragma unroll
+  for (int q = 0; q < kRanks; ++q) st_cluster_f4(x.gath_at[q] + off, v);
+}
+
+// ------------------------------------------------------------------- dq
+
+// Shared memory of the dq kernel: the Q and dO slices (resident), the K
+// and V stages, the partials, the gather buffer's two parities, delta's
+// partials and the mbarriers.
+struct DqSmem {
+  static constexpr int q = 0;
+  static constexpr int dout = q + kResBytes;
+  static constexpr int k = dout + kResBytes;
+  static constexpr int v = k + kDqRing * kStreamBytes;
+  static constexpr int part = v + kDqRing * kStreamBytes;
+  static constexpr int gath = part + kPartBytes;
+  static constexpr int dpart = gath + 2 * kGathBytes;
+  static constexpr int bars = dpart + kRows * 4;
+  static constexpr int bytes = bars + (1 + kDqRing) * 8 + 1024;  // + align
+  static_assert(bytes <= 232448, "227 KB a block");
+};
+
+// K and V of kv tile j into stage j % kDqRing.
+__device__ __forceinline__ void load_kv(const BwdParams& p, const Block& t,
+                                        int j) {
+  const int st = j % kDqRing;
+  mbar_expect_tx(t.full(st), 2 * kStreamBytes);
+  load_slice(&p.tm_k, t.ring0 + st * kStreamBytes, kStreamBox, t.full(st),
+             t.col0, j * kBlockKV, t.h, t.bb);
+  load_slice(&p.tm_v, t.ring1 + st * kStreamBytes, kStreamBox, t.full(st),
+             t.col0, j * kBlockKV, t.h, t.bb);
+}
+
+// Tile j's reduce-scatter: this thread's four scores and dP values summed
+// across the cluster, p = exp(s * scale - lse) with kv columns at or past
+// T at -inf, ds = p (dP - delta), into every rank's gather buffer of
+// tile j's parity.  `lse` and `delta` hold rows g and g + 8.
+__device__ __forceinline__ void dq_reduce(const BwdParams& p,
+                                          const float* part, const Reducer& x,
+                                          int j, float2 lse, float2 delta) {
+  float4 s = sum_ranks(part, x, 0);
+  const float4 dp = sum_ranks(part, x, 1);
+  s.x *= p.scale;
+  s.y *= p.scale;
+  s.z *= p.scale;
+  s.w *= p.scale;
+  const int col = j * kBlockKV + x.col;
+  if (col >= p.t_len) s.x = s.z = -INFINITY;
+  if (col + 1 >= p.t_len) s.y = s.w = -INFINITY;
+  scatter(x, (j & 1) * kGathBytes,
+          make_float4(expf(s.x - lse.x) * (dp.x - delta.x),
+                      expf(s.y - lse.x) * (dp.y - delta.x),
+                      expf(s.z - lse.y) * (dp.z - delta.y),
+                      expf(s.w - lse.y) * (dp.w - delta.y)));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t smem = (raw + 1023) & ~1023u;
+  float* fs = reinterpret_cast<float*>(smem_raw + (smem - raw));
+  const int rank = cluster_rank();
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int q0 = (blockIdx.x / kRanks) * kRows;
+  const Block t{rank, rank * kCols, (int)blockIdx.y, h, b,
+                (p.t_len + kBlockKV - 1) / kBlockKV, smem + DqSmem::q,
+                smem + DqSmem::dout, smem + DqSmem::k, smem + DqSmem::v,
+                smem + DqSmem::part, smem + DqSmem::gath,
+                smem + DqSmem::bars, 0};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the scores: product (S or dP), 32-row half, 64-column chain; the
+  // output: 32-row half, 32-column quarter of the block's 128
+  const int prod = warp >> 2, rp = (warp >> 1) & 1, ch = warp & 1;
+  const int orp = warp >> 2, cq = warp & 3;
+
+  if (threadIdx.x == 0) init_bars(t, kDqRing, 1);
+  __syncthreads();
+  cluster_arrive();  // this block runs: the others may store into it
+  if (threadIdx.x == 0) {
+    prefetch_map(&p.tm_q);
+    prefetch_map(&p.tm_do);
+    prefetch_map(&p.tm_k);
+    prefetch_map(&p.tm_v);
+    mbar_expect_tx(t.once(), 2 * kResBytes);
+    load_slice(&p.tm_q, t.res0, kResBox, t.once(), t.col0, q0, h, b);
+    load_slice(&p.tm_do, t.res1, kResBox, t.once(), t.col0, q0, h, b);
+    for (int j = 0; j < kDqRing && j < t.n_tiles; ++j) load_kv(p, t, j);
+  }
+
+  // ---- delta's partials: rowsum(dO * O) over this block's 128 columns of
+  // the cluster's rows [8 warp, 8 warp + 8), a lane 4 columns in order,
+  // then a fixed butterfly; rows past S 0.
+  {
+    const float* ob = p.o + b * p.o_sb + h * p.o_sh + t.col0 + 4 * lane;
+    const float* db = p.dout + b * p.do_sb + h * p.do_sh + t.col0 + 4 * lane;
+    float* dpart = fs + DqSmem::dpart / 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rr = warp * 8 + i, row = q0 + rr;
+      float acc = 0.f;
+      if (row < p.s_len) {
+        const float4 o4 = *reinterpret_cast<const float4*>(ob + row * p.o_ss);
+        const float4 d4 =
+            *reinterpret_cast<const float4*>(db + row * p.do_ss);
+        acc = fmaf(o4.x, d4.x, acc);
+        acc = fmaf(o4.y, d4.y, acc);
+        acc = fmaf(o4.z, d4.z, acc);
+        acc = fmaf(o4.w, d4.w, acc);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) dpart[rr] = acc;
+    }
+  }
+
+  const bool reduces = threadIdx.x < kReducers;
+  const Reducer x = reducer(t);
+  // rows past S: lse = 0 (their dq is never stored)
+  const int row = q0 + x.row;
+  const float* lb = p.lse + (size_t)blockIdx.y * p.s_len;
+  const float2 lse = make_float2(row < p.s_len ? lb[row] : 0.f,
+                                 row + 8 < p.s_len ? lb[row + 8] : 0.f);
+  const float* q_s = fs + DqSmem::q / 4;
+  const float* do_s = fs + DqSmem::dout / 4;
+  const float* k_s = fs + DqSmem::k / 4;
+  const float* v_s = fs + DqSmem::v / 4;
+  const float4* gath = reinterpret_cast<const float4*>(fs + DqSmem::gath / 4);
+  const float* part = fs + DqSmem::part / 4;
+  uint32_t part_dst[kM];
+  part_slots(part_dst, t, prod, rp, ch);
+  // this warp's product: S = Q K^T (0) or dP = dO V^T (1)
+  const float* a_s = prod ? do_s : q_s;
+  const float* b_s = prod ? v_s : k_s;
+  constexpr int kStageF = kStreamBytes / 4;
+
+  Acc dq, acc;
+  zero_acc(dq);
+  mbar_wait(t.once(), 0);
+
+  // ---- tile 0
+  mbar_wait(t.full(0), 0);
+  scores_part(acc, a_s, 32 * rp, b_s, 64 * ch);
+  cluster_wait();  // every block of the cluster runs
+  put_part(part_dst, acc);
+  cluster_arrive();  // tile 0's partials and delta's
+  cluster_wait();
+  float2 delta = make_float2(0.f, 0.f);
+  if (reduces) {
+    // rows g and g + 8 summed across the cluster in rank order; thread
+    // (kk = 0, t = 0) writes them
+    float v[2][kRanks];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < kRanks; ++q)
+        v[e][q] = ld_cluster_f(
+            map_rank(smem + DqSmem::dpart + 4 * (x.row + 8 * e), q));
+    delta = make_float2(((v[0][0] + v[0][1]) + v[0][2]) + v[0][3],
+                        ((v[1][0] + v[1][1]) + v[1][2]) + v[1][3]);
+    if ((threadIdx.x & 0x63) == 0) {
+      float* db = p.delta + (size_t)blockIdx.y * p.s_len;
+      if (row < p.s_len) db[row] = delta.x;
+      if (row + 8 < p.s_len) db[row + 8] = delta.y;
+    }
+    dq_reduce(p, part, x, 0, lse, delta);
+  }
+  cluster_arrive();  // tile 0's ds gathered
+
+  const int n = t.n_tiles;
+  for (int j = 1; j < n; ++j) {
+    const int st = j % kDqRing, prev = (j - 1) % kDqRing;
+    mbar_wait(t.full(st), (j / kDqRing) & 1);
+    scores_part(acc, a_s, 32 * rp, b_s + st * kStageF, 64 * ch);
+    cluster_wait();  // tile j - 1's ds gathered, every read of its partials
+                     // and of tile j - 2's stage done
+    if (threadIdx.x == 0 && j >= 2 && j - 2 + kDqRing < n)
+      load_kv(p, t, j - 2 + kDqRing);
+    put_part(part_dst, acc);
+    cluster_arrive();  // tile j's partials
+    out_part(dq, gath + ((j - 1) & 1) * (kGathBytes / 16), orp,
+             k_s + prev * kStageF, 32 * cq);
+    cluster_wait();
+    if (reduces) dq_reduce(p, part, x, j, lse, delta);
+    cluster_arrive();  // tile j's ds gathered
+  }
+  cluster_wait();
+  out_part(dq, gath + ((n - 1) & 1) * (kGathBytes / 16), orp,
+           k_s + ((n - 1) % kDqRing) * kStageF, 32 * cq);
+
+  float* dqb = p.out0 + b * p.o0_sb + h * p.o0_sh;
+  store_rows(dqb, p.o0_ss, dq, p.scale, q0 + 32 * orp, p.s_len,
+             t.col0 + 32 * cq);
+}
+
+// ---------------------------------------------------------------- dk/dv
+
+// Shared memory of the dk/dv kernel: the K and V slices (resident), the Q
+// and dO stages, the partials, p^T's and dS^T's gather buffers (two
+// parities each), each stage's 32 lse and 32 delta values and the
+// mbarriers.
+struct DkvSmem {
+  static constexpr int k = 0;
+  static constexpr int v = k + kResBytes;
+  static constexpr int q = v + kResBytes;
+  static constexpr int dout = q + kDkvRing * kStreamBytes;
+  static constexpr int part = dout + kDkvRing * kStreamBytes;
+  static constexpr int gath = part + kPartBytes;  // p^T, then dS^T
+  static constexpr int kStatsBytes = 2 * kBlockKV * 4;
+  static constexpr int stats = gath + 4 * kGathBytes;
+  static constexpr int bars = stats + kDkvRing * kStatsBytes;
+  static constexpr int bytes = bars + (1 + kDkvRing) * 8 + 1024;  // + align
+  static_assert(bytes <= 232448, "227 KB a block");
+};
+
+// Q, dO, lse and delta of q tile i into stage i % kDkvRing, by warp 0:
+// every lane copies one row's lse and delta by cp.async (0 past S) and
+// arrives on the stage's full barrier when they land (32 arrivals), lane 0
+// expects the tiles' bytes (one more) and issues their box loads.
+__device__ __forceinline__ void load_q(const BwdParams& p, const Block& t,
+                                       int i) {
+  const int lane = threadIdx.x & 31, st = i % kDkvRing;
+  const float* lb = p.lse + (size_t)t.bh * p.s_len;
+  const float* db = p.delta + (size_t)t.bh * p.s_len;
+  const uint32_t dst = t.stats + st * DkvSmem::kStatsBytes + 4 * lane;
+  const int r = i * kBlockKV + lane;
+  const int nb = r < p.s_len ? 4 : 0, src = nb ? r : 0;
+  asm volatile(
+      "cp.async.ca.shared.global [%0], [%2], 4, %4;\n"
+      "cp.async.ca.shared.global [%1], [%3], 4, %4;\n"
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%5];\n" ::"r"(dst),
+      "r"(dst + 4 * kBlockKV), "l"(lb + src), "l"(db + src), "r"(nb),
+      "r"(t.full(st))
+      : "memory");
+  if (lane == 0) {
+    mbar_expect_tx(t.full(st), 2 * kStreamBytes);
+    load_slice(&p.tm_q, t.ring0 + st * kStreamBytes, kStreamBox, t.full(st),
+               t.col0, i * kBlockKV, t.h, t.bb);
+    load_slice(&p.tm_do, t.ring1 + st * kStreamBytes, kStreamBox,
+               t.full(st), t.col0, i * kBlockKV, t.h, t.bb);
+  }
+}
+
+// Tile i's reduce-scatter: this thread's two S^T and dP^T values summed
+// across the cluster; p^T = exp(s * scale - lse) and dS^T = p^T (dP^T -
+// delta), lse and delta by column (the tile's q rows), into every rank's
+// gather buffers.
+__device__ __forceinline__ void dkv_reduce(const BwdParams& p,
+                                           const float* part, const Reducer& x,
+                                           int i, const float* stats) {
+  const float4 s = sum_ranks(part, x, 0);
+  const float4 dp = sum_ranks(part, x, 1);
+  const float* sv = stats + (i % kDkvRing) * (DkvSmem::kStatsBytes / 4);
+  const float2 l = *reinterpret_cast<const float2*>(sv + x.col);
+  const float2 dl = *reinterpret_cast<const float2*>(sv + kBlockKV + x.col);
+  const float4 pt = make_float4(
+      expf(s.x * p.scale - l.x), expf(s.y * p.scale - l.y),
+      expf(s.z * p.scale - l.x), expf(s.w * p.scale - l.y));
+  const uint32_t par = (i & 1) * kGathBytes;
+  scatter(x, par, pt);
+  scatter(x, 2 * kGathBytes + par,
+          make_float4(pt.x * (dp.x - dl.x), pt.y * (dp.y - dl.y),
+                      pt.z * (dp.z - dl.x), pt.w * (dp.w - dl.y)));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel(const __grid_constant__ BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t smem = (raw + 1023) & ~1023u;
+  float* fs = reinterpret_cast<float*>(smem_raw + (smem - raw));
+  const int rank = cluster_rank();
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int kv0 = (blockIdx.x / kRanks) * kRows;
+  const Block t{rank, rank * kCols, (int)blockIdx.y, h, b,
+                (p.s_len + kBlockKV - 1) / kBlockKV, smem + DkvSmem::k,
+                smem + DkvSmem::v, smem + DkvSmem::q, smem + DkvSmem::dout,
+                smem + DkvSmem::part, smem + DkvSmem::gath,
+                smem + DkvSmem::bars, smem + DkvSmem::stats};
+  const int warp = threadIdx.x >> 5;
+  // the scores: product (S^T or dP^T), 32-row half, 64-column chain; the
+  // outputs: 32-row half, 32-column quarter of the block's 128
+  const int prod = warp >> 2, rp = (warp >> 1) & 1, ch = warp & 1;
+  const int orp = warp >> 2, cq = warp & 3;
+
+  // a stage is full after its 32 lanes' cp.async arrivals, lane 0's
+  // expect_tx and the tiles' bytes
+  if (threadIdx.x == 0) init_bars(t, kDkvRing, kBlockKV + 1);
+  __syncthreads();
+  cluster_arrive();  // this block runs: the others may store into it
+  if (warp == 0) {
+    if (threadIdx.x == 0) {
+      prefetch_map(&p.tm_k);
+      prefetch_map(&p.tm_v);
+      prefetch_map(&p.tm_q);
+      prefetch_map(&p.tm_do);
+      mbar_expect_tx(t.once(), 2 * kResBytes);
+      load_slice(&p.tm_k, t.res0, kResBox, t.once(), t.col0, kv0, h, b);
+      load_slice(&p.tm_v, t.res1, kResBox, t.once(), t.col0, kv0, h, b);
+    }
+    for (int i = 0; i < kDkvRing && i < t.n_tiles; ++i) load_q(p, t, i);
+  }
+
+  const bool reduces = threadIdx.x < kReducers;
+  const Reducer x = reducer(t);
+  const float* k_s = fs + DkvSmem::k / 4;
+  const float* v_s = fs + DkvSmem::v / 4;
+  const float* q_s = fs + DkvSmem::q / 4;
+  const float* do_s = fs + DkvSmem::dout / 4;
+  const float* stats = fs + DkvSmem::stats / 4;
+  const float4* gath_p =
+      reinterpret_cast<const float4*>(fs + DkvSmem::gath / 4);
+  const float4* gath_ds = gath_p + 2 * (kGathBytes / 16);
+  const float* part = fs + DkvSmem::part / 4;
+  uint32_t part_dst[kM];
+  part_slots(part_dst, t, prod, rp, ch);
+  // this warp's product: S^T = K Q^T (0) or dP^T = V dO^T (1)
+  const float* a_s = prod ? v_s : k_s;
+  const float* b_s = prod ? do_s : q_s;
+  constexpr int kStageF = kStreamBytes / 4;
+
+  Acc dk, dv, acc;
+  zero_acc(dk);
+  zero_acc(dv);
+  mbar_wait(t.once(), 0);
+
+  // ---- q tile 0
+  mbar_wait(t.full(0), 0);
+  scores_part(acc, a_s, 32 * rp, b_s, 64 * ch);
+  cluster_wait();  // every block of the cluster runs
+  put_part(part_dst, acc);
+  cluster_arrive();  // tile 0's partials
+  cluster_wait();
+  if (reduces) dkv_reduce(p, part, x, 0, stats);
+  cluster_arrive();  // tile 0's p^T and dS^T gathered
+
+  const int n = t.n_tiles;
+  for (int i = 1; i < n; ++i) {
+    const int st = i % kDkvRing, prev = (i - 1) % kDkvRing;
+    mbar_wait(t.full(st), (i / kDkvRing) & 1);
+    scores_part(acc, a_s, 32 * rp, b_s + st * kStageF, 64 * ch);
+    cluster_wait();  // tile i - 1's p^T and dS^T gathered, every read of
+                     // its partials and of tile i - 2's stage done
+    if (warp == 0 && i >= 2 && i - 2 + kDkvRing < n)
+      load_q(p, t, i - 2 + kDkvRing);
+    put_part(part_dst, acc);
+    cluster_arrive();  // tile i's partials
+    const int par = ((i - 1) & 1) * (kGathBytes / 16);
+    out_part(dv, gath_p + par, orp, do_s + prev * kStageF, 32 * cq);
+    out_part(dk, gath_ds + par, orp, q_s + prev * kStageF, 32 * cq);
+    cluster_wait();
+    if (reduces) dkv_reduce(p, part, x, i, stats);
+    cluster_arrive();  // tile i's p^T and dS^T gathered
+  }
+  cluster_wait();
+  const int last = (n - 1) % kDkvRing, par = ((n - 1) & 1) * (kGathBytes / 16);
+  out_part(dv, gath_p + par, orp, do_s + last * kStageF, 32 * cq);
+  out_part(dk, gath_ds + par, orp, q_s + last * kStageF, 32 * cq);
+
+  const int row0 = kv0 + 32 * orp, c0 = t.col0 + 32 * cq;
+  store_rows(p.out0 + b * p.o0_sb + h * p.o0_sh, p.o0_ss, dk, p.scale, row0,
+             p.t_len, c0);
+  store_rows(p.out1 + b * p.o1_sb + h * p.o1_sh, p.o1_ss, dv, 1.f, row0,
+             p.t_len, c0);
+}
+
+// ------------------------------------------------------------------ host
+
+// A (B, L, H, 512) fp32 tensor with element strides (sb, sl, sh, 1) as a
+// 4-D map of dims (512, H, L, B) and box (32, 1, rows, 1): one 128-byte
+// span of a row, 128-byte swizzle; rows past L read as zeros.
+bool encode_f32(CUtensorMap* map, const void* base, int b, int len, int h,
+                long long sb, long long sl, long long sh, int rows) {
+  sm90::EncodeTiledFn fn = sm90::encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h,
+                              (cuuint64_t)len, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)sl * 4,
+                                 (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A launch of `kernel` over clusters of kRanks blocks, one cluster a
+// kRows-row tile of `rows` rows and B*H.
+cudaLaunchConfig_t cluster_config(int rows, int bh, int smem_bytes,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRanks * ((rows + kRows - 1) / kRows), bh, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kRanks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t allow_smem(void (*kernel)(BwdParams), int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// Encode the four input maps (the resident tensors' boxes kRows rows, the
+// streamed ones' kBlockKV), fill the scalars and launch.  `s` holds the
+// element strides (sb, sl, sh) in the C entries' order: dq: q, k, v, o,
+// dO, dq; dk/dv: q, k, v, dO, dk, dv.
+int launch_bwd(void (*kernel)(BwdParams), int smem_bytes, bool dq,
+               const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* delta, void* out0,
+               void* out1, int b, int h, int s_len, int t_len,
+               const long long* s, float scale, void* stream) {
+  if (b <= 0 || h <= 0 || s_len <= 0 || t_len <= 0 || (long long)b * h > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (const cudaError_t err = sm90::bind_context()) return (int)err;
+  BwdParams p{};
+  const long long* sd = dq ? s + 12 : s + 9;   // dO's
+  const long long* so = dq ? s + 15 : s + 12;  // the first output's
+  const int q_rows = dq ? kRows : kBlockKV, kv_rows = dq ? kBlockKV : kRows;
+  if (!encode_f32(&p.tm_q, q, b, s_len, h, s[0], s[1], s[2], q_rows) ||
+      !encode_f32(&p.tm_k, k, b, t_len, h, s[3], s[4], s[5], kv_rows) ||
+      !encode_f32(&p.tm_v, v, b, t_len, h, s[6], s[7], s[8], kv_rows) ||
+      !encode_f32(&p.tm_do, dout, b, s_len, h, sd[0], sd[1], sd[2], q_rows))
+    return (int)cudaErrorInvalidValue;
+  p.o = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
+  if (dq) {
+    p.o_sb = s[9];
+    p.o_ss = s[10];
+    p.o_sh = s[11];
+    p.do_sb = sd[0];
+    p.do_ss = sd[1];
+    p.do_sh = sd[2];
+  }
+  p.out0 = static_cast<float*>(out0);
+  p.out1 = static_cast<float*>(out1);
+  p.o0_sb = so[0];
+  p.o0_ss = so[1];
+  p.o0_sh = so[2];
+  if (!dq) {
+    p.o1_sb = s[15];
+    p.o1_ss = s[16];
+    p.o1_sh = s[17];
+  }
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.heads = h;
+  p.s_len = s_len;
+  p.t_len = t_len;
+  p.scale = scale;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dq ? s_len : t_len, b * h, smem_bytes,
+                     static_cast<cudaStream_t>(stream), &attr);
+  void* args[] = {&p};
+  const cudaError_t err =
+      cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes, with the other backward entries'
+// argument lists.  Tensors (B, len, H, 512) fp32 with the element strides
+// in `strides` (sb, sl, sh each; head_dim stride 1), lse and delta (B*H,
+// S) fp32 contiguous.  Each launches on `stream`, allocates nothing, and
+// returns a CUDA error code (0 = launched).
+//
+// dq and delta; strides of q, k, v, o, dO, dq.
+extern "C" int flash_bwd_dq_d512_fp32(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const void* lse,
+                                      void* delta, void* dq, int b, int h,
+                                      int s_len, int t_len,
+                                      const long long* strides, float scale,
+                                      void* stream) {
+  static const cudaError_t attr = allow_smem(dq_kernel, DqSmem::bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  return launch_bwd(dq_kernel, DqSmem::bytes, true, q, k, v, o, dout, lse,
+                    delta, dq, nullptr, b, h, s_len, t_len, strides, scale,
+                    stream);
+}
+
+// dk and dv from the dq kernel's delta; strides of q, k, v, dO, dk, dv.
+extern "C" int flash_bwd_dkv_d512_fp32(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int b, int h,
+                                       int s_len, int t_len,
+                                       const long long* strides, float scale,
+                                       void* stream) {
+  static const cudaError_t attr = allow_smem(dkv_kernel, DkvSmem::bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  return launch_bwd(dkv_kernel, DkvSmem::bytes, false, q, k, v, nullptr,
+                    dout, lse, const_cast<void*>(delta), dk, dv, b, h, s_len,
+                    t_len, strides, scale, stream);
+}
+
+// cudaOccupancyMaxActiveClusters of the dq (dkv = 0) or the dk/dv kernel
+// (dkv = 1): the clusters of kRanks blocks the card runs at once; a
+// negative CUDA error code if the query fails.
+extern "C" int flash_bwd_d512_fp32_max_clusters(int dkv) {
+  void (*kernel)(BwdParams) = dkv ? dkv_kernel : dq_kernel;
+  const int bytes = dkv ? DkvSmem::bytes : DqSmem::bytes;
+  cudaError_t err = allow_smem(kernel, bytes);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(kRows * 1024, 1, bytes,
+                                                nullptr, &attr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}

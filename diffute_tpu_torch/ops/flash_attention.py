@@ -12,23 +12,24 @@ UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
 width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
 both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
 ``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
-bf16.  On fp32 inputs the four kernels at
-the three widths are ``csrc/flash_fp32.cu`` (3xTF32 products, accurate to
-fp32), which computes the JAX package's fp32 arithmetic: the standard
-forward and the backward in the natural domain with the exact scale after
-the product, the deferred forward on q prescaled by ``scale * log2 e`` in
-base 2.  Every other
-head_dim that is a multiple of 8 up to 128 (the tiny model's 8 and 16,
-SD1.x's 40 and 80, 128) takes ``csrc/flash_narrow.cu``'s four kernels, bf16
-or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS` that
-holds it, with the arithmetic of the other entries of its dtype.  Every
-kernel reads its (batch, seq, heads, D) inputs, all bf16 or all fp32, D as
-:func:`kernel_takes` says, through their strides (TMA at bf16 head_dim 64
-and 256, cp.async elsewhere), so the callers hand
-them the views they have, and writes its outputs contiguous in that
-layout: no copy is made in either direction, and no padded one at the
-narrow widths (the kernels zero-fill the columns past D on chip).  Every
-LSE is natural-log fp32 (batch*heads, seq).
+bf16.  On fp32 inputs the four kernels at the three widths are
+``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32), but the
+backward pair at 512, which is ``csrc/flash_fp32_d512_bwd_sm90.cu`` (a
+cluster of four blocks over head_dim, TMA, the same products); both
+compute the JAX package's fp32 arithmetic: the standard forward and the
+backward in the natural domain with the exact scale after the product, the
+deferred forward on q prescaled by ``scale * log2 e`` in base 2.  Every
+other head_dim that is a multiple of 8 up to 128 (the tiny model's 8 and
+16, SD1.x's 40 and 80, 128) takes ``csrc/flash_narrow.cu``'s four kernels,
+bf16 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS`
+that holds it, with the arithmetic of the other entries of its dtype.
+Every kernel reads its (batch, seq, heads, D) inputs, all bf16 or all
+fp32, D as :func:`kernel_takes` says, through their strides (TMA at bf16
+head_dim 64 and 256 and in the fp32 backward at 512, cp.async elsewhere),
+so the callers hand them the views they have, and writes its outputs
+contiguous in that layout: no copy is made in either direction, and no
+padded one at the narrow widths (the kernels zero-fill the columns past D
+on chip).  Every LSE is natural-log fp32 (batch*heads, seq).
 
 On a CUDA tensor every wrapper launches its kernel or raises; none falls
 back.  On a CPU tensor it computes the plain version, at any head_dim,
@@ -61,8 +62,15 @@ D256_FWD_BLOCK_KV = 64
 # tile the dq kernel walks (kBlockKV there) and the kv rows a dk/dv block
 # owns (kRows)
 D256_BWD_BLOCK_KV = 64
-# the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there)
+# the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there),
+# which serves the four fp32 kernels at 64 and 256 and both forwards at 512
 FP32_BLOCK_KV = {64: 64, 256: 32, 512: 16}
+# the fp32 backward at head_dim 512 (csrc/flash_fp32_d512_bwd_sm90.cu): the
+# tile of the streamed axis both kernels walk (kBlockKV there: the dq
+# kernel's kv tile, the dk/dv kernel's q tile) and the resident rows of a
+# cluster of four blocks (kRows)
+FP32_D512_BWD_BLOCK_KV = 32
+FP32_D512_BWD_ROWS = 64
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
 # that is a multiple of 8 up to 128 at the smallest width that holds it,
 # and the rows of every tile there by width (kRows), both dtypes
@@ -112,7 +120,8 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     take to match it).  Without ``kind``, the tile all four walk; raises
     where they differ (the bf16 kernels at 256 walk
     :data:`D256_FWD_BLOCK_KV` forward and :data:`D256_BWD_BLOCK_KV`
-    backward)."""
+    backward; the fp32 kernels at 512 :data:`FP32_BLOCK_KV` forward and
+    :data:`FP32_D512_BWD_BLOCK_KV` backward)."""
     if kind is None:
         tiles = {kernel_block_kv(head_dim, dtype, k) for k in KINDS}
         if len(tiles) > 1:
@@ -125,6 +134,8 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     if width is not None:
         return NARROW_BLOCK_KV[width]
     if dtype == torch.float32:
+        if head_dim == 512 and kind.startswith("bwd"):
+            return FP32_D512_BWD_BLOCK_KV
         return FP32_BLOCK_KV[head_dim]
     if head_dim == 256:
         return (D256_FWD_BLOCK_KV if kind.startswith("fwd")
@@ -276,9 +287,10 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
     """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64 and
-    256, 16-byte cp.async elsewhere) cannot read: a
-    last (head_dim) stride other than 1, another stride not a whole number
-    of 16 bytes (8 bf16 or 4 fp32 elements), or a base not 16-byte aligned.
+    256 and in the fp32 backward at 512, 16-byte cp.async elsewhere) cannot
+    read: a last (head_dim) stride other than 1, another stride not a whole
+    number of 16 bytes (8 bf16 or 4 fp32 elements), or a base not 16-byte
+    aligned.
     Nothing is copied to make a layout fit."""
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the last stride must be 1, got "

@@ -2,16 +2,20 @@
 from attention computed in fp64.
 
   python -m diffute_tpu_torch.tools.flash_fp32_accuracy [--out FILE]
+      [--widths 512,64] [--package-root DIR]
 
-For each head_dim (64, 256, 512 and the narrow widths 8, 16, 40, 80, 128)
-at a square and a ragged shape, random inputs from a seed: the relative L2
-distance of o, dq, dk and dv (and the max abs distance of the LSE) from
-fp64 autograd through plain attention, for the kernel
-(``csrc/flash_fp32.cu``, or ``csrc/flash_narrow.cu`` at the narrow widths),
-its tiled plain fp32 version at the same domain and kv tile, and that
-plain version with its operands rounded to TF32 (what TF32 alone would
-give).  Prints one JSON object with the card's name and power limit, and
-writes it to ``--out`` if given.  Needs a CUDA device.
+For each head_dim (64, 256, 512 and the narrow widths 8, 16, 40, 80, 128;
+``--widths`` picks some) at a square and a ragged shape, random inputs
+from a seed: the relative L2 distance of o, dq, dk and dv (and the max abs
+distance of the LSE) from fp64 autograd through plain attention, for the
+kernel (``csrc/flash_fp32.cu``; the backward pair at 512
+``csrc/flash_fp32_d512_bwd_sm90.cu``; ``csrc/flash_narrow.cu`` at the
+narrow widths), its tiled plain fp32 version at the same domain and each
+kernel's kv tile, and that plain version with its operands rounded to TF32
+(what TF32 alone would give).  Prints one JSON object with the card's name
+and power limit, and writes it to ``--out`` if given.  ``--package-root``
+imports the port from another checkout (run this file by its path then),
+so two commits' kernels can be read on one card.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import argparse
 import importlib
 import json
 import subprocess
+import sys
 
 import torch
 
@@ -44,14 +49,17 @@ def _fp64(q, k, v, do, scale):
     return o.detach(), torch.logsumexp(s.detach(), -1), grads
 
 
-def measure(seed: int = 0) -> list:
+def measure(seed: int = 0, widths=tuple(SHAPES)) -> list:
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for d, shapes in SHAPES.items():
-        sc, bkv = d ** -0.5, fa.kernel_block_kv(d, torch.float32)
-        for bh, s, t in shapes:
+    for d in widths:
+        # the forward's and the backward's tiles (they differ at 512)
+        sc = d ** -0.5
+        bkv, bwd_bkv = (fa.kernel_block_kv(d, torch.float32, kind)
+                        for kind in ("fwd", "bwd_dq"))
+        for bh, s, t in SHAPES[d]:
             q, k, v, do = (torch.randn((bh, n, d), generator=g, device="cuda")
                            for n in (s, t, t, s))
             o64, lse64, grads64 = _fp64(q, k, v, do, sc)
@@ -59,12 +67,12 @@ def measure(seed: int = 0) -> list:
             dq, delta = fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)
             kernel = (o, dq, *fa.flash_bwd_dkv_3d(q, k, v, do, lse, delta,
                                                    sc))
-            row = {"shape": [bh, s, t, d]}
+            row = {"shape": [bh, s, t, d], "block_kv": [bkv, bwd_bkv]}
             for name, tf32 in (("plain", False), ("plain_tf32", True)):
                 po, plse = fa.flash_fwd_tiled_reference(q, k, v, sc, bkv,
                                                         tf32=tf32)
                 pg = fa.flash_bwd_tiled_reference(q, k, v, po, plse, do, sc,
-                                                  bkv, tf32=tf32)
+                                                  bwd_bkv, tf32=tf32)
                 row[name] = dict(
                     zip(("o", "dq", "dk", "dv"),
                         (_rel(x, r) for x, r in zip((po, *pg),
@@ -85,13 +93,25 @@ def measure(seed: int = 0) -> list:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--out", default=None)
+    p.add_argument("--widths", default=",".join(map(str, SHAPES)),
+                   help="comma-separated head_dims of " + str(tuple(SHAPES)))
+    p.add_argument("--package-root", default=None, metavar="DIR",
+                   help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
+    widths = tuple(int(w) for w in args.widths.split(","))
+    if any(w not in SHAPES for w in widths):
+        raise SystemExit(f"flash_fp32_accuracy: widths {widths} not all in "
+                         f"{tuple(SHAPES)}")
+    if args.package_root:
+        sys.path.insert(0, args.package_root)
     if not torch.cuda.is_available():
         raise SystemExit("flash_fp32_accuracy: no CUDA device")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    out = {"gpu": gpu, "rows": measure()}
+    fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
+    out = {"gpu": gpu, "package": fa.__file__,
+           "rows": measure(widths=widths)}
     print(json.dumps(out), flush=True)
     if args.out:
         with open(args.out, "w") as f:

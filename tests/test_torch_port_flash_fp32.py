@@ -1,10 +1,13 @@
-"""PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``):
+"""PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``;
+the backward pair at head_dim 512 ``csrc/flash_fp32_d512_bwd_sm90.cu``):
 the plain fp32 versions of the forward, the deferred-softmax forward and
 the backward on the CPU against the JAX package's fp32 flash attention
 (Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
-them) at head_dims 64, 256 and 512 with a ragged T; the TF32 mutant and the
-other mutants that the card's bound must refuse; the wrappers' dtype and
-layout checks, entry names and counters; the device numerics rule.
+them) at head_dims 64, 256 and 512 with a ragged T, and the tiled plain
+backward at the 512 pair's own tile; the kv tile of each kind and the
+source's constants; the TF32 mutant and the other mutants that the card's
+bound must refuse; the wrappers' dtype and layout checks, entry names and
+counters; the device numerics rule.
 
 The precision contract (the head of ``csrc/flash_fp32.cu``): o, dq, dk and
 dv within relative L2 1e-5, the LSE within 1e-5 absolute.  The CUDA
@@ -14,6 +17,8 @@ so the card's image (jax without flax) runs its ``cuda`` tests.
 """
 
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +105,76 @@ def test_plain_fp32_versions_match_jax_and_the_tf32_mutant_does_not(d):
                                            tf32=True)
     for name, mine, ref in zip(("dq", "dk", "dv"), mgrads, j_grads):
         assert _rel_l2(mine, _to3d(ref)) > 10 * REL_L2, name
+
+
+def test_the_fp32_kernels_tile_by_kind_at_512():
+    # both forwards at 512 walk csrc/flash_fp32.cu's 16-row tile, the
+    # backward pair csrc/flash_fp32_d512_bwd_sm90.cu's 32-row one
+    fp32 = torch.float32
+    assert [tfa.kernel_block_kv(512, fp32, kind) for kind in KINDS] == [
+        tfa.FP32_BLOCK_KV[512]] * 2 + [tfa.FP32_D512_BWD_BLOCK_KV] * 2 == [
+        16, 16, 32, 32]
+    with pytest.raises(ValueError, match="name the kind"):
+        tfa.kernel_block_kv(512, fp32)
+    # one tile for all four at the other fp32 widths, and the bf16 ones at
+    # 512 keep theirs
+    assert [tfa.kernel_block_kv(d, fp32) for d in (64, 256)] == [64, 32]
+    assert tfa.kernel_block_kv(512, torch.bfloat16) == tfa.WIDE_BLOCK_KV
+    # the deferred forward's dispatch rule counts in a whole number of the
+    # fp32 forward's tiles
+    assert tfa.pipelined_block_kv(512) % tfa.kernel_block_kv(
+        512, fp32, "fwd_pipelined") == 0
+
+
+def test_the_d512_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
+    # the tiled plain backward and phase 3f count in FP32_D512_BWD_BLOCK_KV;
+    # csrc/flash_fp32_d512_bwd_sm90.cu fixes both kernels' streamed tile
+    # and the resident rows of a cluster at build time, and
+    # csrc/flash_fp32.cu keeps only the forwards at 512
+    csrc = os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "flash_fp32_d512_bwd_sm90.cu")) as f:
+        text = f.read()
+    for name, value in (("kBlockKV", tfa.FP32_D512_BWD_BLOCK_KV),
+                        ("kRows", tfa.FP32_D512_BWD_ROWS)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+            str(value)], name
+    for entry in ("flash_bwd_dq_d512_fp32", "flash_bwd_dkv_d512_fp32"):
+        assert f'extern "C" int {entry}(' in text
+    with open(os.path.join(csrc, "flash_fp32.cu")) as f:
+        fp32 = f.read()
+    assert "FLASH_FP32_FWD_ENTRIES(F512, _d512)" in fp32
+    assert "FLASH_FP32_ENTRIES(F512" not in fp32
+
+
+@pytest.mark.parametrize("s,t", [(100, 300), (96, 160)])
+def test_plain_fp32_backward_at_the_d512_tile_matches_jax(s, t):
+    # the tiled plain backward at the 512 pair's own tile (32 rows) against
+    # the JAX package's fp32 _flash_bwd_3d (Pallas in interpret mode) on
+    # the same o and LSE, T ragged against the tile and whole
+    d = 512
+    q, k, v, g = (_to3d(x) for x in _inputs(d + 2, 1, s, t, 1, d))
+    scale = d ** -0.5
+    bkv = tfa.kernel_block_kv(d, torch.float32, "bwd_dkv")
+    assert bkv == tfa.kernel_block_kv(d, torch.float32, "bwd_dq") == 32
+    jq, jk, jv, jg = (jnp.asarray(x.numpy()) for x in (q, k, v, g))
+    jo, jlse = jfa._flash_fwd_3d(jq, jk, jv, scale, 128, 128)
+    j_grads = jfa._flash_bwd_3d(jq, jk, jv, jo, jlse, jg, scale, 128, 128)
+    o = torch.from_numpy(np.array(jo))
+    lse = torch.from_numpy(np.array(jlse))[..., 0]
+    grads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
+    for name, mine, ref in zip(("dq", "dk", "dv"), grads, j_grads):
+        assert _rel_l2(mine, ref) <= REL_L2, name
+    # the kernels' mutants at this tile: TF32 operands, the last kv tile
+    # dropped from dq, dk x (1 + 1e-4)
+    mgrads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv,
+                                           tf32=True)
+    for name, mine, ref in zip(("dq", "dk", "dv"), mgrads, j_grads):
+        assert _rel_l2(mine, ref) > 10 * REL_L2, name
+    cut = (t - 1) // bkv * bkv
+    mdq = tfa.flash_bwd_tiled_reference(q, k[:, :cut], v[:, :cut], o, lse, g,
+                                        scale, bkv)[0]
+    assert _rel_l2(mdq, j_grads[0]) > REL_L2
+    assert _rel_l2(grads[1] * (1 + 1e-4), j_grads[1]) > REL_L2
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -264,7 +339,11 @@ def test_cuda_fp32_kernels_match_plain(bh, s, t, d):
     gen = torch.Generator(device="cuda").manual_seed(d)
     q, k, v, g = (torch.randn((bh, n, d), generator=gen, device="cuda")
                   for n in (s, t, t, s))
-    scale, bkv = d ** -0.5, tfa.FP32_BLOCK_KV[d]
+    # each kernel held at its own tile (at 512 the backward's is 32 rows,
+    # the forwards' 16)
+    scale = d ** -0.5
+    bkv, bwd_bkv = (tfa.kernel_block_kv(d, torch.float32, kind)
+                    for kind in ("fwd", "bwd_dq"))
     counters = [tfa.counter_name(kind, d, torch.float32) for kind in KINDS]
     before = [getattr(tfa.flash_attention, n) for n in counters]
     o, lse = tfa.flash_fwd_3d(q, k, v, scale)
@@ -280,7 +359,7 @@ def test_cuda_fp32_kernels_match_plain(bh, s, t, d):
                for a, b in zip((o, lse, dq, delta, dk, dv), again))
     ro, rlse = tfa.flash_fwd_tiled_reference(q, k, v, scale, bkv)
     assert _held(o, ro) and (lse - rlse).abs().max().item() <= LSE_ABS
-    ref = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
+    ref = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bwd_bkv)
     for name, mine, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         assert _held(mine, r), name
     # the TF32 mutant and dk x (1 + 1e-4) fail the bound
