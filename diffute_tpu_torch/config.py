@@ -31,8 +31,10 @@ class VAEConfig:
     remat: bool = False
     # Route the mid-block's single-head attention (head_dim 512 at SD2
     # width, 4096 to 16384 tokens; 256 at small_config, 4096 tokens) through
-    # the CUDA flash kernels (csrc/flash_wide.cu on bf16, csrc/flash_fp32.cu
-    # on fp32).
+    # the CUDA flash kernels (bf16: csrc/flash_wide.cu at 512,
+    # csrc/flash_d256_sm90.cu and flash_d256_bwd_sm90.cu at 256; fp32:
+    # csrc/flash_fp32_d512_sm90.cu and flash_fp32_d512_bwd_sm90.cu at 512,
+    # csrc/flash_fp32.cu at 256).
     use_flash_attention: bool = False
 
     @property

@@ -2,11 +2,12 @@
 // deferred-softmax forward, the dq kernel (which also writes delta) and the
 // dk/dv kernel, fp32 in and out, fp32 LSE and delta.  One source, templated
 // on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the UNet's
-// heads) and 256 (the small VAE's mid-block, `small_config`), and its two
-// forwards at 512 (the SD2 VAE's mid-block); the backward pair at 512 is
-// flash_fp32_d512_bwd_sm90.cu (a cluster of four blocks over head_dim, on
-// the same precision contract).  The bf16 kernels (flash_fwd.cu,
-// flash_fwd_pipelined.cu, flash_bwd.cu, flash_wide.cu) stay as they are.
+// heads) and 256 (the small VAE's mid-block, `small_config`).  The four at
+// 512 (the SD2 VAE's mid-block) are flash_fp32_d512_sm90.cu (the two
+// forwards) and flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a cluster of
+// four blocks over head_dim and the same precision contract.  The bf16
+// kernels (flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu,
+// flash_wide.cu) stay as they are.
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py on
 // fp32 inputs: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
@@ -74,12 +75,11 @@
 //   D = 64,  R = 64: 4 warps, a 16 KB tile; forward 80 KB (deferred 80 KB),
 //     dq 96.5 KB, dk/dv 97 KB: two blocks an SM;
 //   D = 256, R = 32: 8 warps, a 32 KB tile, 16 KB of partials; forward
-//     176 KB (deferred 192 KB), dq 224.25 KB, dk/dv 224.5 KB;
-//   D = 512, R = 16: 8 warps, a 32 KB tile, 8 KB of partials; forward
-//     168 KB (deferred 176 KB); the backward is not instantiated here.
+//     176 KB (deferred 192 KB), dq 224.25 KB, dk/dv 224.5 KB.
 //
-// A 32-row tile at 512 would be 64 KB: five of them (the forward) do not
-// fit, hence 16 rows there.
+// At 512 a 32-row tile would be 64 KB, so one SM held 16-row tiles; the
+// kernels there split head_dim over a cluster of four blocks instead
+// (flash_fp32_d512_sm90.cuh).
 //
 // Fragments.  ldmatrix moves b16 elements and cannot transpose 32-bit ones,
 // so every fragment is read with 32-bit shared loads.  The tf32 m16n8k8
@@ -145,7 +145,6 @@ struct Fp32 {
 
 using F64 = Fp32<64, 64>;
 using F256 = Fp32<256, 32>;
-using F512 = Fp32<512, 16>;
 
 // float offset of element (row, col) in a swizzled [rows][D] fp32 tile
 template <class W>
@@ -960,13 +959,13 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // Plain C entry points for ctypes, with the bf16 entries' argument lists
 // (flash_fwd_pipelined_*_fp32 refuses a t_len that is not a whole number,
-// at least two, of its tiles).  Tensors (B, len, H, D) fp32, D = 64, 256 or
-// 512 as the name says (the backward pair at 64 and 256), with the element
-// strides in `strides` (sb, sl, sh each; head_dim stride 1), lse and delta
-// (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates nothing,
-// and returns a CUDA error code (0 = launched).
+// at least two, of its tiles).  Tensors (B, len, H, D) fp32, D = 64 or 256
+// as the name says, with the element strides in `strides` (sb, sl, sh
+// each; head_dim stride 1), lse and delta (B*H, S) fp32 contiguous.  Each
+// launches on `stream`, allocates nothing, and returns a CUDA error code
+// (0 = launched).
 
-#define FLASH_FP32_FWD_ENTRIES(W, d)                                          \
+#define FLASH_FP32_ENTRIES(W, d)                                              \
   extern "C" int flash_fwd##d##_fp32(                                         \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, const long long* strides, float scale,     \
@@ -980,9 +979,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       void* stream) {                                                         \
     return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
                            scale, stream);                                    \
-  }
-
-#define FLASH_FP32_BWD_ENTRIES(W, d)                                          \
+  }                                                                           \
   extern "C" int flash_bwd_dq##d##_fp32(                                      \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -1000,11 +997,6 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       strides, scale, stream);                                \
   }
 
-#define FLASH_FP32_ENTRIES(W, d) \
-  FLASH_FP32_FWD_ENTRIES(W, d)   \
-  FLASH_FP32_BWD_ENTRIES(W, d)
-
 FLASH_FP32_ENTRIES(F64, )
 FLASH_FP32_ENTRIES(F256, _d256)
-// the backward pair at 512: flash_fp32_d512_bwd_sm90.cu
-FLASH_FP32_FWD_ENTRIES(F512, _d512)
+// the four at 512: flash_fp32_d512_sm90.cu, flash_fp32_d512_bwd_sm90.cu

@@ -3,7 +3,9 @@
 // fp32 in and out, fp32 LSE and delta.  The SD2 VAE's mid-block (one head
 // of 512) runs them when an fp32 model trains with
 // VAEConfig.use_flash_attention (stage 1 in fp32, the JAX trainers'
-// default precision).  The other fp32 flash kernels stay in flash_fp32.cu.
+// default precision).  The two forwards at 512 are flash_fp32_d512_sm90.cu,
+// on the same cluster layout (its constants, products, loads and launch are
+// flash_fp32_d512_sm90.cuh's); the other fp32 flash kernels flash_fp32.cu.
 //
 // Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
 // (both pl.pallas_call in `_flash_bwd_3d`) of
@@ -100,61 +102,16 @@
 // dO = 0 and lse = delta = 0, so p = 1 and ds = 1 * (0 - 0) = 0: they add
 // nothing.  Rows past the end of an output are not stored.
 
-#include "flash_sm90.cuh"
-#include "tf32_sm90.cuh"
+#include "flash_fp32_d512_sm90.cuh"
 
 namespace {
 
-using sm90::mbar_expect_tx;
-using sm90::mbar_init;
-using sm90::mbar_wait;
-using sm90::prefetch_map;
-using sm90::tma_load_at;
-using tf32_sm90::mma_tf32;
+using namespace fp32_d512;
 
-constexpr int kD = 512;
-constexpr int kRanks = 4;              // blocks of a cluster
-constexpr int kCols = kD / kRanks;     // 128 head_dim columns a block owns
-constexpr int kBox = 32;               // fp32 columns of a TMA box: 128 bytes
-// resident rows of a cluster (ops/flash_attention.py: FP32_D512_BWD_ROWS)
-constexpr int kRows = 64;
-// the rows of a streamed tile: the kv tile the dq kernel walks and the q
-// tile the dk/dv kernel walks (FP32_D512_BWD_BLOCK_KV)
-constexpr int kBlockKV = 32;
-constexpr int kThreads = 256;  // 8 warps
-// the m16 tiles (16-row groups of the 64) a warp's products span
-constexpr int kM = 2;
-constexpr int kResBytes = kRows * kCols * 4;         // 32 KB
-constexpr int kStreamBytes = kBlockKV * kCols * 4;   // 16 KB
-constexpr int kResBox = kRows * kBox * 4;            // 8 KB
-constexpr int kStreamBox = kBlockKV * kBox * 4;      // 4 KB
 // the partial scores a block receives for its 16 rows, float4
 // [product][source rank][64-column chain][8-column step][lane]
 constexpr int kPartBytes = 2 * 2 * kRows * kBlockKV * 4;  // 32 KB
-// one gathered 64 x 32 fp32 operand, float4 [group][8-column step][lane]
-constexpr int kGathBytes = kRows * kBlockKV * 4;      // 8 KB
 constexpr int kDqRing = 3, kDkvRing = 3;
-static_assert(kRows == 64 && kBlockKV == 32,
-              "four 16-row groups, four 8-column steps a tile");
-static_assert(kCols == 4 * kBox, "four boxes a slice row");
-
-// ----------------------------------------------------------------- cluster
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-// The shared::cluster address of shared::cta address `addr` in block
-// `rank` of this cluster.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
 
 __device__ __forceinline__ float ld_cluster_f(uint32_t addr) {
   float x;
@@ -165,186 +122,11 @@ __device__ __forceinline__ float ld_cluster_f(uint32_t addr) {
   return x;
 }
 
-__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 x) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
-               : "memory");
-}
-
-// Split cluster barrier: the arrival releases this thread's writes (to
-// its own and the other blocks' shared memory), the wait acquires every
-// other thread's of the cluster.  Every thread of every block calls both,
-// in turns.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------- products
-
-// float offset of element (row, col) of a slice of R rows x 128 columns,
-// stored as four boxes of [R][32] with the 128-byte swizzle
-template <int R>
-__device__ __forceinline__ int at(int row, int col) {
-  return (col >> 5) * (R * kBox) + row * kBox +
-         ((col & 31) ^ ((row & 7) << 2));
-}
-
-// x rounded to TF32 to nearest, ties away from zero: the bits
-// cvt.rna.tf32.f32 gives (the 13 bits below TF32's mantissa cleared after
-// adding half of their span, the carry running into the exponent), by two
-// integer operations on the ALUs: cvt.rna runs on the conversion unit, 16
-// results a clock an SM (the CUDA C++ guide's table for sm_90), two a split.
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo, each a TF32 value (lo the TF32 rounding of the rest), as
-// tf32_sm90::split computes it
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(x);
-  lo = rna_tf32(x - __uint_as_float(hi));
-}
-
-// An A fragment split into its TF32 halves.
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ void split_a(FragA& f, float a0, float a1, float a2,
-                                        float a3) {
-  split(a0, f.hi[0], f.lo[0]);
-  split(a1, f.hi[1], f.lo[1]);
-  split(a2, f.hi[2], f.lo[2]);
-  split(a3, f.hi[3], f.lo[3]);
-}
-
-// A B fragment (b0, b1) split into its TF32 halves.
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ void split_b(FragB& f, float b0, float b1) {
-  split(b0, f.hi[0], f.lo[0]);
-  split(b1, f.hi[1], f.lo[1]);
-}
-
-// d[i] += a[i] b[i] for N independent accumulators in 3xTF32: every
-// accumulator takes lo_a hi_b, then hi_a lo_b, then hi_a hi_b (the small
-// terms first), and the N products of each term are issued together, so
-// that no mma.sync waits on the one just before it.
-template <int N>
-__device__ __forceinline__ void mma3_n(float (&d)[N][4], const FragA (&a)[N],
-                                       const FragB (&b)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].lo, b[i].hi[0], b[i].hi[1]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].lo[0], b[i].lo[1]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].hi[0], b[i].hi[1]);
-}
-
-// A warp's share of a product: 32 rows (kM m16 tiles) by 32 columns (four
-// n8 tiles), acc[4 m + n].  Every split A fragment serves four products and
-// every B fragment two: a warp splits 16 values a k-step for 24 mma.sync.
-using Acc = float[4 * kM][4];
-
-__device__ __forceinline__ void zero_acc(Acc& x) {
-#pragma unroll
-  for (int n = 0; n < 4 * kM; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[n][i] = 0.f;
-}
-
-// acc[4 m + n] += a[m] b[n] in 3xTF32
-__device__ __forceinline__ void mma3_mx4(Acc& acc, const FragA (&a)[kM],
-                                         const FragB (&b)[4]) {
-  FragA fa[4 * kM];
-  FragB fb[4 * kM];
-#pragma unroll
-  for (int m = 0; m < kM; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      fa[4 * m + n] = a[m];
-      fb[4 * m + n] = b[n];
-    }
-  mma3_n(acc, fa, fb);
-}
-
-// A warp's partial of a score tile: x (32 x 32) = rows [a0, a0 + 32) of
-// the resident slice `a` times the 32 rows of the streamed slice `b`,
-// transposed, over the 64 columns [c0, c0 + 64) of the block's 128: one
-// chain of 8 k-steps from zero.
-__device__ __forceinline__ void scores_part(Acc& x, const float* a, int a0,
-                                            const float* b, int c0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  zero_acc(x);
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const int c = c0 + kk * 8 + t;
-    FragA fa[kM];
-    FragB fb[4];
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const int r = a0 + 16 * m + g;
-      split_a(fa[m], a[at<kRows>(r, c)], a[at<kRows>(r + 8, c)],
-              a[at<kRows>(r, c + 4)], a[at<kRows>(r + 8, c + 4)]);
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      split_b(fb[n], b[at<kBlockKV>(n * 8 + g, c)],
-              b[at<kBlockKV>(n * 8 + g, c + 4)]);
-    mma3_mx4(x, fa, fb);
-  }
-}
-
-// Store a warp's partial into the receive buffers of the blocks that
-// reduce its rows, at dst[m] (the slot of its m16 tile m there: part_slot).
-__device__ __forceinline__ void put_part(const uint32_t (&dst)[kM],
-                                         const Acc& x) {
-#pragma unroll
-  for (int m = 0; m < kM; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      st_cluster_f4(dst[m] + n * 32 * 16,
-                    make_float4(x[4 * m + n][0], x[4 * m + n][1],
-                                x[4 * m + n][2], x[4 * m + n][3]));
-}
-
-// acc (32 x 32) += A (32 x 32: row groups 2 rp and 2 rp + 1 of the
-// gathered operand `gath`) times the 32 rows of the streamed slice `b`,
-// columns [c0, c0 + 32).  The contraction runs in the order 2t, 2t + 1 of
-// each 8 rows, so that A is the accumulator layout as gathered (c0, c2,
-// c1, c3) and B's rows 2t + e, columns c0 + 8n + g hit 32 distinct banks.
-// Each 8-column block is summed from zero over the tile's 32 rows (12
-// products, the eight blocks advancing together) and then added to acc in
-// fp32.
+// acc += out_tile(...), each 8-column block added in fp32.
 __device__ __forceinline__ void out_part(Acc& acc, const float4* gath, int rp,
                                          const float* b, int c0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   Acc part;
-  zero_acc(part);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int r = kk * 8 + 2 * t;
-    FragA fa[kM];
-    FragB fb[4];
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-      const float4 x = gath[((kM * rp + m) * 4 + kk) * 32 + lane];
-      split_a(fa[m], x.x, x.z, x.y, x.w);
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = c0 + n * 8 + g;
-      split_b(fb[n], b[at<kBlockKV>(r, col)], b[at<kBlockKV>(r + 1, col)]);
-    }
-    mma3_mx4(part, fa, fb);
-  }
+  out_tile(part, gath, rp, b, c0);
 #pragma unroll
   for (int j = 0; j < 4 * kM; ++j)
 #pragma unroll
@@ -393,48 +175,6 @@ struct BwdParams {
   int heads, s_len, t_len;
   float scale;
 };
-
-// The four box loads of this block's 128 columns from `col0` of rows
-// `row`.. of `map` into the slice at `dst` (boxes `box` bytes apart),
-// completing on `bar`.
-__device__ __forceinline__ void load_slice(const CUtensorMap* map,
-                                           uint32_t dst, uint32_t box,
-                                           uint32_t bar, int col0, int row,
-                                           int h, int b) {
-#pragma unroll
-  for (int c = 0; c < kCols / kBox; ++c)
-    tma_load_at(dst + c * box, map, bar, col0 + c * kBox, h, row, b);
-}
-
-// What a block reads: its rank's first column, its (batch, head), the
-// streamed tiles, and the addresses of its resident slices, ring, partial
-// and gather buffers, mbarriers (`once` for the resident slices, then full
-// per stage) and stage statistics (dk/dv).
-struct Block {
-  int rank, col0, bh, h, bb, n_tiles;
-  uint32_t res0, res1, ring0, ring1, part, gath, bars, stats;
-  __device__ uint32_t once() const { return bars; }
-  __device__ uint32_t full(int s) const { return bars + 8 * (1 + s); }
-};
-
-__device__ __forceinline__ void init_bars(const Block& t, int ring,
-                                          uint32_t full_count) {
-  mbar_init(t.once(), 1);
-  for (int s = 0; s < ring; ++s) mbar_init(t.full(s), full_count);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Where a warp's partial goes: the slots of its two m16 tiles (rows
-// [32 rp, 32 rp + 32)) in the receive buffers of blocks 2 rp and 2 rp + 1
-// (product `prod`, this block's rank, chain `ch`).
-__device__ __forceinline__ void part_slots(uint32_t (&dst)[kM], const Block& t,
-                                           int prod, int rp, int ch) {
-  const uint32_t slot =
-      t.part +
-      (((prod * kRanks + t.rank) * 2 + ch) * 4 * 32 + (threadIdx.x & 31)) * 16;
-#pragma unroll
-  for (int m = 0; m < kM; ++m) dst[m] = map_rank(slot, kM * rp + m);
-}
 
 // The reduce-scatter of a tile is warps 0-3's (kReducers threads): thread
 // (kk, lane) of them takes rows g and g + 8 of rows [16 rank, 16 rank +
@@ -863,50 +603,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------------ host
 
-// A (B, L, H, 512) fp32 tensor with element strides (sb, sl, sh, 1) as a
-// 4-D map of dims (512, H, L, B) and box (32, 1, rows, 1): one 128-byte
-// span of a row, 128-byte swizzle; rows past L read as zeros.
-bool encode_f32(CUtensorMap* map, const void* base, int b, int len, int h,
-                long long sb, long long sl, long long sh, int rows) {
-  sm90::EncodeTiledFn fn = sm90::encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h,
-                              (cuuint64_t)len, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)sl * 4,
-                                 (cuuint64_t)sb * 4};
-  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// A launch of `kernel` over clusters of kRanks blocks, one cluster a
-// kRows-row tile of `rows` rows and B*H.
-cudaLaunchConfig_t cluster_config(int rows, int bh, int smem_bytes,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kRanks * ((rows + kRows - 1) / kRows), bh, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kRanks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-cudaError_t allow_smem(void (*kernel)(BwdParams), int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 // Encode the four input maps (the resident tensors' boxes kRows rows, the
 // streamed ones' kBlockKV), fill the scalars and launch.  `s` holds the
 // element strides (sb, sl, sh) in the C entries' order: dq: q, k, v, o,
@@ -1007,15 +703,6 @@ extern "C" int flash_bwd_dkv_d512_fp32(const void* q, const void* k,
 // (dkv = 1): the clusters of kRanks blocks the card runs at once; a
 // negative CUDA error code if the query fails.
 extern "C" int flash_bwd_d512_fp32_max_clusters(int dkv) {
-  void (*kernel)(BwdParams) = dkv ? dkv_kernel : dq_kernel;
-  const int bytes = dkv ? DkvSmem::bytes : DqSmem::bytes;
-  cudaError_t err = allow_smem(kernel, bytes);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(kRows * 1024, 1, bytes,
-                                                nullptr, &attr);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(
-        &n, reinterpret_cast<const void*>(kernel), &cfg);
-  return err == cudaSuccess ? n : -(int)err;
+  return dkv ? max_clusters(dkv_kernel, DkvSmem::bytes)
+             : max_clusters(dq_kernel, DqSmem::bytes);
 }

@@ -12,10 +12,11 @@ UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
 width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
 both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
 ``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
-bf16.  On fp32 inputs the four kernels at the three widths are
-``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32), but the
-backward pair at 512, which is ``csrc/flash_fp32_d512_bwd_sm90.cu`` (a
-cluster of four blocks over head_dim, TMA, the same products); both
+bf16.  On fp32 inputs the four kernels at 64 and 256 are
+``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32); at 512 both
+forwards are ``csrc/flash_fp32_d512_sm90.cu`` and the backward pair
+``csrc/flash_fp32_d512_bwd_sm90.cu`` (a cluster of four blocks over
+head_dim, 64 resident rows, TMA-fed 32-row tiles, the same products); all
 compute the JAX package's fp32 arithmetic: the standard forward and the
 backward in the natural domain with the exact scale after the product, the
 deferred forward on q prescaled by ``scale * log2 e`` in base 2.  Every
@@ -25,7 +26,7 @@ bf16 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS`
 that holds it, with the arithmetic of the other entries of its dtype.
 Every kernel reads its (batch, seq, heads, D) inputs, all bf16 or all
 fp32, D as :func:`kernel_takes` says, through their strides (TMA at bf16
-head_dim 64 and 256 and in the fp32 backward at 512, cp.async elsewhere),
+head_dim 64 and 256 and in the fp32 kernels at 512, cp.async elsewhere),
 so the callers hand them the views they have, and writes its outputs
 contiguous in that layout: no copy is made in either direction, and no
 padded one at the narrow widths (the kernels zero-fill the columns past D
@@ -62,15 +63,16 @@ D256_FWD_BLOCK_KV = 64
 # tile the dq kernel walks (kBlockKV there) and the kv rows a dk/dv block
 # owns (kRows)
 D256_BWD_BLOCK_KV = 64
-# the rows of every tile of csrc/flash_fp32.cu by head_dim (kRows there),
-# which serves the four fp32 kernels at 64 and 256 and both forwards at 512
-FP32_BLOCK_KV = {64: 64, 256: 32, 512: 16}
-# the fp32 backward at head_dim 512 (csrc/flash_fp32_d512_bwd_sm90.cu): the
-# tile of the streamed axis both kernels walk (kBlockKV there: the dq
-# kernel's kv tile, the dk/dv kernel's q tile) and the resident rows of a
-# cluster of four blocks (kRows)
-FP32_D512_BWD_BLOCK_KV = 32
-FP32_D512_BWD_ROWS = 64
+# the streamed tile of every fp32 kernel by head_dim: at 64 and 256 the
+# rows of every tile of csrc/flash_fp32.cu (kRows there); at 512 the tile
+# of the streamed axis of all four kernels, both forwards
+# (csrc/flash_fp32_d512_sm90.cu) and the backward pair
+# (csrc/flash_fp32_d512_bwd_sm90.cu): the kv tile of the forwards and dq,
+# the q tile of dk/dv (kBlockKV of csrc/flash_fp32_d512_sm90.cuh)
+FP32_BLOCK_KV = {64: 64, 256: 32, 512: 32}
+# the resident rows of a cluster of four blocks in the fp32 kernels at 512
+# (kRows there): q rows of the forwards and dq, kv rows of dk/dv
+FP32_D512_ROWS = 64
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
 # that is a multiple of 8 up to 128 at the smallest width that holds it,
 # and the rows of every tile there by width (kRows), both dtypes
@@ -120,8 +122,8 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     take to match it).  Without ``kind``, the tile all four walk; raises
     where they differ (the bf16 kernels at 256 walk
     :data:`D256_FWD_BLOCK_KV` forward and :data:`D256_BWD_BLOCK_KV`
-    backward; the fp32 kernels at 512 :data:`FP32_BLOCK_KV` forward and
-    :data:`FP32_D512_BWD_BLOCK_KV` backward)."""
+    backward; the fp32 kernels walk :data:`FP32_BLOCK_KV` at every
+    width)."""
     if kind is None:
         tiles = {kernel_block_kv(head_dim, dtype, k) for k in KINDS}
         if len(tiles) > 1:
@@ -134,8 +136,6 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     if width is not None:
         return NARROW_BLOCK_KV[width]
     if dtype == torch.float32:
-        if head_dim == 512 and kind.startswith("bwd"):
-            return FP32_D512_BWD_BLOCK_KV
         return FP32_BLOCK_KV[head_dim]
     if head_dim == 256:
         return (D256_FWD_BLOCK_KV if kind.startswith("fwd")
@@ -212,8 +212,9 @@ def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
     kernels round ``p`` against the running max, so this, not the one-pass
     :func:`flash_attention_reference`, is what they match to a few bf16
     ulps.  "natural" and "prescaled" are the fp32 kernels'
-    (``csrc/flash_fp32.cu``).  ``tf32``: round every product's operands to
-    TF32 first (a mutant: what TF32 alone would compute).
+    (``csrc/flash_fp32.cu``; at 512 ``csrc/flash_fp32_d512_sm90.cu``).
+    ``tf32``: round every product's operands to TF32 first (a mutant: what
+    TF32 alone would compute).
 
     q (BH, S, D), k/v (BH, T, D) -> (o (BH, S, D) in q's dtype,
     lse (BH, S) fp32)."""
@@ -253,7 +254,7 @@ def pipelined_block_kv(head_dim: int) -> int:
     dispatch rule counts in: :data:`D256_FWD_BLOCK_KV` at 256
     (``csrc/flash_d256_sm90.cu``), 32 at 512 (``csrc/flash_wide.cu``), 64
     at any other (``csrc/flash_fwd_pipelined.cu`` at 64, and every narrow
-    width).  The fp32 kernels' tiles (:data:`FP32_BLOCK_KV`: 64, 32, 16)
+    width).  The fp32 kernels' tiles (:data:`FP32_BLOCK_KV`: 64, 32, 32)
     and the narrow ones (:data:`NARROW_BLOCK_KV`: 64 or 32) divide it, so
     they take every T the rule takes, at every width."""
     if head_dim == 256:
@@ -272,8 +273,8 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
     the dispatch rule's T.  ``block_kv`` is the kernel's tile
     (:func:`pipelined_block_kv` of the head_dim).  The domain is "base2" on
     bf16 inputs (the bf16 kernels') and "prescaled" on fp32 (the JAX
-    package's ``_flash_fwd_3d_pipelined``, as ``csrc/flash_fp32.cu``
-    computes it).
+    package's ``_flash_fwd_3d_pipelined``, as ``csrc/flash_fp32.cu`` and,
+    at 512, ``csrc/flash_fp32_d512_sm90.cu`` compute it).
 
     q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
     least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""
@@ -287,7 +288,7 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
 
 def check_tma_layout(x: torch.Tensor, name: str = "x") -> None:
     """Raise on a layout the kernels' loads (TMA at bf16 head_dim 64 and
-    256 and in the fp32 backward at 512, 16-byte cp.async elsewhere) cannot
+    256 and in the fp32 kernels at 512, 16-byte cp.async elsewhere) cannot
     read: a last (head_dim) stride other than 1, another stride not a whole
     number of 16 bytes (8 bf16 or 4 fp32 elements), or a base not 16-byte
     aligned.

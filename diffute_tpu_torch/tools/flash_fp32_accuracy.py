@@ -8,14 +8,17 @@ For each head_dim (64, 256, 512 and the narrow widths 8, 16, 40, 80, 128;
 ``--widths`` picks some) at a square and a ragged shape, random inputs
 from a seed: the relative L2 distance of o, dq, dk and dv (and the max abs
 distance of the LSE) from fp64 autograd through plain attention, for the
-kernel (``csrc/flash_fp32.cu``; the backward pair at 512
-``csrc/flash_fp32_d512_bwd_sm90.cu``; ``csrc/flash_narrow.cu`` at the
-narrow widths), its tiled plain fp32 version at the same domain and each
-kernel's kv tile, and that plain version with its operands rounded to TF32
-(what TF32 alone would give).  Prints one JSON object with the card's name
-and power limit, and writes it to ``--out`` if given.  ``--package-root``
-imports the port from another checkout (run this file by its path then),
-so two commits' kernels can be read on one card.  Needs a CUDA device.
+kernel (``csrc/flash_fp32.cu``; at 512 ``csrc/flash_fp32_d512_sm90.cu``
+and the backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``;
+``csrc/flash_narrow.cu`` at the narrow widths), its tiled plain fp32
+version at the same domain and each kernel's kv tile, and that plain
+version with its operands rounded to TF32 (what TF32 alone would give);
+where the dispatch rule takes T, also the deferred forward's o and LSE,
+kernel and plain (``o_deferred``, ``lse_abs_deferred``).  Prints one JSON
+object with the card's name and power limit, and writes it to ``--out`` if
+given.  ``--package-root`` imports the port from another checkout (run
+this file by its path then), so two commits' kernels can be read on one
+card.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -83,8 +86,14 @@ def measure(seed: int = 0, widths=tuple(SHAPES)) -> list:
                     (_rel(x, r) for x, r in zip(kernel, (o64, *grads64)))),
                 lse_abs=(lse.double() - lse64).abs().max().item())
             if fa._pipelined_takes(t, d):
-                po, _ = fa.flash_fwd_3d_pipelined(q, k, v, sc)
+                po, plse = fa.flash_fwd_3d_pipelined(q, k, v, sc)
                 row["kernel"]["o_deferred"] = _rel(po, o64)
+                row["kernel"]["lse_abs_deferred"] = (
+                    plse.double() - lse64).abs().max().item()
+                po, plse = fa.flash_fwd_pipelined_reference(q, k, v, sc, bkv)
+                row["plain"]["o_deferred"] = _rel(po, o64)
+                row["plain"]["lse_abs_deferred"] = (
+                    plse.double() - lse64).abs().max().item()
             rows.append(row)
             del q, k, v, do, o64, grads64, kernel
     return rows

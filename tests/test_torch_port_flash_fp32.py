@@ -1,13 +1,14 @@
 """PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``;
-the backward pair at head_dim 512 ``csrc/flash_fp32_d512_bwd_sm90.cu``):
+at head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
+backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``):
 the plain fp32 versions of the forward, the deferred-softmax forward and
 the backward on the CPU against the JAX package's fp32 flash attention
 (Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
 them) at head_dims 64, 256 and 512 with a ragged T, and the tiled plain
-backward at the 512 pair's own tile; the kv tile of each kind and the
-source's constants; the TF32 mutant and the other mutants that the card's
-bound must refuse; the wrappers' dtype and layout checks, entry names and
-counters; the device numerics rule.
+forwards and backward at the 512 kernels' own tile; the kv tile of each
+kind and the 512 sources' constants; the TF32 mutant and the other mutants
+that the card's bound must refuse; the wrappers' dtype and layout checks,
+entry names and counters; the device numerics rule.
 
 The precision contract (the head of ``csrc/flash_fp32.cu``): o, dq, dk and
 dv within relative L2 1e-5, the LSE within 1e-5 absolute.  The CUDA
@@ -108,14 +109,14 @@ def test_plain_fp32_versions_match_jax_and_the_tf32_mutant_does_not(d):
 
 
 def test_the_fp32_kernels_tile_by_kind_at_512():
-    # both forwards at 512 walk csrc/flash_fp32.cu's 16-row tile, the
-    # backward pair csrc/flash_fp32_d512_bwd_sm90.cu's 32-row one
+    # all four fp32 kernels at 512 (both forwards in
+    # csrc/flash_fp32_d512_sm90.cu, the backward pair in
+    # csrc/flash_fp32_d512_bwd_sm90.cu) walk one 32-row tile, so the call
+    # without a kind names it
     fp32 = torch.float32
     assert [tfa.kernel_block_kv(512, fp32, kind) for kind in KINDS] == [
-        tfa.FP32_BLOCK_KV[512]] * 2 + [tfa.FP32_D512_BWD_BLOCK_KV] * 2 == [
-        16, 16, 32, 32]
-    with pytest.raises(ValueError, match="name the kind"):
-        tfa.kernel_block_kv(512, fp32)
+        tfa.FP32_BLOCK_KV[512]] * 4 == [32] * 4
+    assert tfa.kernel_block_kv(512, fp32) == 32
     # one tile for all four at the other fp32 widths, and the bf16 ones at
     # 512 keep theirs
     assert [tfa.kernel_block_kv(d, fp32) for d in (64, 256)] == [64, 32]
@@ -127,23 +128,38 @@ def test_the_fp32_kernels_tile_by_kind_at_512():
 
 
 def test_the_d512_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
-    # the tiled plain backward and phase 3f count in FP32_D512_BWD_BLOCK_KV;
-    # csrc/flash_fp32_d512_bwd_sm90.cu fixes both kernels' streamed tile
-    # and the resident rows of a cluster at build time, and
-    # csrc/flash_fp32.cu keeps only the forwards at 512
+    # the tiled plain versions and phase 3f count in FP32_BLOCK_KV[512] and
+    # FP32_D512_ROWS; csrc/flash_fp32_d512_sm90.cuh fixes the streamed tile
+    # and a cluster's resident rows at build time for both 512 sources (the
+    # forwards' csrc/flash_fp32_d512_sm90.cu, the backward pair's
+    # csrc/flash_fp32_d512_bwd_sm90.cu), which define neither themselves;
+    # csrc/flash_fp32.cu instantiates nothing at 512
     csrc = os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc")
-    with open(os.path.join(csrc, "flash_fp32_d512_bwd_sm90.cu")) as f:
-        text = f.read()
-    for name, value in (("kBlockKV", tfa.FP32_D512_BWD_BLOCK_KV),
-                        ("kRows", tfa.FP32_D512_BWD_ROWS)):
-        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+
+    def read(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    header = read("flash_fp32_d512_sm90.cuh")
+    for name, value in (("kBlockKV", tfa.FP32_BLOCK_KV[512]),
+                        ("kRows", tfa.FP32_D512_ROWS)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", header) == [
             str(value)], name
-    for entry in ("flash_bwd_dq_d512_fp32", "flash_bwd_dkv_d512_fp32"):
-        assert f'extern "C" int {entry}(' in text
-    with open(os.path.join(csrc, "flash_fp32.cu")) as f:
-        fp32 = f.read()
-    assert "FLASH_FP32_FWD_ENTRIES(F512, _d512)" in fp32
-    assert "FLASH_FP32_ENTRIES(F512" not in fp32
+    for source, entries in (
+            ("flash_fp32_d512_bwd_sm90.cu", ("flash_bwd_dq_d512_fp32",
+                                             "flash_bwd_dkv_d512_fp32")),
+            ("flash_fp32_d512_sm90.cu", ("flash_fwd_d512_fp32",
+                                         "flash_fwd_pipelined_d512_fp32"))):
+        text = read(source)
+        assert '#include "flash_fp32_d512_sm90.cuh"' in text, source
+        for name in ("kBlockKV", "kRows"):
+            assert f"constexpr int {name} =" not in text, (source, name)
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text, entry
+    fp32 = read("flash_fp32.cu")
+    assert "F512" not in fp32 and "Fp32<512" not in fp32
+    assert re.findall(r"^FLASH_FP32_ENTRIES\((\w+), (\w*)\)$", fp32,
+                      re.M) == [("F64", ""), ("F256", "_d256")]
 
 
 @pytest.mark.parametrize("s,t", [(100, 300), (96, 160)])
@@ -175,6 +191,43 @@ def test_plain_fp32_backward_at_the_d512_tile_matches_jax(s, t):
                                         scale, bkv)[0]
     assert _rel_l2(mdq, j_grads[0]) > REL_L2
     assert _rel_l2(grads[1] * (1 + 1e-4), j_grads[1]) > REL_L2
+
+
+@pytest.mark.parametrize("pipelined,s,t", [(False, 100, 300),
+                                             (True, 64, 96)])
+def test_plain_fp32_forwards_at_the_d512_tile_match_jax(pipelined, s, t):
+    # the tiled plain forward at both 512 forwards' own tile (32 rows), in
+    # each one's domain, against the JAX package's fp32 _flash_fwd_3d
+    # (ragged S and T) and _flash_fwd_3d_pipelined (T three whole tiles),
+    # Pallas in interpret mode
+    d = 512
+    q, k, v, _ = (_to3d(x) for x in _inputs(d + 3, 1, s, t, 1, d))
+    scale = d ** -0.5
+    kind = "fwd_pipelined" if pipelined else "fwd"
+    bkv = tfa.kernel_block_kv(d, torch.float32, kind)
+    assert bkv == 32
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    if pipelined:
+        with pltpu.force_tpu_interpret_mode():
+            jo, jlse = jfa._flash_fwd_3d_pipelined(jq, jk, jv, scale, s, bkv)
+        domain = "prescaled"
+    else:
+        jo, jlse = jfa._flash_fwd_3d(jq, jk, jv, scale, 128, 128)
+        domain = "natural"
+    jlse = np.asarray(jlse)[..., 0]
+    o, lse = tfa.flash_fwd_tiled_reference(q, k, v, scale, bkv, domain)
+    assert _rel_l2(o, jo) <= REL_L2
+    assert np.abs(lse.numpy() - jlse).max() <= LSE_ABS
+    # the mutants the card's bound must refuse: TF32 operands, the last kv
+    # tile dropped
+    mo, _ = tfa.flash_fwd_tiled_reference(q, k, v, scale, bkv, domain,
+                                          tf32=True)
+    assert _rel_l2(mo, jo) > 10 * REL_L2
+    cut = (t - 1) // bkv * bkv
+    mo, mlse = tfa.flash_fwd_tiled_reference(q, k[:, :cut], v[:, :cut],
+                                             scale, bkv, domain)
+    assert _rel_l2(mo, jo) > REL_L2
+    assert np.abs(mlse.numpy() - jlse).max() > LSE_ABS
 
 
 @pytest.mark.parametrize("d", WIDTHS)
@@ -339,8 +392,7 @@ def test_cuda_fp32_kernels_match_plain(bh, s, t, d):
     gen = torch.Generator(device="cuda").manual_seed(d)
     q, k, v, g = (torch.randn((bh, n, d), generator=gen, device="cuda")
                   for n in (s, t, t, s))
-    # each kernel held at its own tile (at 512 the backward's is 32 rows,
-    # the forwards' 16)
+    # each kernel held at its own tile (kernel_block_kv by kind)
     scale = d ** -0.5
     bkv, bwd_bkv = (tfa.kernel_block_kv(d, torch.float32, kind)
                     for kind in ("fwd", "bwd_dq"))
