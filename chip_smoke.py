@@ -83,16 +83,18 @@ Phases, one line each (any failure raises and exits non-zero):
      rate over three products); what ptxas says of the source;
   3g. the fp32 entries of GroupNorm+SiLU and its statistics
      (csrc/groupnorm.cu) and the int8 matmul on fp32 x
-     (csrc/quant_fp32.cu, two TF32 products) against their plain fp32
-     versions, TF32 off: GN+SiLU within relative L2 1e-5, the statistics as
-     3b holds the bf16 ones and within 1e-6 of their tiled plain version at
-     the fp32 plan, the int8 matmul within relative L2 1e-5 (and its
-     distance from fp64), each the same bits twice, the fused bias bit for
-     bit; GroupNorm at 3b's shapes, the int8 matmul at 3b's and a ragged
-     one; mutants (the GN output rounded through bf16, the one-pass
-     variance at mean 100, a dropped cluster rank, x rounded to TF32 alone,
-     the scale applied to one feature twice) must FAIL; each timed beside
-     its bound, its plain version and its library call;
+     (csrc/quant_fp32_sm90.cu, two TF32 products on wgmma, K split where
+     the tiles leave SMs idle) against their plain fp32 versions, TF32 off:
+     GN+SiLU within relative L2 1e-5, the statistics as 3b holds the bf16
+     ones and within 1e-6 of their tiled plain version at the fp32 plan,
+     the int8 matmul within relative L2 1e-5 (and its distance from fp64
+     and from the plain emulation of its order of sums), each the same bits
+     twice, the fused bias bit for bit; GroupNorm at 3b's shapes, the int8
+     matmul at 3b's and a ragged one; mutants (the GN output rounded
+     through bf16, the one-pass variance at mean 100, a dropped cluster
+     rank, x rounded to TF32 alone, the scale applied to one feature twice,
+     one K split's partial dropped) must FAIL; each timed beside its bound,
+     its plain version and its library call;
   3h. GN+SiLU+conv3x3 on fp32 inputs (csrc/conv_fused_fp32.cu, 3xTF32
      products, the OIHW weight read as the layer keeps it) against its
      plain fp32 version, TF32 off, at every shape of 3b's conv table, a
@@ -266,7 +268,18 @@ csrc/flash_fp32_d512_bwd_sm90.cu) and 8c's SD2 stage-1 steps (fp32, the
 VAE's flag off and on, and the flash route held inside a flagged step)
 alone and prints their kernels line; with --package-root from another
 checkout's package, so change, parent, parent, change in one call times
-two commits' kernels and steps in turns.
+two commits' kernels and steps in turns.  --save-route PATH saves the
+PIPELINE_FWD step's mid-block calls (q, k, v, dO) for
+python -m diffute_tpu_torch.tools.fp32_d512_bwd_variants --chain-study PATH.
+
+    python3 chip_smoke.py --w8-fp32-only [--package-root DIR]
+
+builds the kernels and runs phase 3g's int8 matmul on fp32 x
+(csrc/quant_fp32_sm90.cu) and phase 8d's 20-step fp32 --fused-gn --int8
+edit, its two references and 8e's all-flags edit, in turns, alone and
+prints their kernels line; with --package-root from another checkout's
+package, so change, parent, parent, change in one call times two commits'
+kernels and edits in turns.
 
     python3 chip_smoke.py --narrow-only
 
@@ -3439,11 +3452,10 @@ def fp32_route_check(records: list, d: int, pipelined: bool = False
     that truncates shows there, as flash_route_check saw at head_dim 256).
     Mutants that must fail: the plain forward and backward with every
     product's operands rounded to TF32, the LSE left in base 2, dk x (1 +
-    1e-4), dq and dk swapped.  With the switch on, the step holds the
-    deferred forward (o, the LSE, their mutants) and records the
-    gradients' verdicts without holding them.  Recorded: each output's distance from the
-    plain version and from fp64, the plain version's from fp64, the largest
-    |score| after the scale."""
+    1e-4), dq and dk swapped.  o, the LSE, dq, dk and dv are held, and
+    every mutant must fail, with the switch off and on.  Recorded: each
+    output's distance from the plain version and from fp64, the plain
+    version's from fp64, the largest |score| after the scale."""
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     sc = d ** -0.5
     bkv = fa.kernel_block_kv(d, torch.float32, "bwd_dq")
@@ -3521,12 +3533,6 @@ def fp32_route_check(records: list, d: int, pipelined: bool = False
         res["within_tol_of_plain"] = {
             n: fp32_held(res[n]) for n in ("o", *names)}
         res["held"] = dict(held(got), **fwd_held(o, lse))
-        # With the switch on the step is there to hold the deferred
-        # forward: the backward pair's dk and dv then fail the gradients'
-        # rule, the parent's alike (their 3xTF32 scores are 7-8x further
-        # than the plain backward's from the backward's own function in
-        # fp64: ROADMAP.md queue 3), so its gradients are recorded, not held.
-        held_now = (("o", "lse") if pipelined else (*names, "o", "lse"))
         fwd_mutants = {"tf32": (mo, mlse),
                        "lse_base2": (o, lse / 0.6931471805599453)}
         res["mutants"] = {m: {"rel_l2": max(rel_l2(g[n], ref[n])
@@ -3538,15 +3544,13 @@ def fp32_route_check(records: list, d: int, pipelined: bool = False
             m: {"o_rel_l2": rel_l2(fo, ro),
                 "lse_abs": (flse - rlse).abs().max().item()}
             for m, (fo, flse) in fwd_mutants.items()}
-        passed = ([m for m, g in mutants.items()
-                   if all(held(g).values()) and not pipelined]
+        passed = ([m for m, g in mutants.items() if all(held(g).values())]
                   + [f"forward {m}" for m, (fo, flse) in fwd_mutants.items()
                      if all(fwd_held(fo, flse).values())])
         del ref, got, exact, mutants, fwd_mutants, q, k, v, do, o, lse, ro
         del rlse, mo, mlse, o64, lse64
         torch.cuda.empty_cache()
-        if (not (res["o_same_bits"]
-                 and all(res["held"][n] for n in held_now)) or passed):
+        if not (res["o_same_bits"] and all(res["held"].values())) or passed:
             raise RuntimeError(f"the fp32 flash route inside the stage-1 step "
                                f"disagrees with its plain version and with "
                                f"fp64, or the criterion passes the mutants "
@@ -4087,14 +4091,17 @@ def fp32_stage1_steps(dev, cfg_of, vae_params, batch_size, d, runs, prefix,
     return res
 
 
-def check_fp32_sd2_stage1(dev, vae_params, out) -> dict:
+def check_fp32_sd2_stage1(dev, vae_params, out, save_route=None) -> dict:
     """8c's SD2 stage 1: VAETrainer on the SD2 VAE at 512^2 in fp32 (the
     JAX trainer's default precision), batch 4, gradient checkpointing,
     STAGE1_STEPS steps flag off and on (2 forwards, 2 dq, 2 dk/dv at
     head_dim 512 a flagged step; the losses within TOL_FP32_LOSS_REL), each
     step's seconds and peak memory; then the flash route held at its own
     boundary inside one more flagged step, and one more with PIPELINE_FWD
-    on (flash_route_check, fp32: the forward's o and LSE, dq, dk, dv)."""
+    on (flash_route_check, fp32: the forward's o and LSE, dq, dk, dv).
+    ``save_route``: a path where the PIPELINE_FWD step's mid-block calls
+    (q, k, v, dO) are saved first, for tools.fp32_d512_bwd_variants
+    --chain-study."""
     from diffute_tpu_torch.config import DiffUTEConfig
 
     base, route, route_pipelined = DiffUTEConfig(), [], []
@@ -4108,6 +4115,9 @@ def check_fp32_sd2_stage1(dev, vae_params, out) -> dict:
           loss_tolerance=TOL_FP32_LOSS_REL, **s1)
     if not max(s1["loss_rel_diff"]) <= TOL_FP32_LOSS_REL:
         raise RuntimeError(f"fp32 stage 1 with flash differs: {s1}")
+    if save_route:
+        torch.save([{n: rec[n] for n in ("q", "k", "v", "do")}
+                    for rec in route_pipelined], save_route)
     s1["flash_route"] = flash_route_check(route, 512)
     phase("fp32_stage1_flash_route", routes=s1["flash_route"])
     s1["flash_route_pipelined"] = flash_route_check(route_pipelined, 512,
@@ -4807,14 +4817,15 @@ def fp32_entries(results: dict, launches: dict, widths=FP32_WIDTHS) -> list:
 
 
 # ---- phase 3g: GroupNorm+SiLU, its statistics and the int8 matmul on fp32
-# inputs (csrc/groupnorm.cu's fp32 entries, csrc/quant_fp32.cu), held to the
-# fp32 contract (TOL_FP32_REL_L2) of phase 3f
+# inputs (csrc/groupnorm.cu's fp32 entries, csrc/quant_fp32_sm90.cu), held
+# to the fp32 contract (TOL_FP32_REL_L2) of phase 3f
 # the int8 matmul's shapes: every one of a flagged 512^2 pass, the hoisted
 # K/V, the 1024^2 edit's widest and a ragged one (M not a multiple of the
 # 64-row tile, N not a multiple of 128)
 W8_FP32_SHAPES = ([s + (c,) for s, c in W8_SHAPES]
                   + [s + (None,) for s, _ in W8_EDIT_SHAPES]
                   + [(16384, 320, 2560, None), (1000, 640, 200, None)])
+W8_FP32_SOURCE = "quant_fp32_sm90.cu"
 # the H100 SXM's dense TF32 rate over the two products the int8 matmul on
 # fp32 x takes (x = hi + lo, the int8 values exact in TF32), and its fp32
 # rate outside the tensor cores (GroupNorm's few operations an element)
@@ -4830,33 +4841,23 @@ def check_fp32_fused(dev) -> dict:
     to the fp32 contract: GN+SiLU within relative L2 TOL_FP32_REL_L2 of
     group_norm_silu_reference; the statistics held as phase 3b holds the
     bf16 ones and within TOL_FP32_STATS of group_norm_stats_tiled_reference
-    at the fp32 plan; the int8 matmul within TOL_FP32_REL_L2 of
-    quant_matmul_reference (and its distance, and the plain version's, from
-    fp64); each the same bits twice, the fused bias bit for bit as the
-    two-step.  GroupNorm at every shape of phase 3b, the int8 matmul at
-    W8_FP32_SHAPES.  Mutants that must fail: the GN output rounded through
-    bf16, the one-pass variance E[x^2] - mean^2 at the mean-100 input, one
-    cluster rank dropped from the merge; the int8 product with x rounded to
-    TF32 alone, the scale applied to one feature twice.  Each timed beside
-    its bound, its plain version and its library call (F.silu(F.group_norm),
-    torch.batch_norm_stats, (x @ q.float().T) * scale).  Returns {entry
-    name: [result per shape]}."""
+    at the fp32 plan; each the same bits twice.  GroupNorm at every shape
+    of phase 3b; the int8 matmul as check_w8_fp32 holds it.  Mutants that
+    must fail: the GN output rounded through bf16, the one-pass variance
+    E[x^2] - mean^2 at the mean-100 input, one cluster rank dropped from
+    the merge.  Each timed beside its bound, its plain version and its
+    library call (F.silu(F.group_norm), torch.batch_norm_stats).  Returns
+    {entry name: [result per shape]}."""
     import torch.nn.functional as F
 
     from diffute_tpu_torch.ops.groupnorm import (
         gn_plan, group_norm_silu, group_norm_silu_from_stats,
         group_norm_silu_reference, group_norm_stats,
         group_norm_stats_reference, group_norm_stats_tiled_reference)
-    from diffute_tpu_torch.ops.quant import (quant_matmul,
-                                             quant_matmul_reference,
-                                             quant_matmul_tf32_reference,
-                                             quantize_per_channel,
-                                             w8_fp32_plan)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for source in ("groupnorm.cu", "quant_fp32.cu"):
-        show_ptxas(source)
+    show_ptxas("groupnorm.cu")
     f32 = torch.float32
     g = torch.Generator(device=dev).manual_seed(16)
 
@@ -4885,7 +4886,7 @@ def check_fp32_fused(dev) -> dict:
         return ((m - rm).abs().max().item() <= tol * max(1.0, abs(mean))
                 and ((r - rr).abs() / rr).max().item() <= tol)
 
-    out = {"gn_silu_fp32": [], "gn_stats_fp32": [], "w8_matmul_fp32": []}
+    out = {"gn_silu_fp32": [], "gn_stats_fp32": []}
     for shape, mean, n_stats, n_gn in (
             [((1, c, hw, hw), 0.0, ns, ng) for c, hw, ns, ng in GN_SHAPES]
             + [((2, 640, 32, 32), 0.0, None, None),
@@ -4983,21 +4984,83 @@ def check_fp32_fused(dev) -> dict:
     if mutated != [[1, 320, 64, 64], [2, 640, 32, 32], [1, 320, 64, 64]]:
         raise RuntimeError(f"fp32 GroupNorm mutants checked at {mutated}")
 
+    out["w8_matmul_fp32"] = check_w8_fp32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def w8_fp32_source() -> str:
+    """The source under csrc/ of the imported package that holds the fp32
+    int8 matmul (an older checkout: csrc/quant_fp32.cu)."""
+    from diffute_tpu_torch.ops import _build
+
+    return (W8_FP32_SOURCE if os.path.exists(os.path.join(_build.CSRC,
+                                                          W8_FP32_SOURCE))
+            else "quant_fp32.cu")
+
+
+def check_w8_fp32(dev) -> list:
+    """Phase 3g's int8 matmul on fp32 x: w8_matmul_fp32 at every shape of
+    W8_FP32_SHAPES against quant_matmul_reference (TF32 off) within
+    TOL_FP32_REL_L2, its distance and the plain version's from fp64 and
+    from the plain emulation of the kernel's order of sums
+    (quant_matmul_tf32_reference at the plan's k tile and splits), the same
+    bits twice, the fused bias bit for bit as the two-step.  Mutants that
+    must fail: x rounded to TF32 alone, the scale applied to one feature
+    twice (the first shape), one K split's partial dropped (the first shape
+    the plan splits).  Each timed beside its bound, its plain version and
+    its library call, (x @ q.float().T) * scale.  An older checkout
+    (--package-root) without K splits is held and timed, with no split
+    mutant.  Returns the result per shape."""
+    from diffute_tpu_torch.ops.quant import (quant_matmul,
+                                             quant_matmul_reference,
+                                             quant_matmul_tf32_reference,
+                                             quantize_per_channel,
+                                             w8_fp32_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    show_ptxas(w8_fp32_source())
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    def must_fail(name, err):
+        if err <= TOL_FP32_REL_L2:
+            raise RuntimeError(f"the fp32 criterion passes the mutant {name}: "
+                               f"{err}")
+        return err
+
+    # an older checkout's plan has no K split (and its emulation no order)
+    splits_k = "tiles_per_split" in w8_fp32_plan(64, 1280, 5120)
+    out = []
+    split_mutant = False
     for m_, k, n, per_pass in W8_FP32_SHAPES:
         x = randn(m_, k)
         q, scale = quantize_per_channel(randn(n, k, std=k ** -0.5))
         bias = randn(n, std=0.1)
+        plan = w8_fp32_plan(m_, n, k)
         y = quant_matmul(x, q, scale)
         again = quant_matmul(x, q, scale)
         with_bias = quant_matmul(x, q, scale, bias)
         torch.cuda.synchronize()
         ref = quant_matmul_reference(x, q, scale)
         ref64 = (x.double() @ q.double().t()) * scale.double()[None, :]
+        splits = plan["splits"]
+        order = (dict(k_tile=plan["block_k"], splits=splits) if splits_k
+                 else {})
+        emulated = quant_matmul_tf32_reference(x, q, scale, **order)
         res = dict(shape=[m_, k, n], launches_per_pass=per_pass,
-                   blocks=w8_fp32_plan(m_, n, k)["blocks"],
+                   blocks=plan["blocks"], splits=splits,
                    **fp32_errors(y, ref),
                    rel_l2_from_fp64=rel(y, ref64),
                    plain_rel_l2_from_fp64=rel(ref, ref64),
+                   rel_l2_from_emulation=rel(y, emulated),
+                   emulation_rel_l2_from_fp64=rel(emulated, ref64),
                    same_bits_twice=torch.equal(y, again),
                    bias_equals_two_step=torch.equal(with_bias, y + bias),
                    ms=time_ms(lambda: quant_matmul(x, q, scale)),
@@ -5010,24 +5073,34 @@ def check_fp32_fused(dev) -> dict:
                    **bound(2 * m_ * n * k, 4 * m_ * k + n * k + 4 * m_ * n
                            + 4 * n, PEAK_W8_FP32_FLOPS))
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
-        if not out["w8_matmul_fp32"]:
+        mutants = {}
+        if not out:
             twice = ref.clone()
             twice[:, 0] *= scale[0]
-            res["mutants"] = {
-                "tf32_only_rel_l2": must_fail(
-                    "x rounded to TF32 alone",
-                    rel(quant_matmul_tf32_reference(x, q, scale, products=1),
-                        ref)),
-                "scale_twice_rel_l2": must_fail(
-                    "the scale applied to one feature twice",
-                    rel(twice, ref))}
+            mutants["tf32_only_rel_l2"] = must_fail(
+                "x rounded to TF32 alone",
+                rel(quant_matmul_tf32_reference(x, q, scale, products=1),
+                    ref))
+            mutants["scale_twice_rel_l2"] = must_fail(
+                "the scale applied to one feature twice", rel(twice, ref))
+        if splits > 1 and not split_mutant:
+            split_mutant = True
+            mutants["split_dropped_rel_l2"] = must_fail(
+                "one K split's partial dropped",
+                rel(quant_matmul_tf32_reference(x, q, scale, **order,
+                                                drop_split=splits - 1), ref))
+        if mutants:
+            res["mutants"] = mutants
         phase("kernel_w8_matmul_fp32", **res)
         if not (fp32_held(res) and res["same_bits_twice"]
                 and res["bias_equals_two_step"]):
             raise RuntimeError(f"the fp32 int8 matmul disagrees at "
                                f"{(m_, k, n)}: {res}")
-        out["w8_matmul_fp32"].append(res)
-        del x, y, again, with_bias, ref, ref64
+        out.append(res)
+        del x, y, again, with_bias, ref, ref64, emulated
+    if splits_k and not split_mutant:
+        raise RuntimeError("no shape of W8_FP32_SHAPES splits K: the dropped "
+                           "split mutant was not checked")
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -5289,14 +5362,9 @@ GN_PER_REMAT_STEP = 45 + 44
 def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
     """Phase 8d: the fp32 paths through gn_silu_fp32 and w8_matmul_fp32 at
     full width, weights from seed 0, UNet, VAE and TrOCR in fp32, both flash
-    flags on as in phase 8c.  (a) A 20-step 512^2 edit through
-    DiffUTEPipeline.edit with use_fused_groupnorm and use_int8_weights
-    (bench.py --dtype fp32 --fused-gn --int8's configuration with flash):
-    900 GN+SiLU, 3,232 int8 and 200 + 2 fp32 flash launches, only the box
-    changed, within FP32_EDIT_LSB of the same edit with use_fused_groupnorm
-    off (nn.GroupNorm and SiLU in fp32) and of the same edit whose
-    transformer layers hold the dequantised int8 weights (q * s) as float
-    weights with use_int8_weights off.  (b) One UNetTrainer step at batch 4
+    flags on as in phase 8c.  (a) fp32_int8_edits: a 20-step 512^2 edit
+    with use_fused_groupnorm and use_int8_weights against the GN flag off
+    and against the dequantised weights.  (b) One UNetTrainer step at batch 4
     with gradient checkpointing and use_fused_groupnorm against the same
     step with the flag off, the same weights, batch and draws: the loss
     within TOL_FP32_LOSS_REL, the four probes' gradients within
@@ -5305,20 +5373,56 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
     and stage-2 step, the same run).  Returns the numbers and the launches
     by path."""
     from diffute_tpu_torch.config import DiffUTEConfig
+    from diffute_tpu_torch.utils import init_pipeline_params
+
+    out = {"launches": {}}
+
+    # ---- (a) the 20-step fp32 edit, all on, and its two references
+    params = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev)
+    edits, out["launches"] = fp32_int8_edits(dev, params)
+    edits["flash_only_8c"] = {k: flash_only["edit"]["flash"][k] for k in (
+        "seconds", "max_memory_allocated", "peak_above_resident")}
+    phase("fp32_fused_edit", steps=VAE_FLASH_STEPS,
+          tolerance_lsb=FP32_EDIT_LSB, **edits)
+    out["edit"] = edits
+
+    # ---- (b) one stage-2 step with use_fused_groupnorm, against the flag
+    # off
+    out["stage2"], out["launches"]["fp32_stage2_fused_gn"] = fp32_flag_step(
+        dev, params, "use_fused_groupnorm", ("fused_gn", "plain_gn"),
+        {"gn_silu": GN_PER_REMAT_STEP}, "fp32_fused_stage2_step",
+        gn_silu_per_step=GN_PER_REMAT_STEP,
+        flash_only_8c={k: flash_only["stage2"]["flash"][k] for k in (
+            "seconds", "max_memory_allocated", "peak_above_resident")})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_int8_edits(dev, params, all_flags: bool = False) -> tuple:
+    """Phase 8d (a): 20-step 512^2 fp32 edits through DiffUTEPipeline.edit
+    with both flash flags, weights ``params``: use_fused_groupnorm and
+    use_int8_weights (bench.py --dtype fp32 --fused-gn --int8's
+    configuration with flash: 900 GN+SiLU, 3,232 int8 and 200 + 2 fp32
+    flash launches), only the box changed, within FP32_EDIT_LSB of the same
+    edit with use_fused_groupnorm off (nn.GroupNorm and SiLU in fp32) and of
+    the same edit whose transformer layers hold the dequantised int8
+    weights (q * s) as float weights with use_int8_weights off.  With
+    ``all_flags``, phase 8e (b)'s edit with all three flags too (880 conv,
+    880 statistics, 20 GN+SiLU, 3,232 int8 and 202 flash launches), within
+    FP32_EDIT_LSB of the first.  The pipelines side by side, each warmed,
+    the edits in turns (forward order, then back).  Returns (each edit's
+    seconds, peaks, launches and distance in LSB, the launches by path);
+    raises past the tolerance."""
+    from diffute_tpu_torch.config import DiffUTEConfig
     from diffute_tpu_torch.models import UNet2DCondition
     from diffute_tpu_torch.models.layers import QuantLinear
     from diffute_tpu_torch.ops.quant import dequantize, quantize_per_channel
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
-    from diffute_tpu_torch.utils import init_pipeline_params
     from diffute_tpu_torch.utils.params import build_meta
 
     base = DiffUTEConfig()
-    out = {"launches": {}}
-
-    # ---- (a) the 20-step fp32 edit, all on, and its two references: the
-    # three pipelines side by side, each warmed, the edits in turns (a, b,
-    # c, c, b, a)
-    params = init_pipeline_params(base, seed=0, device=dev)
     serving = dataclasses.replace(base, edit=dataclasses.replace(
         base.edit, resolution=RES, num_inference_steps=VAE_FLASH_STEPS))
     int8_cfg = fp32_flags(serving, use_int8_weights=True).unet
@@ -5333,6 +5437,8 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
                 "int8": (dict(use_int8_weights=True), params["unet"]),
                 "fused_gn_dequantised": (dict(use_fused_groupnorm=True),
                                          dequantised)}
+    if all_flags:
+        variants["all_flags"] = (ALL_FLAGS, params["unet"])
     pipes = {name: DiffUTEPipeline(fp32_flags(serving, **unet_flags),
                                    dict(params, unet=unet_params), dev)
              for name, (unet_flags, unet_params) in variants.items()}
@@ -5342,18 +5448,19 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
         t.numel() * t.element_size() for t in (*pipe.unet.parameters(),
                                                *pipe.unet.buffers())))
              for name, pipe in pipes.items()}
-    outs = {}
+    outs, launches = {}, {}
+    steps = VAE_FLASH_STEPS
     order = list(pipes)
     for name in order + order[::-1]:
         unet_flags = variants[name][0]
         r = measured(dev, lambda: pipes[name].edit(image, box, "FP32 FUSED",
                                                    seed=5)[0])
         only_boxes_changed(r["out"], image, [box])
-        steps = VAE_FLASH_STEPS
-        expect_launches(r, gn_stats=0, conv=0,
-                        gn_silu=(GN_PER_PASS * steps
-                                 if unet_flags.get("use_fused_groupnorm")
-                                 else 0),
+        conv = CONV_PER_PASS * steps if unet_flags.get("use_fused_conv") else 0
+        gn = unet_flags.get("use_fused_groupnorm")
+        expect_launches(r, conv=conv, gn_stats=conv,
+                        gn_silu=(0 if not gn else steps if conv
+                                 else GN_PER_PASS * steps),
                         w8=(W8_PER_PASS * steps + W8_PER_EDIT
                             if unet_flags.get("use_int8_weights") else 0))
         expect_flash(r, **{fp32_entry("fwd", 64): 10 * steps,
@@ -5361,35 +5468,18 @@ def check_fp32_fused_paths(dev, flash_only: dict) -> dict:
         outs.setdefault(name, r["out"])
         edits[name]["seconds"].append(r["seconds"])
         edits[name].update(fp32_keep(r, seconds=edits[name]["seconds"]))
-        out["launches"][f"fp32_edit_{name}"] = r["launches"]
-    for name in ("int8", "fused_gn_dequantised"):
+        launches[f"fp32_edit_{name}"] = r["launches"]
+    for name in order[1:]:
         edits[name]["max_lsb_vs_fused_gn_int8"] = int(np.abs(
             outs[name].astype(np.int16) - outs["fused_gn_int8"]).max())
-    edits["flash_only_8c"] = {k: flash_only["edit"]["flash"][k] for k in (
-        "seconds", "max_memory_allocated", "peak_above_resident")}
-    phase("fp32_fused_edit", steps=VAE_FLASH_STEPS,
-          tolerance_lsb=FP32_EDIT_LSB, **edits)
     if any(edits[n]["max_lsb_vs_fused_gn_int8"] > FP32_EDIT_LSB
-           for n in ("int8", "fused_gn_dequantised")):
+           for n in order[1:]):
         raise RuntimeError(f"the fp32 fused-GN / int8 edit differs from its "
                            f"references: {edits}")
-    out["edit"] = edits
     del pipes, pipe, dequantised, outs
     gc.collect()
     torch.cuda.empty_cache()
-
-    # ---- (b) one stage-2 step with use_fused_groupnorm, against the flag
-    # off
-    out["stage2"], out["launches"]["fp32_stage2_fused_gn"] = fp32_flag_step(
-        dev, params, "use_fused_groupnorm", ("fused_gn", "plain_gn"),
-        {"gn_silu": GN_PER_REMAT_STEP}, "fp32_fused_stage2_step",
-        gn_silu_per_step=GN_PER_REMAT_STEP,
-        flash_only_8c={k: flash_only["stage2"]["flash"][k] for k in (
-            "seconds", "max_memory_allocated", "peak_above_resident")})
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return edits, launches
 
 
 # ---- phase 8e: the fp32 paths through the fp32 GN+SiLU+conv3x3
@@ -5497,7 +5587,7 @@ def check_fp32_conv_paths(dev) -> dict:
 
 
 def fp32_fused_entries(results: dict, launches: dict) -> list:
-    """The four fp32 entries of groupnorm.cu, quant_fp32.cu and
+    """The four fp32 entries of groupnorm.cu, quant_fp32_sm90.cu and
     conv_fused_fp32.cu (phases 3g and 3h: entry name -> result per shape)
     with phases 8d's and 8e's launches by path (path -> counters read right
     after it ran)."""
@@ -5510,7 +5600,7 @@ def fp32_fused_entries(results: dict, launches: dict) -> list:
                  "gn_stats"),
                 ("gn_silu_fp32", "groupnorm.cu", "groupnorm.py:31",
                  "gn_silu"),
-                ("w8_matmul_fp32", "quant_fp32.cu", "quant.py:51", "w8"),
+                ("w8_matmul_fp32", w8_fp32_source(), "quant.py:51", "w8"),
                 ("gn_silu_conv3x3_fp32", "conv_fused_fp32.cu",
                  "conv_fused.py:40", "conv"))]
 
@@ -5870,6 +5960,10 @@ def main(argv=None) -> None:
                    help="build the kernels and run phase 3f at head_dim 512 "
                    "and 8c's SD2 stage-1 steps (the fp32 head_dim-512 "
                    "kernels and the step that trains through them) alone")
+    p.add_argument("--w8-fp32-only", action="store_true",
+                   help="build the kernels and run phase 3g's int8 matmul "
+                   "and phase 8d's fp32 --fused-gn --int8 edits beside 8e's "
+                   "all-flags edit alone")
     p.add_argument("--narrow-only", action="store_true",
                    help="build the kernels and run phases 3i and 8f (the "
                    "narrow head_dims' kernels and the tiny model's paths) "
@@ -5878,6 +5972,10 @@ def main(argv=None) -> None:
                    help="build the kernels and run phases 11-13 (OCR "
                    "verifier training, eval, acceptance of a random-init "
                    "full-width layout) alone")
+    p.add_argument("--save-route", default=None, metavar="PATH",
+                   help="with --fp32-d512-only: save the PIPELINE_FWD stage-1 "
+                   "step's mid-block flash calls (q, k, v, dO) to PATH for "
+                   "tools.fp32_d512_bwd_variants --chain-study")
     p.add_argument("--package-root", default=None, metavar="DIR",
                    help="import diffute_tpu_torch from this checkout")
     args = p.parse_args(argv)
@@ -5959,6 +6057,36 @@ def main(argv=None) -> None:
             "fp32_conv_paths": vae_flash_summary(conv32_paths)}),
             flush=True)
         return
+    if args.w8_fp32_only:
+        import diffute_tpu_torch
+        from diffute_tpu_torch.config import DiffUTEConfig
+        from diffute_tpu_torch.ops import _build
+        from diffute_tpu_torch.utils import init_pipeline_params
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds = {}
+        t0 = time.perf_counter()
+        w8 = check_w8_fp32(dev)
+        seconds["phase_3g_w8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev)
+        edits, launches = fp32_int8_edits(dev, params, all_flags=True)
+        del params
+        phase("fp32_int8_edits", steps=VAE_FLASH_STEPS,
+              tolerance_lsb=FP32_EDIT_LSB, **edits)
+        seconds["phase_8d_8e_edits"] = time.perf_counter() - t0
+        phase("seconds", **seconds, run=time.perf_counter() - t_run)
+        by_path = {path: rec["w8"] for path, rec in launches.items()
+                   if rec["w8"]}
+        print(gpu_line(), flush=True)
+        print(json.dumps({"kernels": [kernel_entry(
+            "w8_matmul_fp32", w8_fp32_source(), "quant.py:51", w8, by_path)],
+            "fp32_int8_edits": {n: {k: e[k] for k in (
+                "seconds", "peak_above_resident")} for n, e in edits.items()}}),
+            flush=True)
+        return
     if args.fp32_d512_only:
         import diffute_tpu_torch
         from diffute_tpu_torch.config import DiffUTEConfig
@@ -5975,7 +6103,7 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         vae = init_pipeline_params(DiffUTEConfig(), seed=0, device=dev,
                                    components=("vae",))["vae"]
-        stage1 = check_fp32_sd2_stage1(dev, vae, paths)
+        stage1 = check_fp32_sd2_stage1(dev, vae, paths, args.save_route)
         seconds["phase_8c_sd2_stage1"] = time.perf_counter() - t0
         phase("seconds", **seconds, run=time.perf_counter() - t_run)
         print(gpu_line(), flush=True)

@@ -26,7 +26,7 @@
 // is 3xTF32 on mma.sync.m16n8k8.tf32 (x = hi + lo, hi = cvt.rna(x), lo the
 // TF32 rounding of the rest, both by integer operations that give
 // cvt.rna's bits; lo_a hi_b and hi_a lo_b first, then hi hi);
-// no tensor-core accumulator sums more than 64 columns of head_dim or 32
+// no tensor-core accumulator sums more than 32 columns of head_dim or 32
 // rows of the streamed axis before an fp32 add (their accumulation rounds
 // toward zero); o, dq, dk and dv within relative L2 1e-5 of the tiled
 // plain fp32 version, delta within 1e-5; no float atomics, every sum in a
@@ -61,7 +61,8 @@
 // fragment serves four mma.sync, every B fragment two).  For the scores
 // warp (p, h, c) computes rows [32 h, 32 h + 32) of S (p = 0; dk/dv: S^T)
 // or dP (p = 1; dP^T) over the 64 columns [64 c, 64 c + 64) of the
-// block's 128 as one chain from zero, and stores each m16 tile through
+// block's 128 as two chains of 32 from zero (kScoreChain) added in fp32,
+// and stores each m16 tile through
 // distributed shared memory into the receive buffer of the block that
 // reduces its 16 rows, in the accumulator's layout (one float4 a lane and
 // 8 columns).  After a cluster barrier, block r reduce-scatters: warps 0-3
@@ -109,9 +110,18 @@ namespace {
 using namespace fp32_d512;
 
 // the partial scores a block receives for its 16 rows, float4
-// [product][source rank][64-column chain][8-column step][lane]
+// [product][source rank][64-column half][8-column step][lane]
 constexpr int kPartBytes = 2 * 2 * kRows * kBlockKV * 4;  // 32 KB
 constexpr int kDqRing = 3, kDkvRing = 3;
+// the k-steps (8 head_dim columns each) of one tensor-core chain of a
+// score partial: a warp's 64 columns are two chains of 32, added in
+// round-to-nearest fp32.  The chains' truncation biases S toward zero by
+// about what they sum: at fp32 stage-1 scores (|s| up to 78 after the
+// scale) one chain of 64 put S 8.9e-6 low on average and dk 1.5e-5 from
+// the backward's own function in fp64 on the deferred forward's o and LSE,
+// two chains of 32 4.9e-6 and 7.2e-6, at the same speed (an H100;
+// tools/fp32_d512_bwd_variants.py --chain-study)
+constexpr int kScoreChain = 4;
 
 __device__ __forceinline__ float ld_cluster_f(uint32_t addr) {
   float x;
@@ -205,11 +215,11 @@ __device__ __forceinline__ Reducer reducer(const Block& t) {
 }
 
 // The cluster's sum of this thread's four scores of a tile (product
-// `prod`) from the receive buffer `part`: each rank's two 64-column chains
+// `prod`) from the receive buffer `part`: each rank's two 64-column halves
 // added, then the ranks in order.
 __device__ __forceinline__ float4 sum_ranks(const float* part,
                                             const Reducer& x, int prod) {
-  constexpr int kChainF = 4 * 32 * 4;  // floats of one chain's partial
+  constexpr int kChainF = 4 * 32 * 4;  // floats of one half's partial
   const float* src = part + x.part + prod * kRanks * 2 * kChainF;
   float4 v[kRanks];
 #pragma unroll
@@ -305,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 smem + DqSmem::part, smem + DqSmem::gath,
                 smem + DqSmem::bars, 0};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // the scores: product (S or dP), 32-row half, 64-column chain; the
+  // the scores: product (S or dP), 32-row half, 64-column half; the
   // output: 32-row half, 32-column quarter of the block's 128
   const int prod = warp >> 2, rp = (warp >> 1) & 1, ch = warp & 1;
   const int orp = warp >> 2, cq = warp & 3;
@@ -377,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- tile 0
   mbar_wait(t.full(0), 0);
-  scores_part(acc, a_s, 32 * rp, b_s, 64 * ch);
+  scores_part<8, kScoreChain>(acc, a_s, 32 * rp, b_s, 64 * ch);
   cluster_wait();  // every block of the cluster runs
   put_part(part_dst, acc);
   cluster_arrive();  // tile 0's partials and delta's
@@ -408,7 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = 1; j < n; ++j) {
     const int st = j % kDqRing, prev = (j - 1) % kDqRing;
     mbar_wait(t.full(st), (j / kDqRing) & 1);
-    scores_part(acc, a_s, 32 * rp, b_s + st * kStageF, 64 * ch);
+    scores_part<8, kScoreChain>(acc, a_s, 32 * rp, b_s + st * kStageF,
+                                64 * ch);
     cluster_wait();  // tile j - 1's ds gathered, every read of its partials
                      // and of tile j - 2's stage done
     if (threadIdx.x == 0 && j >= 2 && j - 2 + kDqRing < n)
@@ -515,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 smem + DkvSmem::part, smem + DkvSmem::gath,
                 smem + DkvSmem::bars, smem + DkvSmem::stats};
   const int warp = threadIdx.x >> 5;
-  // the scores: product (S^T or dP^T), 32-row half, 64-column chain; the
+  // the scores: product (S^T or dP^T), 32-row half, 64-column half; the
   // outputs: 32-row half, 32-column quarter of the block's 128
   const int prod = warp >> 2, rp = (warp >> 1) & 1, ch = warp & 1;
   const int orp = warp >> 2, cq = warp & 3;
@@ -563,7 +574,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- q tile 0
   mbar_wait(t.full(0), 0);
-  scores_part(acc, a_s, 32 * rp, b_s, 64 * ch);
+  scores_part<8, kScoreChain>(acc, a_s, 32 * rp, b_s, 64 * ch);
   cluster_wait();  // every block of the cluster runs
   put_part(part_dst, acc);
   cluster_arrive();  // tile 0's partials
@@ -575,7 +586,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 1; i < n; ++i) {
     const int st = i % kDkvRing, prev = (i - 1) % kDkvRing;
     mbar_wait(t.full(st), (i / kDkvRing) & 1);
-    scores_part(acc, a_s, 32 * rp, b_s + st * kStageF, 64 * ch);
+    scores_part<8, kScoreChain>(acc, a_s, 32 * rp, b_s + st * kStageF,
+                                64 * ch);
     cluster_wait();  // tile i - 1's p^T and dS^T gathered, every read of
                      // its partials and of tile i - 2's stage done
     if (warp == 0 && i >= 2 && i - 2 + kDkvRing < n)

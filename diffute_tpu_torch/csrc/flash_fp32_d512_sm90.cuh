@@ -28,6 +28,7 @@ using sm90::mbar_wait;
 using sm90::prefetch_map;
 using sm90::tma_load_at;
 using tf32_sm90::mma_tf32;
+using tf32_sm90::rna_tf32;
 
 constexpr int kD = 512;
 constexpr int kRanks = 4;              // blocks of a cluster
@@ -110,15 +111,6 @@ __device__ __forceinline__ int at(int row, int col) {
          ((col & 31) ^ ((row & 7) << 2));
 }
 
-// x rounded to TF32 to nearest, ties away from zero: the bits
-// cvt.rna.tf32.f32 gives (the 13 bits below TF32's mantissa cleared after
-// adding half of their span, the carry running into the exponent), by two
-// integer operations on the ALUs: cvt.rna runs on the conversion unit, 16
-// results a clock an SM (the CUDA C++ guide's table for sm_90), two a split.
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
 // x = hi + lo, each a TF32 value (lo the TF32 rounding of the rest), as
 // tf32_sm90::split computes it
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
@@ -194,29 +186,46 @@ __device__ __forceinline__ void mma3_mx4(Acc& acc, const FragA (&a)[kM],
 // A warp's partial of a score tile: x (32 x 32) = rows [a0, a0 + 32) of
 // the resident slice `a` times the 32 rows of the streamed slice `b`,
 // transposed, over the 8 kSteps columns [c0, c0 + 8 kSteps) of the block's
-// 128: one chain of kSteps k-steps from zero (8: 64 columns, the backward
-// pair's; 4: 32, the forwards').
-template <int kSteps = 8>
+// 128, in tensor-core chains of kChain k-steps (8 kChain columns) from
+// zero, each added to x by an ordinary round-to-nearest fp32 add: the
+// chains' accumulation rounds toward zero, and its bias grows with the
+// partial sums it rounds (the forwards: one chain of 4 k-steps, 32 columns;
+// the backward pair: 8 k-steps in chains of kScoreChain = 4 there).
+template <int kSteps = 8, int kChain = kSteps>
 __device__ __forceinline__ void scores_part(Acc& x, const float* a, int a0,
                                             const float* b, int c0) {
+  static_assert(kSteps % kChain == 0, "whole chains");
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Acc c;
   zero_acc(x);
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    const int c = c0 + kk * 8 + t;
+    const int col = c0 + kk * 8 + t;
     FragA fa[kM];
     FragB fb[4];
 #pragma unroll
     for (int m = 0; m < kM; ++m) {
       const int r = a0 + 16 * m + g;
-      split_a(fa[m], a[at<kRows>(r, c)], a[at<kRows>(r + 8, c)],
-              a[at<kRows>(r, c + 4)], a[at<kRows>(r + 8, c + 4)]);
+      split_a(fa[m], a[at<kRows>(r, col)], a[at<kRows>(r + 8, col)],
+              a[at<kRows>(r, col + 4)], a[at<kRows>(r + 8, col + 4)]);
     }
 #pragma unroll
     for (int n = 0; n < 4; ++n)
-      split_b(fb[n], b[at<kBlockKV>(n * 8 + g, c)],
-              b[at<kBlockKV>(n * 8 + g, c + 4)]);
-    mma3_mx4(x, fa, fb);
+      split_b(fb[n], b[at<kBlockKV>(n * 8 + g, col)],
+              b[at<kBlockKV>(n * 8 + g, col + 4)]);
+    // the first chain runs in x itself (0 + chain is the chain)
+    if (kk < kChain) {
+      mma3_mx4(x, fa, fb);
+      continue;
+    }
+    if (kk % kChain == 0) zero_acc(c);
+    mma3_mx4(c, fa, fb);
+    if (kk % kChain == kChain - 1) {
+#pragma unroll
+      for (int j = 0; j < 4 * kM; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[j][i] = __fadd_rn(x[j][i], c[j][i]);
+    }
   }
 }
 

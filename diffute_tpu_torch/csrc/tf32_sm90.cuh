@@ -1,5 +1,5 @@
-// cp.async and TF32 mma.sync helpers shared by the fp32 kernels
-// (flash_fp32.cu, quant_fp32.cu), sm_90a.
+// cp.async and TF32 helpers shared by the fp32 kernels (flash_fp32.cu,
+// conv_fused_fp32.cu, flash_fp32_d512_sm90.cuh, quant_fp32_sm90.cu), sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +37,15 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// x rounded to TF32 to nearest, ties away from zero: the bits
+// cvt.rna.tf32.f32 gives (the 13 bits below TF32's mantissa cleared after
+// adding half of their span, the carry running into the exponent), by two
+// integer operations on the ALUs: cvt.rna runs on the conversion unit, 16
+// results a clock an SM (the CUDA C++ guide's table for sm_90), two a split.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo, each a TF32 value (lo the TF32 rounding of the rest)

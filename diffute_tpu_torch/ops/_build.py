@@ -132,9 +132,10 @@ def _signatures() -> dict:
         # (x, packed q, scale, scale_bf16, bias, y, workspace, tickets, M, N,
         #  K, tokens per block, splits, stream)
         "w8_matmul_bf16": [p, p, p, i, p, p, p, p] + [i] * 5 + [p],
-        # (x, q, scale, scale_bf16, bias, y, M, N, K, stream), fp32 x and y
-        # (csrc/quant_fp32.cu)
-        "w8_matmul_fp32": [p, p, p, i, p, p] + [i] * 3 + [p],
+        # (x, q, scale, scale_bf16, bias, y, workspace, tickets, M, N, K,
+        #  tokens per block, splits, stream), fp32 x and y
+        #  (csrc/quant_fp32_sm90.cu)
+        "w8_matmul_fp32": [p, p, p, i, p, p, p, p] + [i] * 5 + [p],
     }
 
 

@@ -20,8 +20,9 @@ CUDA tensor it launches a kernel or raises (bf16 or fp32 x, ``K % 16 == 0``;
 the TPU kernel's ``N % 128`` gate is gone); on a CPU tensor it computes the
 plain version.  The bf16 kernel reads ``q`` repacked once
 (:func:`pack_w8_weight`; a layer caches it beside ``weight_q``, which stays
-as it is); the fp32 kernel (``csrc/quant_fp32.cu``, two TF32 products: x
-split as hi + lo, every int8 value exact in TF32) reads ``q`` as it is.
+as it is); the fp32 kernel (``csrc/quant_fp32_sm90.cu``, two TF32 products
+on ``wgmma``: x split as hi + lo, every int8 value exact in TF32) reads
+``q`` as it is.
 Inference only: no gradient is defined, as in the JAX package.
 """
 
@@ -128,34 +129,93 @@ def quant_matmul_reference(x2d: torch.Tensor, q: torch.Tensor,
 def quant_matmul_tf32_reference(x2d: torch.Tensor, q: torch.Tensor,
                                 scale: torch.Tensor,
                                 bias: Optional[torch.Tensor] = None,
-                                products: int = 2) -> torch.Tensor:
+                                products: int = 2,
+                                k_tile: Optional[int] = None,
+                                splits: int = 1,
+                                drop_split: Optional[int] = None
+                                ) -> torch.Tensor:
     """The fp32 kernel's split in plain fp32 torch: x = hi + lo, hi =
     tf32(x), lo = tf32(x - hi) (``round_tf32``, cvt.rna), and ``x q^T`` as
     ``lo q^T + hi q^T`` (the int8 values are exact in TF32); then the scale
     and the bias as :func:`quant_matmul_reference`.  ``products=1`` drops
-    the lo product: what TF32 alone would compute (a mutant)."""
+    the lo product: what TF32 alone would compute (a mutant).  With
+    ``k_tile``, the kernel's order of sums (:func:`w8_fp32_plan`'s
+    ``block_k`` and ``splits``): each k tile's two products summed from
+    zero and added, lo + hi, the tiles of a split added in order to the
+    split's sum, the
+    ``splits`` sums (ceil(tiles / splits) tiles each) added in split order;
+    ``drop_split`` leaves that split's sum out (a mutant)."""
     hi = round_tf32(x2d)
+    lo = round_tf32(x2d.float() - hi)
     qf = q.float().t()
-    acc = hi @ qf
-    if products == 2:
-        acc = (round_tf32(x2d.float() - hi) @ qf) + acc
+
+    def product(cols):
+        acc = hi[:, cols] @ qf[cols]
+        return (lo[:, cols] @ qf[cols]) + acc if products == 2 else acc
+
+    if k_tile is None:
+        acc = product(slice(None))
+    else:
+        k_tiles = -(-x2d.shape[1] // k_tile)
+        per = -(-k_tiles // splits)
+        acc = torch.zeros((x2d.shape[0], q.shape[0]), device=x2d.device)
+        for z in range(splits):
+            part = torch.zeros_like(acc)
+            for i in range(z * per, min(k_tiles, (z + 1) * per)):
+                part = part + product(slice(i * k_tile, (i + 1) * k_tile))
+            if z != drop_split:
+                acc = acc + part
     y = acc * scale.float()[None, :]
     return y if bias is None else y + bias.float()
 
 
-# the fp32 kernel's tile of y (csrc/quant_fp32.cu: 64 x 64 a block, K in
-# tiles of 32, no split)
-FP32_BLOCK_M, FP32_BLOCK_N, FP32_BLOCK_K = 64, 64, 32
+# the fp32 kernel's tile of y (csrc/quant_fp32_sm90.cu: 64 or 128 tokens x
+# 128 features a block, K in tiles of 32, each tile's tensor-core sum from
+# zero); 128 tokens where M >= FP32_WIDE_M or the 128-token tiles still
+# fill the card's SMs (measured with tools/tune_w8_splits.py on an H100: 20%
+# faster at M = 4096, at (1024, 640, 5120) and (256, 1280, 10240); slower
+# where they leave SMs idle)
+FP32_BLOCK_N, FP32_BLOCK_K, FP32_WIDE_M = 128, 32, 2048
+# K is split (over blockIdx.z, merged in split order) where the output
+# tiles leave SMs idle, as far as the blocks fit one wave (a block fills an
+# SM; on an H100 a second, partial wave cost more than the split gained),
+# each split at least FP32_MIN_TILES_PER_SPLIT k tiles (fewer lost to the
+# merge), at most FP32_MAX_SPLITS (measured with tools/tune_w8_splits.py)
+FP32_MIN_TILES_PER_SPLIT, FP32_MAX_SPLITS = 8, 16
 
 
-def w8_fp32_plan(m: int, n: int, k: int) -> dict:
-    """The fp32 kernel's grid for (M, K) x (N, K)^T: a 64 x 64 tile of y
-    a block (``FP32_BLOCK_M`` x ``FP32_BLOCK_N``), K walked in tiles of 32
-    inside the block, never split."""
-    tiles = -(-m // FP32_BLOCK_M) * -(-n // FP32_BLOCK_N)
-    return dict(block_m=FP32_BLOCK_M, block_n=FP32_BLOCK_N,
-                k_tiles=-(-k // FP32_BLOCK_K), tiles=tiles, splits=1,
-                blocks=tiles)
+def w8_fp32_split_limit(k: int) -> int:
+    """The most K splits the fp32 plan takes at depth ``k``."""
+    return max(1, min(FP32_MAX_SPLITS,
+                      -(-k // FP32_BLOCK_K) // FP32_MIN_TILES_PER_SPLIT))
+
+
+@functools.lru_cache(maxsize=None)
+def w8_fp32_plan(m: int, n: int, k: int, splits: Optional[int] = None,
+                 tokens_per_block: Optional[int] = None) -> dict:
+    """The fp32 kernel's grid for (M, K) x (N, K)^T, in plain Python: 64
+    tokens (128 from ``FP32_WIDE_M`` rows, or where 128-token tiles fill
+    the card's SMs) x 128 features of y a block (``block_m`` x
+    ``FP32_BLOCK_N``), K in tiles of ``FP32_BLOCK_K``, split as many ways
+    as the tiles leave room for in one wave of the card's SMs (at most
+    :func:`w8_fp32_split_limit`); no split is empty.  ``splits`` and
+    ``tokens_per_block`` override the choice (for tuning)."""
+    wide = -(-m // 128) * -(-n // FP32_BLOCK_N)
+    bt = tokens_per_block or (128 if m >= FP32_WIDE_M or wide >= _SMS
+                              else 64)
+    if bt not in (64, 128):
+        raise ValueError(f"tokens_per_block is 64 or 128; got {bt}")
+    tiles = -(-m // bt) * -(-n // FP32_BLOCK_N)
+    k_tiles = -(-k // FP32_BLOCK_K)
+    if splits is None:
+        splits = min(max(1, _SMS // tiles), w8_fp32_split_limit(k))
+    if not 1 <= splits <= k_tiles:
+        raise ValueError(f"splits is 1 to {k_tiles} at K {k}; got {splits}")
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)  # no empty split
+    return dict(block_m=bt, block_n=FP32_BLOCK_N, block_k=FP32_BLOCK_K,
+                k_tiles=k_tiles, tiles_per_split=per, tiles=tiles,
+                splits=splits, blocks=tiles * splits)
 
 
 def pack_w8_weight(q: torch.Tensor) -> torch.Tensor:
@@ -218,9 +278,10 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     current stream (raises on anything it does not take).  bf16 x: ``packed``
     is ``pack_w8_weight(q)``, made once by the caller (packed here without
     it); ``splits`` and ``tokens_per_block`` override :func:`w8_plan` (for
-    tuning).  fp32 x: the kernel reads ``q`` as it is, so ``packed``,
-    ``splits`` and ``tokens_per_block`` must be None.  CPU: the plain
-    version.  Kernel launches are counted in ``quant_matmul.launches``."""
+    tuning).  fp32 x: the kernel reads ``q`` as it is, so ``packed`` must
+    be None; ``splits`` and ``tokens_per_block`` override
+    :func:`w8_fp32_plan`.  CPU: the plain version.
+    Kernel launches are counted in ``quant_matmul.launches``."""
     n, k = q.shape
     if (x.shape[-1] != k or scale.shape != (n,) or q.dtype != torch.int8
             or (bias is not None and bias.shape != (n,))):
@@ -283,10 +344,9 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 def _quant_matmul_fp32(x, x2d, q, scale, bias, packed, splits,
                        tokens_per_block):
-    if any(a is not None for a in (packed, splits, tokens_per_block)):
-        raise ValueError("the fp32 int8 kernel reads q as it is and has one "
-                         "grid: packed, splits and tokens_per_block are for "
-                         "bf16 x")
+    if packed is not None:
+        raise ValueError("the fp32 int8 kernel reads q as it is: packed is "
+                         "for bf16 x")
     m, n, k = x2d.shape[0], q.shape[0], q.shape[1]
     for name, t, align in (("x", x2d, 16), ("q", q, 16), ("scale", scale, 4),
                            ("bias", bias, 4)):
@@ -294,11 +354,21 @@ def _quant_matmul_fp32(x, x2d, q, scale, bias, packed, splits,
                               or t.data_ptr() % align):
             raise ValueError(f"{name} must be contiguous and {align}-byte "
                              f"aligned on {x.device}")
+    plan = w8_fp32_plan(m, n, k, splits, tokens_per_block)
+    splits, bt = plan["splits"], plan["block_m"]
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    workspace = tickets = None
+    if splits > 1:
+        # each consumer thread's bt / 2 sums, per split and output tile
+        workspace = torch.empty(splits * plan["tiles"] * 256 * (bt // 2),
+                                dtype=torch.float32, device=x.device)
+        tickets = stream_tickets(x.device, plan["tiles"])
     _launch("w8_matmul_fp32", x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
             int(scale.dtype == torch.bfloat16),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), m, n, k,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            None if bias is None else bias.data_ptr(), y.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), m, n, k, bt,
+            splits, torch.cuda.current_stream(x.device).cuda_stream)
     quant_matmul.launches += 1
     quant_matmul.flops += 2 * m * n * k
     return y.reshape(*x.shape[:-1], n)

@@ -1,12 +1,14 @@
 """PyTorch port, GroupNorm+SiLU and the int8-weight matmul on fp32 inputs
-(``csrc/groupnorm.cu``'s fp32 entries, ``csrc/quant_fp32.cu``) on the CPU.
+(``csrc/groupnorm.cu``'s fp32 entries, ``csrc/quant_fp32_sm90.cu``) on the
+CPU.
 
 The kernels run only on a card (``chip_smoke.py`` phase 3g and the
 ``cuda`` cases of ``test_torch_port_groupnorm.py`` and
 ``test_torch_port_quant.py``).  Here: the fp32 plan the GroupNorm kernels
 launch with, the tiled plain version of their merge at that plan against
 float64 and the JAX op, the wrappers' dtype rule, a plain emulation of the
-int8 kernel's two TF32 products against float64, the fp32 bias, and the
+int8 kernel's two TF32 products against float64, its plan (the K split),
+the fp32 bias, and the
 slice as a whole at tiny width: an fp32 edit with ``use_fused_groupnorm``
 and ``use_int8_weights`` and an fp32 stage-2 step with
 ``use_fused_groupnorm``, against the JAX package with the same weights
@@ -58,11 +60,13 @@ from diffute_tpu_torch.ops.quant import (
     quant_matmul_tf32_reference,
     quantize_per_channel,
     w8_fp32_plan,
+    w8_fp32_split_limit,
 )
 from diffute_tpu_torch.pipeline import DiffUTEPipeline
 
 # pytest puts tests/ itself on sys.path (conftest.py, prepend import mode)
 from test_composed_parity import _pipeline_noise
+from test_torch_port_quant import FLAGGED_SHAPES
 from test_torch_port_groupnorm_plan import NORM_SHAPES
 from test_torch_port_train import RES as TRAIN_RES
 from test_torch_port_train import _batch, _draws, _frozen, _port_trainer
@@ -261,13 +265,33 @@ def test_fp32_quant_matmul_keeps_the_bias_in_fp32():
                        quant_matmul_tf32_reference(x, q, s) + bias)
 
 
-@pytest.mark.parametrize("m,k,n", [(4096, 320, 320), (64, 5120, 1280),
-                                   (1000, 640, 200), (3, 48, 10)])
+@pytest.mark.parametrize("m,k,n", FLAGGED_SHAPES + [(1000, 640, 200),
+                                                    (3, 48, 10)])
 def test_fp32_plan_covers_the_output(m, k, n):
     p = w8_fp32_plan(m, n, k)
-    assert p["blocks"] * p["block_m"] * p["block_n"] >= m * n
-    assert p["tiles"] == -(-m // 64) * -(-n // 64) and p["splits"] == 1
-    assert p["k_tiles"] * 32 >= k
+    # 64 tokens (128 from 2,048 rows or where 128-token tiles fill the
+    # card's 132 SMs) x 128 features a block, K in 32-wide tiles
+    bt = 128 if m >= 2048 or -(-m // 128) * -(-n // 128) >= 132 else 64
+    assert (p["block_m"], p["block_n"], p["block_k"]) == (bt, 128, 32)
+    assert p["tiles"] == -(-m // bt) * -(-n // 128)
+    assert p["tiles"] * p["block_m"] * p["block_n"] >= m * n
+    assert p["k_tiles"] == -(-k // 32)
+    # the splits cover K and none is empty
+    splits, per = p["splits"], p["tiles_per_split"]
+    assert 1 <= splits and (splits - 1) * per < p["k_tiles"] <= splits * per
+    assert p["blocks"] == p["tiles"] * splits
+    # K is split only where the tiles leave SMs idle, and into one wave: a
+    # block fills an SM, so the blocks stay within the card's 132 SMs; at
+    # the few-token layers (M <= 256) they fill that wave (one split more
+    # would not fit it) or the splits reach their limit (at least 8 k
+    # tiles each, at most 16)
+    limit = w8_fp32_split_limit(k)
+    assert splits <= limit and per >= min(8, p["k_tiles"])
+    assert splits == 1 or p["blocks"] <= 132
+    if m <= 256:
+        assert p["tiles"] * (splits + 1) > 132 or splits == limit
+    if m <= 256 and k >= 1280:  # the deep few-token layers do split
+        assert splits > 1 or p["tiles"] * 2 > 132
 
 
 # ---- the slice at tiny width against the JAX package

@@ -25,6 +25,7 @@ from diffute_tpu_torch.ops.quant import (
     quant_matmul_tf32_reference,
     quantize_blockwise,
     quantize_per_channel,
+    w8_fp32_plan,
     w8_plan,
 )
 from port_threads import torch_threads_per_worker  # noqa: F401
@@ -190,6 +191,41 @@ def test_plan_covers_the_output_with_no_empty_split(m, k, n):
     assert (splits > 1) == (k >= 5120 and plan["tiles"] < 132)
 
 
+@pytest.mark.parametrize("m,k,n", [(64, 1280, 1280), (64, 5120, 256),
+                                   (256, 1280, 384), (1000, 640, 200),
+                                   (3, 48, 10)])
+def test_fp32_kernel_order_matches_fp64_and_jax(m, k, n):
+    # the fp32 kernel's order of sums in plain torch (each 32-wide k tile's
+    # two TF32 products from zero, the tiles of a K split in order, the
+    # splits in order; the plan's tile and splits) against fp64 and against
+    # JAX's fp32 matmul on the same inputs: every sum is fp32, so each is
+    # some 1e-7 from fp64 (relative L2) and the two within 1e-6 of each
+    # other; a dropped split and TF32 alone fail the kernel's 1e-5
+    rng = np.random.RandomState(m + k + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    q, s = quantize_per_channel(torch.tensor(
+        rng.standard_normal((n, k)) * k ** -0.5, dtype=torch.float32))
+    plan = w8_fp32_plan(m, n, k)
+    order = dict(k_tile=plan["block_k"], splits=plan["splits"])
+    xt = torch.tensor(x)
+    got = quant_matmul_tf32_reference(xt, q, s, **order)
+    ref64 = (xt.double() @ q.double().t()) * s.double()
+    jax_y = torch.tensor(np.asarray(jq._xla_matmul_w8(
+        jnp.asarray(x), jnp.asarray(q.numpy().T), jnp.asarray(s.numpy()))))
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    assert rel(got, ref64) <= 1e-6 and rel(jax_y, ref64) <= 1e-6
+    assert rel(got, jax_y) <= 1e-6
+    assert rel(quant_matmul_tf32_reference(xt, q, s, products=1, **order),
+               ref64) > 1e-5
+    if plan["splits"] > 1:
+        dropped = quant_matmul_tf32_reference(
+            xt, q, s, **order, drop_split=plan["splits"] - 1)
+        assert rel(dropped, ref64) > 1e-5
+
+
 def test_convert_state_dict_rewrites_only_the_named_layers():
     rng = np.random.RandomState(6)
     sd = {"a.weight": torch.tensor(rng.standard_normal((4, 6)), dtype=torch.float32),
@@ -248,11 +284,21 @@ def test_cuda_kernel_matches_plain(m, k, n, dtype):
         diff = y.float() - ref
         if fp32:
             # the fp32 contract: relative L2 1e-5; x rounded to TF32 alone
-            # (the lo product dropped) and the output x 0.99 must fail it
+            # (the lo product dropped), one K split's partial dropped and
+            # the output x 0.99 must fail it
             assert (diff.norm() / ref.norm()).item() <= 1e-5
             tf32 = quant_matmul_tf32_reference(x, q, scale, products=1)
             assert ((tf32 - ref).norm() / ref.norm()).item() > 1e-5
             assert ((y * 0.99 - ref).norm() / ref.norm()).item() > 1e-5
+            plan = w8_fp32_plan(m, n, k)
+            if plan["splits"] > 1:
+                dropped = quant_matmul_tf32_reference(
+                    x, q, scale, k_tile=plan["block_k"],
+                    splits=plan["splits"], drop_split=0)
+                assert ((dropped - ref).norm() / ref.norm()).item() > 1e-5
+                # one split gives the same function, in another order
+                one = quant_matmul(x, q, scale, splits=1)
+                assert ((one - ref).norm() / ref.norm()).item() <= 1e-5
             continue
         # one fp32 result rounded to bf16 on both sides: 3 half-ulps of
         # max |ref| and a relative L2 error of 2e-3 (no scale gives O(1), the
@@ -264,19 +310,25 @@ def test_cuda_kernel_matches_plain(m, k, n, dtype):
         # packed in the call when not given
         assert torch.equal(quant_matmul(x, q, s),
                            quant_matmul(x, q, s, packed=pack_w8_weight(q)))
-    else:  # the fp32 kernel takes no packed copy
+    else:  # the fp32 kernel takes no packed copy, 64 or 128 tokens a block
         with pytest.raises(ValueError):
             quant_matmul(x, q, s, packed=pack_w8_weight(q))
+        with pytest.raises(ValueError):
+            quant_matmul(x, q, s, tokens_per_block=96)
+        ref = quant_matmul_reference(x, q, s)
+        for bt in (64, 128):  # either tile height computes the function
+            other = quant_matmul(x, q, s, tokens_per_block=bt)
+            assert ((other - ref).norm() / ref.norm()).item() <= 1e-5
     with pytest.raises(ValueError):
         quant_matmul(x.half(), q, s)  # no fallback
 
 
 @pytest.mark.cuda
 def test_cuda_two_streams_do_not_share_ticket_counters(monkeypatch):
-    # the split-K int8 matmul merges its blocks' partial results by ticket
-    # counters, the GroupNorm statistics inside a thread block cluster;
-    # launches of both in flight on two streams at once must give what each
-    # gives alone, bit for bit
+    # the split-K int8 matmuls (bf16 and fp32 x) merge their blocks'
+    # partial results by ticket counters, the GroupNorm statistics inside a
+    # thread block cluster; launches of all in flight on two streams at once
+    # must give what each gives alone, bit for bit
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc")
     from diffute_tpu_torch.ops import groupnorm as gn
@@ -285,15 +337,18 @@ def test_cuda_two_streams_do_not_share_ticket_counters(monkeypatch):
     g = torch.Generator(device="cuda").manual_seed(0)
     xs = [torch.randn((1, 320, 64, 64), generator=g, device="cuda").bfloat16()
           for _ in range(2)]
-    ms = [torch.randn((256, 5120), generator=g, device="cuda").bfloat16()
-          for _ in range(2)]
-    q, scale = quant.quantize_per_channel(
+    ms32 = [torch.randn((256, 5120), generator=g, device="cuda")
+            for _ in range(2)]
+    ms = [m.bfloat16() for m in ms32]
+    q, scale32 = quant.quantize_per_channel(
         torch.randn((1280, 5120), generator=g, device="cuda") * 5120 ** -0.5)
-    scale = scale.bfloat16()
+    scale = scale32.bfloat16()
+    assert quant.w8_fp32_plan(256, 1280, 5120)["splits"] > 1
 
     def work(i):
         return (*gn.group_norm_stats(xs[i], 32, 1e-5),
-                quant.quant_matmul(ms[i], q, scale, splits=4))
+                quant.quant_matmul(ms[i], q, scale, splits=4),
+                quant.quant_matmul(ms32[i], q, scale32))
 
     alone = [work(i) for i in range(2)]
     torch.cuda.synchronize()
