@@ -272,6 +272,17 @@ two commits' kernels and steps in turns.  --save-route PATH saves the
 PIPELINE_FWD step's mid-block calls (q, k, v, dO) for
 python -m diffute_tpu_torch.tools.fp32_d512_bwd_variants --chain-study PATH.
 
+    python3 chip_smoke.py --fp32-d64-only [--package-root DIR]
+
+builds the kernels and runs phase 3f at head_dim 64 (both fp32 forwards of
+csrc/flash_fp32.cu and the backward pair of
+csrc/flash_fp32_d64_bwd_sm90.cu) and 8c's flagged fp32 stage-2 step (the
+loss and four gradients against flash off, the head_dim-64 flash route
+held inside it with PIPELINE_FWD off and on, full steps timed) alone and
+prints their kernels line; with --package-root from another checkout's
+package, so change, parent, parent, change in one call times two commits'
+kernels and steps in turns.
+
     python3 chip_smoke.py --w8-fp32-only [--package-root DIR]
 
 builds the kernels and runs phase 3g's int8 matmul on fp32 x
@@ -1573,7 +1584,8 @@ def check_wide_pipelined(dev, d: int) -> list:
     return out
 
 
-# ---- phase 3f: the fp32 kernels (csrc/flash_fp32.cu)
+# ---- phase 3f: the fp32 kernels (csrc/flash_fp32.cu and the sources at 64
+# and 512 that fp32_source names)
 # (B*H, S, T) by head_dim: the forwards at the 512^2 edit's and the training
 # step's shapes (64: batch 1 and 4, 5 heads at 4096 tokens, 10 at 1024), the
 # VAE mid-block's (512: encode/decode at 512^2, stage 1 at batch 4, 1024^2;
@@ -1602,10 +1614,12 @@ FP32_WIDTHS = (64, 256, 512)
 # the TPU kernel each kind replaces (diffute_tpu/ops/flash_attention.py)
 FP32_REPLACES = {"fwd": 275, "fwd_pipelined": 149, "bwd_dq": 396,
                  "bwd_dkv": 437}
-# the fp32 backward pair and the two fp32 forwards at head_dim 512 (a
-# package from before either has them in flash_fp32.cu)
+# the fp32 backward pair and the two fp32 forwards at head_dim 512, and
+# the fp32 backward pair at 64 (a package from before has them in
+# flash_fp32.cu)
 FP32_D512_BWD_SOURCE = "flash_fp32_d512_bwd_sm90.cu"
 FP32_D512_FWD_SOURCE = "flash_fp32_d512_sm90.cu"
+FP32_D64_BWD_SOURCE = "flash_fp32_d64_bwd_sm90.cu"
 
 
 def fp32_source(kind: str, d: int) -> str:
@@ -1613,9 +1627,10 @@ def fp32_source(kind: str, d: int) -> str:
     kernel."""
     from diffute_tpu_torch.ops import _build
 
-    source = (FP32_D512_BWD_SOURCE if kind.startswith("bwd")
-              else FP32_D512_FWD_SOURCE)
-    if d == 512 and os.path.exists(os.path.join(_build.CSRC, source)):
+    bwd = kind.startswith("bwd")
+    source = {512: FP32_D512_BWD_SOURCE if bwd else FP32_D512_FWD_SOURCE,
+              64: FP32_D64_BWD_SOURCE if bwd else None}.get(d)
+    if source and os.path.exists(os.path.join(_build.CSRC, source)):
         return source
     return "flash_fp32.cu"
 
@@ -1643,8 +1658,9 @@ def fp32_counter(kind: str, d: int) -> str:
 
 
 def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
-    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32; at 512
-    the forwards csrc/flash_fp32_d512_sm90.cu and the backward pair
+    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32; the
+    backward pair at 64 csrc/flash_fp32_d64_bwd_sm90.cu; at 512 the
+    forwards csrc/flash_fp32_d512_sm90.cu and the backward pair
     csrc/flash_fp32_d512_bwd_sm90.cu) at head_dims
     ``widths`` (64, 256 and 512) against their plain fp32 versions at each
     kernel's kv tile (kernel_block_kv by kind) and at the same domain (the
@@ -1652,9 +1668,9 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     on prescaled q), to the precision contract (TOL_FP32_REL_L2, TOL_FP32_ABS
     on the LSE and delta), the same bits twice, at FP32_FORWARD_SHAPES and
     FP32_BACKWARD_SHAPES; the mutants (every product's operands rounded to
-    TF32, the LSE left in base 2, the last kv tile never consumed, dk x
-    (1 + 1e-4), the deferred forward's scores taken in the natural domain)
-    must fail; strided (B, S, H, d) views of a packed projection give the
+    TF32, the LSE left in base 2, the last kv tile never consumed by a
+    forward or by dq, dk x (1 + 1e-4), the deferred forward's scores taken
+    in the natural domain) must fail; strided (B, S, H, d) views of a packed projection give the
     contiguous route's bits, the switch on too.  Each timed (CUDA-event
     medians of 25; 5 for the largest) beside its plain one-pass version,
     SDPA on the same fp32 inputs with TF32 off (its backend recorded) and
@@ -1851,8 +1867,15 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
             if not out[dq_name]:
                 mref = fa.flash_bwd_tiled_reference(q, k, v, o, lse, do, sc,
                                                     bwd_bkv, tf32=True)
-                res_dq["mutants"] = {"tf32_rel_l2": must_fail(
-                    "tf32 dq", fp32_errors(mref[0], ref[0]))}
+                cut = (t - 1) // bwd_bkv * bwd_bkv
+                mdq = fa.flash_bwd_tiled_reference(
+                    q, k[:, :cut], v[:, :cut], o, lse, do, sc, bwd_bkv)[0]
+                res_dq["mutants"] = {
+                    "tf32_rel_l2": must_fail(
+                        "tf32 dq", fp32_errors(mref[0], ref[0])),
+                    "last_tile_dropped_rel_l2": must_fail(
+                        "dq without the last kv tile",
+                        fp32_errors(mdq, ref[0]))}
                 res_dkv["mutants"] = {
                     "tf32_dk_rel_l2": must_fail(
                         "tf32 dk", fp32_errors(mref[1], ref[1])),
@@ -1861,7 +1884,7 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                     "dk_scaled_rel_l2": must_fail(
                         "dk x (1 + 1e-4)",
                         fp32_errors(ref[1] * (1 + 1e-4), ref[1]))}
-                del mref
+                del mref, mdq
             del ref, again
             phase(f"kernel_{dq_name}", **res_dq)
             phase(f"kernel_{dkv_name}", **res_dkv)
@@ -3282,8 +3305,10 @@ GRAD_VS_FP32_RATIO = 1.5
 @contextlib.contextmanager
 def flash_route_spy(records: list):
     """Keep, for each call the model makes of the flash route
-    (ops.attention.flash_attention), its q, k, v and o, the gradient that
-    reaches o, and the gradients the route returns for q, k and v."""
+    (ops.attention.flash_attention), its q, k, v and o, and for a call that
+    takes part in the backward (not a frozen model's, as a stage-2 step's
+    VAE encodes) the gradient that reaches o and the gradients the route
+    returns for q, k and v."""
     att = importlib.import_module("diffute_tpu_torch.ops.attention")
     real = att.flash_attention
 
@@ -3297,10 +3322,12 @@ def flash_route_spy(records: list):
                 rec[name] = grad.detach().clone()
             return hook
         for name, x in (("dq", q), ("dk", k), ("dv", v)):
-            x.register_hook(keep(name))
+            if x.requires_grad:
+                x.register_hook(keep(name))
         o = real(q, k, v, scale=scale)
         rec["o"] = o.detach().clone()
-        o.register_hook(keep("do"))
+        if o.requires_grad:
+            o.register_hook(keep("do"))
         return o
 
     att.flash_attention = spy
@@ -3333,11 +3360,14 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def flash_route_check(records: list, d: int, pipelined: bool = False
-                      ) -> list:
+def flash_route_check(records: list, d: int, pipelined: bool = False,
+                      shapes=None) -> list:
     """The flash route held at its own boundary inside a stage-1 step: for
-    each mid-block call the flagged step made, on the q, k, v and dO the
-    step gave it, o against the tiled plain forward and the dq, dk and dv
+    each mid-block call the flagged step made (``shapes``: for the first
+    call at each of these q shapes (B, S, H, D) that took a backward,
+    as a stage-2 step's UNet self-attentions, some of them recomputed under
+    remat with no backward of their own; without it exactly two calls,
+    each with its backward), on the q, k, v and dO the step gave it, o against the tiled plain forward and the dq, dk and dv
     the step's backward produced against the tiled plain backward (fed the
     route's o and the plain LSE), at the kernel criteria (3 half-ulps of
     max |ref|; relative L2 2e-3 for o, 1e-3 for the gradients).  Mutants of
@@ -3354,11 +3384,22 @@ def flash_route_check(records: list, d: int, pipelined: bool = False
     sc = d ** -0.5
     bkv, fwd_bkv = (fa.kernel_block_kv(d, torch.bfloat16, kind)
                     for kind in ("bwd_dq", "fwd"))
-    if len(records) != 2 or any(n not in r for r in records
-                                for n in ("dq", "dk", "dv", "do")):
-        raise RuntimeError(f"the flagged step did not take two mid-block "
-                           f"calls through the flash route, forward and "
-                           f"backward: {[sorted(r) for r in records]}")
+    grads = ("dq", "dk", "dv", "do")
+    if shapes is None:
+        if len(records) != 2 or any(n not in r for r in records
+                                    for n in grads):
+            raise RuntimeError(f"the flagged step did not take two mid-block "
+                               f"calls through the flash route, forward and "
+                               f"backward: {[sorted(r) for r in records]}")
+    else:
+        done = [r for r in records if all(n in r for n in grads)]
+        picked = [next((r for r in done if tuple(r["q"].shape) == tuple(x)),
+                       None) for x in shapes]
+        if any(r is None for r in picked):
+            raise RuntimeError(f"the flagged step took no flash call with its "
+                               f"backward at each of {shapes}: "
+                               f"{[tuple(r['q'].shape) for r in done]}")
+        records = picked
     if records[0]["q"].dtype == torch.float32:
         return fp32_route_check(records, d, pipelined)
     out = []
@@ -3429,7 +3470,9 @@ def bwd_fp64(q, k, v, o, lse, do, scale) -> tuple:
 
 def fp32_route_check(records: list, d: int, pipelined: bool = False
                      ) -> list:
-    """flash_route_check on an fp32 step's two mid-block calls: the o and
+    """flash_route_check on an fp32 step's calls (a stage-1 step's two
+    mid-block calls, a stage-2 step's UNet self-attention at each of its
+    two shapes): the o and
     LSE of the route's forward (launched again on the recorded q, k, v,
     with PIPELINE_FWD as the step had it, ``pipelined``; it must give the
     step's o to the bit) against the tiled plain fp32 forward at the
@@ -4091,6 +4134,119 @@ def fp32_stage1_steps(dev, cfg_of, vae_params, batch_size, d, runs, prefix,
     return res
 
 
+# the UNet self-attentions whose flash calls fp32_stage2_step holds at
+# their own boundary, q (B, S, H, D) at TRAIN_BATCH: 5 heads at 4096 tokens
+# (64^2 latents at 512^2), 10 at 1024 (32^2)
+FP32_STAGE2_ROUTE_SHAPES = [(TRAIN_BATCH, 4096, 5, 64),
+                            (TRAIN_BATCH, 1024, 10, 64)]
+# full optimizer steps fp32_stage2_step times after its checks
+FP32_STAGE2_TIMED = 3
+
+
+def fp32_stage2_step(dev, params, out) -> dict:
+    """8c's flagged fp32 stage-2 step: one UNetTrainer loss evaluation at
+    batch TRAIN_BATCH with both flash flags, remat and gradient
+    checkpointing (20 fp32 forwards, 10 dq and 10 dk/dv at head_dim 64, 2
+    forwards at 512 in the frozen encodes) against the same with flash off
+    (the loss within TOL_FP32_LOSS_REL, the loss gradient of four UNet
+    weights within TOL_FP32_GRAD_REL); one more with the flash route
+    recorded (flash_route_spy) and one with PIPELINE_FWD on too (the 20
+    forwards and the 2 at 512 deferred); the route held at its own boundary
+    (flash_route_check, fp32: o, the LSE, dq, dk and dv of the first call
+    at each of FP32_STAGE2_ROUTE_SHAPES, with the switch off and on); then
+    FP32_STAGE2_TIMED full optimizer steps (UNetTrainer.step) with flash
+    on, timed.  ``params``: the pipeline's weights from seed 0, fp32.
+    Returns the step's numbers; its launches go into out["launches"]."""
+    from diffute_tpu_torch.config import DiffUTEConfig, TrainConfig
+    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
+                                              make_unet_batch)
+    from diffute_tpu_torch.models.attention import Attention
+    from diffute_tpu_torch.train import UNetTrainer
+
+    s2cfg = dataclasses.replace(
+        fp32_flags(DiffUTEConfig(), remat=True),
+        train=TrainConfig(train_batch_size=TRAIN_BATCH, mixed_precision="no",
+                          gradient_checkpointing=True, max_train_steps=1))
+    trainer = UNetTrainer(s2cfg, params["unet"],
+                          {"vae": params["vae"], "trocr": params["trocr"]},
+                          device=dev, total_steps=1)
+    data = SyntheticSceneDataset(s2cfg, seed=0)
+    batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)], s2cfg)
+    draws = trainer.draw(TRAIN_BATCH)
+    probes = ["conv_in.weight",
+              "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+              "up_blocks.3.attentions.2.transformer_blocks.0.attn1.to_v.weight",
+              "conv_out.weight"]
+    masters = trainer.state.params_dict()
+    r_on = measured(dev, lambda: trainer.accumulate_grads(batch, draws).item())
+    grads_on = {n: masters[n].grad.clone() for n in probes}
+    expect_flash(r_on, **{fp32_entry("fwd", 64): 20,
+                          fp32_entry("bwd_dq", 64): 10,
+                          fp32_entry("bwd_dkv", 64): 10,
+                          fp32_entry("fwd", 512): 2})
+    route, route_pipelined = [], []
+    with flash_route_spy(route):
+        r = measured(dev, lambda: trainer.accumulate_grads(batch, draws))
+    expect_flash(r, **{fp32_entry("fwd", 64): 20,
+                       fp32_entry("bwd_dq", 64): 10,
+                       fp32_entry("bwd_dkv", 64): 10,
+                       fp32_entry("fwd", 512): 2})
+    with flash_route_spy(route_pipelined), pipeline_fwd(True):
+        r = measured(dev, lambda: trainer.accumulate_grads(batch, draws))
+    expect_flash(r, **{fp32_entry("fwd_pipelined", 64): 20,
+                       fp32_entry("bwd_dq", 64): 10,
+                       fp32_entry("bwd_dkv", 64): 10,
+                       fp32_entry("fwd_pipelined", 512): 2})
+    attns = [m for model in (trainer.unet, trainer.vae)
+             for m in model.modules() if isinstance(m, Attention)]
+    for m in attns:
+        m.use_flash = False
+    r_off = measured(dev, lambda: trainer.accumulate_grads(batch,
+                                                           draws).item())
+    expect_flash(r_off)
+    rel = {n: rel_l2(grads_on[n], masters[n].grad) for n in probes}
+    loss_on, loss_off = r_on.pop("out"), r_off.pop("out")
+    step = dict(batch=TRAIN_BATCH, loss_flash=loss_on, loss_dense=loss_off,
+                loss_rel_diff=abs(loss_on - loss_off) / abs(loss_off),
+                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
+                grad_tolerance=TOL_FP32_GRAD_REL,
+                flash=fp32_run_record(r_on), dense=fp32_run_record(r_off))
+    out["launches"]["fp32_stage2_vae_flash"] = r_on["launches"]
+    phase("fp32_stage2_step", **step)
+    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
+            and max(rel.values()) <= TOL_FP32_GRAD_REL):
+        raise RuntimeError(f"the fp32 stage-2 step with flash differs: "
+                           f"{step}")
+    for m in attns:
+        m.use_flash = True
+    steps = []
+    for _ in range(FP32_STAGE2_TIMED):
+        r = measured(dev, lambda: {k: v.item() for k, v in
+                                     trainer.step(batch).items()})
+        expect_flash(r, **{fp32_entry("fwd", 64): 20,
+                           fp32_entry("bwd_dq", 64): 10,
+                           fp32_entry("bwd_dkv", 64): 10,
+                           fp32_entry("fwd", 512): 2})
+        steps.append(dict(r.pop("out"), **fp32_run_record(r)))
+    step["timed_steps"] = steps
+    phase("fp32_stage2_timed_steps", batch=TRAIN_BATCH, steps=steps)
+    del trainer, masters, grads_on, attns, batch, data, draws, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    step["flash_route"] = flash_route_check(
+        route, 64, shapes=FP32_STAGE2_ROUTE_SHAPES)
+    phase("fp32_stage2_flash_route", routes=step["flash_route"])
+    del route
+    step["flash_route_pipelined"] = flash_route_check(
+        route_pipelined, 64, pipelined=True, shapes=FP32_STAGE2_ROUTE_SHAPES)
+    phase("fp32_stage2_flash_route_pipelined",
+          routes=step["flash_route_pipelined"])
+    del route_pipelined
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step
+
+
 def check_fp32_sd2_stage1(dev, vae_params, out, save_route=None) -> dict:
     """8c's SD2 stage 1: VAETrainer on the SD2 VAE at 512^2 in fp32 (the
     JAX trainer's default precision), batch 4, gradient checkpointing,
@@ -4141,7 +4297,9 @@ def check_fp32_paths(dev) -> dict:
     forwards, 10 dq, 10 dk/dv a step), then one UNetTrainer step with the
     VAE's flag too (2 head_dim-512 forwards in the frozen encodes) against
     the same step with flash off (the loss within TOL_FP32_LOSS_REL, the
-    loss gradient of four UNet weights within TOL_FP32_GRAD_REL).  Stage 1:
+    loss gradient of four UNet weights within TOL_FP32_GRAD_REL), the
+    head_dim-64 flash route held inside it with PIPELINE_FWD off and on and
+    full steps timed (fp32_stage2_step).  Stage 1:
     VAETrainer on the SD2 VAE at 512^2 in fp32 (the JAX trainer's default
     precision), batch 4, gradient checkpointing, 3 steps flag on and 3 off
     (2 forwards, 2 dq, 2 dk/dv at head_dim 512 a step; the losses within
@@ -4150,14 +4308,10 @@ def check_fp32_paths(dev) -> dict:
     flag on, and with PIPELINE_FWD on too, against off, and 3 stage-1 steps at
     batch 16 (2, 2, 2 at head_dim 256 a step).  Seconds and peak memory of each; every flash counter
     asserted on each path.  Returns the numbers and the launches by path."""
-    from diffute_tpu_torch.config import (DiffUTEConfig, TrainConfig,
-                                          small_config)
-    from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
-                                              make_unet_batch)
+    from diffute_tpu_torch.config import DiffUTEConfig, small_config
     from diffute_tpu_torch.models import AutoencoderKL
-    from diffute_tpu_torch.models.attention import Attention
     from diffute_tpu_torch.pipeline import DiffUTEPipeline
-    from diffute_tpu_torch.train import UNetTrainer, run_unet
+    from diffute_tpu_torch.train import run_unet
     from diffute_tpu_torch.utils import init_pipeline_params
     from diffute_tpu_torch.utils.params import load_module
 
@@ -4234,51 +4388,10 @@ def check_fp32_paths(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- one UNetTrainer step with both flags, against flash off
-    s2cfg = dataclasses.replace(
-        flags(base, True, remat=True),
-        train=TrainConfig(train_batch_size=TRAIN_BATCH, mixed_precision="no",
-                          gradient_checkpointing=True, max_train_steps=1))
-    params = init_pipeline_params(s2cfg, seed=0, device=dev)
-    trainer = UNetTrainer(s2cfg, params["unet"],
-                          {"vae": params["vae"], "trocr": params["trocr"]},
-                          device=dev, total_steps=1)
-    data = SyntheticSceneDataset(s2cfg, seed=0)
-    batch = make_unet_batch([data[i] for i in range(TRAIN_BATCH)], s2cfg)
-    draws = trainer.draw(TRAIN_BATCH)
-    probes = ["conv_in.weight",
-              "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
-              "up_blocks.3.attentions.2.transformer_blocks.0.attn1.to_v.weight",
-              "conv_out.weight"]
-    masters = trainer.state.params_dict()
-    r_on = measured(dev, lambda: trainer.accumulate_grads(batch, draws).item())
-    grads_on = {n: masters[n].grad.clone() for n in probes}
-    expect_flash(r_on, **{fp32_entry("fwd", 64): 20,
-                          fp32_entry("bwd_dq", 64): 10,
-                          fp32_entry("bwd_dkv", 64): 10,
-                          fp32_entry("fwd", 512): 2})
-    attns = [m for model in (trainer.unet, trainer.vae)
-             for m in model.modules() if isinstance(m, Attention)]
-    for m in attns:
-        m.use_flash = False
-    r_off = measured(dev, lambda: trainer.accumulate_grads(batch,
-                                                           draws).item())
-    expect_flash(r_off)
-    rel = {n: rel_l2(grads_on[n], masters[n].grad) for n in probes}
-    loss_on, loss_off = r_on.pop("out"), r_off.pop("out")
-    step = dict(batch=TRAIN_BATCH, loss_flash=loss_on, loss_dense=loss_off,
-                loss_rel_diff=abs(loss_on - loss_off) / abs(loss_off),
-                grad_rel_l2_err=rel, loss_tolerance=TOL_FP32_LOSS_REL,
-                grad_tolerance=TOL_FP32_GRAD_REL,
-                flash=fp32_run_record(r_on), dense=fp32_run_record(r_off))
-    out["launches"]["fp32_stage2_vae_flash"] = r_on["launches"]
-    phase("fp32_stage2_step", **step)
-    if not (step["loss_rel_diff"] <= TOL_FP32_LOSS_REL
-            and max(rel.values()) <= TOL_FP32_GRAD_REL):
-        raise RuntimeError(f"the fp32 stage-2 step with flash differs: "
-                           f"{step}")
-    out["stage2"] = step
-    del trainer, masters, grads_on, attns, batch, data, draws
+    # ---- one UNetTrainer step with both flags, against flash off, and
+    # the head_dim-64 flash route held inside it
+    params = init_pipeline_params(fp32_flags(base), seed=0, device=dev)
+    out["stage2"] = fp32_stage2_step(dev, params, out)
     del params["unet"], params["trocr"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -5960,6 +6073,11 @@ def main(argv=None) -> None:
                    help="build the kernels and run phase 3f at head_dim 512 "
                    "and 8c's SD2 stage-1 steps (the fp32 head_dim-512 "
                    "kernels and the step that trains through them) alone")
+    p.add_argument("--fp32-d64-only", action="store_true",
+                   help="build the kernels and run phase 3f at head_dim 64 "
+                   "and 8c's flagged fp32 stage-2 step (the fp32 head_dim-64 "
+                   "kernels, their route held inside the step, full steps "
+                   "timed) alone")
     p.add_argument("--w8-fp32-only", action="store_true",
                    help="build the kernels and run phase 3g's int8 matmul "
                    "and phase 8d's fp32 --fused-gn --int8 edits beside 8e's "
@@ -6110,6 +6228,36 @@ def main(argv=None) -> None:
         print(json.dumps({"kernels": fp32_entries(fp32, paths["launches"],
                                                   (512,)),
                           "fp32_stage1": stage1}), flush=True)
+        return
+    if args.fp32_d64_only:
+        import diffute_tpu_torch
+        from diffute_tpu_torch.config import DiffUTEConfig
+        from diffute_tpu_torch.ops import _build
+        from diffute_tpu_torch.utils import init_pipeline_params
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds, paths = {}, {"launches": {}}
+        t0 = time.perf_counter()
+        fp32 = check_fp32(dev, (64,))
+        seconds["phase_3f_d64"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = init_pipeline_params(fp32_flags(DiffUTEConfig()), seed=0,
+                                      device=dev)
+        stage2 = fp32_stage2_step(dev, params, paths)
+        del params
+        seconds["phase_8c_stage2"] = time.perf_counter() - t0
+        phase("seconds", **seconds, run=time.perf_counter() - t_run)
+        print(gpu_line(), flush=True)
+        print(json.dumps({
+            "kernels": fp32_entries(fp32, paths["launches"], (64,)),
+            "fp32_stage2": {
+                "loss_rel_diff": stage2["loss_rel_diff"],
+                "step_seconds": [x["seconds"] for x in stage2["timed_steps"]],
+                "route_held": [r["held"] for r in stage2["flash_route"]
+                               + stage2["flash_route_pipelined"]]}}),
+            flush=True)
         return
     if args.narrow_only:
         from diffute_tpu_torch.ops import _build

@@ -2,10 +2,12 @@
 // deferred-softmax forward, the dq kernel (which also writes delta) and the
 // dk/dv kernel, fp32 in and out, fp32 LSE and delta.  One source, templated
 // on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the UNet's
-// heads) and 256 (the small VAE's mid-block, `small_config`).  The four at
-// 512 (the SD2 VAE's mid-block) are flash_fp32_d512_sm90.cu (the two
-// forwards) and flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a cluster of
-// four blocks over head_dim and the same precision contract.  The bf16
+// heads: both forwards) and 256 (the small VAE's mid-block, `small_config`:
+// all four).  The backward pair at 64 is flash_fp32_d64_bwd_sm90.cu (tf32
+// wgmma on split planes); the four at 512 (the SD2 VAE's mid-block) are
+// flash_fp32_d512_sm90.cu (the two forwards) and
+// flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a cluster of four blocks
+// over head_dim; all on the same precision contract.  The bf16
 // kernels (flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu,
 // flash_wide.cu) stay as they are.
 //
@@ -72,8 +74,8 @@
 // scheme).  At D = 64 there is one slice and no exchange.  Shared memory
 // (227 KB, 232,448 bytes, a block):
 //
-//   D = 64,  R = 64: 4 warps, a 16 KB tile; forward 80 KB (deferred 80 KB),
-//     dq 96.5 KB, dk/dv 97 KB: two blocks an SM;
+//   D = 64,  R = 64: 4 warps, a 16 KB tile; forward 80 KB (deferred 80 KB):
+//     two blocks an SM;
 //   D = 256, R = 32: 8 warps, a 32 KB tile, 16 KB of partials; forward
 //     176 KB (deferred 192 KB), dq 224.25 KB, dk/dv 224.5 KB.
 //
@@ -95,8 +97,9 @@
 // 32 distinct banks.
 //
 // This first cut uses mma.sync and a cp.async ring; wgmma (which takes tf32
-// with both operands K-major only), TMA and a producer warp are left to a
-// redesign (ROADMAP.md).
+// with both operands K-major only), TMA and a producer warpgroup are left
+// to a redesign (ROADMAP.md), as flash_fp32_d64_bwd_sm90.cu did for the
+// backward pair at 64.
 //
 // Ragged edges.  Rows past the end of a tile are zero-filled by cp.async.
 // The forward and dq mask the kv columns past T in the last kv tile (p = 0).
@@ -140,7 +143,9 @@ struct Fp32 {
   static constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * R * 4;
   static_assert(D % kSlice == 0 && R % 16 == 0, "whole slices and groups");
   static_assert((R * kChunks) % kThreads == 0, "whole chunks a thread");
-  static_assert(kFwdDeferredSmem <= 232448, "227 KB a block");
+  static_assert(kFwdDeferredSmem <= 232448 && kDqSmem <= 232448 &&
+                    kDkvSmem <= 232448,
+                "227 KB a block");
 };
 
 using F64 = Fp32<64, 64>;
@@ -965,7 +970,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 // launches on `stream`, allocates nothing, and returns a CUDA error code
 // (0 = launched).
 
-#define FLASH_FP32_ENTRIES(W, d)                                              \
+#define FLASH_FP32_FWD_ENTRIES(W, d)                                          \
   extern "C" int flash_fwd##d##_fp32(                                         \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, const long long* strides, float scale,     \
@@ -979,7 +984,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
       void* stream) {                                                         \
     return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
                            scale, stream);                                    \
-  }                                                                           \
+  }
+
+#define FLASH_FP32_BWD_ENTRIES(W, d)                                          \
   extern "C" int flash_bwd_dq##d##_fp32(                                      \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -997,6 +1004,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                       strides, scale, stream);                                \
   }
 
-FLASH_FP32_ENTRIES(F64, )
-FLASH_FP32_ENTRIES(F256, _d256)
-// the four at 512: flash_fp32_d512_sm90.cu, flash_fp32_d512_bwd_sm90.cu
+FLASH_FP32_FWD_ENTRIES(F64, )
+FLASH_FP32_FWD_ENTRIES(F256, _d256)
+FLASH_FP32_BWD_ENTRIES(F256, _d256)
+// the backward pair at 64: flash_fp32_d64_bwd_sm90.cu; the four at 512:
+// flash_fp32_d512_sm90.cu, flash_fp32_d512_bwd_sm90.cu

@@ -66,8 +66,7 @@
 // the loads, the split or the products each saves only 6-27% of it: no
 // single part sets the pace alone.
 
-#include "gemm_sm90.cuh"
-#include "tf32_sm90.cuh"
+#include "tf32_wgmma_sm90.cuh"
 
 namespace {
 
@@ -113,37 +112,6 @@ struct W8Params {
   int scale_bf16, m, n, k;
   int tiles_per_split;
 };
-
-// d (64 x BT, fp32) (+)= A (64 x 8 tf32, registers) * B (8 x BT tf32,
-// smem, K-major: BT rows of 32 fp32, 128-byte swizzle); scale_d = 0
-// overwrites d.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : SM90_F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : SM90_F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
 
 // ------------------------------------------------------------- producer
 
@@ -202,18 +170,16 @@ __device__ __forceinline__ void produce(const W8Params& p, uint32_t smem,
     for (int hh = 0; hh < kHalves; ++hh)
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
-        uint32_t hi[4], lo[4];
+        uint32_t e[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t e = w == 0 ? v[hh][j].x : w == 1 ? v[hh][j].y
-                           : w == 2 ? v[hh][j].z : v[hh][j].w;
-          const float f = __uint_as_float(e);
-          hi[j] = tf32_sm90::rna_tf32(f);
-          lo[j] = tf32_sm90::rna_tf32(f - __uint_as_float(hi[j]));
-        }
+        for (int j = 0; j < 4; ++j)
+          e[j] = w == 0 ? v[hh][j].x : w == 1 ? v[hh][j].y
+               : w == 2 ? v[hh][j].z : v[hh][j].w;
+        uint4 hi, lo;
+        split4(e, hi, lo);
         const uint32_t at = ((4 * (h0 + hh) + w) ^ sw) << 4;
-        st_shared_v4(hi_s + at, make_uint4(hi[0], hi[1], hi[2], hi[3]));
-        st_shared_v4(lo_s + at, make_uint4(lo[0], lo[1], lo[2], lo[3]));
+        st_shared_v4(hi_s + at, hi);
+        st_shared_v4(lo_s + at, lo);
       }
     fence_proxy_async();
     mbar_arrive(T::ready(smem, st));
@@ -283,11 +249,10 @@ __device__ __forceinline__ void issue_tile(float (&part)[BT / 2],
   issue_begin(part, a);
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    wgmma_tf32(part, a[s], desc_sw128(hi_s + W8Tile<BT>::x_bytes + s * 32, 1),
-               s > 0);
+    wgmma_tf32(part, a[s], tf32_desc(hi_s + W8Tile<BT>::x_bytes, s, 0), s > 0);
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    wgmma_tf32(part, a[s], desc_sw128(hi_s + s * 32, 1), 1);
+    wgmma_tf32(part, a[s], tf32_desc(hi_s, s, 0), 1);
   issue_end(part, a);
 }
 

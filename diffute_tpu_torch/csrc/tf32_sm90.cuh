@@ -1,5 +1,7 @@
 // cp.async and TF32 helpers shared by the fp32 kernels (flash_fp32.cu,
-// conv_fused_fp32.cu, flash_fp32_d512_sm90.cuh, quant_fp32_sm90.cu), sm_90a.
+// conv_fused_fp32.cu, flash_fp32_d512_sm90.cuh, and through
+// tf32_wgmma_sm90.cuh quant_fp32_sm90.cu and flash_fp32_d64_bwd_sm90.cu),
+// sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>

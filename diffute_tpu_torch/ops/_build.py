@@ -97,7 +97,8 @@ def _signatures() -> dict:
         "flash_fwd_pipelined_d256_bf16": fwd + [i],
         "flash_fwd_d256_consumers": [i, i],
         # the same four on fp32 inputs at head_dim 64, 256 and 512
-        # (csrc/flash_fp32.cu; at 512 the forwards
+        # (csrc/flash_fp32.cu; the backward pair at 64
+        # csrc/flash_fp32_d64_bwd_sm90.cu; at 512 the forwards
         # csrc/flash_fp32_d512_sm90.cu, the backward pair
         # csrc/flash_fp32_d512_bwd_sm90.cu)
         **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd

@@ -12,11 +12,14 @@ UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
 width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
 both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
 ``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
-bf16.  On fp32 inputs the four kernels at 64 and 256 are
-``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32); at 512 both
-forwards are ``csrc/flash_fp32_d512_sm90.cu`` and the backward pair
-``csrc/flash_fp32_d512_bwd_sm90.cu`` (a cluster of four blocks over
-head_dim, 64 resident rows, TMA-fed 32-row tiles, the same products); all
+bf16.  On fp32 inputs the four kernels at 256 and both forwards at 64 are
+``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32); the backward
+pair at 64 is ``csrc/flash_fp32_d64_bwd_sm90.cu`` (tf32 ``wgmma`` on hi
+and lo planes that a producer warpgroup splits once a TMA-fed 32-row
+tile); at 512 both forwards are ``csrc/flash_fp32_d512_sm90.cu`` and the
+backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu`` (a cluster of four
+blocks over head_dim, 64 resident rows, TMA-fed 32-row tiles, the same
+products); all
 compute the JAX package's fp32 arithmetic: the standard forward and the
 backward in the natural domain with the exact scale after the product, the
 deferred forward on q prescaled by ``scale * log2 e`` in base 2.  Every
@@ -26,7 +29,8 @@ bf16 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS`
 that holds it, with the arithmetic of the other entries of its dtype.
 Every kernel reads its (batch, seq, heads, D) inputs, all bf16 or all
 fp32, D as :func:`kernel_takes` says, through their strides (TMA at bf16
-head_dim 64 and 256 and in the fp32 kernels at 512, cp.async elsewhere),
+head_dim 64 and 256, in the fp32 backward pair at 64 and in the fp32
+kernels at 512, cp.async elsewhere),
 so the callers hand them the views they have, and writes its outputs
 contiguous in that layout: no copy is made in either direction, and no
 padded one at the narrow widths (the kernels zero-fill the columns past D
@@ -64,12 +68,17 @@ D256_FWD_BLOCK_KV = 64
 # owns (kRows)
 D256_BWD_BLOCK_KV = 64
 # the streamed tile of every fp32 kernel by head_dim: at 64 and 256 the
-# rows of every tile of csrc/flash_fp32.cu (kRows there); at 512 the tile
+# rows of every tile of csrc/flash_fp32.cu (kRows there; at 64 the
+# forwards', the backward pair's is FP32_D64_BWD_BLOCK_KV); at 512 the tile
 # of the streamed axis of all four kernels, both forwards
 # (csrc/flash_fp32_d512_sm90.cu) and the backward pair
 # (csrc/flash_fp32_d512_bwd_sm90.cu): the kv tile of the forwards and dq,
 # the q tile of dk/dv (kBlockKV of csrc/flash_fp32_d512_sm90.cuh)
 FP32_BLOCK_KV = {64: 64, 256: 32, 512: 32}
+# the fp32 backward pair at head_dim 64 (csrc/flash_fp32_d64_bwd_sm90.cu):
+# the kv tile the dq kernel walks and the q tile the dk/dv kernel walks
+# (kBlockKV there)
+FP32_D64_BWD_BLOCK_KV = 32
 # the resident rows of a cluster of four blocks in the fp32 kernels at 512
 # (kRows there): q rows of the forwards and dq, kv rows of dk/dv
 FP32_D512_ROWS = 64
@@ -122,8 +131,9 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     take to match it).  Without ``kind``, the tile all four walk; raises
     where they differ (the bf16 kernels at 256 walk
     :data:`D256_FWD_BLOCK_KV` forward and :data:`D256_BWD_BLOCK_KV`
-    backward; the fp32 kernels walk :data:`FP32_BLOCK_KV` at every
-    width)."""
+    backward; the fp32 kernels walk :data:`FP32_BLOCK_KV` at every width
+    but the backward pair at 64, which walks
+    :data:`FP32_D64_BWD_BLOCK_KV`)."""
     if kind is None:
         tiles = {kernel_block_kv(head_dim, dtype, k) for k in KINDS}
         if len(tiles) > 1:
@@ -136,6 +146,8 @@ def kernel_block_kv(head_dim: int, dtype: torch.dtype,
     if width is not None:
         return NARROW_BLOCK_KV[width]
     if dtype == torch.float32:
+        if head_dim == 64 and kind.startswith("bwd"):
+            return FP32_D64_BWD_BLOCK_KV
         return FP32_BLOCK_KV[head_dim]
     if head_dim == 256:
         return (D256_FWD_BLOCK_KV if kind.startswith("fwd")

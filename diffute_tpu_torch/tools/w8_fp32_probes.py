@@ -36,15 +36,15 @@ import tempfile
 import torch
 
 SOURCE = "quant_fp32_sm90.cu"
-_LO = ("    wgmma_tf32(part, a[s], desc_sw128(hi_s + W8Tile<BT>::x_bytes + s "
-       "* 32, 1),\n               s > 0);\n")
-_HI = "    wgmma_tf32(part, a[s], desc_sw128(hi_s + s * 32, 1), 1);\n"
+_LO = ("    wgmma_tf32(part, a[s], tf32_desc(hi_s + W8Tile<BT>::x_bytes, s, 0), "
+       "s > 0);\n")
+_HI = "    wgmma_tf32(part, a[s], tf32_desc(hi_s, s, 0), 1);\n"
 _EXPECT = "  mbar_expect_tx(ring.full(st), T::x_bytes + kQBytes);"
 _X_LOAD = ("  tma_load_2d(base, &p.tm_x, ring.full(st), (tile0 + j) * kBK, "
            "m0);\n")
 _Q_LOAD = ("  tma_load_2d(base + 2 * T::x_bytes, &p.tm_q, ring.full(st),\n"
            "              (tile0 + j) * kBK, n0);\n")
-_SPLIT = "      for (int w = 0; w < {}; ++w) {{\n        uint32_t hi[4]"
+_SPLIT = "      for (int w = 0; w < {}; ++w) {{\n        uint32_t e[4]"
 # each probe's edits: (text, replacement), each text found once
 PROBES = {
     "no_split": [(_SPLIT.format(4), _SPLIT.format(0))],

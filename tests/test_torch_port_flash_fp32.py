@@ -1,12 +1,14 @@
 """PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``;
-at head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
+the backward pair at head_dim 64 ``csrc/flash_fp32_d64_bwd_sm90.cu``; at
+head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
 backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``):
 the plain fp32 versions of the forward, the deferred-softmax forward and
 the backward on the CPU against the JAX package's fp32 flash attention
 (Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
-them) at head_dims 64, 256 and 512 with a ragged T, and the tiled plain
-forwards and backward at the 512 kernels' own tile; the kv tile of each
-kind and the 512 sources' constants; the TF32 mutant and the other mutants
+them) at head_dims 64, 256 and 512 with a ragged T, the tiled plain
+forwards and backward at the 512 kernels' own tile and the backward at the
+64 pair's; the kv tile of each kind, the 512 and 64 sources' constants and
+the tf32 wgmma header they share with the int8 matmul; the TF32 mutant and the other mutants
 that the card's bound must refuse; the wrappers' dtype and layout checks,
 entry names and counters; the device numerics rule.
 
@@ -117,9 +119,16 @@ def test_the_fp32_kernels_tile_by_kind_at_512():
     assert [tfa.kernel_block_kv(512, fp32, kind) for kind in KINDS] == [
         tfa.FP32_BLOCK_KV[512]] * 4 == [32] * 4
     assert tfa.kernel_block_kv(512, fp32) == 32
-    # one tile for all four at the other fp32 widths, and the bf16 ones at
-    # 512 keep theirs
-    assert [tfa.kernel_block_kv(d, fp32) for d in (64, 256)] == [64, 32]
+    # one tile for all four at 256; at 64 the forwards walk
+    # FP32_BLOCK_KV[64] and the backward pair (csrc/flash_fp32_d64_bwd_sm90.cu)
+    # FP32_D64_BWD_BLOCK_KV, so the call without a kind refuses; the bf16
+    # ones at 512 keep theirs
+    assert tfa.kernel_block_kv(256, fp32) == 32
+    assert [tfa.kernel_block_kv(64, fp32, kind) for kind in KINDS] == [
+        64, 64, 32, 32] == [tfa.FP32_BLOCK_KV[64]] * 2 + [
+            tfa.FP32_D64_BWD_BLOCK_KV] * 2
+    with pytest.raises(ValueError, match="name the kind"):
+        tfa.kernel_block_kv(64, fp32)
     assert tfa.kernel_block_kv(512, torch.bfloat16) == tfa.WIDE_BLOCK_KV
     # the deferred forward's dispatch rule counts in a whole number of the
     # fp32 forward's tiles
@@ -158,8 +167,89 @@ def test_the_d512_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
             assert f'extern "C" int {entry}(' in text, entry
     fp32 = read("flash_fp32.cu")
     assert "F512" not in fp32 and "Fp32<512" not in fp32
-    assert re.findall(r"^FLASH_FP32_ENTRIES\((\w+), (\w*)\)$", fp32,
-                      re.M) == [("F64", ""), ("F256", "_d256")]
+    # flash_fp32.cu defines both forwards at 64 and all four at 256; the
+    # backward pair at 64 is csrc/flash_fp32_d64_bwd_sm90.cu's
+    assert re.findall(r"^FLASH_FP32_(\w+)_ENTRIES\((\w+), (\w*)\)$", fp32,
+                      re.M) == [("FWD", "F64", ""), ("FWD", "F256", "_d256"),
+                                ("BWD", "F256", "_d256")]
+
+
+def _csrc(name):
+    with open(os.path.join(os.path.dirname(tfa.__file__), os.pardir, "csrc",
+                           name)) as f:
+        return f.read()
+
+
+def test_the_d64_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
+    # the tiled plain versions and phase 3f count the fp32 backward pair at
+    # 64 in kernel_block_kv(64, fp32, "bwd_dq" / "bwd_dkv");
+    # csrc/flash_fp32_d64_bwd_sm90.cu fixes its streamed tile (the kv tile
+    # dq walks, the q tile dk/dv walks) and a consumer's resident rows at
+    # build time, and defines the pair's two entries under the names the
+    # wrappers launch
+    fp32 = torch.float32
+    text = _csrc("flash_fp32_d64_bwd_sm90.cu")
+    assert re.findall(r"constexpr int kBlockKV = (\d+);", text) == [
+        str(tfa.FP32_D64_BWD_BLOCK_KV)]
+    assert [tfa.kernel_block_kv(64, fp32, kind)
+            for kind in ("bwd_dq", "bwd_dkv")] == [tfa.FP32_D64_BWD_BLOCK_KV] * 2
+    assert re.findall(r"constexpr int kRows = (\d+);", text) == ["64"]
+    for kind in ("bwd_dq", "bwd_dkv"):
+        entry = tfa.kernel_name(kind, 64, fp32)
+        assert f'extern "C" int {entry}(' in text, entry
+    # the forwards at 64 keep flash_fp32.cu's 64-row tile
+    assert [tfa.kernel_block_kv(64, fp32, kind)
+            for kind in ("fwd", "fwd_pipelined")] == [tfa.FP32_BLOCK_KV[64]] * 2
+
+
+def test_the_tf32_wgmma_pieces_live_in_one_header():
+    # the tf32 wgmma instructions and wrappers, the k-step descriptor and
+    # the plane split are csrc/tf32_wgmma_sm90.cuh's; the int8 matmul on
+    # fp32 x and the head_dim-64 fp32 backward pair include it and define
+    # none of them
+    header = _csrc("tf32_wgmma_sm90.cuh")
+    pieces = ("void wgmma_tf32(", "void wgmma_tf32_ss(",
+              "uint64_t tf32_desc(", "void split4(",
+              "#define TF32_WGMMA_N32 ", "#define TF32_WGMMA_N64 ")
+    for piece in pieces:
+        assert piece in header, piece
+    for source in ("quant_fp32_sm90.cu", "flash_fp32_d64_bwd_sm90.cu"):
+        text = _csrc(source)
+        assert '#include "tf32_wgmma_sm90.cuh"' in text, source
+        for piece in pieces + ("rna_tf32(", "wgmma.mma_async"):
+            assert piece not in text, (source, piece)
+
+
+@pytest.mark.parametrize("s,t", [(100, 300), (96, 160), (40, 72)])
+def test_plain_fp32_backward_at_the_d64_bwd_tile_matches_jax(s, t):
+    # the tiled plain backward at the 64 pair's own tile (32 rows) against
+    # the JAX package's fp32 _flash_bwd_3d (Pallas in interpret mode) on
+    # the same o and LSE, S and T ragged against the tile and whole, two
+    # heads
+    d = 64
+    q, k, v, g = (_to3d(x) for x in _inputs(d + 4, 1, s, t, 2, d))
+    scale = d ** -0.5
+    bkv = tfa.kernel_block_kv(d, torch.float32, "bwd_dkv")
+    assert bkv == tfa.kernel_block_kv(d, torch.float32, "bwd_dq") == 32
+    jq, jk, jv, jg = (jnp.asarray(x.numpy()) for x in (q, k, v, g))
+    jo, jlse = jfa._flash_fwd_3d(jq, jk, jv, scale, 128, 128)
+    j_grads = jfa._flash_bwd_3d(jq, jk, jv, jo, jlse, jg, scale, 128, 128)
+    o = torch.from_numpy(np.array(jo))
+    lse = torch.from_numpy(np.array(jlse))[..., 0]
+    grads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
+    for name, mine, ref in zip(("dq", "dk", "dv"), grads, j_grads):
+        assert _rel_l2(mine, ref) <= REL_L2, name
+    # the kernels' mutants at this tile: TF32 operands, the last kv tile
+    # dropped from dq, dk x (1 + 1e-4)
+    mgrads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv,
+                                           tf32=True)
+    for name, mine, ref in zip(("dq", "dk", "dv"), mgrads, j_grads):
+        assert _rel_l2(mine, ref) > 10 * REL_L2, name
+    cut = (t - 1) // bkv * bkv
+    mdq = tfa.flash_bwd_tiled_reference(q, k[:, :cut], v[:, :cut], o, lse, g,
+                                        scale, bkv)[0]
+    assert _rel_l2(mdq, j_grads[0]) > REL_L2
+    assert _rel_l2(grads[1] * (1 + 1e-4), j_grads[1]) > REL_L2
 
 
 @pytest.mark.parametrize("s,t", [(100, 300), (96, 160)])
