@@ -68,9 +68,10 @@ Phases, one line each (any failure raises and exits non-zero):
      the contiguous call, and the ragged (2, 1000, 1500) sent to the
      standard kernel; each timed beside the standard forward, the plain
      one-pass version, its bound and SDPA;
-  3f. the fp32 kernels (csrc/flash_fp32.cu, 3xTF32 products; the forward,
-     the deferred forward, dq with delta and dk/dv at head_dims 64, 256 and
-     512) against their plain fp32 versions at the same domain (natural;
+  3f. the fp32 kernels (csrc/flash_fp32.cu, 3xTF32 products, the forward
+     and the deferred forward at head_dims 64 and 256; dq with delta and
+     dk/dv at 64 and 256 on tf32 wgmma, csrc/flash_fp32_d64_bwd_sm90.cu and
+     csrc/flash_fp32_d256_bwd_sm90.cu; all four at 512) against their plain fp32 versions at the same domain (natural;
      the deferred forward base 2 on prescaled q): o, dq, dk, dv within
      relative L2 1e-5, the LSE and delta within 1e-5, the same bits twice;
      the forwards at the edit's, the training step's and the VAE's shapes
@@ -282,6 +283,18 @@ held inside it with PIPELINE_FWD off and on, full steps timed) alone and
 prints their kernels line; with --package-root from another checkout's
 package, so change, parent, parent, change in one call times two commits'
 kernels and steps in turns.
+
+    python3 chip_smoke.py --fp32-d256-only [--package-root DIR]
+
+builds the kernels and runs phase 3f at head_dim 256 (both fp32 forwards of
+csrc/flash_fp32.cu and the backward pair of
+csrc/flash_fp32_d256_bwd_sm90.cu) and 8c's small_config fp32 stage-1 steps
+(batch 16 at 256^2, each timed; the head_dim-256 flash route held inside
+a flagged step with PIPELINE_FWD off and on, its distances from fp64
+beside the plain version's) alone and prints their kernels line; with
+--package-root from another checkout's package, so change, parent,
+parent, change in one call times two commits' kernels and steps in
+turns.
 
     python3 chip_smoke.py --w8-fp32-only [--package-root DIR]
 
@@ -1615,11 +1628,12 @@ FP32_WIDTHS = (64, 256, 512)
 FP32_REPLACES = {"fwd": 275, "fwd_pipelined": 149, "bwd_dq": 396,
                  "bwd_dkv": 437}
 # the fp32 backward pair and the two fp32 forwards at head_dim 512, and
-# the fp32 backward pair at 64 (a package from before has them in
+# the fp32 backward pairs at 64 and 256 (a package from before has them in
 # flash_fp32.cu)
 FP32_D512_BWD_SOURCE = "flash_fp32_d512_bwd_sm90.cu"
 FP32_D512_FWD_SOURCE = "flash_fp32_d512_sm90.cu"
 FP32_D64_BWD_SOURCE = "flash_fp32_d64_bwd_sm90.cu"
+FP32_D256_BWD_SOURCE = "flash_fp32_d256_bwd_sm90.cu"
 
 
 def fp32_source(kind: str, d: int) -> str:
@@ -1629,7 +1643,8 @@ def fp32_source(kind: str, d: int) -> str:
 
     bwd = kind.startswith("bwd")
     source = {512: FP32_D512_BWD_SOURCE if bwd else FP32_D512_FWD_SOURCE,
-              64: FP32_D64_BWD_SOURCE if bwd else None}.get(d)
+              64: FP32_D64_BWD_SOURCE if bwd else None,
+              256: FP32_D256_BWD_SOURCE if bwd else None}.get(d)
     if source and os.path.exists(os.path.join(_build.CSRC, source)):
         return source
     return "flash_fp32.cu"
@@ -1659,8 +1674,9 @@ def fp32_counter(kind: str, d: int) -> str:
 
 def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32; the
-    backward pair at 64 csrc/flash_fp32_d64_bwd_sm90.cu; at 512 the
-    forwards csrc/flash_fp32_d512_sm90.cu and the backward pair
+    backward pairs at 64 and 256 csrc/flash_fp32_d64_bwd_sm90.cu and
+    csrc/flash_fp32_d256_bwd_sm90.cu; at 512 the forwards
+    csrc/flash_fp32_d512_sm90.cu and the backward pair
     csrc/flash_fp32_d512_bwd_sm90.cu) at head_dims
     ``widths`` (64, 256 and 512) against their plain fp32 versions at each
     kernel's kv tile (kernel_block_kv by kind) and at the same domain (the
@@ -1674,8 +1690,9 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     contiguous route's bits, the switch on too.  Each timed (CUDA-event
     medians of 25; 5 for the largest) beside its plain one-pass version,
     SDPA on the same fp32 inputs with TF32 off (its backend recorded) and
-    the bound at PEAK_FP32_FLOPS; at 512 each kernel's clusters the card
-    runs at once (cudaOccupancyMaxActiveClusters), and the backward pair
+    the bound at PEAK_FP32_FLOPS; at 512 (and the backward pair at 256)
+    each kernel's clusters the card runs at once
+    (cudaOccupancyMaxActiveClusters), at 512 the backward pair
     also on the tiled plain forward's o and LSE at the pair's tile (no
     forward kernel moves those errors), held to the same contract.  Returns
     {entry name: [result per shape]}."""
@@ -1688,9 +1705,10 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                           for kind in FP32_KINDS}):
         show_ptxas(source)
     lib = _build.load()
-    clusters = ({"dq": lib.flash_bwd_d512_fp32_max_clusters(0),
-                 "dkv": lib.flash_bwd_d512_fp32_max_clusters(1)}
-                if hasattr(lib, "flash_bwd_d512_fp32_max_clusters") else None)
+    clusters = {d: {"dq": getattr(lib, q)(0), "dkv": getattr(lib, q)(1)}
+                for d, q in ((512, "flash_bwd_d512_fp32_max_clusters"),
+                             (256, "flash_bwd_d256_fp32_max_clusters"))
+                if hasattr(lib, q)}
     fwd_clusters = ({kind: lib.flash_fwd_d512_fp32_max_clusters(i)
                      for i, kind in enumerate(("fwd", "fwd_pipelined"))}
                     if hasattr(lib, "flash_fwd_d512_fp32_max_clusters")
@@ -1841,8 +1859,8 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                           library_call="autograd.grad through "
                           "scaled_dot_product_attention, fp32, TF32 off: dq, "
                           "dk and dv together", same_bits_twice=same)
-            if d == 512 and clusters is not None:
-                common["max_active_clusters"] = clusters
+            if d in clusters:
+                common["max_active_clusters"] = clusters[d]
             if on_plain:
                 common["on_plain_forward"] = on_plain
             res_dq = dict(common, **err["dq"], max_abs_err_delta=delta_err,
@@ -4283,6 +4301,50 @@ def check_fp32_sd2_stage1(dev, vae_params, out, save_route=None) -> dict:
     return s1
 
 
+# the small_config stage-1 batch (VAEConfig with the flag: the mid-block's
+# (16, 4096, 1, 256) calls at 256^2)
+SMALL_STAGE1_BATCH = 16
+
+
+def check_fp32_small_stage1(dev, vae_params, out) -> dict:
+    """8c's small_config stage 1: STAGE1_STEPS fp32 VAETrainer steps on the
+    small VAE at 256^2 and batch SMALL_STAGE1_BATCH with the flag and
+    gradient checkpointing (2 forwards, 2 dq, 2 dk/dv at head_dim 256 a
+    step), each timed; then the flash route held at its own boundary inside
+    one more flagged step and one with PIPELINE_FWD on (flash_route_check,
+    fp32: the forward's o and LSE, dq, dk, dv against the tiled plain
+    versions or fp64, every mutant failing)."""
+    from diffute_tpu_torch.config import small_config
+
+    small, route, route_pipelined = small_config(), [], []
+    s1 = fp32_stage1_steps(
+        dev, lambda on: fp32_stage1_config(small, on, SMALL_STAGE1_BATCH,
+                                           256),
+        vae_params, SMALL_STAGE1_BATCH, 256, (("flash", True),),
+        "fp32_small_", out, route, route_pipelined)
+    phase("fp32_small_stage1", batch=SMALL_STAGE1_BATCH, resolution=256,
+          **s1)
+    s1["flash_route"] = flash_route_check(route, 256)
+    phase("fp32_small_stage1_flash_route", routes=s1["flash_route"])
+    del route
+    s1["flash_route_pipelined"] = flash_route_check(
+        route_pipelined, 256, pipelined=True)
+    phase("fp32_small_stage1_flash_route_pipelined",
+          routes=s1["flash_route_pipelined"])
+    del route_pipelined
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s1
+
+
+def route_summary(routes: list) -> list:
+    """What a route check's calls read, for the final line: each output's
+    distance from fp64 beside the plain version's."""
+    return [{k: r[k] for k in ("shape", "forward", "flash_vs_fp64",
+                               "plain_vs_fp64", "max_abs_score")}
+            for r in routes]
+
+
 def check_fp32_paths(dev) -> dict:
     """Phase 8c: the fp32 paths at full width with the fp32 flash kernels,
     weights from seed 0.  Serving (bench.py --dtype fp32's configuration
@@ -4306,7 +4368,9 @@ def check_fp32_paths(dev) -> dict:
     TOL_FP32_LOSS_REL), and the flash route inside one more flagged step
     (check_fp32_sd2_stage1).  small_config: an encode and a decode at 256^2
     flag on, and with PIPELINE_FWD on too, against off, and 3 stage-1 steps at
-    batch 16 (2, 2, 2 at head_dim 256 a step).  Seconds and peak memory of each; every flash counter
+    batch 16 (2, 2, 2 at head_dim 256 a step) with the head_dim-256 flash
+    route held inside a flagged step, PIPELINE_FWD off and on
+    (check_fp32_small_stage1).  Seconds and peak memory of each; every flash counter
     asserted on each path.  Returns the numbers and the launches by path."""
     from diffute_tpu_torch.config import DiffUTEConfig, small_config
     from diffute_tpu_torch.models import AutoencoderKL
@@ -4441,10 +4505,8 @@ def check_fp32_paths(dev) -> dict:
                 raise RuntimeError(f"fp32 small VAE {what} with flash "
                                    f"differs: {codec[what]}")
     del vaes, z, x
-    small_s1 = fp32_stage1_steps(
-        dev, lambda on: fp32_stage1_config(small, on, 16, 256),
-        sparams["vae"], 16, 256, (("flash", True),), "fp32_small_", out)
-    phase("fp32_small", codec=codec, stage1_batch=16, **small_s1)
+    phase("fp32_small", codec=codec)
+    small_s1 = check_fp32_small_stage1(dev, sparams["vae"], out)
     out["small"] = dict(codec=codec, stage1=small_s1)
     del sparams
     gc.collect()
@@ -6078,6 +6140,11 @@ def main(argv=None) -> None:
                    "and 8c's flagged fp32 stage-2 step (the fp32 head_dim-64 "
                    "kernels, their route held inside the step, full steps "
                    "timed) alone")
+    p.add_argument("--fp32-d256-only", action="store_true",
+                   help="build the kernels and run phase 3f at head_dim 256 "
+                   "and 8c's small_config fp32 stage-1 steps (the fp32 "
+                   "head_dim-256 kernels, their route held inside the step "
+                   "with PIPELINE_FWD off and on, the steps timed) alone")
     p.add_argument("--w8-fp32-only", action="store_true",
                    help="build the kernels and run phase 3g's int8 matmul "
                    "and phase 8d's fp32 --fused-gn --int8 edits beside 8e's "
@@ -6258,6 +6325,35 @@ def main(argv=None) -> None:
                 "route_held": [r["held"] for r in stage2["flash_route"]
                                + stage2["flash_route_pipelined"]]}}),
             flush=True)
+        return
+    if args.fp32_d256_only:
+        import diffute_tpu_torch
+        from diffute_tpu_torch.config import small_config
+        from diffute_tpu_torch.ops import _build
+        from diffute_tpu_torch.utils import init_pipeline_params
+
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
+        _build.load()
+        dev = torch.device("cuda", 0)
+        seconds, paths = {}, {"launches": {}}
+        t0 = time.perf_counter()
+        fp32 = check_fp32(dev, (256,))
+        seconds["phase_3f_d256"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vae = init_pipeline_params(small_config(), seed=0, device=dev,
+                                   components=("vae",))["vae"]
+        stage1 = check_fp32_small_stage1(dev, vae, paths)
+        del vae
+        seconds["phase_8c_small_stage1"] = time.perf_counter() - t0
+        phase("seconds", **seconds, run=time.perf_counter() - t_run)
+        print(gpu_line(), flush=True)
+        print(json.dumps({
+            "kernels": fp32_entries(fp32, paths["launches"], (256,)),
+            "fp32_small_stage1": {
+                "step_seconds": [x["seconds"] for x in stage1["flash"]],
+                "route": route_summary(stage1["flash_route"]),
+                "route_pipelined": route_summary(
+                    stage1["flash_route_pipelined"])}}), flush=True)
         return
     if args.narrow_only:
         from diffute_tpu_torch.ops import _build

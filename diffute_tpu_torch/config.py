@@ -34,7 +34,7 @@ class VAEConfig:
     # the CUDA flash kernels (bf16: csrc/flash_wide.cu at 512,
     # csrc/flash_d256_sm90.cu and flash_d256_bwd_sm90.cu at 256; fp32:
     # csrc/flash_fp32_d512_sm90.cu and flash_fp32_d512_bwd_sm90.cu at 512,
-    # csrc/flash_fp32.cu at 256).
+    # csrc/flash_fp32.cu and flash_fp32_d256_bwd_sm90.cu at 256).
     use_flash_attention: bool = False
 
     @property
@@ -63,8 +63,8 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     dtype: torch.dtype = torch.float32
     # Route self-attention with >= 1024 keys through the CUDA flash kernels
-    # (csrc/flash_fwd.cu, csrc/flash_bwd.cu on bf16, csrc/flash_fp32.cu on
-    # fp32).
+    # (csrc/flash_fwd.cu, csrc/flash_bwd.cu on bf16, csrc/flash_fp32.cu and
+    # csrc/flash_fp32_d64_bwd_sm90.cu on fp32).
     use_flash_attention: bool = False
     # GroupNorm+SiLU as one kernel (csrc/groupnorm.cu) in conv_norm_out and,
     # without use_fused_conv, in the resnets.

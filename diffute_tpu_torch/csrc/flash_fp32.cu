@@ -1,24 +1,23 @@
-// Flash attention on fp32 inputs for Hopper (sm_90a): the forward, the
-// deferred-softmax forward, the dq kernel (which also writes delta) and the
-// dk/dv kernel, fp32 in and out, fp32 LSE and delta.  One source, templated
-// on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the UNet's
-// heads: both forwards) and 256 (the small VAE's mid-block, `small_config`:
-// all four).  The backward pair at 64 is flash_fp32_d64_bwd_sm90.cu (tf32
-// wgmma on split planes); the four at 512 (the SD2 VAE's mid-block) are
-// flash_fp32_d512_sm90.cu (the two forwards) and
-// flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a cluster of four blocks
-// over head_dim; all on the same precision contract.  The bf16
-// kernels (flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu,
-// flash_wide.cu) stay as they are.
+// Flash attention on fp32 inputs for Hopper (sm_90a): the forward and the
+// deferred-softmax forward, fp32 in and out, fp32 LSE.  One source,
+// templated on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the
+// UNet's heads) and 256 (the small VAE's mid-block, `small_config`).  The
+// fp32 backward pairs are their own sources, on tf32 wgmma over split
+// planes: at 64 flash_fp32_d64_bwd_sm90.cu, at 256
+// flash_fp32_d256_bwd_sm90.cu (a cluster of four blocks over head_dim);
+// the four at 512 (the SD2 VAE's mid-block) are flash_fp32_d512_sm90.cu
+// (the two forwards) and flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a
+// cluster of four blocks over head_dim; all on the same precision
+// contract.  The bf16 kernels (flash_fwd.cu, flash_fwd_pipelined.cu,
+// flash_bwd.cu, flash_wide.cu) stay as they are.
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py on
-// fp32 inputs: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`),
-// `_fwd_kernel_pipelined` (in `_flash_fwd_3d_pipelined`), `_bwd_dq_kernel`
-// and `_bwd_dkv_kernel` (both in `_flash_bwd_3d`).
+// fp32 inputs: `_fwd_kernel` (pl.pallas_call in `_flash_fwd_3d`) and
+// `_fwd_kernel_pipelined` (in `_flash_fwd_3d_pipelined`).
 //
 // Precision contract.  The port's fp32 paths turn TF32 off, so that an fp32
-// model computes what the JAX one computes on the CPU; these kernels are
-// accurate to fp32, not to TF32:
+// model computes what the JAX one computes on the CPU; these kernels and
+// the fp32 backward pairs are accurate to fp32, not to TF32:
 //
 //   * every product is 3xTF32 on mma.sync.m16n8k8.tf32: each operand x is
 //     split into hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), and
@@ -26,15 +25,15 @@
 //     (the dropped lo_a lo_b is 2^-22 of the product);
 //   * the tensor cores' fp32 accumulation rounds toward zero, so no
 //     accumulator in them spans more than 32 rows of one tile: each such
-//     part of p v, ds k, p^T dO or ds^T q is summed from zero (12 products
-//     at most) and added to o, dq, dv or dk by an fp32 add.  Carried
-//     across all the keys in one accumulator, that bias alone broke the
-//     bound below at 4,096 keys (python -m
+//     part of p v (of ds k, p^T dO or ds^T q in the backward pairs) is
+//     summed from zero (12 products at most) and added to o (dq, dv or dk)
+//     by an fp32 add.  Carried across all the keys in one accumulator, that
+//     bias alone broke the bound below at 4,096 keys (python -m
 //     diffute_tpu_torch.tools.flash_fp32_accuracy reads each kernel's and
 //     each plain version's distance from fp64);
-//   * p and ds stay fp32 and are never rounded to a narrower type, as in
+//   * p (and ds) stay fp32 and are never rounded to a narrower type, as in
 //     the JAX package's fp32 kernels (`p.astype(v.dtype)` is fp32 there);
-//   * the standard forward and both backward kernels work in the natural
+//   * the standard forward (and the backward pairs) work in the natural
 //     domain with the exact scale after the product, as JAX's
 //     `log2_domain=False` (base 2 is for non-fp32 inputs only, :352, :491):
 //     s = q k^T * scale, p = exp(s - m), lse = m + log(l);
@@ -52,8 +51,8 @@
 //
 //   q (B, S, H, D), k/v (B, T, H, D)  fp32, any strides that are multiples
 //     of 4 elements with the last one 1 (16-byte cp.async)
-//   o, dq (B, S, H, D), dk, dv (B, T, H, D) fp32 through their strides
-//   lse, delta (B*H, S) fp32 contiguous; lse natural log
+//   o (B, S, H, D) fp32 through its strides
+//   lse (B*H, S) fp32 contiguous, natural log
 //
 // What bounds them on the H100: operations.  fp32 accuracy takes three
 // TF32 products for one, so the tensor cores' 494.7 TF32 TFLOP/s give
@@ -61,23 +60,22 @@
 // special-function unit per score against 2 D FLOPs a product.  On-chip
 // room is scarce: an fp32 row takes twice a bf16 one.
 //
-// Layout.  Every tile of one kernel has R rows: the resident tile (q; q and
-// dO; k and v) and the streamed ones (k, v; or q, dO), two stages deep
-// through cp.async.  head_dim is cut into D / 64 slices of 64 columns and
-// the resident tile into R / 16 groups of 16 rows; a block is one warp per
-// (group, slice), and a warp keeps its 16 x 64 slice of each accumulator in
-// registers (32 fp32 a thread; 64 for dk and dv).  The contraction over
-// head_dim in s = q k^T (and dp = dO v^T) is split between the slices: each
-// warp writes its 16 x R fp32 partial scores to shared memory and, after a
-// barrier, every warp of a row group sums the D / 64 partials in slice
-// order, so the slices see bit-identical scores and p (flash_wide.cu's
-// scheme).  At D = 64 there is one slice and no exchange.  Shared memory
-// (227 KB, 232,448 bytes, a block):
+// Layout.  Every tile of one kernel has R rows: the resident q tile and the
+// streamed k and v tiles, two stages deep through cp.async.  head_dim is
+// cut into D / 64 slices of 64 columns and the resident tile into R / 16
+// groups of 16 rows; a block is one warp per (group, slice), and a warp
+// keeps its 16 x 64 slice of the output accumulator in registers (32 fp32
+// a thread).  The contraction over head_dim in s = q k^T is split between
+// the slices: each warp writes its 16 x R fp32 partial scores to shared
+// memory and, after a barrier, every warp of a row group sums the D / 64
+// partials in slice order, so the slices see bit-identical scores and p
+// (flash_wide.cu's scheme).  At D = 64 there is one slice and no exchange.
+// Shared memory (227 KB, 232,448 bytes, a block):
 //
 //   D = 64,  R = 64: 4 warps, a 16 KB tile; forward 80 KB (deferred 80 KB):
 //     two blocks an SM;
 //   D = 256, R = 32: 8 warps, a 32 KB tile, 16 KB of partials; forward
-//     176 KB (deferred 192 KB), dq 224.25 KB, dk/dv 224.5 KB.
+//     176 KB (deferred 192 KB).
 //
 // At 512 a 32-row tile would be 64 KB, so one SM held 16-row tiles; the
 // kernels there split head_dim over a cluster of four blocks instead
@@ -98,14 +96,11 @@
 //
 // This first cut uses mma.sync and a cp.async ring; wgmma (which takes tf32
 // with both operands K-major only), TMA and a producer warpgroup are left
-// to a redesign (ROADMAP.md), as flash_fp32_d64_bwd_sm90.cu did for the
-// backward pair at 64.
+// to a redesign (ROADMAP.md), as the backward pairs at 64 and 256 did.
 //
 // Ragged edges.  Rows past the end of a tile are zero-filled by cp.async.
-// The forward and dq mask the kv columns past T in the last kv tile (p = 0).
-// dk/dv: q rows past S are zero (so dO = 0), and their lse and delta are
-// zero-filled too, which gives p = exp(0) = 1 and ds = 1 * (0 - 0) = 0:
-// they contribute nothing.  Rows past the end of an output are not written.
+// Both forwards mask the kv columns past T in the last kv tile (p = 0).
+// Rows past the end of an output are not written.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,15 +132,9 @@ struct Fp32 {
   // q | k[2] | v[2] | partials (the deferred forward: partials[2])
   static constexpr int kFwdSmem = 5 * kTile + kPart;
   static constexpr int kFwdDeferredSmem = 5 * kTile + 2 * kPart;
-  // q | dO | k[2] | v[2] | partials of s | of dp | lse | delta
-  static constexpr int kDqSmem = 6 * kTile + 2 * kPart + 2 * R * 4;
-  // k | v | q[2] | dO[2] | partials of s^T | of dp^T | lse[2] | delta[2]
-  static constexpr int kDkvSmem = 6 * kTile + 2 * kPart + 4 * R * 4;
   static_assert(D % kSlice == 0 && R % 16 == 0, "whole slices and groups");
   static_assert((R * kChunks) % kThreads == 0, "whole chunks a thread");
-  static_assert(kFwdDeferredSmem <= 232448 && kDqSmem <= 232448 &&
-                    kDkvSmem <= 232448,
-                "227 KB a block");
+  static_assert(kFwdDeferredSmem <= 232448, "227 KB a block");
 };
 
 using F64 = Fp32<64, 64>;
@@ -350,14 +339,13 @@ __device__ __forceinline__ void zero8(float (&acc)[8][4]) {
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 }
 
-// Write this warp's 16 x 64 accumulator slice, times f (or divided by
-// l_lo / l_hi per row half with `divide`), as fp32 rows [row0, row0 + 16)
-// of `dst` (rows past n_rows dropped).
+// Write this warp's 16 x 64 accumulator slice divided by l_lo / l_hi per
+// row half as fp32 rows [row0, row0 + 16) of `dst` (rows past n_rows
+// dropped).
 __device__ __forceinline__ void store_slice(float* dst, long long stride,
                                             const float (&acc)[8][4],
                                             int row0, int n_rows, int slice,
-                                            float f_lo, float f_hi,
-                                            bool divide) {
+                                            float l_lo, float l_hi) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r_lo = row0 + g, r_hi = row0 + g + 8;
 #pragma unroll
@@ -365,21 +353,18 @@ __device__ __forceinline__ void store_slice(float* dst, long long stride,
     const int c = slice * kSlice + n * 8 + t * 2;
     if (r_lo < n_rows)
       *reinterpret_cast<float2*>(dst + r_lo * stride + c) =
-          divide ? make_float2(acc[n][0] / f_lo, acc[n][1] / f_lo)
-                 : make_float2(acc[n][0] * f_lo, acc[n][1] * f_lo);
+          make_float2(acc[n][0] / l_lo, acc[n][1] / l_lo);
     if (r_hi < n_rows)
       *reinterpret_cast<float2*>(dst + r_hi * stride + c) =
-          divide ? make_float2(acc[n][2] / f_hi, acc[n][3] / f_hi)
-                 : make_float2(acc[n][2] * f_hi, acc[n][3] * f_hi);
+          make_float2(acc[n][2] / l_hi, acc[n][3] / l_hi);
   }
 }
 
 struct Params {
-  const void *q, *k, *v, *o, *dout;
-  void *out0, *out1;  // o | dq | dk, and dv
-  float* lse;    // written by the forward, read by the backward
-  float* delta;  // written by the dq kernel, read by the dk/dv kernel
-  long long st[18];   // (sb, sl, sh) per tensor, in the entry's order
+  const void *q, *k, *v;
+  void* out0;  // o
+  float* lse;
+  long long st[12];   // (sb, sl, sh) per tensor: q, k, v, o
   int heads, s_len, t_len;
   float scale, scale_log2;
 };
@@ -455,7 +440,7 @@ __device__ __forceinline__ void store_fwd(const Params& p, float (&o)[8][4],
   const long long* os = p.st + 9;
   float* ob = static_cast<float*>(p.out0) + b * os[0] + h * os[2];
   const int row0 = q0 + group * 16;
-  store_slice(ob, os[1], o, row0, p.s_len, slice, r.l_lo, r.l_hi, true);
+  store_slice(ob, os[1], o, row0, p.s_len, slice, r.l_lo, r.l_hi);
   if (slice == 0 && t == 0) {
     float* lb = p.lse + (long long)bh * p.s_len;
     const float lse_lo = kBase2 ? (r.m_lo + log2f(r.l_lo)) * kLn2
@@ -612,244 +597,6 @@ __global__ void __launch_bounds__(W::kThreads, 1)
   store_fwd<W, true>(p, o, r, q0, group, slice);
 }
 
-// ---------------------------------------------------------------------------
-// dq and delta: strides of q, k, v, o, dO, dq
-// ---------------------------------------------------------------------------
-
-template <class W>
-__global__ void __launch_bounds__(W::kThreads, 1) dq_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kTileF = W::kTile / 4;
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* do_s = q_s + kTileF;
-  float* k_s = do_s + kTileF;
-  float* v_s = k_s + 2 * kTileF;
-  unsigned char* rest = smem + 6 * W::kTile;
-  float4* part_s = reinterpret_cast<float4*>(rest);
-  float4* part_dp = part_s + W::kPart / 16;
-  float* lse_s = reinterpret_cast<float*>(rest + 2 * W::kPart);
-  float* delta_s = lse_s + W::kRows;
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp % W::kGroups, slice = warp / W::kGroups;
-  const int g = lane >> 2;
-  const int q0 = blockIdx.x * W::kRows;
-  const Rows q = rows_of(p.q, p.st, b, h), k = rows_of(p.k, p.st + 3, b, h),
-             v = rows_of(p.v, p.st + 6, b, h), o = rows_of(p.o, p.st + 9, b, h),
-             dout = rows_of(p.dout, p.st + 12, b, h);
-
-  const int n_tiles = (p.t_len + W::kRows - 1) / W::kRows;
-  load_tile<W>(smem_u32(q_s), q, q0, p.s_len);
-  load_tile<W>(smem_u32(do_s), dout, q0, p.s_len);
-  load_tile<W>(smem_u32(k_s), k, 0, p.t_len);
-  load_tile<W>(smem_u32(v_s), v, 0, p.t_len);
-  cp_async_commit();
-
-  // ---- delta = rowsum(dO * O) in fp32, R / warps rows a warp, column
-  // c * 32 + lane summed by each lane in order, then across the warp by a
-  // fixed tree.  Rows past S get 0 and are not written.
-  constexpr int kRowsAWarp = W::kRows / (W::kThreads / 32);
-#pragma unroll
-  for (int i = 0; i < kRowsAWarp; ++i) {
-    const int rr = warp * kRowsAWarp + i, row = q0 + rr;
-    float acc = 0.f;
-    if (row < p.s_len) {
-      const float* orow = o.p + row * o.stride;
-      const float* drow = dout.p + row * dout.stride;
-#pragma unroll
-      for (int c = 0; c < W::kD / 32; ++c)
-        acc = fmaf(orow[c * 32 + lane], drow[c * 32 + lane], acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      delta_s[rr] = acc;
-      lse_s[rr] = row < p.s_len ? p.lse[(long long)bh * p.s_len + row] : 0.f;
-      if (row < p.s_len) p.delta[(long long)bh * p.s_len + row] = acc;
-    }
-  }
-
-  float dq[8][4];
-  zero8(dq);
-  float lse_lo = 0.f, lse_hi = 0.f, delta_lo = 0.f, delta_hi = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<W>(smem_u32(k_s + (buf ^ 1) * kTileF), k, (j + 1) * W::kRows,
-                   p.t_len);
-      load_tile<W>(smem_u32(v_s + (buf ^ 1) * kTileF), v, (j + 1) * W::kRows,
-                   p.t_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-      lse_lo = lse_s[group * 16 + g];
-      lse_hi = lse_s[group * 16 + g + 8];
-      delta_lo = delta_s[group * 16 + g];
-      delta_hi = delta_s[group * 16 + g + 8];
-    }
-
-    // ---- s = q k^T and dp = dO v^T, each summed over the slices
-    float s[W::kNT][4], dp[W::kNT][4];
-    mma_slice_nt<W>(s, q_s, group * 16, k_s + buf * kTileF, slice);
-    mma_slice_nt<W>(dp, do_s, group * 16, v_s + buf * kTileF, slice);
-    if constexpr (W::kSlices > 1) {
-      put_part<W>(part_s, s, group, slice);
-      put_part<W>(part_dp, dp, group, slice);
-      __syncthreads();
-      sum_parts<W>(s, part_s, group);
-      sum_parts<W>(dp, part_dp, group);
-    }
-    scale_scores<W>(s, p.scale);
-    mask_cols<W>(s, j * W::kRows, p.t_len);
-
-    // ---- ds = p * (dp - delta), p = exp(s * scale - lse)
-#pragma unroll
-    for (int n = 0; n < W::kNT; ++n) {
-      s[n][0] = expf(s[n][0] - lse_lo) * (dp[n][0] - delta_lo);
-      s[n][1] = expf(s[n][1] - lse_lo) * (dp[n][1] - delta_lo);
-      s[n][2] = expf(s[n][2] - lse_hi) * (dp[n][2] - delta_hi);
-      s[n][3] = expf(s[n][3] - lse_hi) * (dp[n][3] - delta_hi);
-    }
-
-    // ---- dq += ds k over this slice's columns
-    mma_slice_nn<W>(dq, s, k_s + buf * kTileF, slice);
-    __syncthreads();
-  }
-
-  const long long* ds = p.st + 15;
-  float* dqb = static_cast<float*>(p.out0) + b * ds[0] + h * ds[2];
-  store_slice(dqb, ds[1], dq, q0 + group * 16, p.s_len, slice, p.scale,
-              p.scale, false);
-}
-
-// ---------------------------------------------------------------------------
-// dk and dv: strides of q, k, v, dO, dk, dv
-// ---------------------------------------------------------------------------
-
-// lse and delta of q rows [row0, row0 + R) into shared memory (threads
-// 0..R-1 copy lse, R..2R-1 delta); rows at or past s_len are zero-filled.
-template <class W>
-__device__ __forceinline__ void load_row_stats(float* lse_dst, float* delta_dst,
-                                               const float* lse,
-                                               const float* delta, int row0,
-                                               int s_len) {
-  if (threadIdx.x >= 2 * W::kRows) return;
-  const int r = threadIdx.x % W::kRows;
-  const bool ok = row0 + r < s_len;
-  const float* src =
-      (threadIdx.x < W::kRows ? lse : delta) + (ok ? row0 + r : 0);
-  float* dst = (threadIdx.x < W::kRows ? lse_dst : delta_dst) + r;
-  cp_async_4(smem_u32(dst), src, ok ? 4 : 0);
-}
-
-template <class W>
-__global__ void __launch_bounds__(W::kThreads, 1) dkv_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kTileF = W::kTile / 4;
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = k_s + kTileF;
-  float* q_s = v_s + kTileF;
-  float* do_s = q_s + 2 * kTileF;
-  unsigned char* rest = smem + 6 * W::kTile;
-  float4* part_s = reinterpret_cast<float4*>(rest);
-  float4* part_dp = part_s + W::kPart / 16;
-  float* lse_s = reinterpret_cast<float*>(rest + 2 * W::kPart);
-  float* delta_s = lse_s + 2 * W::kRows;
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp % W::kGroups, slice = warp / W::kGroups;
-  const int t = lane & 3;
-  const int kv0 = blockIdx.x * W::kRows;
-  const Rows q = rows_of(p.q, p.st, b, h), k = rows_of(p.k, p.st + 3, b, h),
-             v = rows_of(p.v, p.st + 6, b, h),
-             dout = rows_of(p.dout, p.st + 9, b, h);
-  const float* lb = p.lse + (long long)bh * p.s_len;
-  const float* db = p.delta + (long long)bh * p.s_len;
-
-  const int n_tiles = (p.s_len + W::kRows - 1) / W::kRows;
-  load_tile<W>(smem_u32(k_s), k, kv0, p.t_len);
-  load_tile<W>(smem_u32(v_s), v, kv0, p.t_len);
-  load_tile<W>(smem_u32(q_s), q, 0, p.s_len);
-  load_tile<W>(smem_u32(do_s), dout, 0, p.s_len);
-  load_row_stats<W>(lse_s, delta_s, lb, db, 0, p.s_len);
-  cp_async_commit();
-
-  float dk[8][4], dv[8][4];
-  zero8(dk);
-  zero8(dv);
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < n_tiles) {
-      load_tile<W>(smem_u32(q_s + (buf ^ 1) * kTileF), q, (i + 1) * W::kRows,
-                   p.s_len);
-      load_tile<W>(smem_u32(do_s + (buf ^ 1) * kTileF), dout,
-                   (i + 1) * W::kRows, p.s_len);
-      load_row_stats<W>(lse_s + (buf ^ 1) * W::kRows,
-                        delta_s + (buf ^ 1) * W::kRows, lb, db,
-                        (i + 1) * W::kRows, p.s_len);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // ---- s^T = k q^T and dp^T = v dO^T (16 kv rows x R q columns), each
-    // summed over the slices; lse and delta index the columns
-    float st[W::kNT][4], dpt[W::kNT][4];
-    mma_slice_nt<W>(st, k_s, group * 16, q_s + buf * kTileF, slice);
-    mma_slice_nt<W>(dpt, v_s, group * 16, do_s + buf * kTileF, slice);
-    if constexpr (W::kSlices > 1) {
-      put_part<W>(part_s, st, group, slice);
-      put_part<W>(part_dp, dpt, group, slice);
-      __syncthreads();
-      sum_parts<W>(st, part_s, group);
-      sum_parts<W>(dpt, part_dp, group);
-    }
-
-    const float* ls = lse_s + buf * W::kRows;
-    const float* dl = delta_s + buf * W::kRows;
-#pragma unroll
-    for (int n = 0; n < W::kNT; ++n) {
-      const int c = n * 8 + t * 2;
-      st[n][0] = expf(st[n][0] * p.scale - ls[c]);
-      st[n][1] = expf(st[n][1] * p.scale - ls[c + 1]);
-      st[n][2] = expf(st[n][2] * p.scale - ls[c]);
-      st[n][3] = expf(st[n][3] * p.scale - ls[c + 1]);
-    }
-
-    // ---- ds^T = p^T * (dp^T - delta), in dpt; dv += p^T dO; dk += ds^T q
-#pragma unroll
-    for (int n = 0; n < W::kNT; ++n) {
-      const int c = n * 8 + t * 2;
-      dpt[n][0] = st[n][0] * (dpt[n][0] - dl[c]);
-      dpt[n][1] = st[n][1] * (dpt[n][1] - dl[c + 1]);
-      dpt[n][2] = st[n][2] * (dpt[n][2] - dl[c]);
-      dpt[n][3] = st[n][3] * (dpt[n][3] - dl[c + 1]);
-    }
-    mma_slice_nn<W>(dv, st, do_s + buf * kTileF, slice);
-    mma_slice_nn<W>(dk, dpt, q_s + buf * kTileF, slice);
-    __syncthreads();
-  }
-
-  const long long* ks = p.st + 12;
-  const long long* vs = p.st + 15;
-  const int row0 = kv0 + group * 16;
-  store_slice(static_cast<float*>(p.out0) + b * ks[0] + h * ks[2], ks[1], dk,
-              row0, p.t_len, slice, p.scale, p.scale, false);
-  store_slice(static_cast<float*>(p.out1) + b * vs[0] + h * vs[2], vs[1], dv,
-              row0, p.t_len, slice, 1.f, 1.f, false);
-}
-
 // Launch `kernel` over ceil(rows / R) tiles of the resident axis times B*H.
 template <class W>
 int launch(void (*kernel)(Params), int smem_bytes, int rows, Params& p,
@@ -914,61 +661,15 @@ int fwd_deferred(const void* q, const void* k, const void* v, void* o,
                    h, s_len, t_len, strides, 12, scale, stream);
 }
 
-// dq and delta; strides of q, k, v, o, dO, dq.
-template <class W>
-int bwd_dq(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq, int b,
-           int h, int s_len, int t_len, const long long* strides, float scale,
-           void* stream) {
-  static_assert(W::kRows % (W::kThreads / 32) == 0, "delta's rows");
-  static_assert(W::kDqSmem <= 232448, "227 KB a block");
-  static const cudaError_t attr = allow_smem(dq_kernel<W>, W::kDqSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.dout = dout;
-  p.out0 = dq;
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
-  p.delta = static_cast<float*>(delta);
-  return launch<W>(dq_kernel<W>, W::kDqSmem, s_len, p, b, h, s_len, t_len,
-                   strides, 18, scale, stream);
-}
-
-// dk and dv from the dq kernel's delta; strides of q, k, v, dO, dk, dv.
-template <class W>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int b,
-            int h, int s_len, int t_len, const long long* strides, float scale,
-            void* stream) {
-  static_assert(W::kThreads >= 2 * W::kRows, "load_row_stats' threads");
-  static_assert(W::kDkvSmem <= 232448, "227 KB a block");
-  static const cudaError_t attr = allow_smem(dkv_kernel<W>, W::kDkvSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.out0 = dk;
-  p.out1 = dv;
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
-  p.delta = static_cast<float*>(const_cast<void*>(delta));
-  return launch<W>(dkv_kernel<W>, W::kDkvSmem, t_len, p, b, h, s_len, t_len,
-                   strides, 18, scale, stream);
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes, with the bf16 entries' argument lists
 // (flash_fwd_pipelined_*_fp32 refuses a t_len that is not a whole number,
 // at least two, of its tiles).  Tensors (B, len, H, D) fp32, D = 64 or 256
 // as the name says, with the element strides in `strides` (sb, sl, sh
-// each; head_dim stride 1), lse and delta (B*H, S) fp32 contiguous.  Each
-// launches on `stream`, allocates nothing, and returns a CUDA error code
-// (0 = launched).
+// each; head_dim stride 1), lse (B*H, S) fp32 contiguous.  Each launches on
+// `stream`, allocates nothing, and returns a CUDA error code (0 =
+// launched).
 
 #define FLASH_FP32_FWD_ENTRIES(W, d)                                          \
   extern "C" int flash_fwd##d##_fp32(                                         \
@@ -986,26 +687,8 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                            scale, stream);                                    \
   }
 
-#define FLASH_FP32_BWD_ENTRIES(W, d)                                          \
-  extern "C" int flash_bwd_dq##d##_fp32(                                      \
-      const void* q, const void* k, const void* v, const void* o,             \
-      const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
-      int s_len, int t_len, const long long* strides, float scale,            \
-      void* stream) {                                                         \
-    return bwd_dq<W>(q, k, v, o, dout, lse, delta, dq, b, h, s_len, t_len,    \
-                     strides, scale, stream);                                 \
-  }                                                                           \
-  extern "C" int flash_bwd_dkv##d##_fp32(                                     \
-      const void* q, const void* k, const void* v, const void* dout,          \
-      const void* lse, const void* delta, void* dk, void* dv, int b, int h,   \
-      int s_len, int t_len, const long long* strides, float scale,            \
-      void* stream) {                                                         \
-    return bwd_dkv<W>(q, k, v, dout, lse, delta, dk, dv, b, h, s_len, t_len,  \
-                      strides, scale, stream);                                \
-  }
-
 FLASH_FP32_FWD_ENTRIES(F64, )
 FLASH_FP32_FWD_ENTRIES(F256, _d256)
-FLASH_FP32_BWD_ENTRIES(F256, _d256)
-// the backward pair at 64: flash_fp32_d64_bwd_sm90.cu; the four at 512:
-// flash_fp32_d512_sm90.cu, flash_fp32_d512_bwd_sm90.cu
+// the backward pairs: at 64 flash_fp32_d64_bwd_sm90.cu, at 256
+// flash_fp32_d256_bwd_sm90.cu; the four at 512: flash_fp32_d512_sm90.cu,
+// flash_fp32_d512_bwd_sm90.cu

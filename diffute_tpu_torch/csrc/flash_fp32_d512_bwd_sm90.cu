@@ -108,6 +108,7 @@
 namespace {
 
 using namespace fp32_d512;
+using fp32_tma::BwdParams;
 
 // the partial scores a block receives for its 16 rows, float4
 // [product][source rank][64-column half][8-column step][lane]
@@ -167,24 +168,7 @@ __device__ __forceinline__ void store_rows(float* dst, long long stride,
   }
 }
 
-// ------------------------------------------------------------------ loads
-
-// One __grid_constant__ parameter for both kernels (the dk/dv kernel
-// leaves o unset).  out0/out1 are dq/- or dk/dv, with element strides
-// (batch, row, head; head_dim stride 1).
-struct BwdParams {
-  CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  const float* o;     // dq: delta's O rows
-  const float* dout;  // dq: delta's dO rows
-  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
-  float* out0;
-  float* out1;
-  long long o0_sb, o0_ss, o0_sh, o1_sb, o1_ss, o1_sh;
-  const float* lse;  // (B*H, S), natural log
-  float* delta;      // (B*H, S)
-  int heads, s_len, t_len;
-  float scale;
-};
+// --------------------------------------------------------- reduce-scatter
 
 // The reduce-scatter of a tile is warps 0-3's (kReducers threads): thread
 // (kk, lane) of them takes rows g and g + 8 of rows [16 rank, 16 rank +
@@ -615,53 +599,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------------ host
 
-// Encode the four input maps (the resident tensors' boxes kRows rows, the
-// streamed ones' kBlockKV), fill the scalars and launch.  `s` holds the
-// element strides (sb, sl, sh) in the C entries' order: dq: q, k, v, o,
-// dO, dq; dk/dv: q, k, v, dO, dk, dv.
+// Fill the parameter (the resident tensors' boxes kRows rows, the streamed
+// ones' kBlockKV) and launch over clusters of kRanks blocks.
 int launch_bwd(void (*kernel)(BwdParams), int smem_bytes, bool dq,
                const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* out0,
                void* out1, int b, int h, int s_len, int t_len,
                const long long* s, float scale, void* stream) {
-  if (b <= 0 || h <= 0 || s_len <= 0 || t_len <= 0 || (long long)b * h > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (const cudaError_t err = sm90::bind_context()) return (int)err;
   BwdParams p{};
-  const long long* sd = dq ? s + 12 : s + 9;   // dO's
-  const long long* so = dq ? s + 15 : s + 12;  // the first output's
-  const int q_rows = dq ? kRows : kBlockKV, kv_rows = dq ? kBlockKV : kRows;
-  if (!encode_f32(&p.tm_q, q, b, s_len, h, s[0], s[1], s[2], q_rows) ||
-      !encode_f32(&p.tm_k, k, b, t_len, h, s[3], s[4], s[5], kv_rows) ||
-      !encode_f32(&p.tm_v, v, b, t_len, h, s[6], s[7], s[8], kv_rows) ||
-      !encode_f32(&p.tm_do, dout, b, s_len, h, sd[0], sd[1], sd[2], q_rows))
-    return (int)cudaErrorInvalidValue;
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  if (dq) {
-    p.o_sb = s[9];
-    p.o_ss = s[10];
-    p.o_sh = s[11];
-    p.do_sb = sd[0];
-    p.do_ss = sd[1];
-    p.do_sh = sd[2];
-  }
-  p.out0 = static_cast<float*>(out0);
-  p.out1 = static_cast<float*>(out1);
-  p.o0_sb = so[0];
-  p.o0_ss = so[1];
-  p.o0_sh = so[2];
-  if (!dq) {
-    p.o1_sb = s[15];
-    p.o1_ss = s[16];
-    p.o1_sh = s[17];
-  }
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.heads = h;
-  p.s_len = s_len;
-  p.t_len = t_len;
-  p.scale = scale;
+  if (const cudaError_t err = fp32_tma::fill_params(
+          p, kD, dq, dq ? kRows : kBlockKV, dq ? kBlockKV : kRows, q, k, v,
+          o, dout, lse, delta, out0, out1, b, h, s_len, t_len, s, scale))
+    return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config(dq ? s_len : t_len, b * h, smem_bytes,

@@ -445,9 +445,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   if (attr != cudaSuccess) return (int)attr;
   if (const cudaError_t err = sm90::bind_context()) return (int)err;
   FwdParams p{};
-  if (!encode_f32(&p.tm_q, q, b, s_len, h, s[0], s[1], s[2], kRows) ||
-      !encode_f32(&p.tm_k, k, b, t_len, h, s[3], s[4], s[5], kBlockKV) ||
-      !encode_f32(&p.tm_v, v, b, t_len, h, s[6], s[7], s[8], kBlockKV))
+  using fp32_tma::encode_fp32;
+  if (!encode_fp32(&p.tm_q, q, kD, b, s_len, h, s[0], s[1], s[2], kRows) ||
+      !encode_fp32(&p.tm_k, k, kD, b, t_len, h, s[3], s[4], s[5], kBlockKV) ||
+      !encode_fp32(&p.tm_v, v, kD, b, t_len, h, s[6], s[7], s[8], kBlockKV))
     return (int)cudaErrorInvalidValue;
   p.o = static_cast<float*>(o);
   p.o_sb = s[9];

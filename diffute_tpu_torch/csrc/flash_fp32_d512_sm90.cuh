@@ -9,19 +9,30 @@
 // into the receive buffer of the block that reduces those rows, and the
 // reducing block hands the result back to every block's gather buffer.
 //
-// Here: the constants of that layout, the cluster's rank, mapa, remote
-// stores and split barrier, the 3xTF32 products on mma.sync.m16n8k8.tf32
-// with each operand split by integer operations (cvt.rna's bits), a warp's
-// 32 x 32 share of a score tile and of an output product, the slice loads,
-// the tensor maps and the cluster launch.
+// Here: the constants of that layout, the 3xTF32 products on
+// mma.sync.m16n8k8.tf32 with each operand split by integer operations
+// (cvt.rna's bits), a warp's 32 x 32 share of a score tile and of an output
+// product, the slice loads and the cluster launch at this layout; the
+// cluster's rank, mapa, remote stores and split barrier are
+// cluster_sm90.cuh's, the tensor maps fp32_tma_sm90.cuh's.
 
 #pragma once
 
+#include "cluster_sm90.cuh"
 #include "flash_sm90.cuh"
+#include "fp32_tma_sm90.cuh"
 #include "tf32_sm90.cuh"
 
 namespace fp32_d512 {
 
+using cluster_sm90::allow_smem;
+using cluster_sm90::cluster_arrive;
+using cluster_sm90::cluster_rank;
+using cluster_sm90::cluster_wait;
+using cluster_sm90::map_rank;
+using cluster_sm90::st_cluster_f;
+using cluster_sm90::st_cluster_f2;
+using cluster_sm90::st_cluster_f4;
 using sm90::mbar_expect_tx;
 using sm90::mbar_init;
 using sm90::mbar_wait;
@@ -52,54 +63,6 @@ constexpr int kGathBytes = kRows * kBlockKV * 4;      // 8 KB
 static_assert(kRows == 64 && kBlockKV == 32,
               "four 16-row groups, four 8-column steps a tile");
 static_assert(kCols == 4 * kBox, "four boxes a slice row");
-
-// ----------------------------------------------------------------- cluster
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-// The shared::cluster address of shared::cta address `addr` in block
-// `rank` of this cluster.
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster_f(uint32_t addr, float x) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(x)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_cluster_f2(uint32_t addr, float2 x) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
-               "f"(x.x), "f"(x.y)
-               : "memory");
-}
-
-__device__ __forceinline__ void st_cluster_f4(uint32_t addr, float4 x) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
-               : "memory");
-}
-
-// Split cluster barrier: the arrival releases this thread's writes (to
-// its own and the other blocks' shared memory), the wait acquires every
-// other thread's of the cluster.  Every thread of every block calls both,
-// in turns.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // ---------------------------------------------------------------- products
 
@@ -320,50 +283,13 @@ __device__ __forceinline__ void part_slots(uint32_t (&dst)[kM], const Block& t,
 
 // ------------------------------------------------------------------ host
 
-// A (B, L, H, 512) fp32 tensor with element strides (sb, sl, sh, 1) as a
-// 4-D map of dims (512, H, L, B) and box (32, 1, rows, 1): one 128-byte
-// span of a row, 128-byte swizzle; rows past L read as zeros.
-inline bool encode_f32(CUtensorMap* map, const void* base, int b, int len,
-                       int h, long long sb, long long sl, long long sh,
-                       int rows) {
-  sm90::EncodeTiledFn fn = sm90::encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h,
-                              (cuuint64_t)len, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)sl * 4,
-                                 (cuuint64_t)sb * 4};
-  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // A launch of `kernel` over clusters of kRanks blocks, one cluster a
 // kRows-row tile of `rows` rows and B*H.
 inline cudaLaunchConfig_t cluster_config(int rows, int bh, int smem_bytes,
                                          cudaStream_t stream,
                                          cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kRanks * ((rows + kRows - 1) / kRows), bh, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kRanks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <class Params>
-cudaError_t allow_smem(void (*kernel)(Params), int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  return cluster_sm90::cluster_config(kRanks, kRows, kThreads, rows, bh,
+                                      smem_bytes, stream, attr);
 }
 
 // cudaOccupancyMaxActiveClusters of `kernel` with `bytes` of shared memory
@@ -371,15 +297,7 @@ cudaError_t allow_smem(void (*kernel)(Params), int bytes) {
 // CUDA error code if the query fails.
 template <class Params>
 int max_clusters(void (*kernel)(Params), int bytes) {
-  cudaError_t err = allow_smem(kernel, bytes);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(kRows * 1024, 1, bytes, nullptr, &attr);
-  int n = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(
-        &n, reinterpret_cast<const void*>(kernel), &cfg);
-  return err == cudaSuccess ? n : -(int)err;
+  return cluster_sm90::max_clusters(kernel, kRanks, kRows, kThreads, bytes);
 }
 
 }  // namespace fp32_d512

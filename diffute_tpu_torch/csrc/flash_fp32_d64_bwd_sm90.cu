@@ -94,11 +94,13 @@
 // lse = delta = 0, so p = exp(0) = 1 and ds = 1 * (0 - 0) = 0: they add
 // nothing.  Rows past the end of an output are not stored.
 
+#include "fp32_tma_sm90.cuh"
 #include "tf32_wgmma_sm90.cuh"
 
 namespace {
 
 using namespace sm90;
+using fp32_tma::BwdParams;
 
 constexpr int kD = 64;
 constexpr int kBox = 32;                 // fp32 columns of a TMA box
@@ -118,6 +120,8 @@ constexpr int kResBox = kRows * kBox * 4;
 constexpr int kRes = 2 * kResBox;                  // 16 KB
 static_assert(kD == 2 * kBox && kPlane == kD * kBlockKV * 4,
               "a transposed plane (64 rows of 32) is a streamed plane's size");
+static_assert(kStreamBox == kStreamTileBox && kPlane == kStreamTilePlane,
+              "the streamed tile of tf32_wgmma_sm90.cuh's splits");
 // the producer's named barrier (128 threads) and dk/dv's p^T exchange
 // (256 threads: ids kPFull, kPFull + 1, kPEmpty, kPEmpty + 1)
 constexpr int kSplitBar = 5;
@@ -149,191 +153,22 @@ struct Bars {
 };
 constexpr int kBarBytes = 8 * (2 + 3 * kRing);
 
-// One __grid_constant__ parameter for both kernels (the dk/dv kernel
-// leaves o unset).  out0/out1 are dq/- or dk/dv, with element strides
-// (batch, row, head; head_dim stride 1).
-struct BwdParams {
-  CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  const float* o;     // dq: delta's O rows
-  const float* dout;  // dq: delta's dO rows
-  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
-  float* out0;
-  float* out1;
-  long long o0_sb, o0_ss, o0_sh, o1_sb, o1_ss, o1_sh;
-  const float* lse;  // (B*H, S), natural log
-  float* delta;      // (B*H, S)
-  int heads, s_len, t_len;
-  float scale;
-};
-
-// ----------------------------------------------------------------- helpers
-
-__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
-  float2 x;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(x.x), "=f"(x.y)
-               : "r"(addr)
-               : "memory");
-  return x;
-}
-
-__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr)
-               : "memory");
-  return x;
-}
-
-__device__ __forceinline__ void st_shared_f32(uint32_t addr, float x) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(x) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_f32x4(uint32_t addr, float a,
-                                                float b, float c, float d) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "f"(a), "f"(b), "f"(c), "f"(d)
-               : "memory");
-}
-
-// One arrival of the warp on `bar` (lane 0's), as a predicated
-// instruction: no branch among products in flight.
-__device__ __forceinline__ void release_warp(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n"
-      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"(threadIdx.x & 31)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = 0.f;
-}
-
-// acc += part, each sum rounded to nearest
-__device__ __forceinline__ void add_part(float (&acc)[32],
-                                         const float (&part)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-}
-
-// ----------------------------------------------------------------- loads
-
-// The two 32-column boxes of rows `row`.. of `map` into the plane at
-// `dst` (boxes `box` bytes apart), completing on `bar`.
-__device__ __forceinline__ void load_plane(const CUtensorMap* map,
-                                           uint32_t dst, uint32_t box,
-                                           uint32_t bar, int row, int h,
-                                           int b) {
-  tma_load_at(dst, map, bar, 0, h, row, b);
-  tma_load_at(dst + box, map, bar, kBox, h, row, b);
-}
-
 // ----------------------------------------------------------------- splits
 
-// A raw chunk of four fp32 values into its hi (over the raw values, in
-// place) and lo planes.
-__device__ __forceinline__ void split_chunk(uint32_t hi, uint32_t lo,
-                                           uint4 v) {
-  const uint32_t x[4] = {v.x, v.y, v.z, v.w};
-  uint4 h, l;
-  split4(x, h, l);
-  st_shared_v4(hi, h);
-  st_shared_v4(lo, l);
-}
-
-// A resident raw plane of `bytes` at `hi` split in place, its lo plane
-// `bytes` further: 16 bytes a producer thread at a time (the split is
-// elementwise, so the swizzle is the same in both planes).
-__device__ __forceinline__ void split_plane(uint32_t hi, int bytes, int tid) {
-  for (int off = tid * 16; off < bytes; off += 128 * 16)
-    split_chunk(hi + off, hi + bytes + off, ld_shared_u4(hi + off));
-}
-
-// The raw 32-row streamed tiles x[a] (two 4 KB boxes each, TMA's layout)
-// into their planes: hi in place, lo kPlane further; and for the first
-// kTrans of them the transposed pair at xt[a] (hi) and xt[a] + kPlane (lo):
-// [64 rows (head_dim)][32 positions], 128-byte swizzle, position 8 n + p
-// of row d holding stream row 8 n + 2 p (p < 4) or 8 n + 2 (p - 4) + 1
-// (p >= 4), the order the output products' register A takes.  Thread tid
-// of the producer: natural chunks tid + 128 m; transposed column d = tid %
-// 64 at the stream rows of parity h = tid / 64, writing the chunks h + 2 m
-// of row d.  Every read comes first, then a barrier of the warpgroup (the
-// transposed reads cross the chunks other threads write in place), then
-// every write.  A warp's reads and writes each hit 32 distinct banks.
+// The raw 32-row streamed tiles x[a] into their planes: hi in place, lo
+// kPlane further; and for the first kTrans of them the transposed pair at
+// xt[a] (hi) and xt[a] + kPlane (lo), in the order the output products'
+// register A takes (tf32_wgmma_sm90.cuh).  Every read comes first, then a
+// barrier of the warpgroup, then every write.
 template <int kTensors, int kTrans>
 __device__ __forceinline__ void split_stream(const uint32_t (&x)[kTensors],
                                              const uint32_t (&xt)[kTrans],
                                              int tid) {
-  const int d = tid & 63, h = tid >> 6;
-  uint4 nat[kTensors][4];
-  uint32_t tr[kTrans][4][4];
-#pragma unroll
-  for (int a = 0; a < kTensors; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      nat[a][m] = ld_shared_u4(x[a] + tid * 16 + m * 2048);
-#pragma unroll
-  for (int a = 0; a < kTrans; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 8 * m + h + 2 * i;
-        tr[a][m][i] = ld_shared_b32(
-            x[a] + (d >> 5) * kStreamBox + r * 128 +
-            ((((d & 31) >> 2) ^ (r & 7)) << 4) + (d & 3) * 4);
-      }
+  StreamRaw<kTensors, kTrans> raw;
+  read_stream<kTensors, kTrans>(x, raw, tid);
   warpgroup_sync(kSplitBar);
-#pragma unroll
-  for (int a = 0; a < kTensors; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      split_chunk(x[a] + tid * 16 + m * 2048,
-                  x[a] + kPlane + tid * 16 + m * 2048, nat[a][m]);
-#pragma unroll
-  for (int a = 0; a < kTrans; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      uint4 hi, lo;
-      split4(tr[a][m], hi, lo);
-      const uint32_t at = d * 128 + (((h + 2 * m) ^ (d & 7)) << 4);
-      st_shared_v4(xt[a] + at, hi);
-      st_shared_v4(xt[a] + kPlane + at, lo);
-    }
-}
-
-// A score tile (fp32 accumulator layout: at 4 n + i, row g or g + 8 and
-// column 8 n + 2 t + (i & 1)) as the output product's register A in the
-// permuted order, split: k-step n takes (c0, c2, c1, c3) of its 8 columns.
-__device__ __forceinline__ void split_frags(const float (&x)[kS],
-                                            uint32_t (&hi)[kSteps][4],
-                                            uint32_t (&lo)[kSteps][4]) {
-#pragma unroll
-  for (int n = 0; n < kSteps; ++n) {
-    const uint32_t v[4] = {
-        __float_as_uint(x[4 * n]), __float_as_uint(x[4 * n + 2]),
-        __float_as_uint(x[4 * n + 1]), __float_as_uint(x[4 * n + 3])};
-    uint4 h, l;
-    split4(v, h, l);
-    hi[n][0] = h.x;
-    hi[n][1] = h.y;
-    hi[n][2] = h.z;
-    hi[n][3] = h.w;
-    lo[n][0] = l.x;
-    lo[n][1] = l.y;
-    lo[n][2] = l.z;
-    lo[n][3] = l.w;
-  }
+  write_natural<kTensors, kTrans>(x, raw, tid);
+  write_transposed<kTensors, kTrans>(xt, raw, tid);
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -346,10 +181,6 @@ __device__ __forceinline__ void split_frags(const float (&x)[kS],
 // 4) * 256 + (kk % 4) * 2 (4 KB boxes), of a transposed plane kk * 2.
 #define D64_ACC16 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define D64_ACC32                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
 // one score product: A at descriptor A + OA, B at B + OB
 #define D64_SS(A, B, OA, OB)                                             \
   " add.s64 da, " A ", " #OA ";\n add.s64 db, " B ", " #OB ";\n"         \
@@ -361,12 +192,6 @@ __device__ __forceinline__ void split_frags(const float (&x)[kS],
   D64_SS(A, B, 512, 256) D64_SS(A, B, 514, 258) D64_SS(A, B, 516, 260)   \
   D64_SS(A, B, 518, 262)
 #define D64_SS8(A, B) D64_SS(A, B, 0, 0) D64_SS7(A, B)
-// one output product: A registers A4, B at descriptor B + OB
-#define D64_RS(A4, B, OB)                                                \
-  " add.s64 db, " B ", " #OB ";\n"                                       \
-  " " TF32_WGMMA_N64 "{" D64_ACC32                                       \
-  "}, {" A4 "}, db, p, 1, 1;\n"
-
 // acc (64 x 32) = A B^T over head_dim in 3xTF32, one chain of 24 from
 // zero, the small terms first: A's 64 rows in the resident planes a_hi /
 // a_lo, B's 32 streamed rows in the natural planes b_hi / b_lo.
@@ -385,66 +210,6 @@ __device__ __forceinline__ void issue_scores(float (&acc)[kS], uint32_t a_hi,
       : SM90_F16(acc)
       : "l"(desc_sw128(a_lo, 1)), "l"(desc_sw128(a_hi, 1)),
         "l"(desc_sw128(b_lo, 1)), "l"(desc_sw128(b_hi, 1)), "r"(0));
-}
-
-// part (64 x 64) = A (the split score, registers) B over the tile's 32
-// streamed rows in 3xTF32, 12 products from zero, the small terms first:
-// B the transposed planes bt_hi / bt_lo (64 rows of the head_dim, the
-// permuted stream order).
-__device__ __forceinline__ void issue_out(float (&part)[32],
-                                          const uint32_t (&hi)[kSteps][4],
-                                          const uint32_t (&lo)[kSteps][4],
-                                          uint32_t bt_hi, uint32_t bt_lo) {
-  static_assert(kSteps == 4, "four k-steps of D64_RS");
-  asm volatile(
-      "{\n .reg .b64 db;\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " " TF32_WGMMA_N64 "{" D64_ACC32
-      "}, {%32, %33, %34, %35}, %65, p, 1, 1;\n"
-      " setp.eq.b32 p, %66, 0;\n"
-      D64_RS("%36, %37, %38, %39", "%65", 2)
-      D64_RS("%40, %41, %42, %43", "%65", 4)
-      D64_RS("%44, %45, %46, %47", "%65", 6)
-      D64_RS("%48, %49, %50, %51", "%64", 0)
-      D64_RS("%52, %53, %54, %55", "%64", 2)
-      D64_RS("%56, %57, %58, %59", "%64", 4)
-      D64_RS("%60, %61, %62, %63", "%64", 6)
-      D64_RS("%48, %49, %50, %51", "%65", 0)
-      D64_RS("%52, %53, %54, %55", "%65", 2)
-      D64_RS("%56, %57, %58, %59", "%65", 4)
-      D64_RS("%60, %61, %62, %63", "%65", 6)
-      "}\n"
-      : SM90_F32(part)
-      : "r"(lo[0][0]), "r"(lo[0][1]), "r"(lo[0][2]), "r"(lo[0][3]),
-        "r"(lo[1][0]), "r"(lo[1][1]), "r"(lo[1][2]), "r"(lo[1][3]),
-        "r"(lo[2][0]), "r"(lo[2][1]), "r"(lo[2][2]), "r"(lo[2][3]),
-        "r"(lo[3][0]), "r"(lo[3][1]), "r"(lo[3][2]), "r"(lo[3][3]),
-        "r"(hi[0][0]), "r"(hi[0][1]), "r"(hi[0][2]), "r"(hi[0][3]),
-        "r"(hi[1][0]), "r"(hi[1][1]), "r"(hi[1][2]), "r"(hi[1][3]),
-        "r"(hi[2][0]), "r"(hi[2][1]), "r"(hi[2][2]), "r"(hi[2][3]),
-        "r"(hi[3][0]), "r"(hi[3][1]), "r"(hi[3][2]), "r"(hi[3][3]),
-        "l"(desc_sw128(bt_lo, 1)), "l"(desc_sw128(bt_hi, 1)), "r"(0));
-}
-
-// Write the warpgroup's 64 x 64 accumulator times f as fp32 rows [row0,
-// row0 + 64) of (batch b, head h) through the strides; rows at or past
-// n_rows are dropped.
-__device__ __forceinline__ void store_rows(float* out, long long sb,
-                                           long long sl, long long sh, int b,
-                                           int h, const float (&acc)[32],
-                                           float f, int row0, int n_rows) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r_lo = row0 + ((threadIdx.x >> 5) & 3) * 16 + g, r_hi = r_lo + 8;
-  float* base = out + b * sb + h * sh;
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
-    const int col = n * 8 + t * 2;
-    if (r_lo < n_rows)
-      *reinterpret_cast<float2*>(base + r_lo * sl + col) =
-          make_float2(acc[4 * n] * f, acc[4 * n + 1] * f);
-    if (r_hi < n_rows)
-      *reinterpret_cast<float2*>(base + r_hi * sl + col) =
-          make_float2(acc[4 * n + 2] * f, acc[4 * n + 3] * f);
-  }
 }
 
 // ------------------------------------------------------------------- dq
@@ -472,9 +237,9 @@ __device__ __forceinline__ void load_kv(const BwdParams& p, uint32_t smem,
   const int st = i % kRing;
   const uint32_t stage = smem + DqSmem::ring + st * DqSmem::kStage;
   mbar_expect_tx(bars.full(st), 2 * kPlane);
-  load_plane(&p.tm_k, stage + DqSmem::k, kStreamBox, bars.full(st),
+  load_plane(&p.tm_k, stage + DqSmem::k, kStreamBox, bars.full(st), 0,
              i * kBlockKV, h, b);
-  load_plane(&p.tm_v, stage + DqSmem::v, kStreamBox, bars.full(st),
+  load_plane(&p.tm_v, stage + DqSmem::v, kStreamBox, bars.full(st), 0,
              i * kBlockKV, h, b);
 }
 
@@ -493,9 +258,9 @@ __device__ __forceinline__ void dq_produce(const BwdParams& p, uint32_t smem,
     mbar_expect_tx(bars.res_full(), kDqWgs * 2 * kRes);
     for (int c = 0; c < kDqWgs; ++c) {
       const uint32_t res = smem + c * DqSmem::kWg;
-      load_plane(&p.tm_q, res + DqSmem::q, kResBox, bars.res_full(),
+      load_plane(&p.tm_q, res + DqSmem::q, kResBox, bars.res_full(), 0,
                  q0 + c * kRows, h, b);
-      load_plane(&p.tm_do, res + DqSmem::dout, kResBox, bars.res_full(),
+      load_plane(&p.tm_do, res + DqSmem::dout, kResBox, bars.res_full(), 0,
                  q0 + c * kRows, h, b);
     }
     for (int i = 0; i < kRing && i < n_tiles; ++i)
@@ -668,8 +433,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_regs(x.hi);
   fence_regs(x.lo);
   add_part(x.dq, x.part);
-  store_rows(p.out0, p.o0_sb, p.o0_ss, p.o0_sh, b, h, x.dq, p.scale, row0,
-             p.s_len);
+  store_rows(p.out0, p.o0_sb, p.o0_ss, p.o0_sh, b, h, 0, x.dq, p.scale,
+             row0, p.s_len);
 }
 
 // ---------------------------------------------------------------- dk/dv
@@ -702,9 +467,9 @@ __device__ __forceinline__ void load_q(const BwdParams& p, uint32_t smem,
   const int st = i % kRing;
   const uint32_t stage = smem + DkvSmem::ring + st * DkvSmem::kStage;
   mbar_expect_tx(bars.full(st), 2 * kPlane);
-  load_plane(&p.tm_q, stage + DkvSmem::q, kStreamBox, bars.full(st),
+  load_plane(&p.tm_q, stage + DkvSmem::q, kStreamBox, bars.full(st), 0,
              i * kBlockKV, h, b);
-  load_plane(&p.tm_do, stage + DkvSmem::dout, kStreamBox, bars.full(st),
+  load_plane(&p.tm_do, stage + DkvSmem::dout, kStreamBox, bars.full(st), 0,
              i * kBlockKV, h, b);
 }
 
@@ -721,10 +486,10 @@ __device__ __forceinline__ void dkv_produce(const BwdParams& p, uint32_t smem,
     prefetch_map(&p.tm_k);
     prefetch_map(&p.tm_v);
     mbar_expect_tx(bars.res_full(), 2 * kRes);
-    load_plane(&p.tm_k, smem + DkvSmem::k, kResBox, bars.res_full(), kv0, h,
-               b);
-    load_plane(&p.tm_v, smem + DkvSmem::v, kResBox, bars.res_full(), kv0, h,
-               b);
+    load_plane(&p.tm_k, smem + DkvSmem::k, kResBox, bars.res_full(), 0, kv0,
+               h, b);
+    load_plane(&p.tm_v, smem + DkvSmem::v, kResBox, bars.res_full(), 0, kv0,
+               h, b);
     for (int i = 0; i < kRing && i < n_tiles; ++i)
       load_q(p, smem, bars, i, h, b);
   }
@@ -867,85 +632,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   fence_regs(x.lo);
   add_part(x.acc, x.part);
   if (role_a)
-    store_rows(p.out1, p.o1_sb, p.o1_ss, p.o1_sh, b, h, x.acc, 1.f, kv0,
+    store_rows(p.out1, p.o1_sb, p.o1_ss, p.o1_sh, b, h, 0, x.acc, 1.f, kv0,
                p.t_len);
   else
-    store_rows(p.out0, p.o0_sb, p.o0_ss, p.o0_sh, b, h, x.acc, p.scale, kv0,
-               p.t_len);
+    store_rows(p.out0, p.o0_sb, p.o0_ss, p.o0_sh, b, h, 0, x.acc, p.scale,
+               kv0, p.t_len);
 }
 
 // ------------------------------------------------------------------ host
 
-// A (B, L, H, 64) fp32 tensor with element strides (sb, sl, sh, 1) as a
-// 4-D map of dims (64, H, L, B) and box (32, 1, rows, 1): one 128-byte
-// span of a row, 128-byte swizzle; rows past L read as zeros.
-bool encode_fp32(CUtensorMap* map, const void* base, int b, int len, int h,
-                 long long sb, long long sl, long long sh, int rows) {
-  EncodeTiledFn fn = encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)h,
-                              (cuuint64_t)len, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)sl * 4,
-                                 (cuuint64_t)sb * 4};
-  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Encode the four input maps (the resident tensors' boxes kRows rows, a
-// consumer's, the streamed ones' kBlockKV), fill the scalars and launch
-// `kernel` over ceil(len / rows) x B*H blocks, len S (dq, 128 rows a
-// block) or T (dk/dv, 64).  `s`
-// holds the element strides (sb, sl, sh) in the C entries' order: dq: q,
-// k, v, o, dO, dq; dk/dv: q, k, v, dO, dk, dv.
+// Fill the parameter (the resident tensors' boxes kRows rows, a consumer's,
+// the streamed ones' kBlockKV) and launch `kernel` over ceil(len / rows) x
+// B*H blocks, len S (dq, 128 rows a block) or T (dk/dv, 64).
 int launch_bwd(void (*kernel)(BwdParams), int smem_bytes, bool dq,
                const void* q, const void* k, const void* v, const void* o,
                const void* dout, const void* lse, void* delta, void* out0,
                void* out1, int b, int h, int s_len, int t_len,
                const long long* s, float scale, void* stream) {
-  if (b <= 0 || h <= 0 || s_len <= 0 || t_len <= 0 || (long long)b * h > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (const cudaError_t err = bind_context()) return (int)err;
-  const int q_rows = dq ? kRows : kBlockKV;
-  const int kv_rows = dq ? kBlockKV : kRows;
-  const int res_rows = dq ? kDqWgs * kRows : kRows;  // a block's
   BwdParams p{};
-  const long long* sd = dq ? s + 12 : s + 9;   // dO's
-  const long long* so = dq ? s + 15 : s + 12;  // the first output's
-  if (!encode_fp32(&p.tm_q, q, b, s_len, h, s[0], s[1], s[2], q_rows) ||
-      !encode_fp32(&p.tm_k, k, b, t_len, h, s[3], s[4], s[5], kv_rows) ||
-      !encode_fp32(&p.tm_v, v, b, t_len, h, s[6], s[7], s[8], kv_rows) ||
-      !encode_fp32(&p.tm_do, dout, b, s_len, h, sd[0], sd[1], sd[2], q_rows))
-    return (int)cudaErrorInvalidValue;
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  if (dq) {
-    p.o_sb = s[9];
-    p.o_ss = s[10];
-    p.o_sh = s[11];
-    p.do_sb = sd[0];
-    p.do_ss = sd[1];
-    p.do_sh = sd[2];
-  }
-  p.out0 = static_cast<float*>(out0);
-  p.out1 = static_cast<float*>(out1);
-  p.o0_sb = so[0];
-  p.o0_ss = so[1];
-  p.o0_sh = so[2];
-  if (!dq) {
-    p.o1_sb = s[15];
-    p.o1_ss = s[16];
-    p.o1_sh = s[17];
-  }
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.heads = h;
-  p.s_len = s_len;
-  p.t_len = t_len;
-  p.scale = scale;
+  if (const cudaError_t err = fp32_tma::fill_params(
+          p, kD, dq, dq ? kRows : kBlockKV, dq ? kBlockKV : kRows, q, k, v,
+          o, dout, lse, delta, out0, out1, b, h, s_len, t_len, s, scale))
+    return (int)err;
+  const int res_rows = dq ? kDqWgs * kRows : kRows;  // a block's
   dim3 grid(((dq ? s_len : t_len) + res_rows - 1) / res_rows, b * h);
   kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       p);

@@ -12,11 +12,14 @@ UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
 width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
 both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
 ``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
-bf16.  On fp32 inputs the four kernels at 256 and both forwards at 64 are
+bf16.  On fp32 inputs both forwards at 64 and 256 are
 ``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32); the backward
 pair at 64 is ``csrc/flash_fp32_d64_bwd_sm90.cu`` (tf32 ``wgmma`` on hi
 and lo planes that a producer warpgroup splits once a TMA-fed 32-row
-tile); at 512 both forwards are ``csrc/flash_fp32_d512_sm90.cu`` and the
+tile), at 256 ``csrc/flash_fp32_d256_bwd_sm90.cu`` (the same schedule on
+each block of a cluster of four over head_dim, the partial scores
+exchanged through distributed shared memory); at 512 both forwards are
+``csrc/flash_fp32_d512_sm90.cu`` and the
 backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu`` (a cluster of four
 blocks over head_dim, 64 resident rows, TMA-fed 32-row tiles, the same
 products); all
@@ -29,8 +32,8 @@ bf16 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS`
 that holds it, with the arithmetic of the other entries of its dtype.
 Every kernel reads its (batch, seq, heads, D) inputs, all bf16 or all
 fp32, D as :func:`kernel_takes` says, through their strides (TMA at bf16
-head_dim 64 and 256, in the fp32 backward pair at 64 and in the fp32
-kernels at 512, cp.async elsewhere),
+head_dim 64 and 256, in the fp32 backward pairs at 64 and 256 and in the
+fp32 kernels at 512, cp.async elsewhere),
 so the callers hand them the views they have, and writes its outputs
 contiguous in that layout: no copy is made in either direction, and no
 padded one at the narrow widths (the kernels zero-fill the columns past D
@@ -68,8 +71,10 @@ D256_FWD_BLOCK_KV = 64
 # owns (kRows)
 D256_BWD_BLOCK_KV = 64
 # the streamed tile of every fp32 kernel by head_dim: at 64 and 256 the
-# rows of every tile of csrc/flash_fp32.cu (kRows there; at 64 the
-# forwards', the backward pair's is FP32_D64_BWD_BLOCK_KV); at 512 the tile
+# rows of every tile of csrc/flash_fp32.cu's forwards (kRows there) and at
+# 256 the backward pair's too (csrc/flash_fp32_d256_bwd_sm90.cu: the kv
+# tile dq walks and the q tile dk/dv walks, kBlockKV there; the pair at 64
+# walks FP32_D64_BWD_BLOCK_KV); at 512 the tile
 # of the streamed axis of all four kernels, both forwards
 # (csrc/flash_fp32_d512_sm90.cu) and the backward pair
 # (csrc/flash_fp32_d512_bwd_sm90.cu): the kv tile of the forwards and dq,
@@ -82,6 +87,12 @@ FP32_D64_BWD_BLOCK_KV = 32
 # the resident rows of a cluster of four blocks in the fp32 kernels at 512
 # (kRows there): q rows of the forwards and dq, kv rows of dk/dv
 FP32_D512_ROWS = 64
+# the fp32 backward pair at head_dim 256 (csrc/flash_fp32_d256_bwd_sm90.cu):
+# the resident rows of a cluster (kRows there: q rows of dq, kv rows of
+# dk/dv) and its blocks (kRanks), each owning 256 / FP32_D256_BWD_RANKS
+# columns of head_dim
+FP32_D256_BWD_ROWS = 64
+FP32_D256_BWD_RANKS = 4
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
 # that is a multiple of 8 up to 128 at the smallest width that holds it,
 # and the rows of every tile there by width (kRows), both dtypes
@@ -628,8 +639,8 @@ def flash_bwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
     On bf16 inputs (the bf16 kernels) ``p = exp2(s * scale * log2 e -
     lse * log2 e)``; the kernels round p and ds as this does, so this, not
     the one-pass :func:`flash_bwd_reference`, is what they match to a few
-    bf16 ulps.  On fp32 inputs (the JAX package's fp32 kernels and
-    ``csrc/flash_fp32.cu``) the natural domain: ``p = exp(s * scale -
+    bf16 ulps.  On fp32 inputs (the JAX package's fp32 kernels and the
+    port's fp32 backward pairs) the natural domain: ``p = exp(s * scale -
     lse)``.  ``tf32``: round every product's operands to TF32 first (a
     mutant).
 

@@ -1,14 +1,16 @@
-"""PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``;
-the backward pair at head_dim 64 ``csrc/flash_fp32_d64_bwd_sm90.cu``; at
-head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
+"""PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``'s
+forwards at head_dim 64 and 256; the backward pairs
+``csrc/flash_fp32_d64_bwd_sm90.cu`` and ``csrc/flash_fp32_d256_bwd_sm90.cu``;
+at head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
 backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``):
 the plain fp32 versions of the forward, the deferred-softmax forward and
 the backward on the CPU against the JAX package's fp32 flash attention
 (Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
 them) at head_dims 64, 256 and 512 with a ragged T, the tiled plain
 forwards and backward at the 512 kernels' own tile and the backward at the
-64 pair's; the kv tile of each kind, the 512 and 64 sources' constants and
-the tf32 wgmma header they share with the int8 matmul; the TF32 mutant and the other mutants
+64 and 256 pairs'; the kv tile of each kind, the 512, 256 and 64 sources'
+constants, the tf32 wgmma header they share with the int8 matmul and the
+cluster header of the 512 and 256 sources; the TF32 mutant and the other mutants
 that the card's bound must refuse; the wrappers' dtype and layout checks,
 entry names and counters; the device numerics rule.
 
@@ -167,11 +169,13 @@ def test_the_d512_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
             assert f'extern "C" int {entry}(' in text, entry
     fp32 = read("flash_fp32.cu")
     assert "F512" not in fp32 and "Fp32<512" not in fp32
-    # flash_fp32.cu defines both forwards at 64 and all four at 256; the
-    # backward pair at 64 is csrc/flash_fp32_d64_bwd_sm90.cu's
+    # flash_fp32.cu defines both forwards at 64 and 256 and no backward
+    # kernel: the backward pairs at 64 and 256 are
+    # csrc/flash_fp32_d64_bwd_sm90.cu's and csrc/flash_fp32_d256_bwd_sm90.cu's
     assert re.findall(r"^FLASH_FP32_(\w+)_ENTRIES\((\w+), (\w*)\)$", fp32,
-                      re.M) == [("FWD", "F64", ""), ("FWD", "F256", "_d256"),
-                                ("BWD", "F256", "_d256")]
+                      re.M) == [("FWD", "F64", ""), ("FWD", "F256", "_d256")]
+    for name in ("dq_kernel", "dkv_kernel", "flash_bwd_"):
+        assert name not in fp32, name
 
 
 def _csrc(name):
@@ -202,22 +206,109 @@ def test_the_d64_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
             for kind in ("fwd", "fwd_pipelined")] == [tfa.FP32_BLOCK_KV[64]] * 2
 
 
+def test_the_d256_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
+    # the tiled plain versions and phase 3f count the fp32 backward pair at
+    # 256 in kernel_block_kv(256, fp32, "bwd_dq" / "bwd_dkv"), FP32_BLOCK_KV
+    # [256]; csrc/flash_fp32_d256_bwd_sm90.cu fixes its streamed tile (the
+    # kv tile dq walks, the q tile dk/dv walks), a cluster's resident rows
+    # and its blocks over head_dim at build time, and defines the pair's
+    # two entries under the names the wrappers launch
+    fp32 = torch.float32
+    text = _csrc("flash_fp32_d256_bwd_sm90.cu")
+    for name, value in (("kBlockKV", tfa.FP32_BLOCK_KV[256]),
+                        ("kRows", tfa.FP32_D256_BWD_ROWS),
+                        ("kRanks", tfa.FP32_D256_BWD_RANKS),
+                        ("kD", 256)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+            str(value)], name
+    assert "constexpr int kCols = kD / kRanks;" in text
+    assert [tfa.kernel_block_kv(256, fp32, kind)
+            for kind in ("bwd_dq", "bwd_dkv")] == [tfa.FP32_BLOCK_KV[256]] * 2
+    for kind in ("bwd_dq", "bwd_dkv"):
+        entry = tfa.kernel_name(kind, 256, fp32)
+        assert f'extern "C" int {entry}(' in text, entry
+    assert "flash_bwd_d256_fp32_max_clusters" in _build._signatures()
+    # the forwards at 256 keep flash_fp32.cu's FP32_BLOCK_KV[256]-row tile
+    assert [tfa.kernel_block_kv(256, fp32, kind)
+            for kind in ("fwd", "fwd_pipelined")] == [tfa.FP32_BLOCK_KV[256]] * 2
+    assert re.findall(r"using F256 = Fp32<256, (\d+)>;",
+                      _csrc("flash_fp32.cu")) == [str(tfa.FP32_BLOCK_KV[256])]
+
+
 def test_the_tf32_wgmma_pieces_live_in_one_header():
-    # the tf32 wgmma instructions and wrappers, the k-step descriptor and
-    # the plane split are csrc/tf32_wgmma_sm90.cuh's; the int8 matmul on
-    # fp32 x and the head_dim-64 fp32 backward pair include it and define
-    # none of them
+    # the tf32 wgmma instructions and wrappers, the k-step descriptor, the
+    # plane splits, the streamed tile's loads, reads and natural and
+    # transposed writes, the split score fragments, the output product over
+    # a 32-row tile and its store are csrc/tf32_wgmma_sm90.cuh's; the int8
+    # matmul on fp32 x and the head_dim-64 and 256 fp32 backward pairs
+    # include it and define none of them
     header = _csrc("tf32_wgmma_sm90.cuh")
     pieces = ("void wgmma_tf32(", "void wgmma_tf32_ss(",
               "uint64_t tf32_desc(", "void split4(",
-              "#define TF32_WGMMA_N32 ", "#define TF32_WGMMA_N64 ")
+              "#define TF32_WGMMA_N32 ", "#define TF32_WGMMA_N64 ",
+              "void split_chunk(", "void split_plane(", "void split_frags(",
+              "void issue_out(", "void release_warp(", "void add_part(",
+              "#define TF32_RS_N64(", "void load_plane(", "struct StreamRaw",
+              "void read_stream(", "void write_natural(",
+              "void write_transposed(", "void store_rows(",
+              "((((d & 31) >> 2) ^ (r & 7)) << 4)")
     for piece in pieces:
         assert piece in header, piece
-    for source in ("quant_fp32_sm90.cu", "flash_fp32_d64_bwd_sm90.cu"):
+    for source in ("quant_fp32_sm90.cu", "flash_fp32_d64_bwd_sm90.cu",
+                   "flash_fp32_d256_bwd_sm90.cu"):
         text = _csrc(source)
         assert '#include "tf32_wgmma_sm90.cuh"' in text, source
         for piece in pieces + ("rna_tf32(", "wgmma.mma_async"):
             assert piece not in text, (source, piece)
+
+
+def test_the_cluster_pieces_live_in_one_header():
+    # the cluster's rank, mapa, remote stores, the split cluster barrier,
+    # the asynchronous remote store, the cluster-scope wait and the cluster
+    # launch are csrc/cluster_sm90.cuh's; the 512 layout's header (and
+    # through it both 512 sources) and the 256 backward pair include it and
+    # define none of them
+    header = _csrc("cluster_sm90.cuh")
+    pieces = ("%%cluster_ctarank", "mapa.shared::cluster",
+              "st.shared::cluster.v4", "barrier.cluster.arrive",
+              "barrier.cluster.wait", "st.async.shared", "acquire.cluster",
+              "cudaLaunchAttributeClusterDimension",
+              "cudaOccupancyMaxActiveClusters(")
+    for piece in pieces:
+        assert piece in header, piece
+    for source in ("flash_fp32_d512_sm90.cuh", "flash_fp32_d256_bwd_sm90.cu"):
+        assert '#include "cluster_sm90.cuh"' in _csrc(source), source
+    for source in ("flash_fp32_d512_sm90.cuh", "flash_fp32_d512_sm90.cu",
+                   "flash_fp32_d512_bwd_sm90.cu",
+                   "flash_fp32_d256_bwd_sm90.cu"):
+        text = _csrc(source)
+        assert '#include "flash_fp32_d512_sm90.cuh"' in text or (
+            '#include "cluster_sm90.cuh"' in text), source
+        for piece in pieces:
+            assert piece not in text, (source, piece)
+
+
+def test_the_fp32_tma_host_side_lives_in_one_header():
+    # the map of an fp32 tensor in 32-column boxes and the backward pairs'
+    # kernel parameter, filled from the C entries' arguments, are
+    # csrc/fp32_tma_sm90.cuh's; the pairs at 64, 256 and 512 and the 512
+    # forwards include it (the forwards through the 512 layout's header)
+    # and encode no map themselves
+    header = _csrc("fp32_tma_sm90.cuh")
+    for piece in ("struct BwdParams {", "inline bool encode_fp32(",
+                  "cudaError_t fill_params(", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
+        assert piece in header, piece
+    pairs = ("flash_fp32_d64_bwd_sm90.cu", "flash_fp32_d256_bwd_sm90.cu",
+             "flash_fp32_d512_bwd_sm90.cu")
+    for source in pairs + ("flash_fp32_d512_sm90.cu",
+                           "flash_fp32_d512_sm90.cuh"):
+        text = _csrc(source)
+        for piece in ("struct BwdParams {", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32",
+                      "encode_fn()"):
+            assert piece not in text, (source, piece)
+    for source in pairs:
+        assert "fp32_tma::fill_params(" in _csrc(source), source
+    assert '#include "fp32_tma_sm90.cuh"' in _csrc("flash_fp32_d512_sm90.cuh")
 
 
 @pytest.mark.parametrize("s,t", [(100, 300), (96, 160), (40, 72)])
@@ -228,6 +319,38 @@ def test_plain_fp32_backward_at_the_d64_bwd_tile_matches_jax(s, t):
     # heads
     d = 64
     q, k, v, g = (_to3d(x) for x in _inputs(d + 4, 1, s, t, 2, d))
+    scale = d ** -0.5
+    bkv = tfa.kernel_block_kv(d, torch.float32, "bwd_dkv")
+    assert bkv == tfa.kernel_block_kv(d, torch.float32, "bwd_dq") == 32
+    jq, jk, jv, jg = (jnp.asarray(x.numpy()) for x in (q, k, v, g))
+    jo, jlse = jfa._flash_fwd_3d(jq, jk, jv, scale, 128, 128)
+    j_grads = jfa._flash_bwd_3d(jq, jk, jv, jo, jlse, jg, scale, 128, 128)
+    o = torch.from_numpy(np.array(jo))
+    lse = torch.from_numpy(np.array(jlse))[..., 0]
+    grads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv)
+    for name, mine, ref in zip(("dq", "dk", "dv"), grads, j_grads):
+        assert _rel_l2(mine, ref) <= REL_L2, name
+    # the kernels' mutants at this tile: TF32 operands, the last kv tile
+    # dropped from dq, dk x (1 + 1e-4)
+    mgrads = tfa.flash_bwd_tiled_reference(q, k, v, o, lse, g, scale, bkv,
+                                           tf32=True)
+    for name, mine, ref in zip(("dq", "dk", "dv"), mgrads, j_grads):
+        assert _rel_l2(mine, ref) > 10 * REL_L2, name
+    cut = (t - 1) // bkv * bkv
+    mdq = tfa.flash_bwd_tiled_reference(q, k[:, :cut], v[:, :cut], o, lse, g,
+                                        scale, bkv)[0]
+    assert _rel_l2(mdq, j_grads[0]) > REL_L2
+    assert _rel_l2(grads[1] * (1 + 1e-4), j_grads[1]) > REL_L2
+
+
+@pytest.mark.parametrize("s,t", [(100, 300), (96, 160)])
+def test_plain_fp32_backward_at_the_d256_bwd_tile_matches_jax(s, t):
+    # the tiled plain backward at the 256 pair's own tile (32 rows) against
+    # the JAX package's fp32 _flash_bwd_3d (Pallas in interpret mode) on
+    # the same o and LSE, S and T ragged against the tile (and a cluster's
+    # 64 rows) and whole
+    d = 256
+    q, k, v, g = (_to3d(x) for x in _inputs(d + 5, 1, s, t, 1, d))
     scale = d ** -0.5
     bkv = tfa.kernel_block_kv(d, torch.float32, "bwd_dkv")
     assert bkv == tfa.kernel_block_kv(d, torch.float32, "bwd_dq") == 32
@@ -468,9 +591,11 @@ def _held(got, ref) -> bool:
     return _rel_l2(got.cpu(), ref.cpu()) <= REL_L2
 
 
-# (B*H, S, T): a training step's shape at each width and a ragged one
+# (B*H, S, T): a training step's shape at each width and a ragged one; at
+# 256 also S and T not whole 64-row clusters of the backward pair
 CUDA_SHAPES = {64: [(20, 4096, 4096), (4, 1000, 577)],
-               256: [(16, 4096, 4096), (2, 1000, 1500)],
+               256: [(16, 4096, 4096), (2, 1000, 1500), (3, 33, 100),
+                     (2, 100, 33)],
                512: [(4, 4096, 4096), (2, 1000, 1500)]}
 
 
@@ -535,6 +660,34 @@ def test_cuda_fp32_strided_views_give_the_contiguous_bits(d):
     assert o.is_contiguous() and torch.equal(o, o2) and torch.equal(lse, lse2)
     assert all(a.is_contiguous() and torch.equal(a, b)
                for a, b in zip(grads, grads2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t", [(33, 4096), (100, 257), (4096, 100)])
+def test_cuda_fp32_d256_backward_gives_the_same_bits_on_every_cluster(s, t):
+    # the 256 pair's four blocks a cluster sum their partial scores in rank
+    # order and every block reads the same gathered p and ds: each output
+    # the same bits run after run (with other kernels between), held to the
+    # tiled plain version, two heads through the strides
+    _skip_without_card()
+    gen = torch.Generator(device="cuda").manual_seed(s + t)
+    d, scale = 256, 256 ** -0.5
+    x = torch.randn((1, max(s, t), 4, 2, d), generator=gen, device="cuda")
+    q, g = x[:, :s, 0], x[:, :s, 3]
+    k, v = x[:, :t, 1], x[:, :t, 2]
+    o, lse = tfa.flash_fwd(q, k, v, scale)
+    rows = x.reshape(-1, d)
+    runs = []
+    for _ in range(3):
+        runs.append(tfa.flash_bwd(q, k, v, o, lse, g, scale))
+        torch.matmul(rows[:64], rows[:64].T)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    ref = tfa.flash_bwd_tiled_reference(
+        *(tfa._to3d(y) for y in (q, k, v, o)), lse, tfa._to3d(g), scale,
+        tfa.kernel_block_kv(d, torch.float32, "bwd_dq"))
+    for name, mine, r in zip(("dq", "dk", "dv"), runs[0], ref):
+        assert _held(tfa._to3d(mine), r), name
 
 
 @pytest.mark.cuda
