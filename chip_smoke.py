@@ -68,10 +68,12 @@ Phases, one line each (any failure raises and exits non-zero):
      the contiguous call, and the ragged (2, 1000, 1500) sent to the
      standard kernel; each timed beside the standard forward, the plain
      one-pass version, its bound and SDPA;
-  3f. the fp32 kernels (csrc/flash_fp32.cu, 3xTF32 products, the forward
-     and the deferred forward at head_dims 64 and 256; dq with delta and
-     dk/dv at 64 and 256 on tf32 wgmma, csrc/flash_fp32_d64_bwd_sm90.cu and
-     csrc/flash_fp32_d256_bwd_sm90.cu; all four at 512) against their plain fp32 versions at the same domain (natural;
+  3f. the fp32 kernels (3xTF32 products: the forward and the deferred
+     forward at head_dim 64 csrc/flash_fp32.cu; dq with delta and dk/dv at
+     64 on tf32 wgmma, csrc/flash_fp32_d64_bwd_sm90.cu; all four at 256 on
+     tf32 wgmma, csrc/flash_fp32_d256_sm90.cu and
+     csrc/flash_fp32_d256_bwd_sm90.cu; all four at 512) against their
+     plain fp32 versions at the same domain (natural;
      the deferred forward base 2 on prescaled q): o, dq, dk, dv within
      relative L2 1e-5, the LSE and delta within 1e-5, the same bits twice;
      the forwards at the edit's, the training step's and the VAE's shapes
@@ -287,8 +289,9 @@ kernels and steps in turns.
     python3 chip_smoke.py --fp32-d256-only [--package-root DIR]
 
 builds the kernels and runs phase 3f at head_dim 256 (both fp32 forwards of
-csrc/flash_fp32.cu and the backward pair of
-csrc/flash_fp32_d256_bwd_sm90.cu) and 8c's small_config fp32 stage-1 steps
+csrc/flash_fp32_d256_sm90.cu and the backward pair of
+csrc/flash_fp32_d256_bwd_sm90.cu, the pair also on the tiled plain
+forward's o and LSE) and 8c's small_config fp32 stage-1 steps
 (batch 16 at 256^2, each timed; the head_dim-256 flash route held inside
 a flagged step with PIPELINE_FWD off and on, its distances from fp64
 beside the plain version's) alone and prints their kernels line; with
@@ -1627,13 +1630,14 @@ FP32_WIDTHS = (64, 256, 512)
 # the TPU kernel each kind replaces (diffute_tpu/ops/flash_attention.py)
 FP32_REPLACES = {"fwd": 275, "fwd_pipelined": 149, "bwd_dq": 396,
                  "bwd_dkv": 437}
-# the fp32 backward pair and the two fp32 forwards at head_dim 512, and
-# the fp32 backward pairs at 64 and 256 (a package from before has them in
+# the fp32 backward pairs and the two fp32 forwards at head_dims 512 and
+# 256, and the fp32 backward pair at 64 (a package from before has them in
 # flash_fp32.cu)
 FP32_D512_BWD_SOURCE = "flash_fp32_d512_bwd_sm90.cu"
 FP32_D512_FWD_SOURCE = "flash_fp32_d512_sm90.cu"
 FP32_D64_BWD_SOURCE = "flash_fp32_d64_bwd_sm90.cu"
 FP32_D256_BWD_SOURCE = "flash_fp32_d256_bwd_sm90.cu"
+FP32_D256_FWD_SOURCE = "flash_fp32_d256_sm90.cu"
 
 
 def fp32_source(kind: str, d: int) -> str:
@@ -1643,8 +1647,8 @@ def fp32_source(kind: str, d: int) -> str:
 
     bwd = kind.startswith("bwd")
     source = {512: FP32_D512_BWD_SOURCE if bwd else FP32_D512_FWD_SOURCE,
-              64: FP32_D64_BWD_SOURCE if bwd else None,
-              256: FP32_D256_BWD_SOURCE if bwd else None}.get(d)
+              256: FP32_D256_BWD_SOURCE if bwd else FP32_D256_FWD_SOURCE,
+              64: FP32_D64_BWD_SOURCE if bwd else None}.get(d)
     if source and os.path.exists(os.path.join(_build.CSRC, source)):
         return source
     return "flash_fp32.cu"
@@ -1673,11 +1677,11 @@ def fp32_counter(kind: str, d: int) -> str:
 
 
 def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
-    """Phase 3f: the fp32 flash kernels (csrc/flash_fp32.cu, 3xTF32; the
-    backward pairs at 64 and 256 csrc/flash_fp32_d64_bwd_sm90.cu and
-    csrc/flash_fp32_d256_bwd_sm90.cu; at 512 the forwards
-    csrc/flash_fp32_d512_sm90.cu and the backward pair
-    csrc/flash_fp32_d512_bwd_sm90.cu) at head_dims
+    """Phase 3f: the fp32 flash kernels (3xTF32: at 64 the forwards
+    csrc/flash_fp32.cu and the backward pair csrc/flash_fp32_d64_bwd_sm90.cu;
+    at 256 and 512 the forwards csrc/flash_fp32_d{256,512}_sm90.cu and the
+    backward pairs csrc/flash_fp32_d{256,512}_bwd_sm90.cu; fp32_source
+    names each) at head_dims
     ``widths`` (64, 256 and 512) against their plain fp32 versions at each
     kernel's kv tile (kernel_block_kv by kind) and at the same domain (the
     standard forward and the backward natural, the deferred forward base 2
@@ -1690,10 +1694,9 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     contiguous route's bits, the switch on too.  Each timed (CUDA-event
     medians of 25; 5 for the largest) beside its plain one-pass version,
     SDPA on the same fp32 inputs with TF32 off (its backend recorded) and
-    the bound at PEAK_FP32_FLOPS; at 512 (and the backward pair at 256)
-    each kernel's clusters the card runs at once
-    (cudaOccupancyMaxActiveClusters), at 512 the backward pair
-    also on the tiled plain forward's o and LSE at the pair's tile (no
+    the bound at PEAK_FP32_FLOPS; at 256 and 512 each kernel's clusters
+    the card runs at once (cudaOccupancyMaxActiveClusters) and the backward
+    pair also on the tiled plain forward's o and LSE at the pair's tile (no
     forward kernel moves those errors), held to the same contract.  Returns
     {entry name: [result per shape]}."""
     from diffute_tpu_torch.ops import _build
@@ -1709,10 +1712,11 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                 for d, q in ((512, "flash_bwd_d512_fp32_max_clusters"),
                              (256, "flash_bwd_d256_fp32_max_clusters"))
                 if hasattr(lib, q)}
-    fwd_clusters = ({kind: lib.flash_fwd_d512_fp32_max_clusters(i)
-                     for i, kind in enumerate(("fwd", "fwd_pipelined"))}
-                    if hasattr(lib, "flash_fwd_d512_fp32_max_clusters")
-                    else None)
+    fwd_clusters = {d: {kind: getattr(lib, q)(i)
+                        for i, kind in enumerate(("fwd", "fwd_pipelined"))}
+                    for d, q in ((512, "flash_fwd_d512_fp32_max_clusters"),
+                                 (256, "flash_fwd_d256_fp32_max_clusters"))
+                    if hasattr(lib, q)}
     g = torch.Generator(device=dev).manual_seed(8)
     out = {fp32_entry(kind, d): [] for d in widths for kind in FP32_KINDS}
 
@@ -1770,8 +1774,8 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                                             and torch.equal(lse, lse2)),
                            ms=time_ms(run), domain=domain)
                 res["share_of_bound"] = res["bound_ms"] / res["ms"]
-                if d == 512 and fwd_clusters is not None:
-                    res["max_active_clusters"] = fwd_clusters[kind]
+                if d in fwd_clusters:
+                    res["max_active_clusters"] = fwd_clusters[d][kind]
                 if not out[name]:
                     mo, mlse = fa.flash_fwd_tiled_reference(
                         q, k, v, sc, bkv, domain, tf32=True)
@@ -1829,7 +1833,7 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
                    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
             delta_err = (delta - fa._delta(o, do)).abs().max().item()
             on_plain = {}
-            if d == 512:
+            if d in (256, 512):
                 # the pair on the tiled plain forward's o and LSE at the
                 # pair's tile, which no forward kernel's bits move
                 po, plse = fa.flash_fwd_tiled_reference(q, k, v, sc, bwd_bkv)

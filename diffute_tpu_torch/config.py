@@ -34,7 +34,7 @@ class VAEConfig:
     # the CUDA flash kernels (bf16: csrc/flash_wide.cu at 512,
     # csrc/flash_d256_sm90.cu and flash_d256_bwd_sm90.cu at 256; fp32:
     # csrc/flash_fp32_d512_sm90.cu and flash_fp32_d512_bwd_sm90.cu at 512,
-    # csrc/flash_fp32.cu and flash_fp32_d256_bwd_sm90.cu at 256).
+    # csrc/flash_fp32_d256_sm90.cu and flash_fp32_d256_bwd_sm90.cu at 256).
     use_flash_attention: bool = False
 
     @property

@@ -1,14 +1,15 @@
 // Flash attention on fp32 inputs for Hopper (sm_90a): the forward and the
-// deferred-softmax forward, fp32 in and out, fp32 LSE.  One source,
-// templated on the width (`Fp32<D, R>`), instantiated at head_dim 64 (the
-// UNet's heads) and 256 (the small VAE's mid-block, `small_config`).  The
-// fp32 backward pairs are their own sources, on tf32 wgmma over split
-// planes: at 64 flash_fp32_d64_bwd_sm90.cu, at 256
-// flash_fp32_d256_bwd_sm90.cu (a cluster of four blocks over head_dim);
-// the four at 512 (the SD2 VAE's mid-block) are flash_fp32_d512_sm90.cu
-// (the two forwards) and flash_fp32_d512_bwd_sm90.cu (dq and dk/dv), on a
-// cluster of four blocks over head_dim; all on the same precision
-// contract.  The bf16 kernels (flash_fwd.cu, flash_fwd_pipelined.cu,
+// deferred-softmax forward at head_dim 64 (the UNet's heads), fp32 in and
+// out, fp32 LSE (`Fp32<64, 64>`).  The other fp32 flash kernels are their
+// own sources, on the same precision contract: the backward pair at 64
+// flash_fp32_d64_bwd_sm90.cu (tf32 wgmma over split planes); at 256 (the
+// small VAE's mid-block, `small_config`) the two forwards
+// flash_fp32_d256_sm90.cu and the backward pair flash_fp32_d256_bwd_sm90.cu
+// (tf32 wgmma on a cluster of four blocks over head_dim,
+// flash_fp32_d256_sm90.cuh); at 512 (the SD2 VAE's mid-block) the two
+// forwards flash_fp32_d512_sm90.cu and the backward pair
+// flash_fp32_d512_bwd_sm90.cu (mma.sync on a cluster of four blocks over
+// head_dim).  The bf16 kernels (flash_fwd.cu, flash_fwd_pipelined.cu,
 // flash_bwd.cu, flash_wide.cu) stay as they are.
 //
 // Replaces the Pallas TPU kernels of diffute_tpu/ops/flash_attention.py on
@@ -61,25 +62,14 @@
 // room is scarce: an fp32 row takes twice a bf16 one.
 //
 // Layout.  Every tile of one kernel has R rows: the resident q tile and the
-// streamed k and v tiles, two stages deep through cp.async.  head_dim is
-// cut into D / 64 slices of 64 columns and the resident tile into R / 16
-// groups of 16 rows; a block is one warp per (group, slice), and a warp
+// streamed k and v tiles, two stages deep through cp.async.  The resident
+// tile is cut into R / 16 groups of 16 rows, one warp each, and a warp
 // keeps its 16 x 64 slice of the output accumulator in registers (32 fp32
-// a thread).  The contraction over head_dim in s = q k^T is split between
-// the slices: each warp writes its 16 x R fp32 partial scores to shared
-// memory and, after a barrier, every warp of a row group sums the D / 64
-// partials in slice order, so the slices see bit-identical scores and p
-// (flash_wide.cu's scheme).  At D = 64 there is one slice and no exchange.
-// Shared memory (227 KB, 232,448 bytes, a block):
-//
-//   D = 64,  R = 64: 4 warps, a 16 KB tile; forward 80 KB (deferred 80 KB):
-//     two blocks an SM;
-//   D = 256, R = 32: 8 warps, a 32 KB tile, 16 KB of partials; forward
-//     176 KB (deferred 192 KB).
-//
-// At 512 a 32-row tile would be 64 KB, so one SM held 16-row tiles; the
-// kernels there split head_dim over a cluster of four blocks instead
-// (flash_fp32_d512_sm90.cuh).
+// a thread).  At D = 64, R = 64: 4 warps, a 16 KB tile; forward 80 KB
+// (deferred 80 KB): two blocks an SM.  (The first cut also ran D = 256
+// here, head_dim cut into four 64-column warp slices whose partial scores
+// were summed through shared memory; the kernels at 256 and 512 split
+// head_dim over a cluster of four blocks instead.)
 //
 // Fragments.  ldmatrix moves b16 elements and cannot transpose 32-bit ones,
 // so every fragment is read with 32-bit shared loads.  The tf32 m16n8k8
@@ -96,7 +86,8 @@
 //
 // This first cut uses mma.sync and a cp.async ring; wgmma (which takes tf32
 // with both operands K-major only), TMA and a producer warpgroup are left
-// to a redesign (ROADMAP.md), as the backward pairs at 64 and 256 did.
+// to a redesign (ROADMAP.md), as the backward pair at 64 and both 256
+// sources had.
 //
 // Ragged edges.  Rows past the end of a tile are zero-filled by cp.async.
 // Both forwards mask the kv columns past T in the last kv tile (p = 0).
@@ -126,19 +117,16 @@ struct Fp32 {
   static constexpr int kNT = R / 8;              // 8-column score tiles
   static constexpr int kChunks = D / 4;          // 16-byte chunks a row
   static constexpr int kTile = R * D * 4;        // bytes of fp32
-  // partial scores of one product: float4 [slice][group][n-tile][lane]
-  static constexpr int kPart = kSlices > 1 ? kSlices * kGroups * kNT * 32 * 16
-                                           : 0;
-  // q | k[2] | v[2] | partials (the deferred forward: partials[2])
-  static constexpr int kFwdSmem = 5 * kTile + kPart;
-  static constexpr int kFwdDeferredSmem = 5 * kTile + 2 * kPart;
-  static_assert(D % kSlice == 0 && R % 16 == 0, "whole slices and groups");
+  // q | k[2] | v[2]
+  static constexpr int kFwdSmem = 5 * kTile;
+  static constexpr int kFwdDeferredSmem = 5 * kTile;
+  // one slice: no exchange of partial scores between warps
+  static_assert(D == kSlice && R % 16 == 0, "one slice, whole groups");
   static_assert((R * kChunks) % kThreads == 0, "whole chunks a thread");
   static_assert(kFwdDeferredSmem <= 232448, "227 KB a block");
 };
 
 using F64 = Fp32<64, 64>;
-using F256 = Fp32<256, 32>;
 
 // float offset of element (row, col) in a swizzled [rows][D] fp32 tile
 template <class W>
@@ -255,58 +243,6 @@ __device__ __forceinline__ void mma_slice_nn(float (&acc)[8][4],
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] += part[i];
     }
-  }
-}
-
-// Partial scores: float4 [slice][group][n-tile][lane], each thread's four
-// values of one n-tile in one float4, lanes contiguous (no bank conflict).
-template <class W>
-__device__ __forceinline__ void put_part(float4* part,
-                                         const float (&s)[W::kNT][4],
-                                         int group, int slice) {
-  float4* p = part + (slice * W::kGroups + group) * W::kNT * 32 +
-              (threadIdx.x & 31);
-#pragma unroll
-  for (int n = 0; n < W::kNT; ++n)
-    p[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-}
-
-// s = the slices' partials of this thread's scores, summed in slice order:
-// every warp of a row group gets the same bits.
-template <class W>
-__device__ __forceinline__ void sum_parts(float (&s)[W::kNT][4],
-                                          const float4* part, int group) {
-  const float4* p = part + group * W::kNT * 32 + (threadIdx.x & 31);
-#pragma unroll
-  for (int n = 0; n < W::kNT; ++n) {
-    float4 x = p[n * 32];
-#pragma unroll
-    for (int sl = 1; sl < W::kSlices; ++sl) {
-      const float4 y = p[(sl * W::kGroups * W::kNT + n) * 32];
-      x.x += y.x;
-      x.y += y.y;
-      x.z += y.z;
-      x.w += y.w;
-    }
-    s[n][0] = x.x;
-    s[n][1] = x.y;
-    s[n][2] = x.z;
-    s[n][3] = x.w;
-  }
-}
-
-// The scores of one product, summed over head_dim: this warp's slice of
-// the contraction, then (D > 64) the exchange through `part`.  Returns
-// with a barrier passed when there is an exchange.
-template <class W>
-__device__ __forceinline__ void scores(float (&s)[W::kNT][4], const float* a,
-                                       int a0, const float* b, float4* part,
-                                       int group, int slice) {
-  mma_slice_nt<W>(s, a, a0, b, slice);
-  if constexpr (W::kSlices > 1) {
-    put_part<W>(part, s, group, slice);
-    __syncthreads();
-    sum_parts<W>(s, part, group);
   }
 }
 
@@ -458,7 +394,6 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
   float* q_s = reinterpret_cast<float*>(smem);
   float* k_s = q_s + W::kTile / 4;
   float* v_s = k_s + 2 * (W::kTile / 4);
-  float4* part = reinterpret_cast<float4*>(smem + 5 * W::kTile);
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
   const int warp = threadIdx.x >> 5;
@@ -493,14 +428,13 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
 
     // ---- s = q k^T * scale, the kv columns past T masked
     float s[W::kNT][4];
-    scores<W>(s, q_s, group * 16, k_s + buf * (W::kTile / 4), part, group,
-              slice);
+    mma_slice_nt<W>(s, q_s, group * 16, k_s + buf * (W::kTile / 4), slice);
     scale_scores<W>(s, p.scale);
     mask_cols<W>(s, j * W::kRows, p.t_len);
 
     // ---- online softmax, o += p v
     consume_tile<W, false>(s, o, r, v_s + buf * (W::kTile / 4), slice);
-    __syncthreads();  // the partials and this stage are written next
+    __syncthreads();  // this stage is written next
   }
   store_fwd<W, false>(p, o, r, q0, group, slice);
 }
@@ -512,10 +446,9 @@ __global__ void __launch_bounds__(W::kThreads, 1) fwd_kernel(Params p) {
 // Replaces `_fwd_kernel_pipelined` on fp32: q prescaled by
 // fp32(scale * log2 e) in shared memory once, the softmax in base 2, and
 // tile j + 1's scores issued ahead of tile j's softmax, as flash_wide.cu's
-// fwd_deferred_kernel does: body j sums S_j's partials (written by the
-// previous body; at D = 64 S_j is held in registers), issues S_{j+1}'s
-// product and writes its partials to the buffer of the other parity, and
-// runs tile j's softmax and o += p v_j.  The k stream runs one tile ahead of
+// fwd_deferred_kernel does: body j issues S_{j+1}'s product into registers
+// beside S_j's and runs tile j's softmax and o += p v_j.  The k stream runs
+// one tile ahead of
 // the v stream, each two stages deep; one __syncthreads a kv tile.  T is a
 // multiple of R with at least two tiles (the dispatch rule), so no column
 // is masked.
@@ -525,11 +458,9 @@ __global__ void __launch_bounds__(W::kThreads, 1)
     fwd_deferred_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kTileF = W::kTile / 4;      // floats of one tile
-  constexpr int kPartVecs = W::kPart / 16;  // float4s of one partial buffer
   float* q_s = reinterpret_cast<float*>(smem);
   float* k_s = q_s + kTileF;
   float* v_s = k_s + 2 * kTileF;
-  float4* part = reinterpret_cast<float4*>(smem + 5 * W::kTile);
 
   const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
   const int warp = threadIdx.x >> 5;
@@ -554,7 +485,6 @@ __global__ void __launch_bounds__(W::kThreads, 1)
 
   float s[W::kNT][4];
   mma_slice_nt<W>(s, q_s, group * 16, k_s, slice);
-  if constexpr (W::kSlices > 1) put_part<W>(part, s, group, slice);
 
   float o[8][4];
   zero8(o);
@@ -572,27 +502,19 @@ __global__ void __launch_bounds__(W::kThreads, 1)
                  p.t_len);
     cp_async_commit();
 
-    if constexpr (W::kSlices > 1) sum_parts<W>(s, part + cur * kPartVecs,
-                                               group);
-    // ---- produce S_{j+1}: this slice's share, summed by the next body
+    // ---- produce S_{j+1}
     float sn[W::kNT][4];
     mma_slice_nt<W>(sn, q_s, group * 16, k_s + nxt * kTileF, slice);
-    if constexpr (W::kSlices > 1)
-      put_part<W>(part + nxt * kPartVecs, sn, group, slice);
     // ---- consume tile j
     consume_tile<W, true>(s, o, r, v_s + cur * kTileF, slice);
-    if constexpr (W::kSlices == 1) {
 #pragma unroll
-      for (int n = 0; n < W::kNT; ++n)
+    for (int n = 0; n < W::kNT; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = sn[n][i];
-    }
+      for (int i = 0; i < 4; ++i) s[n][i] = sn[n][i];
   }
   // ---- the last body: consume only
   cp_async_wait<0>();
   __syncthreads();
-  if constexpr (W::kSlices > 1)
-    sum_parts<W>(s, part + (j & 1) * kPartVecs, group);
   consume_tile<W, true>(s, o, r, v_s + (j & 1) * kTileF, slice);
   store_fwd<W, true>(p, o, r, q0, group, slice);
 }
@@ -664,31 +586,27 @@ int fwd_deferred(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C entry points for ctypes, with the bf16 entries' argument lists
-// (flash_fwd_pipelined_*_fp32 refuses a t_len that is not a whole number,
-// at least two, of its tiles).  Tensors (B, len, H, D) fp32, D = 64 or 256
-// as the name says, with the element strides in `strides` (sb, sl, sh
-// each; head_dim stride 1), lse (B*H, S) fp32 contiguous.  Each launches on
-// `stream`, allocates nothing, and returns a CUDA error code (0 =
-// launched).
+// (flash_fwd_pipelined_fp32 refuses a t_len that is not a whole number, at
+// least two, of its tiles).  Tensors (B, len, H, 64) fp32 with the element
+// strides in `strides` (sb, sl, sh each; head_dim stride 1), lse (B*H, S)
+// fp32 contiguous.  Each launches on `stream`, allocates nothing, and
+// returns a CUDA error code (0 = launched).  The other fp32 flash entries:
+// the backward pair at 64 flash_fp32_d64_bwd_sm90.cu; at 256 and 512 the
+// forwards flash_fp32_d{256,512}_sm90.cu and the backward pairs
+// flash_fp32_d{256,512}_bwd_sm90.cu.
+extern "C" int flash_fwd_fp32(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int b, int h, int s_len,
+                              int t_len, const long long* strides,
+                              float scale, void* stream) {
+  return fwd<F64>(q, k, v, o, lse, b, h, s_len, t_len, strides, scale,
+                  stream);
+}
 
-#define FLASH_FP32_FWD_ENTRIES(W, d)                                          \
-  extern "C" int flash_fwd##d##_fp32(                                         \
-      const void* q, const void* k, const void* v, void* o, void* lse, int b, \
-      int h, int s_len, int t_len, const long long* strides, float scale,     \
-      void* stream) {                                                         \
-    return fwd<W>(q, k, v, o, lse, b, h, s_len, t_len, strides, scale,        \
-                  stream);                                                    \
-  }                                                                           \
-  extern "C" int flash_fwd_pipelined##d##_fp32(                               \
-      const void* q, const void* k, const void* v, void* o, void* lse, int b, \
-      int h, int s_len, int t_len, const long long* strides, float scale,     \
-      void* stream) {                                                         \
-    return fwd_deferred<W>(q, k, v, o, lse, b, h, s_len, t_len, strides,      \
-                           scale, stream);                                    \
-  }
-
-FLASH_FP32_FWD_ENTRIES(F64, )
-FLASH_FP32_FWD_ENTRIES(F256, _d256)
-// the backward pairs: at 64 flash_fp32_d64_bwd_sm90.cu, at 256
-// flash_fp32_d256_bwd_sm90.cu; the four at 512: flash_fp32_d512_sm90.cu,
-// flash_fp32_d512_bwd_sm90.cu
+extern "C" int flash_fwd_pipelined_fp32(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int b, int h, int s_len, int t_len,
+                                        const long long* strides, float scale,
+                                        void* stream) {
+  return fwd_deferred<F64>(q, k, v, o, lse, b, h, s_len, t_len, strides,
+                           scale, stream);
+}

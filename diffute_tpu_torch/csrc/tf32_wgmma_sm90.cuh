@@ -1,7 +1,8 @@
 // tf32 wgmma pieces shared by the fp32 kernels that run their products on
-// Hopper's warpgroup MMA (sm_90a): the int8 matmul (quant_fp32_sm90.cu)
-// and the fp32 flash backward pairs at head_dim 64
-// (flash_fp32_d64_bwd_sm90.cu) and 256 (flash_fp32_d256_bwd_sm90.cu).
+// Hopper's warpgroup MMA (sm_90a): the int8 matmul (quant_fp32_sm90.cu),
+// the fp32 flash backward pairs at head_dim 64 (flash_fp32_d64_bwd_sm90.cu)
+// and 256 (flash_fp32_d256_bwd_sm90.cu) and the fp32 forwards at 256
+// (flash_fp32_d256_sm90.cu).
 //
 //   * tf32 wgmma takes both operands K-major only, and reads an operand in
 //     shared memory as its TF32 truncation, so fp32 accuracy (3xTF32, or
@@ -15,12 +16,13 @@
 //   * the products: m64nNk8 with A from registers (the fragment of
 //     mma.m16n8k8.tf32: rows g and g + 8 of the warp's 16, columns t and
 //     t + 4) or from shared memory, B from shared memory;
-//   * the flash backward pairs' pieces: the loads of a block's 64 columns
-//     by TMA, a producer warpgroup's splits of raw TMA tiles into planes
-//     (natural, and transposed in the permuted order), a score tile (an
-//     fp32 accumulator) split into register A fragments in that order,
-//     the output product over a 32-row streamed tile with that A, and the
-//     store of its 64 x 64 accumulator through the strides.
+//   * the flash pieces (the backward pairs' and the 256 forwards'): the
+//     loads of a block's 64 columns by TMA, a producer warpgroup's splits
+//     of raw TMA tiles into planes (natural, and transposed in the
+//     permuted order), a score tile (an fp32 accumulator) split into
+//     register A fragments in that order, the output product over a
+//     32-row streamed tile with that A, and the store of its 64 x 64
+//     accumulator through the strides.
 
 #pragma once
 
@@ -256,21 +258,12 @@ struct StreamRaw {
   uint32_t tr[kTrans][4][4];
 };
 
-// Read the raw streamed tiles x[a].  Thread tid of the producer: natural
-// chunks tid + 128 m; transposed column d = tid % 64 (of the block's 64)
-// at the stream rows of parity h = tid / 64, for the chunks h + 2 m of row
-// d of the transposed plane.  A warp's reads each hit 32 distinct banks.
-// The writes below come after a barrier of the warpgroup: the transposed
-// reads cross the chunks other threads write in place.
+// The transposed chunks of the first kTrans raw streamed tiles x[a]
+// (read_stream's second half; the forwards at 256 read V so, and only so).
 template <int kTensors, int kTrans>
-__device__ __forceinline__ void read_stream(
+__device__ __forceinline__ void read_transposed(
     const uint32_t (&x)[kTensors], StreamRaw<kTensors, kTrans>& v, int tid) {
   const int d = tid & 63, h = tid >> 6;
-#pragma unroll
-  for (int a = 0; a < kTensors; ++a)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      v.nat[a][m] = ld_shared_u4(x[a] + tid * 16 + m * 2048);
 #pragma unroll
   for (int a = 0; a < kTrans; ++a)
 #pragma unroll
@@ -282,6 +275,23 @@ __device__ __forceinline__ void read_stream(
             x[a] + (d >> 5) * kStreamTileBox + r * 128 +
             ((((d & 31) >> 2) ^ (r & 7)) << 4) + (d & 3) * 4);
       }
+}
+
+// Read the raw streamed tiles x[a].  Thread tid of the producer: natural
+// chunks tid + 128 m; transposed column d = tid % 64 (of the block's 64)
+// at the stream rows of parity h = tid / 64, for the chunks h + 2 m of row
+// d of the transposed plane.  A warp's reads each hit 32 distinct banks.
+// The writes below come after a barrier of the warpgroup: the transposed
+// reads cross the chunks other threads write in place.
+template <int kTensors, int kTrans>
+__device__ __forceinline__ void read_stream(
+    const uint32_t (&x)[kTensors], StreamRaw<kTensors, kTrans>& v, int tid) {
+#pragma unroll
+  for (int a = 0; a < kTensors; ++a)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      v.nat[a][m] = ld_shared_u4(x[a] + tid * 16 + m * 2048);
+  read_transposed(x, v, tid);
 }
 
 // The natural planes of x[a]: hi in place of the raw tile, lo

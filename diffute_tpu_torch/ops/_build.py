@@ -97,20 +97,20 @@ def _signatures() -> dict:
         "flash_fwd_pipelined_d256_bf16": fwd + [i],
         "flash_fwd_d256_consumers": [i, i],
         # the same four on fp32 inputs at head_dim 64, 256 and 512
-        # (the forwards at 64 and 256 csrc/flash_fp32.cu; the backward
-        # pairs csrc/flash_fp32_d64_bwd_sm90.cu and
-        # csrc/flash_fp32_d256_bwd_sm90.cu; at 512 the forwards
-        # csrc/flash_fp32_d512_sm90.cu, the backward pair
-        # csrc/flash_fp32_d512_bwd_sm90.cu)
+        # (at 64 the forwards csrc/flash_fp32.cu, the backward pair
+        # csrc/flash_fp32_d64_bwd_sm90.cu; at 256 and 512 the forwards
+        # csrc/flash_fp32_d{256,512}_sm90.cu, the backward pairs
+        # csrc/flash_fp32_d{256,512}_bwd_sm90.cu)
         **{f"flash_{kind}{width}_fp32": bwd if kind.startswith("bwd") else fwd
            for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
            for width in ("", "_d256", "_d512")},
         # cudaOccupancyMaxActiveClusters of the fp32 dq (0) or dk/dv (1)
-        # kernel at 512 and at 256, and of the standard (0) or deferred (1)
-        # forward at 512
+        # kernel and of the standard (0) or deferred (1) forward, at 512
+        # and at 256
         "flash_bwd_d512_fp32_max_clusters": [i],
         "flash_bwd_d256_fp32_max_clusters": [i],
         "flash_fwd_d512_fp32_max_clusters": [i],
+        "flash_fwd_d256_fp32_max_clusters": [i],
         # the same four at the narrow tile widths, bf16 and fp32, with the
         # head_dim after T (csrc/flash_narrow.cu)
         **{f"flash_{kind}_w{width}_{t}": (

@@ -12,13 +12,15 @@ UNet's heads); at head_dim 512 (the VAE mid-block's single head at SD2
 width) the four are ``csrc/flash_wide.cu``; at 256 (``small_config``'s)
 both forwards are ``csrc/flash_d256_sm90.cu`` and the two backward kernels
 ``csrc/flash_d256_bwd_sm90.cu`` (TMA and ``wgmma``, as at 64).  Those take
-bf16.  On fp32 inputs both forwards at 64 and 256 are
-``csrc/flash_fp32.cu`` (3xTF32 products, accurate to fp32); the backward
-pair at 64 is ``csrc/flash_fp32_d64_bwd_sm90.cu`` (tf32 ``wgmma`` on hi
-and lo planes that a producer warpgroup splits once a TMA-fed 32-row
-tile), at 256 ``csrc/flash_fp32_d256_bwd_sm90.cu`` (the same schedule on
-each block of a cluster of four over head_dim, the partial scores
-exchanged through distributed shared memory); at 512 both forwards are
+bf16.  On fp32 inputs both forwards at 64 are ``csrc/flash_fp32.cu``
+(3xTF32 products, accurate to fp32); the backward pair at 64 is
+``csrc/flash_fp32_d64_bwd_sm90.cu`` (tf32 ``wgmma`` on hi and lo planes
+that a producer warpgroup splits once a TMA-fed 32-row tile); at 256 both
+forwards are ``csrc/flash_fp32_d256_sm90.cu`` and the backward pair
+``csrc/flash_fp32_d256_bwd_sm90.cu`` (the same schedule on each block of a
+cluster of four over head_dim, the partial scores exchanged through
+distributed shared memory and summed by one piece of code for all four,
+``csrc/flash_fp32_d256_sm90.cuh``); at 512 both forwards are
 ``csrc/flash_fp32_d512_sm90.cu`` and the
 backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu`` (a cluster of four
 blocks over head_dim, 64 resident rows, TMA-fed 32-row tiles, the same
@@ -70,11 +72,13 @@ D256_FWD_BLOCK_KV = 64
 # tile the dq kernel walks (kBlockKV there) and the kv rows a dk/dv block
 # owns (kRows)
 D256_BWD_BLOCK_KV = 64
-# the streamed tile of every fp32 kernel by head_dim: at 64 and 256 the
-# rows of every tile of csrc/flash_fp32.cu's forwards (kRows there) and at
-# 256 the backward pair's too (csrc/flash_fp32_d256_bwd_sm90.cu: the kv
-# tile dq walks and the q tile dk/dv walks, kBlockKV there; the pair at 64
-# walks FP32_D64_BWD_BLOCK_KV); at 512 the tile
+# the streamed tile of every fp32 kernel by head_dim: at 64 the rows of
+# every tile of csrc/flash_fp32.cu's forwards (kRows there; the backward
+# pair at 64 walks FP32_D64_BWD_BLOCK_KV); at 256 the tile of the streamed
+# axis of all four kernels, both forwards (csrc/flash_fp32_d256_sm90.cu)
+# and the backward pair (csrc/flash_fp32_d256_bwd_sm90.cu): the kv tile of
+# the forwards and dq, the q tile of dk/dv (kBlockKV of
+# csrc/flash_fp32_d256_sm90.cuh); at 512 the tile
 # of the streamed axis of all four kernels, both forwards
 # (csrc/flash_fp32_d512_sm90.cu) and the backward pair
 # (csrc/flash_fp32_d512_bwd_sm90.cu): the kv tile of the forwards and dq,
@@ -87,12 +91,12 @@ FP32_D64_BWD_BLOCK_KV = 32
 # the resident rows of a cluster of four blocks in the fp32 kernels at 512
 # (kRows there): q rows of the forwards and dq, kv rows of dk/dv
 FP32_D512_ROWS = 64
-# the fp32 backward pair at head_dim 256 (csrc/flash_fp32_d256_bwd_sm90.cu):
-# the resident rows of a cluster (kRows there: q rows of dq, kv rows of
-# dk/dv) and its blocks (kRanks), each owning 256 / FP32_D256_BWD_RANKS
-# columns of head_dim
-FP32_D256_BWD_ROWS = 64
-FP32_D256_BWD_RANKS = 4
+# the resident rows of a cluster of four blocks in the fp32 kernels at 256
+# (kRows of csrc/flash_fp32_d256_sm90.cuh: q rows of the forwards and dq,
+# kv rows of dk/dv) and its blocks (kRanks), each owning 256 /
+# FP32_D256_RANKS columns of head_dim
+FP32_D256_ROWS = 64
+FP32_D256_RANKS = 4
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
 # that is a multiple of 8 up to 128 at the smallest width that holds it,
 # and the rows of every tile there by width (kRows), both dtypes
@@ -235,7 +239,8 @@ def flash_fwd_tiled_reference(q: torch.Tensor, k: torch.Tensor,
     kernels round ``p`` against the running max, so this, not the one-pass
     :func:`flash_attention_reference`, is what they match to a few bf16
     ulps.  "natural" and "prescaled" are the fp32 kernels'
-    (``csrc/flash_fp32.cu``; at 512 ``csrc/flash_fp32_d512_sm90.cu``).
+    (``csrc/flash_fp32.cu``; at 256 and 512
+    ``csrc/flash_fp32_d{256,512}_sm90.cu``).
     ``tf32``: round every product's operands to TF32 first (a mutant: what
     TF32 alone would compute).
 
@@ -297,7 +302,7 @@ def flash_fwd_pipelined_reference(q: torch.Tensor, k: torch.Tensor,
     (:func:`pipelined_block_kv` of the head_dim).  The domain is "base2" on
     bf16 inputs (the bf16 kernels') and "prescaled" on fp32 (the JAX
     package's ``_flash_fwd_3d_pipelined``, as ``csrc/flash_fp32.cu`` and,
-    at 512, ``csrc/flash_fp32_d512_sm90.cu`` compute it).
+    at 256 and 512, ``csrc/flash_fp32_d{256,512}_sm90.cu`` compute it).
 
     q (BH, S, D), k/v (BH, T, D) with T a multiple of ``block_kv`` and at
     least two tiles -> (o (BH, S, D) in q's dtype, lse (BH, S) fp32)."""

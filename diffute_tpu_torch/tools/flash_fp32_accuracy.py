@@ -8,8 +8,9 @@ For each head_dim (64, 256, 512 and the narrow widths 8, 16, 40, 80, 128;
 ``--widths`` picks some) at a square and a ragged shape, random inputs
 from a seed: the relative L2 distance of o, dq, dk and dv (and the max abs
 distance of the LSE) from fp64 autograd through plain attention, for the
-kernel (``csrc/flash_fp32.cu``; at 512 ``csrc/flash_fp32_d512_sm90.cu``
-and the backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``;
+kernel (``csrc/flash_fp32.cu`` and ``csrc/flash_fp32_d64_bwd_sm90.cu``;
+at 256 and 512 ``csrc/flash_fp32_d{256,512}_sm90.cu`` and the backward
+pairs ``csrc/flash_fp32_d{256,512}_bwd_sm90.cu``;
 ``csrc/flash_narrow.cu`` at the narrow widths), its tiled plain fp32
 version at the same domain and each kernel's kv tile, and that plain
 version with its operands rounded to TF32 (what TF32 alone would give);

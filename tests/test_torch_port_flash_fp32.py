@@ -1,16 +1,17 @@
 """PyTorch port, flash attention on fp32 inputs (``csrc/flash_fp32.cu``'s
-forwards at head_dim 64 and 256; the backward pairs
-``csrc/flash_fp32_d64_bwd_sm90.cu`` and ``csrc/flash_fp32_d256_bwd_sm90.cu``;
-at head_dim 512 the forwards ``csrc/flash_fp32_d512_sm90.cu`` and the
-backward pair ``csrc/flash_fp32_d512_bwd_sm90.cu``):
+forwards at head_dim 64 and the backward pair
+``csrc/flash_fp32_d64_bwd_sm90.cu``; at head_dims 256 and 512 the forwards
+``csrc/flash_fp32_d{256,512}_sm90.cu`` and the backward pairs
+``csrc/flash_fp32_d{256,512}_bwd_sm90.cu``):
 the plain fp32 versions of the forward, the deferred-softmax forward and
 the backward on the CPU against the JAX package's fp32 flash attention
 (Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
 them) at head_dims 64, 256 and 512 with a ragged T, the tiled plain
-forwards and backward at the 512 kernels' own tile and the backward at the
-64 and 256 pairs'; the kv tile of each kind, the 512, 256 and 64 sources'
-constants, the tf32 wgmma header they share with the int8 matmul and the
-cluster header of the 512 and 256 sources; the TF32 mutant and the other mutants
+forwards and backward at the 256 and 512 kernels' own tile and the
+backward at the 64 pair's; the kv tile of each kind, the 512, 256 and 64
+sources' constants, the tf32 wgmma header they share with the int8
+matmul, the cluster header of the 512 and 256 sources and the score
+header of both 256 sources; the TF32 mutant and the other mutants
 that the card's bound must refuse; the wrappers' dtype and layout checks,
 entry names and counters; the device numerics rule.
 
@@ -169,12 +170,13 @@ def test_the_d512_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
             assert f'extern "C" int {entry}(' in text, entry
     fp32 = read("flash_fp32.cu")
     assert "F512" not in fp32 and "Fp32<512" not in fp32
-    # flash_fp32.cu defines both forwards at 64 and 256 and no backward
-    # kernel: the backward pairs at 64 and 256 are
-    # csrc/flash_fp32_d64_bwd_sm90.cu's and csrc/flash_fp32_d256_bwd_sm90.cu's
-    assert re.findall(r"^FLASH_FP32_(\w+)_ENTRIES\((\w+), (\w*)\)$", fp32,
-                      re.M) == [("FWD", "F64", ""), ("FWD", "F256", "_d256")]
-    for name in ("dq_kernel", "dkv_kernel", "flash_bwd_"):
+    # flash_fp32.cu defines both forwards at 64 and nothing else: the
+    # backward pair at 64 is csrc/flash_fp32_d64_bwd_sm90.cu's, all four at
+    # 256 csrc/flash_fp32_d256_sm90.cu's and csrc/flash_fp32_d256_bwd_sm90.cu's
+    assert re.findall(r'^extern "C" int (\w+)\(', fp32, re.M) == [
+        "flash_fwd_fp32", "flash_fwd_pipelined_fp32"]
+    assert re.findall(r"using (\w+) = Fp32<", fp32) == ["F64"]
+    for name in ("dq_kernel", "dkv_kernel", "flash_bwd_", "Fp32<256"):
         assert name not in fp32, name
 
 
@@ -206,33 +208,58 @@ def test_the_d64_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
             for kind in ("fwd", "fwd_pipelined")] == [tfa.FP32_BLOCK_KV[64]] * 2
 
 
-def test_the_d256_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
-    # the tiled plain versions and phase 3f count the fp32 backward pair at
-    # 256 in kernel_block_kv(256, fp32, "bwd_dq" / "bwd_dkv"), FP32_BLOCK_KV
-    # [256]; csrc/flash_fp32_d256_bwd_sm90.cu fixes its streamed tile (the
-    # kv tile dq walks, the q tile dk/dv walks), a cluster's resident rows
-    # and its blocks over head_dim at build time, and defines the pair's
-    # two entries under the names the wrappers launch
+# both fp32 sources at head_dim 256 and what they define: the backward pair
+# (csrc/flash_fp32_d256_bwd_sm90.cu) and the two forwards
+# (csrc/flash_fp32_d256_sm90.cu)
+D256_SOURCES = {"flash_fp32_d256_bwd_sm90.cu": ("bwd_dq", "bwd_dkv"),
+                "flash_fp32_d256_sm90.cu": ("fwd", "fwd_pipelined")}
+
+
+def _d256_layout_walks_the_tile_the_wrappers_count_in(source):
+    # the tiled plain versions and phase 3f count all four fp32 kernels at
+    # 256 in kernel_block_kv(256, fp32, kind) = FP32_BLOCK_KV[256] and
+    # FP32_D256_ROWS, FP32_D256_RANKS; csrc/flash_fp32_d256_sm90.cuh fixes
+    # the streamed tile (the kv tile of the forwards and dq, the q tile of
+    # dk/dv), a cluster's resident rows and its blocks over head_dim at
+    # build time for both sources, which define none of them themselves,
+    # and each source defines its kernels' entries and the clusters query
+    # under the names the wrappers launch
     fp32 = torch.float32
-    text = _csrc("flash_fp32_d256_bwd_sm90.cu")
+    header = _csrc("flash_fp32_d256_sm90.cuh")
     for name, value in (("kBlockKV", tfa.FP32_BLOCK_KV[256]),
-                        ("kRows", tfa.FP32_D256_BWD_ROWS),
-                        ("kRanks", tfa.FP32_D256_BWD_RANKS),
+                        ("kRows", tfa.FP32_D256_ROWS),
+                        ("kRanks", tfa.FP32_D256_RANKS),
                         ("kD", 256)):
-        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [
+        assert re.findall(rf"constexpr int {name} = (\d+);", header) == [
             str(value)], name
-    assert "constexpr int kCols = kD / kRanks;" in text
-    assert [tfa.kernel_block_kv(256, fp32, kind)
-            for kind in ("bwd_dq", "bwd_dkv")] == [tfa.FP32_BLOCK_KV[256]] * 2
-    for kind in ("bwd_dq", "bwd_dkv"):
+    assert "constexpr int kCols = kD / kRanks;" in header
+    text = _csrc(source)
+    assert '#include "flash_fp32_d256_sm90.cuh"' in text
+    for name in ("kBlockKV", "kRows", "kRanks", "kD", "kCols"):
+        assert f"constexpr int {name} =" not in text, name
+    kinds = D256_SOURCES[source]
+    assert [tfa.kernel_block_kv(256, fp32, kind) for kind in kinds] == [
+        tfa.FP32_BLOCK_KV[256]] * 2
+    for kind in kinds:
         entry = tfa.kernel_name(kind, 256, fp32)
         assert f'extern "C" int {entry}(' in text, entry
-    assert "flash_bwd_d256_fp32_max_clusters" in _build._signatures()
-    # the forwards at 256 keep flash_fp32.cu's FP32_BLOCK_KV[256]-row tile
-    assert [tfa.kernel_block_kv(256, fp32, kind)
-            for kind in ("fwd", "fwd_pipelined")] == [tfa.FP32_BLOCK_KV[256]] * 2
-    assert re.findall(r"using F256 = Fp32<256, (\d+)>;",
-                      _csrc("flash_fp32.cu")) == [str(tfa.FP32_BLOCK_KV[256])]
+        assert entry not in _csrc("flash_fp32.cu"), entry
+    clusters = f"flash_{kinds[0][:3]}_d256_fp32_max_clusters"
+    assert f'extern "C" int {clusters}(' in text
+    assert clusters in _build._signatures()
+
+
+def test_the_d256_fp32_backward_source_walks_the_tile_the_wrappers_count_in():
+    _d256_layout_walks_the_tile_the_wrappers_count_in(
+        "flash_fp32_d256_bwd_sm90.cu")
+
+
+def test_the_d256_fp32_forward_source_walks_the_tile_the_wrappers_count_in():
+    _d256_layout_walks_the_tile_the_wrappers_count_in(
+        "flash_fp32_d256_sm90.cu")
+    # one tile for all four kernels at 256, so the call without a kind
+    # names it
+    assert tfa.kernel_block_kv(256, torch.float32) == tfa.FP32_BLOCK_KV[256]
 
 
 def test_the_tf32_wgmma_pieces_live_in_one_header():
@@ -249,15 +276,19 @@ def test_the_tf32_wgmma_pieces_live_in_one_header():
               "void split_chunk(", "void split_plane(", "void split_frags(",
               "void issue_out(", "void release_warp(", "void add_part(",
               "#define TF32_RS_N64(", "void load_plane(", "struct StreamRaw",
-              "void read_stream(", "void write_natural(",
-              "void write_transposed(", "void store_rows(",
-              "((((d & 31) >> 2) ^ (r & 7)) << 4)")
+              "void read_stream(", "void read_transposed(",
+              "void write_natural(", "void write_transposed(",
+              "void store_rows(", "((((d & 31) >> 2) ^ (r & 7)) << 4)")
     for piece in pieces:
         assert piece in header, piece
+    # the 256 sources include it through their layout's header
+    d256 = "flash_fp32_d256_sm90.cuh"
+    assert '#include "tf32_wgmma_sm90.cuh"' in _csrc(d256)
     for source in ("quant_fp32_sm90.cu", "flash_fp32_d64_bwd_sm90.cu",
-                   "flash_fp32_d256_bwd_sm90.cu"):
+                   d256, *D256_SOURCES):
         text = _csrc(source)
-        assert '#include "tf32_wgmma_sm90.cuh"' in text, source
+        assert (f'#include "{d256}"' if source in D256_SOURCES
+                else '#include "tf32_wgmma_sm90.cuh"') in text, source
         for piece in pieces + ("rna_tf32(", "wgmma.mma_async"):
             assert piece not in text, (source, piece)
 
@@ -265,9 +296,9 @@ def test_the_tf32_wgmma_pieces_live_in_one_header():
 def test_the_cluster_pieces_live_in_one_header():
     # the cluster's rank, mapa, remote stores, the split cluster barrier,
     # the asynchronous remote store, the cluster-scope wait and the cluster
-    # launch are csrc/cluster_sm90.cuh's; the 512 layout's header (and
-    # through it both 512 sources) and the 256 backward pair include it and
-    # define none of them
+    # launch are csrc/cluster_sm90.cuh's; the 512 and 256 layouts' headers
+    # (and through them all four sources) include it and define none of
+    # them
     header = _csrc("cluster_sm90.cuh")
     pieces = ("%%cluster_ctarank", "mapa.shared::cluster",
               "st.shared::cluster.v4", "barrier.cluster.arrive",
@@ -276,15 +307,30 @@ def test_the_cluster_pieces_live_in_one_header():
               "cudaOccupancyMaxActiveClusters(")
     for piece in pieces:
         assert piece in header, piece
-    for source in ("flash_fp32_d512_sm90.cuh", "flash_fp32_d256_bwd_sm90.cu"):
-        assert '#include "cluster_sm90.cuh"' in _csrc(source), source
-    for source in ("flash_fp32_d512_sm90.cuh", "flash_fp32_d512_sm90.cu",
-                   "flash_fp32_d512_bwd_sm90.cu",
-                   "flash_fp32_d256_bwd_sm90.cu"):
+    layouts = {"flash_fp32_d512_sm90.cuh": ("flash_fp32_d512_sm90.cu",
+                                            "flash_fp32_d512_bwd_sm90.cu"),
+               "flash_fp32_d256_sm90.cuh": tuple(D256_SOURCES)}
+    for layout, sources in layouts.items():
+        assert '#include "cluster_sm90.cuh"' in _csrc(layout), layout
+        for source in (layout, *sources):
+            text = _csrc(source)
+            assert source == layout or f'#include "{layout}"' in text, source
+            for piece in pieces:
+                assert piece not in text, (source, piece)
+    # the score products and the exchange of both 256 sources are their
+    # layout header's, one piece of code: on the same Q and K the forwards'
+    # S and the backward pair's are the same bits
+    scores = ("void issue_scores(", "void send_part(", "float4 sum_ranks(",
+              "void gathered_frags(", "struct Exchange {",
+              "Exchange exchange(", "void scatter(", "struct Barriers {",
+              "#define D256_SS(", "__fadd_rn(a[4 * n], b[4 * n])")
+    d256 = _csrc("flash_fp32_d256_sm90.cuh")
+    for piece in scores:
+        assert piece in d256, piece
+    for source in D256_SOURCES:
         text = _csrc(source)
-        assert '#include "flash_fp32_d512_sm90.cuh"' in text or (
-            '#include "cluster_sm90.cuh"' in text), source
-        for piece in pieces:
+        assert "issue_scores(" in text and "sum_ranks(" in text, source
+        for piece in scores:
             assert piece not in text, (source, piece)
 
 
@@ -301,14 +347,17 @@ def test_the_fp32_tma_host_side_lives_in_one_header():
     pairs = ("flash_fp32_d64_bwd_sm90.cu", "flash_fp32_d256_bwd_sm90.cu",
              "flash_fp32_d512_bwd_sm90.cu")
     for source in pairs + ("flash_fp32_d512_sm90.cu",
-                           "flash_fp32_d512_sm90.cuh"):
+                           "flash_fp32_d512_sm90.cuh",
+                           "flash_fp32_d256_sm90.cu",
+                           "flash_fp32_d256_sm90.cuh"):
         text = _csrc(source)
         for piece in ("struct BwdParams {", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32",
                       "encode_fn()"):
             assert piece not in text, (source, piece)
     for source in pairs:
         assert "fp32_tma::fill_params(" in _csrc(source), source
-    assert '#include "fp32_tma_sm90.cuh"' in _csrc("flash_fp32_d512_sm90.cuh")
+    for layout in ("flash_fp32_d512_sm90.cuh", "flash_fp32_d256_sm90.cuh"):
+        assert '#include "fp32_tma_sm90.cuh"' in _csrc(layout), layout
 
 
 @pytest.mark.parametrize("s,t", [(100, 300), (96, 160), (40, 72)])
@@ -406,14 +455,17 @@ def test_plain_fp32_backward_at_the_d512_tile_matches_jax(s, t):
     assert _rel_l2(grads[1] * (1 + 1e-4), j_grads[1]) > REL_L2
 
 
-@pytest.mark.parametrize("pipelined,s,t", [(False, 100, 300),
-                                             (True, 64, 96)])
-def test_plain_fp32_forwards_at_the_d512_tile_match_jax(pipelined, s, t):
-    # the tiled plain forward at both 512 forwards' own tile (32 rows), in
-    # each one's domain, against the JAX package's fp32 _flash_fwd_3d
-    # (ragged S and T) and _flash_fwd_3d_pipelined (T three whole tiles),
-    # Pallas in interpret mode
-    d = 512
+@pytest.mark.parametrize("d,pipelined,s,t", [
+    pytest.param(512, False, 100, 300, id="False-100-300"),
+    pytest.param(512, True, 64, 96, id="True-64-96"),
+    pytest.param(256, False, 100, 300, id="d256-False-100-300"),
+    pytest.param(256, True, 64, 96, id="d256-True-64-96")])
+def test_plain_fp32_forwards_at_the_d512_tile_match_jax(d, pipelined, s, t):
+    # the tiled plain forward at both forwards' own tile (32 rows) at 512
+    # and at 256 (the cluster layouts' tile), in each one's domain, against
+    # the JAX package's fp32 _flash_fwd_3d (ragged S and T) and
+    # _flash_fwd_3d_pipelined (T three whole tiles), Pallas in interpret
+    # mode
     q, k, v, _ = (_to3d(x) for x in _inputs(d + 3, 1, s, t, 1, d))
     scale = d ** -0.5
     kind = "fwd_pipelined" if pipelined else "fwd"
@@ -592,10 +644,11 @@ def _held(got, ref) -> bool:
 
 
 # (B*H, S, T): a training step's shape at each width and a ragged one; at
-# 256 also S and T not whole 64-row clusters of the backward pair
+# 256 also S and T not whole 64-row clusters, and T one kv tile (the
+# forwards' second exchange buffers unused)
 CUDA_SHAPES = {64: [(20, 4096, 4096), (4, 1000, 577)],
                256: [(16, 4096, 4096), (2, 1000, 1500), (3, 33, 100),
-                     (2, 100, 33)],
+                     (2, 100, 33), (2, 100, 20)],
                512: [(4, 4096, 4096), (2, 1000, 1500)]}
 
 
