@@ -108,8 +108,9 @@ Phases, one line each (any failure raises and exits non-zero):
      each timed beside its bound at the 3xTF32 rate, its plain version and
      F.conv2d(F.silu(F.group_norm)) in fp32; the pass's sums;
   3i. the narrow head_dims (csrc/flash_narrow.cu: every multiple of 8 up
-     to 128 but 64, at tile widths 16, 32, 64 and 128, bf16 and fp32): the
-     four kernels at D = 8, 16, 32, 40, 80 and 128 against their plain
+     to 128 but 64, at tile widths 16, 32, 64 and 128, bf16 and fp32; both
+     bf16 forwards at width 16 csrc/flash_narrow_w16_sm90.cu): the four
+     kernels at D = 8, 16, 32, 40, 80 and 128 against their plain
      tiled versions at the kernels' kv tile and their dtype's criteria
      (bf16 as phase 3's, fp32 as 3f's and within 1e-5 of fp64), at the tiny
      model's shapes (B*H, S, T) = (2, 65536, 65536) and (4, 16384, 16384)
@@ -120,7 +121,9 @@ Phases, one line each (any failure raises and exits non-zero):
      kv tile, TF32 alone) must FAIL; strided views the contiguous bits,
      the switch on too; each timed beside its plain one-pass version, SDPA
      (its backend recorded) and a bound whose third term is the
-     exponentials over the special-function units' rate;
+     exponentials over the special-function units' rate, the width-16
+     bf16 forwards with their blocks an SM (and, on the progress line
+     only, their rows a block, blocks and waves);
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
      through DiffUTEPipeline.edit, counting kernel launches;
@@ -215,11 +218,12 @@ Phases, one line each (any failure raises and exits non-zero):
      launches: 44, then 44 recomputed) against the flag off (the loss
      within 1e-5, four probes' gradients within 1e-4); seconds and peaks;
   8f. the tiny model (tiny_test_config, head_dim 8 in the UNet, 16 in the
-     VAE's mid-block) at 512^2 through csrc/flash_narrow.cu's width-16
-     kernels: serve.cli --tiny --res 512 as a subprocess, switch off and on
-     (200 launches, only the box changed); a 50-step bf16 edit with the
-     VAE's flag (202), switch on (0 LSB) and on the dense route (within 2
-     LSB), a UNet forward and the codec against dense; a 20-step fp32 edit
+     VAE's mid-block) at 512^2 through the width-16 kernels
+     (csrc/flash_narrow_w16_sm90.cu's forwards, csrc/flash_narrow.cu's
+     pair and fp32 kernels): serve.cli --tiny --res 512 as a subprocess,
+     switch off and on (200 launches, only the box changed); a 50-step
+     bf16 edit with the VAE's flag (202), switch on (0 LSB) and on the
+     dense route (within 2 LSB), a UNet forward and the codec against dense; a 20-step fp32 edit
      (82) against the switch and dense within 1 LSB; a stage-2 step (10 /
      4 / 4) and a stage-1 step (2 / 2 / 2) in bf16 and fp32 against the
      dense route and, past its tolerance, against a step with fp64
@@ -308,11 +312,15 @@ prints their kernels line; with --package-root from another checkout's
 package, so change, parent, parent, change in one call times two commits'
 kernels and edits in turns.
 
-    python3 chip_smoke.py --narrow-only
+    python3 chip_smoke.py --narrow-only [--package-root DIR]
 
 builds the kernels and runs phases 3i and 8f (the narrow head_dims' kernels
 and the tiny model's paths) alone (about 4 minutes) and prints their
-kernels line.
+kernels line; with --package-root from another checkout's package (a
+package from before flash_narrow_w16_sm90.cu has its width-16 bf16
+forwards in flash_narrow.cu), so change, parent, parent, change in one
+call times two commits' narrow kernels, cuDNN beside them, and the tiny
+edits with the switch off and on, in turns.
 
     python3 chip_smoke.py --workflow-only
 
@@ -1981,9 +1989,12 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     return out
 
 
-# ---- phase 3i: the narrow head_dims (csrc/flash_narrow.cu): every
-# multiple of 8 up to 128 but 64, bf16 and fp32, at tile widths 16 to 128
+# ---- phase 3i: the narrow head_dims (csrc/flash_narrow.cu, and both bf16
+# forwards at width 16 csrc/flash_narrow_w16_sm90.cu): every multiple of 8
+# up to 128 but 64, bf16 and fp32, at tile widths 16 to 128
 NARROW_WIDTHS = (16, 32, 64, 128)
+NARROW_SOURCE = "flash_narrow.cu"
+NARROW_W16_SOURCE = "flash_narrow_w16_sm90.cu"
 NARROW_DIMS = (8, 16, 32, 40, 80, 128)
 # (B*H, S, T) by head_dim, the main paths' first: at 8 the tiny UNet's
 # self-attentions of a 512^2 pass (3 at 65,536 tokens and 2 heads, 1 at
@@ -2002,8 +2013,40 @@ EXP_PER_CLOCK_SM = 16
 
 
 def narrow_entry(kind: str, w: int, fp32: bool) -> str:
-    """The C entry (and counters() key) of a csrc/flash_narrow.cu kernel."""
+    """The C entry (and counters() key) of a narrow kernel."""
     return f"flash_{kind}_w{w}_" + ("fp32" if fp32 else "bf16")
+
+
+def narrow_source(kind: str, w: int, fp32: bool) -> str:
+    """The source under csrc/ of the imported package that holds a narrow
+    kernel: the bf16 forwards at width 16 are NARROW_W16_SOURCE's where the
+    package has it (a package from before keeps them in NARROW_SOURCE)."""
+    from diffute_tpu_torch.ops import _build
+
+    if (w == 16 and not fp32 and kind.startswith("fwd") and os.path.exists(
+            os.path.join(_build.CSRC, NARROW_W16_SOURCE))):
+        return NARROW_W16_SOURCE
+    return NARROW_SOURCE
+
+
+def w16_waves(fa, kind: str, bh: int, s: int, d: int) -> dict:
+    """The grid of a bf16 width-16 forward at (B*H, S, D), for phase 3i's
+    progress line: query rows a block and blocks (the launcher's rule), the
+    blocks an SM runs at once (the source's occupancy query; None for a
+    package from before it) and the waves they take on the card's SMs.
+    Only the occupancy query is measured, so only blocks_per_sm goes into
+    the kernels line."""
+    from diffute_tpu_torch.ops import _build
+
+    rows = getattr(fa, "NARROW_W16_FWD_ROWS", fa.NARROW_BLOCK_KV[16])
+    blocks = -(-s // rows) * bh
+    lib = _build.load()
+    per_sm = (lib.flash_fwd_w16_bf16_blocks_per_sm(
+        int(kind == "fwd_pipelined"), d)
+        if hasattr(lib, "flash_fwd_w16_bf16_blocks_per_sm") else None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"rows_a_block": rows, "blocks": blocks, "blocks_per_sm": per_sm,
+            "waves": blocks / (per_sm * sms) if per_sm else None}
 
 
 def narrow_counter(kind: str, w: int, fp32: bool) -> str:
@@ -2102,7 +2145,7 @@ def fp64_rows(q, k, v, do, sc, rows: int) -> dict:
 
 
 def check_narrow(dev) -> dict:
-    """Phase 3i: the four kernels of csrc/flash_narrow.cu at head_dims
+    """Phase 3i: the four narrow kernels (narrow_source) at head_dims
     NARROW_DIMS, bf16 and fp32, at NARROW_SHAPES, against their plain tiled
     versions at the kernels' kv tile (kernel_block_kv) and their dtype's
     domain: bf16 at the other bf16 entries' criteria (forwards 3 half-ulps,
@@ -2126,7 +2169,9 @@ def check_narrow(dev) -> dict:
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    show_ptxas("flash_narrow.cu")
+    for source in sorted({narrow_source(kind, w, fp32) for kind in FP32_KINDS
+                          for w in NARROW_WIDTHS for fp32 in (False, True)}):
+        show_ptxas(source)
     g = torch.Generator(device=dev).manual_seed(18)
     out = {key: [] for key, _ in narrow_keys()}
 
@@ -2221,6 +2266,10 @@ def check_narrow_shape(fa, g, dev, dtype, d, bh, s, t, bkv, esize, peak,
                  ms=time_ms(run, iters=iters), plain_ms=fwd_plain_ms,
                  domain=domain, kv_tile=bkv, **library, **fwd_bound)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        grid = {}
+        if not fp32 and fa.narrow_width(d) == 16:
+            grid = w16_waves(fa, kind, bh, s, d)
+            r["blocks_per_sm"] = grid["blocks_per_sm"]
         if f64 is not None:
             n = f64["rows"]
             r["vs_fp64"] = {"kernel": rel_l2_64(o[:, :n], f64["o"]),
@@ -2235,7 +2284,7 @@ def check_narrow_shape(fa, g, dev, dtype, d, bh, s, t, bkv, esize, peak,
             r["mutants"] = narrow_mutants(fa, q, k, v, do, sc, bkv, fp32, ro,
                                           rlse)
         del ro, rlse, o2, lse2
-        phase(f"kernel_{names[kind]}", **r)
+        phase(f"kernel_{names[kind]}", **{**r, **grid})
         expect_flash({"launches": launches}, **{names[kind]: 2})
         ok = (narrow_held(fp32, err, lse_err) and r["same_bits_twice"]
               and r.get("standard_bits", True)
@@ -2463,7 +2512,7 @@ def narrow_entries(results: dict, launches: dict) -> list:
         return {path: rec[key] for path, rec in launches.items()
                 if rec.get(key)}
 
-    return [dict(kernel_entry(key, "flash_narrow.cu",
+    return [dict(kernel_entry(key, narrow_source(kind, w, fp32),
                               f"flash_attention.py:{FP32_REPLACES[kind]}",
                               results[key], by_path(key)),
                  on_a_path=w == 16)
@@ -4652,7 +4701,7 @@ def check_tiny_paths(dev) -> dict:
     """Phase 8f: the tiny model (tiny_test_config, weights from seed 0) on
     its card paths at TINY_RES (512^2: head_dim-8 self-attentions of 65,536
     and 16,384 tokens, a head_dim-16 VAE mid-block of 65,536), through
-    csrc/flash_narrow.cu's tile-width-16 kernels, every flash counter
+    the tile-width-16 kernels (narrow_source), every flash counter
     asserted on each path:
       (a) ``python -m diffute_tpu_torch.serve.cli --tiny --res 512`` as a
           subprocess, and again with --pipeline-fwd: exit 0, only the box's
@@ -6360,9 +6409,10 @@ def main(argv=None) -> None:
                     stage1["flash_route_pipelined"])}}), flush=True)
         return
     if args.narrow_only:
+        import diffute_tpu_torch
         from diffute_tpu_torch.ops import _build
 
-        print(gpu_line(), flush=True)
+        print(gpu_line(), diffute_tpu_torch.__file__, flush=True)
         _build.load()
         dev = torch.device("cuda", 0)
         seconds = {}

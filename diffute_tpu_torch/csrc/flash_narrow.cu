@@ -3,9 +3,11 @@
 // the dq kernel (which also writes delta) and the dk/dv kernel, on bf16 and
 // on fp32 inputs, fp32 LSE and delta.  One source, templated on the element
 // type and on a tile width W in {16, 32, 64, 128} (`Narrow<T, W>`); a call
-// at head_dim D runs at the smallest W >= D.  Head_dim 64 itself stays with
-// flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu (bf16) and
-// flash_fp32.cu (fp32); 256 and 512 with flash_wide.cu and flash_fp32.cu.
+// at head_dim D runs at the smallest W >= D.  The two bf16 forwards at W = 16
+// are flash_narrow_w16_sm90.cu's (redesigned for the tiny model's shapes);
+// this source keeps the bf16 pair at 16 and everything else.  Head_dim 64
+// itself stays with flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu
+// (bf16) and flash_fp32.cu (fp32); 256 and 512 with their own sources.
 // The widths that reach these kernels: 8 (the tiny model's UNet heads) and
 // 16 (its VAE mid-block's single head with VAEConfig.use_flash_attention);
 // 40 and 80 are SD1.x's, 128 a common width elsewhere.
@@ -46,7 +48,11 @@
 // SMs) against 1,024 bf16 tensor-core FLOPs a clock an SM, so at D <= 32
 // the exponentials, not the products or the bytes, set the least time:
 // at (B*H, S, T) = (2, 65536, 65536) and D = 8, 2.75e11 FLOPs take 0.28 ms
-// at 989 TFLOP/s and the 8.6e9 exponentials about 2.2 ms.  What the design
+// at 989 TFLOP/s and the 8.6e9 exponentials about 2.2 ms.  (The bf16
+// forwards at W = 16 reach 69% of that in flash_narrow_w16_sm90.cu, whose
+// exponentials are each one MUFU.EX2; here exp2f / expf without -ftz lower
+// to a compare, two predicated multiplies and the MUFU, and the W = 16
+// bf16 forward issued 14.4 instructions a score.)  What the design
 // does about it: each warp keeps a 16-row tile's scores, its softmax state
 // and its whole W-column accumulator in registers (at W = 128, 64 fp32 a
 // thread), so no score or partial sum leaves the SM and no barrier but the
@@ -84,10 +90,12 @@
 
 #include <type_traits>
 
+#include "bf16_mma_sync.cuh"
 #include "tf32_sm90.cuh"
 
 namespace {
 
+using namespace bf16_mma;
 using namespace tf32_sm90;
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -138,35 +146,6 @@ __device__ __forceinline__ uint32_t chunk_off(int r, int c) {
 template <class N>
 __device__ __forceinline__ int fidx(int r, int col) {
   return r * N::kW + (((col >> 2) ^ xr<N>(r)) << 2) + (col & 3);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// D = A(16x16 bf16, row) * B(16x8 bf16, col) + D, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -1017,7 +996,7 @@ using F128 = Narrow<float, 128>;
 // (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates nothing,
 // and returns a CUDA error code (0 = launched).
 
-#define FLASH_NARROW_ENTRIES(N, w, t)                                         \
+#define FLASH_NARROW_FWD_ENTRIES(N, w, t)                                     \
   extern "C" int flash_fwd_##w##_##t(                                         \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, int d, const long long* strides,           \
@@ -1031,7 +1010,9 @@ using F128 = Narrow<float, 128>;
       float scale, void* stream) {                                            \
     return fwd_deferred<N>(q, k, v, o, lse, b, h, s_len, t_len, d, strides,   \
                            scale, stream);                                    \
-  }                                                                           \
+  }
+
+#define FLASH_NARROW_BWD_ENTRIES(N, w, t)                                     \
   extern "C" int flash_bwd_dq_##w##_##t(                                      \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -1049,7 +1030,12 @@ using F128 = Narrow<float, 128>;
                       d, strides, scale, stream);                             \
   }
 
-FLASH_NARROW_ENTRIES(B16, w16, bf16)
+#define FLASH_NARROW_ENTRIES(N, w, t) \
+  FLASH_NARROW_FWD_ENTRIES(N, w, t)   \
+  FLASH_NARROW_BWD_ENTRIES(N, w, t)
+
+// the two bf16 forwards at width 16 are flash_narrow_w16_sm90.cu's
+FLASH_NARROW_BWD_ENTRIES(B16, w16, bf16)
 FLASH_NARROW_ENTRIES(B32, w32, bf16)
 FLASH_NARROW_ENTRIES(B64, w64, bf16)
 FLASH_NARROW_ENTRIES(B128, w128, bf16)

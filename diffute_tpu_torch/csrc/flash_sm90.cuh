@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma_sync.cuh"
+
 namespace sm90 {
 
 constexpr int kHeadDim = 64;
@@ -447,10 +449,7 @@ __device__ __forceinline__ void rescale(float (&o)[32], float2 alpha) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using bf16_mma::pack_bf16;
 
 // p (fp32 accumulator layout) rounded to bf16 as wgmma's register A operand.
 template <int K>

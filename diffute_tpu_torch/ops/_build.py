@@ -112,12 +112,16 @@ def _signatures() -> dict:
         "flash_fwd_d512_fp32_max_clusters": [i],
         "flash_fwd_d256_fp32_max_clusters": [i],
         # the same four at the narrow tile widths, bf16 and fp32, with the
-        # head_dim after T (csrc/flash_narrow.cu)
+        # head_dim after T (csrc/flash_narrow.cu; both bf16 forwards at
+        # width 16 csrc/flash_narrow_w16_sm90.cu)
         **{f"flash_{kind}_w{width}_{t}": (
             [p] * 8 + [i] * 5 if kind.startswith("bwd") else [p] * 5 + [i] * 5)
            + [ctypes.POINTER(ctypes.c_longlong), f, p]
            for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
            for width in (16, 32, 64, 128) for t in ("bf16", "fp32")},
+        # the blocks an SM of the bf16 width-16 standard (0) or deferred (1)
+        # forward at head_dim 8 or 16
+        "flash_fwd_w16_bf16_blocks_per_sm": [i, i],
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream), bf16
         # and fp32 x
         **{f"gn_stats_{t}": [p] * 3 + [i] * 4 + [f, p]
@@ -154,6 +158,12 @@ def ptxas_info(source: str) -> str:
     return res.stderr.strip()
 
 
+def sources() -> list:
+    """Every CUDA source under ``csrc/``: :func:`load` builds each into a
+    library of its own."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
 class _Kernels:
     """The exported kernel launchers, gathered from the per-source
     libraries."""
@@ -166,7 +176,7 @@ def load() -> _Kernels:
     global _lib
     with _lock:
         if _lib is None:
-            srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+            srcs = sources()
             if not srcs:
                 raise RuntimeError(f"no CUDA sources under {CSRC}")
             command = [_nvcc(), *NVCC_FLAGS]

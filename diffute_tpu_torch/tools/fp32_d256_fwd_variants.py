@@ -34,11 +34,11 @@ import json
 import os
 import re
 import shutil
-import statistics
-import subprocess
 import tempfile
 
 import torch
+
+from diffute_tpu_torch.tools import kernel_variants
 
 SOURCE = "flash_fp32_d256_sm90.cu"
 SHAPES = ((16, 4096, 4096), (1, 4096, 4096), (2, 1000, 1500))
@@ -75,14 +75,11 @@ def apply_probe(text: str, name: str) -> tuple:
 def build(variant, root: str) -> tuple:
     """The source at ``variant`` (kNatStages, kTrStages), or with a probe's
     line dropped (a name of PROBES), built under ``root``: (library path,
-    ptxas registers and spills)."""
+    ptxas registers and spills by kernel)."""
     from diffute_tpu_torch.ops import _build
 
     name = variant if isinstance(variant, str) else "n%dt%d" % variant
-    d = os.path.join(root, name)
-    shutil.copytree(_build.CSRC, d)
-    path = os.path.join(d, SOURCE)
-    with open(path) as f:
+    with open(os.path.join(_build.CSRC, SOURCE)) as f:
         text = f.read()
     if isinstance(variant, str):
         text, n = apply_probe(text, variant)
@@ -92,32 +89,9 @@ def build(variant, root: str) -> tuple:
     if n != 1:
         raise SystemExit(f"fp32_d256_fwd_variants: {name} does not apply to "
                          f"{SOURCE}")
-    with open(path, "w") as f:
-        f.write(text)
-    so = os.path.join(d, "variant.so")
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                          "-o", so, path], capture_output=True, text=True)
-    if res.returncode:
-        raise SystemExit(f"fp32_d256_fwd_variants: {name} did not build:"
-                         f"\n{res.stderr[-3000:]}")
-    return so, {"registers": re.findall(r"Used (\d+) registers", res.stderr),
-                "spill_bytes": re.findall(r"(\d+) bytes spill stores",
-                                          res.stderr)}
-
-
-def time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        torch.cuda._sleep(1_000_000)
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    so, _, stderr = kernel_variants.build_copy(_build.CSRC, SOURCE, text,
+                                               root, name)
+    return so, kernel_variants.ptxas_by_kernel(stderr)
 
 
 def main(argv=None) -> None:
@@ -130,9 +104,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("fp32_d256_fwd_variants: no CUDA device")
     fa = importlib.import_module("diffute_tpu_torch.ops.flash_attention")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = kernel_variants.card()
     print(card, flush=True)
     variants = [tuple(int(x) for x in s.split(",")) for s in args.stages]
     variants += list(PROBES) if args.probes else []
@@ -150,7 +122,7 @@ def main(argv=None) -> None:
                     [fp] * 5 + [i] * 4 + [ctypes.POINTER(ctypes.c_longlong), f,
                                           fp])
             libs[name] = lib
-            print(json.dumps({"variant": name, **ptxas}), flush=True)
+            print(json.dumps({"variant": name, "ptxas": ptxas}), flush=True)
         gen = torch.Generator(device="cuda").manual_seed(8)
         d, sc = 256, 256 ** -0.5
         lines = [card]
@@ -190,7 +162,8 @@ def main(argv=None) -> None:
                             {"rel_l2": ((o3 - ro).norm() / ro.norm()).item(),
                              "lse_abs": (lse - rlse).abs().max().item(),
                              "ms": []})
-                        rec["ms"].append(time_ms(call, args.iters))
+                        rec["ms"].append(
+                            kernel_variants.time_ms(call, args.iters))
             print(json.dumps(out), flush=True)
             lines.append(out)
             del q, k, v, o, lse, refs

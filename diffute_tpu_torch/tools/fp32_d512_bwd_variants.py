@@ -52,15 +52,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import glob
 import importlib
 import json
 import os
 import re
-import subprocess
 import tempfile
 
 import torch
+
+from diffute_tpu_torch.tools import kernel_variants
 
 HEADER = "flash_fp32_d512_sm90.cuh"
 # each source's entries; a variant stands for the source whose entries it
@@ -151,16 +151,11 @@ def build(paths) -> dict:
     each built into the package's build directory."""
     from diffute_tpu_torch.ops import _build
 
-    command = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC]
-    headers = sorted(glob.glob(os.path.join(_build.CSRC, "*.cuh")))
     sigs = _build._signatures()
     out = {}
     for path in paths:
         stem = os.path.splitext(os.path.basename(path))[0]
-        local = sorted(glob.glob(os.path.join(os.path.dirname(path),
-                                              "*.cuh")))
-        lib = ctypes.CDLL(_build.build_shared_library(
-            f"variant_{stem}", command, [path], hashed=headers + local))
+        lib = kernel_variants.build_library(path)
         source = next(s for s, entries in SOURCES.items()
                       if hasattr(lib, entries[0]))
         fns = {}
@@ -351,10 +346,10 @@ def chain_study(route: str, chains, iters: int) -> list:
             delta = fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc)[1]
             for name in list(variants) + list(variants)[::-1]:
                 use(name)
-                times[name]["dq"].append(median_ms(
+                times[name]["dq"].append(kernel_variants.time_ms(
                     lambda: fa.flash_bwd_dq_3d(q, k, v, o, lse, do, sc),
                     iters))
-                times[name]["dkv"].append(median_ms(
+                times[name]["dkv"].append(kernel_variants.time_ms(
                     lambda: fa.flash_bwd_dkv_3d(q, k, v, do, lse, delta, sc),
                     iters))
             for name in variants:
@@ -366,20 +361,6 @@ def chain_study(route: str, chains, iters: int) -> list:
     for entry, fn in package.items():  # the package's own kernels again
         setattr(lib, entry, fn)
     return rows
-
-
-def median_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def _rel(a, b) -> float:
@@ -459,7 +440,7 @@ def measure(variants: dict, source: str, iters: int, seed: int = 8) -> list:
         for name in list(variants) + list(variants)[::-1]:
             use(name)
             for kind, fn in kernels.items():
-                times[name][kind].append(median_ms(fn, iters))
+                times[name][kind].append(kernel_variants.time_ms(fn, iters))
         use("package")
         row["variants"] = times
         rows.append(row)
@@ -488,9 +469,7 @@ def main(argv=None) -> None:
                 "--chain-study")
     if not torch.cuda.is_available():
         raise SystemExit("fp32_d512_bwd_variants: no CUDA device")
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    gpu = kernel_variants.card()
     if args.chain_study:
         rows = chain_study(args.chain_study,
                            [int(c) for c in args.chains.split(",")],

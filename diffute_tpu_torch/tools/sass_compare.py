@@ -9,10 +9,11 @@ have) from the package's ``csrc/`` and from ``OTHER_CSRC`` (another
 checkout's, e.g. its parent unpacked by ``git archive``) to a cubin with
 the package's ``nvcc`` flags, disassembles both with ``cuobjdump -sass``
 and, for every kernel either defines, prints its instruction count on each
-side and how many instructions differ (the per-file anonymous-namespace
-tag in the kernel names and the instruction offsets are left out, so a
-kernel whose code did not move reads 0).  A change that only moves shared
-code into a header should leave every kernel at 0.  Prints one JSON
+side and how many instructions differ (``kernel_variants.sass``: the
+per-file anonymous-namespace tags in the kernel names and the instruction
+offsets are left out and branch labels read as the offsets they stand
+for, so a kernel whose code did not move reads 0).  A change that only
+moves shared code into a header should leave every kernel at 0.  Prints one JSON
 object, writes it to ``--out`` if given.  Needs ``nvcc`` and
 ``cuobjdump`` (the CUDA toolkit), not a card.
 """
@@ -23,38 +24,18 @@ import argparse
 import glob
 import json
 import os
-import re
-import subprocess
 import tempfile
+
+from diffute_tpu_torch.tools import kernel_variants
 
 
 def sass(csrc: str, source: str, out_dir: str) -> dict:
     """{kernel name: [instruction]} of one source built from ``csrc``."""
-    from diffute_tpu_torch.ops import _build
-
-    nvcc = _build._nvcc()
-    flags = [f for f in _build.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cubin = os.path.join(out_dir, f"{abs(hash(csrc))}_{source}.cubin")
-    subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
-                    os.path.join(csrc, source)], check=True,
-                   capture_output=True, text=True)
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
-                          capture_output=True, text=True).stdout
-    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
-    kernels, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = kernels.setdefault(m.group(1), [])
-            continue
-        if cur is not None and "/*" in line:
-            ins = re.sub(r"\s+", " ",
-                         re.sub(r"/\*[0-9a-f]{4,}\*/", "", line)).strip()
-            if ins and not ins.startswith("/*"):
-                cur.append(ins)
-    return kernels
+    path = kernel_variants.cubin(
+        os.path.join(csrc, source),
+        os.path.join(out_dir, f"{abs(hash(csrc))}_{source}.cubin"))
+    return {name: [ins for _, ins in listing]
+            for name, listing in kernel_variants.sass(path).items()}
 
 
 def main(argv=None) -> None:

@@ -26,14 +26,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import glob
 import json
 import os
-import statistics
-import subprocess
 import tempfile
 
 import torch
+
+from diffute_tpu_torch.tools import kernel_variants
 
 SOURCE = "quant_fp32_sm90.cu"
 _LO = ("    wgmma_tf32(part, a[s], tf32_desc(hi_s + W8Tile<BT>::x_bytes, s, 0), "
@@ -89,33 +88,13 @@ def build(paths) -> dict:
     build directory with the package's headers."""
     from diffute_tpu_torch.ops import _build
 
-    command = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC]
-    headers = sorted(glob.glob(os.path.join(_build.CSRC, "*.cuh")))
     argtypes = _build._signatures()["w8_matmul_fp32"]
     out = {}
     for path in paths:
-        stem = os.path.splitext(os.path.basename(path))[0]
-        lib = ctypes.CDLL(_build.build_shared_library(
-            f"variant_{stem}", command, [path], hashed=headers))
-        fn = lib.w8_matmul_fp32
+        fn = kernel_variants.build_library(path).w8_matmul_fp32
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        out[stem] = fn
+        out[os.path.splitext(os.path.basename(path))[0]] = fn
     return out
-
-
-def time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        torch.cuda._sleep(1_000_000)
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def main(argv=None) -> None:
@@ -134,9 +113,7 @@ def main(argv=None) -> None:
                                              quantize_per_channel,
                                              w8_fp32_plan)
 
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    gpu = kernel_variants.card()
     with tempfile.TemporaryDirectory() as tmp:
         paths = list(args.variants) + (write_probes(tmp) if args.probes
                                        else [])
@@ -161,7 +138,7 @@ def main(argv=None) -> None:
             row["same_bits_as_package"][name] = torch.equal(run(), ref)
         for name in list(variants) + list(variants)[::-1]:
             lib.w8_matmul_fp32 = variants[name]
-            row["ms"][name].append(time_ms(run, args.iters))
+            row["ms"][name].append(kernel_variants.time_ms(run, args.iters))
         lib.w8_matmul_fp32 = variants["package"]
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -18,6 +18,8 @@ flax) runs its ``cuda`` tests.
 
 import functools
 import importlib
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -250,6 +252,28 @@ def test_other_head_dims_still_raise_naming_the_rule(d):
                 call()
 
 
+# the source of the two bf16 forwards at width 16; flash_narrow.cu keeps
+# every other narrow entry
+W16_SOURCE = "flash_narrow_w16_sm90.cu"
+
+
+def _csrc(name):
+    with open(os.path.join(_build.CSRC, name)) as f:
+        return f.read()
+
+
+def _narrow_defines() -> set:
+    """The entries flash_narrow.cu's macro lines define: FLASH_NARROW_ENTRIES
+    all four kinds, FLASH_NARROW_FWD_ENTRIES the forwards,
+    FLASH_NARROW_BWD_ENTRIES the backward pair."""
+    kinds = {"": KINDS, "FWD_": KINDS[:2], "BWD_": KINDS[2:]}
+    return {f"flash_{kind}_{w}_{t}"
+            for part, w, t in re.findall(
+                r"^FLASH_NARROW_(FWD_|BWD_|)ENTRIES\(\w+, (w\d+), (\w+)\)$",
+                _csrc("flash_narrow.cu"), re.M)
+            for kind in kinds[part]}
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("w", tfa.NARROW_WIDTHS)
 def test_entry_names_and_counters(w, dtype):
@@ -288,6 +312,71 @@ def test_entry_names_and_counters(w, dtype):
         assert {n: getattr(tfa.flash_attention, n) - before[n]
                 for n in every} == {n: int(n == counter) for n in every}
         assert tfa.flash_attention.flops - flops == 4 * 2 * 64 * 4096 * d
+    # each entry is defined by one source that _build compiles: the bf16
+    # forwards at width 16 by flash_narrow_w16_sm90.cu, every other one by
+    # flash_narrow.cu
+    narrow = _narrow_defines()
+    w16 = set(re.findall(r'^extern "C" int (flash_fwd\w*_w16_bf16)\(',
+                         _csrc(W16_SOURCE), re.M))
+    assert w16 == {"flash_fwd_w16_bf16", "flash_fwd_pipelined_w16_bf16"}
+    assert {os.path.join(_build.CSRC, n) for n in (W16_SOURCE,
+                                                   "flash_narrow.cu")} <= set(
+        _build.sources())
+    for kind in KINDS:
+        entry = tfa.kernel_name(kind, d, tdt)
+        moved = w == 16 and dtype == "bf16" and kind.startswith("fwd")
+        assert (entry in w16, entry in narrow) == (moved, not moved), entry
+
+
+def test_the_w16_forward_source_walks_the_tiles_the_wrappers_count_in():
+    # the tiled plain versions, phase 3i and the dispatch rule count both
+    # bf16 forwards at width 16 in kernel_block_kv(d, bf16, kind) =
+    # NARROW_BLOCK_KV[16] and chip_smoke's waves in NARROW_W16_FWD_ROWS;
+    # csrc/flash_narrow_w16_sm90.cu fixes the kv tile (kBlockKV) and the
+    # query rows a block (kRows = 16 kWarps) at build time, and launches
+    # ceil(S / kRows) blocks a (batch, head)
+    text = _csrc(W16_SOURCE)
+    assert re.findall(r"constexpr int kBlockKV = (\d+);", text) == [
+        str(tfa.NARROW_BLOCK_KV[16])]
+    warps = re.findall(r"constexpr int kWarps = (\d+),", text)
+    assert [16 * int(x) for x in warps] == [tfa.NARROW_W16_FWD_ROWS]
+    assert "constexpr int kRows = 16 * kWarps;" in text
+    assert "dim3 grid((p.s_len + kRows - 1) / kRows, bh);" in text
+    for d in (8, 16):
+        assert tfa.narrow_width(d) == 16
+        assert [tfa.kernel_block_kv(d, torch.bfloat16, kind)
+                for kind in KINDS] == [tfa.NARROW_BLOCK_KV[16]] * 4
+        # the deferred forward's rule counts whole tiles of the kernel's
+        assert tfa.pipelined_block_kv(d) % tfa.NARROW_BLOCK_KV[16] == 0
+    # every exponential of the two forwards is one MUFU instruction: no
+    # exp2f / expf (whose lowering without -ftz keeps subnormal results)
+    assert "ex2.approx.ftz.f32" in text
+    code = re.sub(r"//[^\n]*", "", text)
+    assert not re.search(r"\b(exp2f|expf|__expf|exp2)\(", code)
+    # the D = 16 forwards take their launch bounds from their own constants
+    assert re.findall(r"kMinBlocks16 = (\d+),\s+kMinBlocks16Deferred = (\d+);",
+                      text)
+    assert "kDeferred ? kMinBlocks16Deferred" in text
+
+
+def test_the_bf16_mma_sync_pieces_live_in_one_header():
+    # the ldmatrix loads, the bf16 mma.sync products and pack_bf16 are
+    # csrc/bf16_mma_sync.cuh's; the mma.sync flash sources include it and
+    # the wgmma kernels take pack_bf16 through flash_sm90.cuh, and none of
+    # them defines one
+    header = _csrc("bf16_mma_sync.cuh")
+    pieces = ("void ldmatrix_x2(", "void ldmatrix_x4(",
+              "void ldmatrix_x4_trans(", "void mma_bf16(",
+              "void mma_bf16_k8(", "uint32_t pack_bf16(")
+    for piece in pieces:
+        assert piece in header, piece
+    for source in ("flash_narrow.cu", W16_SOURCE, "flash_wide.cu",
+                   "flash_sm90.cuh"):
+        text = _csrc(source)
+        assert '#include "bf16_mma_sync.cuh"' in text, source
+        code = re.sub(r"//[^\n]*", "", text)
+        for piece in pieces + ("ldmatrix.sync", "mma.sync"):
+            assert piece not in code, (source, piece)
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +415,9 @@ def test_cuda_narrow_kernels_match_plain(d, dtype):
     gen = torch.Generator(device="cuda").manual_seed(d)
     scale, bkv = d ** -0.5, tfa.kernel_block_kv(d, tdt)
     counters = [tfa.counter_name(kind, d, tdt) for kind in KINDS]
-    for bh, s, t in ((2, 1000, 1500), (3, 2048, 2048)):
+    # ragged T; whole tiles; ragged S with T whole tiles (both forwards,
+    # the deferred one on the standard one's bits)
+    for bh, s, t in ((2, 1000, 1500), (3, 2048, 2048), (2, 1000, 1536)):
         q, k, v, g = (torch.randn((bh, n, d), generator=gen, device="cuda",
                                   dtype=tdt) for n in (s, t, t, s))
         before = [getattr(tfa.flash_attention, n) for n in counters]
