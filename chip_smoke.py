@@ -108,8 +108,8 @@ Phases, one line each (any failure raises and exits non-zero):
      each timed beside its bound at the 3xTF32 rate, its plain version and
      F.conv2d(F.silu(F.group_norm)) in fp32; the pass's sums;
   3i. the narrow head_dims (csrc/flash_narrow.cu: every multiple of 8 up
-     to 128 but 64, at tile widths 16, 32, 64 and 128, bf16 and fp32; both
-     bf16 forwards at width 16 csrc/flash_narrow_w16_sm90.cu): the four
+     to 128 but 64, at tile widths 16, 32, 64 and 128, bf16 and fp32; all
+     four bf16 kernels at width 16 csrc/flash_narrow_w16_sm90.cu): the four
      kernels at D = 8, 16, 32, 40, 80 and 128 against their plain
      tiled versions at the kernels' kv tile and their dtype's criteria
      (bf16 as phase 3's, fp32 as 3f's and within 1e-5 of fp64), at the tiny
@@ -122,7 +122,7 @@ Phases, one line each (any failure raises and exits non-zero):
      the switch on too; each timed beside its plain one-pass version, SDPA
      (its backend recorded) and a bound whose third term is the
      exponentials over the special-function units' rate, the width-16
-     bf16 forwards with their blocks an SM (and, on the progress line
+     bf16 kernels with their blocks an SM (and, on the progress line
      only, their rows a block, blocks and waves);
   4. serving path: the full-width SD2-inpainting pipeline (bf16, flash on,
      random weights from a seed) runs two 50-step 512^2 single-region edits
@@ -219,15 +219,16 @@ Phases, one line each (any failure raises and exits non-zero):
      within 1e-5, four probes' gradients within 1e-4); seconds and peaks;
   8f. the tiny model (tiny_test_config, head_dim 8 in the UNet, 16 in the
      VAE's mid-block) at 512^2 through the width-16 kernels
-     (csrc/flash_narrow_w16_sm90.cu's forwards, csrc/flash_narrow.cu's
-     pair and fp32 kernels): serve.cli --tiny --res 512 as a subprocess,
+     (csrc/flash_narrow_w16_sm90.cu's bf16 four, csrc/flash_narrow.cu's
+     fp32 four): serve.cli --tiny --res 512 as a subprocess,
      switch off and on (200 launches, only the box changed); a 50-step
      bf16 edit with the VAE's flag (202), switch on (0 LSB) and on the
      dense route (within 2 LSB), a UNet forward and the codec against dense; a 20-step fp32 edit
      (82) against the switch and dense within 1 LSB; a stage-2 step (10 /
      4 / 4) and a stage-1 step (2 / 2 / 2) in bf16 and fp32 against the
      dense route and, past its tolerance, against a step with fp64
-     attention;
+     attention; the bf16 flash steps timed (the median of 3 after a
+     warm-up);
   9. stage 2 from stage 1: train.run_unet --pretrained <the stage-1
      checkpoint> --manifest at full width (batch 4, bf16, flash, gradient
      checkpointing), 2 steps, --checkpoints_total_limit 1: its frozen VAE
@@ -316,11 +317,11 @@ kernels and edits in turns.
 
 builds the kernels and runs phases 3i and 8f (the narrow head_dims' kernels
 and the tiny model's paths) alone (about 4 minutes) and prints their
-kernels line; with --package-root from another checkout's package (a
-package from before flash_narrow_w16_sm90.cu has its width-16 bf16
-forwards in flash_narrow.cu), so change, parent, parent, change in one
-call times two commits' narrow kernels, cuDNN beside them, and the tiny
-edits with the switch off and on, in turns.
+kernels line; with --package-root from another checkout's package (each
+width-16 bf16 kernel is timed from the source that defines it, in a
+package from before flash_narrow.cu), so change, parent, parent, change in
+one call times two commits' narrow kernels, cuDNN beside them, the tiny
+edits with the switch off and on and the tiny bf16 steps, in turns.
 
     python3 chip_smoke.py --workflow-only
 
@@ -1989,8 +1990,8 @@ def check_fp32(dev, widths=FP32_WIDTHS) -> dict:
     return out
 
 
-# ---- phase 3i: the narrow head_dims (csrc/flash_narrow.cu, and both bf16
-# forwards at width 16 csrc/flash_narrow_w16_sm90.cu): every multiple of 8
+# ---- phase 3i: the narrow head_dims (csrc/flash_narrow.cu, and the bf16
+# kernels at width 16 csrc/flash_narrow_w16_sm90.cu): every multiple of 8
 # up to 128 but 64, bf16 and fp32, at tile widths 16 to 128
 NARROW_WIDTHS = (16, 32, 64, 128)
 NARROW_SOURCE = "flash_narrow.cu"
@@ -2018,34 +2019,44 @@ def narrow_entry(kind: str, w: int, fp32: bool) -> str:
 
 
 def narrow_source(kind: str, w: int, fp32: bool) -> str:
-    """The source under csrc/ of the imported package that holds a narrow
-    kernel: the bf16 forwards at width 16 are NARROW_W16_SOURCE's where the
-    package has it (a package from before keeps them in NARROW_SOURCE)."""
+    """The source under csrc/ of the imported package that defines a narrow
+    kernel's entry: NARROW_W16_SOURCE where its text defines it (every
+    bf16 width-16 entry now; a package from before has the forwards there,
+    or none), NARROW_SOURCE otherwise."""
     from diffute_tpu_torch.ops import _build
 
-    if (w == 16 and not fp32 and kind.startswith("fwd") and os.path.exists(
-            os.path.join(_build.CSRC, NARROW_W16_SOURCE))):
-        return NARROW_W16_SOURCE
+    path = os.path.join(_build.CSRC, NARROW_W16_SOURCE)
+    if w == 16 and not fp32 and os.path.exists(path):
+        with open(path) as f:
+            if f"int {narrow_entry(kind, w, fp32)}(" in f.read():
+                return NARROW_W16_SOURCE
     return NARROW_SOURCE
 
 
-def w16_waves(fa, kind: str, bh: int, s: int, d: int) -> dict:
-    """The grid of a bf16 width-16 forward at (B*H, S, D), for phase 3i's
-    progress line: query rows a block and blocks (the launcher's rule), the
-    blocks an SM runs at once (the source's occupancy query; None for a
-    package from before it) and the waves they take on the card's SMs.
-    Only the occupancy query is measured, so only blocks_per_sm goes into
-    the kernels line."""
+def w16_waves(fa, kind: str, bh: int, rows: int, d: int) -> dict:
+    """The grid of a bf16 width-16 kernel at (B*H, D) over ``rows`` (S for
+    the forwards and dq, T for dk/dv), for phase 3i's progress line: rows
+    a block and blocks (the launcher's rule), the blocks an SM runs at once
+    (the source's occupancy query; None for a package from before it, or
+    whose width-16 pair is flash_narrow.cu's) and the waves they take on
+    the card's SMs.  Only the occupancy query is measured, so only
+    blocks_per_sm goes into the kernels line."""
     from diffute_tpu_torch.ops import _build
 
-    rows = getattr(fa, "NARROW_W16_FWD_ROWS", fa.NARROW_BLOCK_KV[16])
-    blocks = -(-s // rows) * bh
+    fwd = kind.startswith("fwd")
+    rows_a_block = getattr(fa, "NARROW_W16_FWD_ROWS" if fwd
+                           else "NARROW_W16_BWD_ROWS", fa.NARROW_BLOCK_KV[16])
+    blocks = -(-rows // rows_a_block) * bh
     lib = _build.load()
-    per_sm = (lib.flash_fwd_w16_bf16_blocks_per_sm(
-        int(kind == "fwd_pipelined"), d)
-        if hasattr(lib, "flash_fwd_w16_bf16_blocks_per_sm") else None)
+    query = ("flash_fwd_w16_bf16_blocks_per_sm" if fwd
+             else "flash_bwd_w16_bf16_blocks_per_sm")
+    per_sm = (getattr(lib, query)(int(kind in ("fwd_pipelined", "bwd_dkv")),
+                                  d)
+              if hasattr(lib, query) and narrow_source(kind, 16, False)
+              == NARROW_W16_SOURCE else None)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return {"rows_a_block": rows, "blocks": blocks, "blocks_per_sm": per_sm,
+    return {"rows_a_block": rows_a_block, "blocks": blocks,
+            "blocks_per_sm": per_sm,
             "waves": blocks / (per_sm * sms) if per_sm else None}
 
 
@@ -2386,8 +2397,14 @@ def check_narrow_shape(fa, g, dev, dtype, d, bh, s, t, bkv, esize, peak,
                                        f"({n}): {mutants}")
         res_dq["mutants"] = mutants
     del ref
-    phase(f"kernel_{names['bwd_dq']}", **res_dq)
-    phase(f"kernel_{names['bwd_dkv']}", **res_dkv)
+    grids = {}
+    if not fp32 and fa.narrow_width(d) == 16:
+        for kind, r, n in (("bwd_dq", res_dq, s), ("bwd_dkv", res_dkv, t)):
+            grids[kind] = w16_waves(fa, kind, bh, n, d)
+            r["blocks_per_sm"] = grids[kind]["blocks_per_sm"]
+    phase(f"kernel_{names['bwd_dq']}", **{**res_dq, **grids.get("bwd_dq", {})})
+    phase(f"kernel_{names['bwd_dkv']}",
+          **{**res_dkv, **grids.get("bwd_dkv", {})})
     expect_flash({"launches": launches},
                  **{names["bwd_dq"]: 2, names["bwd_dkv"]: 2})
     fp64_ok = f64 is None or (
@@ -4584,6 +4601,9 @@ TINY_BATCH = 2  # tiny_test_config's train batch
 # forward, one dq and one dk/dv (as phase 8a counts them)
 TINY_STAGE2 = {"fwd": 2 * TINY_FLASH_PER_PASS + 2, "bwd_dq": 4, "bwd_dkv": 4}
 TINY_STAGE1 = {"fwd": 2, "bwd_dq": 2, "bwd_dkv": 2}
+# the bf16 flash steps of 8f (d) and (e) timed after a warm-up: the median
+# of this many
+TINY_STEP_RUNS = 3
 # the tiny UNet's gradient probes (stage 2) and the VAE's (stage 1)
 TINY_UNET_PROBES = [
     "conv_in.weight",
@@ -4917,13 +4937,28 @@ def tiny_model_checks(dev, pipe, res: int) -> dict:
     return out
 
 
+def median_seconds(fn, runs: int = TINY_STEP_RUNS) -> dict:
+    """``fn()`` once to warm up, then ``runs`` times, each on the host clock
+    to the card's end of it (synchronised): the median and every run."""
+    fn()
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return {"median_seconds": statistics.median(seconds), "seconds": seconds}
+
+
 def tiny_step_check(dev, base, params, stage: str, out: dict) -> dict:
     """Phase 8f (d) (``stage`` "stage2") or (e) ("stage1"): one loss and
     gradient evaluation with flash on (both flags; stage 1 the VAE's), then
     with every Attention module on the dense route, in fp32 (and once more
     with the dense route's attention in fp64) and in bf16, the same
     weights, batch and draws; see check_tiny_paths for the bounds.  The
-    flash steps' launches go into ``out["launches"]``."""
+    flash steps' launches go into ``out["launches"]``; the bf16 flash step
+    is timed again, the median of TINY_STEP_RUNS after a warm-up."""
     from diffute_tpu_torch.config import TrainConfig
     from diffute_tpu_torch.io.dataset import (SyntheticSceneDataset,
                                               make_unet_batch, make_vae_batch)
@@ -4978,6 +5013,9 @@ def tiny_step_check(dev, base, params, stage: str, out: dict) -> dict:
                               launches=narrow_launches(r)))
             if route == "flash":
                 out["launches"][f"tiny_{stage}_{key}"] = r["launches"]
+                if not fp32:
+                    runs[key][2]["timed"] = median_seconds(
+                        lambda: trainer.accumulate_grads(batch, d).item())
         del trainer, masters, models
         gc.collect()
         torch.cuda.empty_cache()
@@ -4990,6 +5028,8 @@ def tiny_step_check(dev, base, params, stage: str, out: dict) -> dict:
 
     res = {k: dict(v[2], loss=v[0]) for k, v in runs.items()}
     res.update(
+        bf16_flash_step_seconds_median=runs["bf16_flash"][2]["timed"][
+            "median_seconds"],
         fp32_loss_rel_diff=loss_rel("fp32_flash", "fp32_dense"),
         fp32_grad_rel_l2_err=rel("fp32_flash", "fp32_dense"),
         fp32_flash_vs_fp64_attention=dict(

@@ -3,9 +3,10 @@
 // the dq kernel (which also writes delta) and the dk/dv kernel, on bf16 and
 // on fp32 inputs, fp32 LSE and delta.  One source, templated on the element
 // type and on a tile width W in {16, 32, 64, 128} (`Narrow<T, W>`); a call
-// at head_dim D runs at the smallest W >= D.  The two bf16 forwards at W = 16
-// are flash_narrow_w16_sm90.cu's (redesigned for the tiny model's shapes);
-// this source keeps the bf16 pair at 16 and everything else.  Head_dim 64
+// at head_dim D runs at the smallest W >= D.  All four bf16 kernels at
+// W = 16 (both forwards and the backward pair) are flash_narrow_w16_sm90.cu's
+// (redesigned for the tiny model's shapes); this source keeps the fp32
+// kernels at 16 and every kernel at W = 32 to 128.  Head_dim 64
 // itself stays with flash_fwd.cu, flash_fwd_pipelined.cu, flash_bwd.cu
 // (bf16) and flash_fp32.cu (fp32); 256 and 512 with their own sources.
 // The widths that reach these kernels: 8 (the tiny model's UNet heads) and
@@ -49,10 +50,11 @@
 // the exponentials, not the products or the bytes, set the least time:
 // at (B*H, S, T) = (2, 65536, 65536) and D = 8, 2.75e11 FLOPs take 0.28 ms
 // at 989 TFLOP/s and the 8.6e9 exponentials about 2.2 ms.  (The bf16
-// forwards at W = 16 reach 69% of that in flash_narrow_w16_sm90.cu, whose
-// exponentials are each one MUFU.EX2; here exp2f / expf without -ftz lower
-// to a compare, two predicated multiplies and the MUFU, and the W = 16
-// bf16 forward issued 14.4 instructions a score.)  What the design
+// kernels at W = 16 are flash_narrow_w16_sm90.cu's, whose exponentials are
+// each one MUFU.EX2: its forwards reach 69% of that bound, its pair 55-73%;
+// here exp2f / expf without -ftz lower to a compare, two predicated
+// multiplies and the MUFU, and this source's W = 16 bf16 kernels issued 14.4
+// (forward) and 17.8 (dq, dk/dv) instructions a score.)  What the design
 // does about it: each warp keeps a 16-row tile's scores, its softmax state
 // and its whole W-column accumulator in registers (at W = 128, 64 fp32 a
 // thread), so no score or partial sum leaves the SM and no barrier but the
@@ -976,7 +978,6 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    d, strides, 18, scale, stream);
 }
 
-using B16 = Narrow<__nv_bfloat16, 16>;
 using B32 = Narrow<__nv_bfloat16, 32>;
 using B64 = Narrow<__nv_bfloat16, 64>;
 using B128 = Narrow<__nv_bfloat16, 128>;
@@ -996,7 +997,7 @@ using F128 = Narrow<float, 128>;
 // (B*H, S) fp32 contiguous.  Each launches on `stream`, allocates nothing,
 // and returns a CUDA error code (0 = launched).
 
-#define FLASH_NARROW_FWD_ENTRIES(N, w, t)                                     \
+#define FLASH_NARROW_ENTRIES(N, w, t)                                         \
   extern "C" int flash_fwd_##w##_##t(                                         \
       const void* q, const void* k, const void* v, void* o, void* lse, int b, \
       int h, int s_len, int t_len, int d, const long long* strides,           \
@@ -1010,9 +1011,7 @@ using F128 = Narrow<float, 128>;
       float scale, void* stream) {                                            \
     return fwd_deferred<N>(q, k, v, o, lse, b, h, s_len, t_len, d, strides,   \
                            scale, stream);                                    \
-  }
-
-#define FLASH_NARROW_BWD_ENTRIES(N, w, t)                                     \
+  }                                                                           \
   extern "C" int flash_bwd_dq_##w##_##t(                                      \
       const void* q, const void* k, const void* v, const void* o,             \
       const void* dout, const void* lse, void* delta, void* dq, int b, int h, \
@@ -1030,12 +1029,7 @@ using F128 = Narrow<float, 128>;
                       d, strides, scale, stream);                             \
   }
 
-#define FLASH_NARROW_ENTRIES(N, w, t) \
-  FLASH_NARROW_FWD_ENTRIES(N, w, t)   \
-  FLASH_NARROW_BWD_ENTRIES(N, w, t)
-
-// the two bf16 forwards at width 16 are flash_narrow_w16_sm90.cu's
-FLASH_NARROW_BWD_ENTRIES(B16, w16, bf16)
+// all four bf16 kernels at width 16 are flash_narrow_w16_sm90.cu's
 FLASH_NARROW_ENTRIES(B32, w32, bf16)
 FLASH_NARROW_ENTRIES(B64, w64, bf16)
 FLASH_NARROW_ENTRIES(B128, w128, bf16)

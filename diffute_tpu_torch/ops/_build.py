@@ -112,7 +112,7 @@ def _signatures() -> dict:
         "flash_fwd_d512_fp32_max_clusters": [i],
         "flash_fwd_d256_fp32_max_clusters": [i],
         # the same four at the narrow tile widths, bf16 and fp32, with the
-        # head_dim after T (csrc/flash_narrow.cu; both bf16 forwards at
+        # head_dim after T (csrc/flash_narrow.cu; the four bf16 kernels at
         # width 16 csrc/flash_narrow_w16_sm90.cu)
         **{f"flash_{kind}_w{width}_{t}": (
             [p] * 8 + [i] * 5 if kind.startswith("bwd") else [p] * 5 + [i] * 5)
@@ -120,8 +120,9 @@ def _signatures() -> dict:
            for kind in ("fwd", "fwd_pipelined", "bwd_dq", "bwd_dkv")
            for width in (16, 32, 64, 128) for t in ("bf16", "fp32")},
         # the blocks an SM of the bf16 width-16 standard (0) or deferred (1)
-        # forward at head_dim 8 or 16
+        # forward, and of its dq (0) or dk/dv (1), at head_dim 8 or 16
         "flash_fwd_w16_bf16_blocks_per_sm": [i, i],
+        "flash_bwd_w16_bf16_blocks_per_sm": [i, i],
         # (x, mean, rstd, B*G, n_elem, cluster, threads, eps, stream), bf16
         # and fp32 x
         **{f"gn_stats_{t}": [p] * 3 + [i] * 4 + [f, p]

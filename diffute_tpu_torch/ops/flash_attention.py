@@ -32,10 +32,12 @@ other head_dim that is a multiple of 8 up to 128 (the tiny model's 8 and
 16, SD1.x's 40 and 80, 128) takes ``csrc/flash_narrow.cu``'s four kernels,
 bf16 or fp32, each at the smallest tile width of :data:`NARROW_WIDTHS`
 that holds it, with the arithmetic of the other entries of its dtype; but
-both bf16 forwards at width 16 (head_dims 8 and 16, the tiny model's) are
-``csrc/flash_narrow_w16_sm90.cu``, one kernel on a flag whose every
-exponential is one MUFU instruction, on blocks of
-:data:`NARROW_W16_FWD_ROWS` query rows.
+all four bf16 kernels at width 16 (head_dims 8 and 16, the tiny model's)
+are ``csrc/flash_narrow_w16_sm90.cu``, sized to D, whose every
+exponential is one MUFU instruction: both forwards, one kernel on a flag,
+on blocks of :data:`NARROW_W16_FWD_ROWS` query rows, and the backward
+pair on blocks of :data:`NARROW_W16_BWD_ROWS` query rows (dq) or kv rows
+(dk/dv).
 Every kernel reads its (batch, seq, heads, D) inputs, all bf16 or all
 fp32, D as :func:`kernel_takes` says, through their strides (TMA at bf16
 head_dim 64 and 256, in the fp32 backward pairs at 64 and 256 and in the
@@ -103,13 +105,15 @@ FP32_D256_ROWS = 64
 FP32_D256_RANKS = 4
 # the tile widths of csrc/flash_narrow.cu, which takes every other head_dim
 # that is a multiple of 8 up to 128 at the smallest width that holds it,
-# and the rows of every tile there by width (kRows), both dtypes; the two
-# bf16 forwards at width 16 (csrc/flash_narrow_w16_sm90.cu) walk the same
-# kv tile (kBlockKV there) with NARROW_W16_FWD_ROWS query rows a block
-# (kRows there)
+# and the rows of every tile there by width (kRows), both dtypes; the four
+# bf16 kernels at width 16 (csrc/flash_narrow_w16_sm90.cu) walk the same
+# kv tile (kBlockKV there; the q tile of dk/dv) with NARROW_W16_FWD_ROWS
+# query rows a block (both forwards) and NARROW_W16_BWD_ROWS query rows (dq)
+# or kv rows (dk/dv) a block (kRows there)
 NARROW_WIDTHS = (16, 32, 64, 128)
 NARROW_BLOCK_KV = {16: 64, 32: 64, 64: 32, 128: 32}
 NARROW_W16_FWD_ROWS = 64
+NARROW_W16_BWD_ROWS = 128
 HEAD_DIM_RULE = "D = 64, 256, 512 or a multiple of 8 up to 128"
 # the input dtypes the kernels take
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -830,8 +834,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``.d512_pipelined_launches``, ``.d512_bwd_dq_launches`` and
     ``.d512_bwd_dkv_launches`` the four bf16 kernels at head_dim 512, and
     ``.d256_*`` the same four at head_dim 256; ``.w16_*``, ``.w32_*``,
-    ``.w64_*`` and ``.w128_*`` the same four of ``csrc/flash_narrow.cu`` by
-    tile width (``.w16_launches`` counts the forwards at head_dim 8 and 16);
+    ``.w64_*`` and ``.w128_*`` the same four of the narrow kernels by tile
+    width (``.w16_launches`` counts the forwards at head_dim 8 and 16);
     ``.fp32_*`` every one of them on fp32 inputs (``.fp32_launches``,
     ``.fp32_d512_pipelined_launches``, ``.fp32_w16_bwd_dq_launches``, ...:
     :func:`counter_name`, all of them :func:`counter_names`).  The scale

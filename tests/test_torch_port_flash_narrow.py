@@ -312,19 +312,19 @@ def test_entry_names_and_counters(w, dtype):
         assert {n: getattr(tfa.flash_attention, n) - before[n]
                 for n in every} == {n: int(n == counter) for n in every}
         assert tfa.flash_attention.flops - flops == 4 * 2 * 64 * 4096 * d
-    # each entry is defined by one source that _build compiles: the bf16
-    # forwards at width 16 by flash_narrow_w16_sm90.cu, every other one by
-    # flash_narrow.cu
+    # each entry is defined by one source that _build compiles: all four
+    # bf16 kernels at width 16 by flash_narrow_w16_sm90.cu, every other one
+    # by flash_narrow.cu
     narrow = _narrow_defines()
-    w16 = set(re.findall(r'^extern "C" int (flash_fwd\w*_w16_bf16)\(',
+    w16 = set(re.findall(r'^extern "C" int (flash_\w*_w16_bf16)\(',
                          _csrc(W16_SOURCE), re.M))
-    assert w16 == {"flash_fwd_w16_bf16", "flash_fwd_pipelined_w16_bf16"}
+    assert w16 == {f"flash_{kind}_w16_bf16" for kind in KINDS}
     assert {os.path.join(_build.CSRC, n) for n in (W16_SOURCE,
                                                    "flash_narrow.cu")} <= set(
         _build.sources())
     for kind in KINDS:
         entry = tfa.kernel_name(kind, d, tdt)
-        moved = w == 16 and dtype == "bf16" and kind.startswith("fwd")
+        moved = w == 16 and dtype == "bf16"
         assert (entry in w16, entry in narrow) == (moved, not moved), entry
 
 
@@ -359,14 +359,67 @@ def test_the_w16_forward_source_walks_the_tiles_the_wrappers_count_in():
     assert "kDeferred ? kMinBlocks16Deferred" in text
 
 
+def _pair_code() -> str:
+    """The backward pair's part of the width-16 source, comments left out:
+    from the dq kernel's section to the launchers."""
+    text = _csrc(W16_SOURCE)
+    start = text.index("// dq and delta\n")
+    end = text.index("template <int kD, bool kDeferred>\nint launch(")
+    return re.sub(r"//[^\n]*", "", text[start:end])
+
+
+def test_the_w16_pair_source_walks_the_tiles_the_wrappers_count_in():
+    # the tiled plain version, phase 3i and the CPU tests hold the bf16 pair
+    # at width 16 at kernel_block_kv(d, bf16, "bwd_dq" / "bwd_dkv") =
+    # NARROW_BLOCK_KV[16], and chip_smoke's waves count its blocks in
+    # NARROW_W16_BWD_ROWS; csrc/flash_narrow_w16_sm90.cu walks kBlockKV-row
+    # tiles (kv tiles in dq, q tiles in dk/dv) with kBwdRows = 32 kWarps rows
+    # a block (32 a warp), and launches ceil(S / kBwdRows) dq blocks and
+    # ceil(T / kBwdRows) dk/dv blocks a (batch, head)
+    text = _csrc(W16_SOURCE)
+    code = _pair_code()
+    assert re.findall(r"constexpr int kBlockKV = (\d+);", text) == [
+        str(tfa.NARROW_BLOCK_KV[16])]
+    warps = re.findall(r"constexpr int kWarps = (\d+),", text)
+    assert "constexpr int kRows = 16 * kWarps;" in text
+    assert "constexpr int kBwdRows = 2 * kRows;" in text
+    assert [32 * int(x) for x in warps] == [tfa.NARROW_W16_BWD_ROWS]
+    for d in (8, 16):
+        assert [tfa.kernel_block_kv(d, torch.bfloat16, kind)
+                for kind in ("bwd_dq", "bwd_dkv")] == [
+            tfa.NARROW_BLOCK_KV[16]] * 2
+    assert "dim3 grid((rows + kBwdRows - 1) / kBwdRows, b * h);" in text
+    # dq's blocks over S with K and V streamed, dk/dv's over T with q and dO
+    assert re.search(r"return backward\(d == 8 \? dq_kernel<8> : "
+                     r"dq_kernel<16>, p, k, 1, v, 2,\s+s_len, b, h,", text)
+    assert re.search(r"return backward\(d == 8 \? dkv_kernel<8> : "
+                     r"dkv_kernel<16>, p, q, 0, dout, 3,\s+t_len, b, h,", text)
+    assert re.search(r"int backward\(BwdKernel kernel, BwdParams p, "
+                     r"const void\* x0, int s0,\s+const void\* x1, int s1, "
+                     r"int rows,", text)
+    # dq walks the kv axis and dk/dv the q axis in kBlockKV-row tiles
+    assert "(t_len + kBlockKV - 1) / kBlockKV" in code
+    assert "(s_len + kBlockKV - 1) / kBlockKV" in code
+    # every exponential of the pair is one MUFU instruction (the forwards'
+    # ex2): no exp2f / expf, and the LSE is never scaled a score
+    assert code.count("ex2(fmaf(") == 8
+    assert not re.search(r"\b(exp2f|expf|__expf|exp2)\(", code)
+    # launch bounds of their own, by kernel and head_dim
+    assert re.findall(r"constexpr int kDqMinBlocks8 = \d+, kDqMinBlocks16 = "
+                      r"\d+, kDkvMinBlocks8 = \d+,\s+kDkvMinBlocks16 = \d+;",
+                      text)
+    assert "kD == 8 ? kDqMinBlocks8 : kDqMinBlocks16" in code
+    assert "kD == 8 ? kDkvMinBlocks8 : kDkvMinBlocks16" in code
+
+
 def test_the_bf16_mma_sync_pieces_live_in_one_header():
     # the ldmatrix loads, the bf16 mma.sync products and pack_bf16 are
     # csrc/bf16_mma_sync.cuh's; the mma.sync flash sources include it and
     # the wgmma kernels take pack_bf16 through flash_sm90.cuh, and none of
     # them defines one
     header = _csrc("bf16_mma_sync.cuh")
-    pieces = ("void ldmatrix_x2(", "void ldmatrix_x4(",
-              "void ldmatrix_x4_trans(", "void mma_bf16(",
+    pieces = ("void ldmatrix_x2(", "void ldmatrix_x2_trans(",
+              "void ldmatrix_x4(", "void ldmatrix_x4_trans(", "void mma_bf16(",
               "void mma_bf16_k8(", "uint32_t pack_bf16(")
     for piece in pieces:
         assert piece in header, piece
@@ -416,8 +469,10 @@ def test_cuda_narrow_kernels_match_plain(d, dtype):
     scale, bkv = d ** -0.5, tfa.kernel_block_kv(d, tdt)
     counters = [tfa.counter_name(kind, d, tdt) for kind in KINDS]
     # ragged T; whole tiles; ragged S with T whole tiles (both forwards,
-    # the deferred one on the standard one's bits)
-    for bh, s, t in ((2, 1000, 1500), (3, 2048, 2048), (2, 1000, 1536)):
+    # the deferred one on the standard one's bits); one partial block, T
+    # below one kv tile, lengths that are no multiple of 4
+    for bh, s, t in ((2, 1000, 1500), (3, 2048, 2048), (2, 1000, 1536),
+                     (3, 37, 45), (1, 129, 65), (2, 1001, 203)):
         q, k, v, g = (torch.randn((bh, n, d), generator=gen, device="cuda",
                                   dtype=tdt) for n in (s, t, t, s))
         before = [getattr(tfa.flash_attention, n) for n in counters]
